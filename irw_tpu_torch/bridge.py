@@ -1,0 +1,153 @@
+"""Carry ``irw_tpu`` (flax) variables into the port's modules.
+
+``from_jax_variables(variables)`` maps a flax variables tree — ``params``
+and, for models with BatchNorm, ``batch_stats`` — to a state dict of numpy
+arrays for the matching ``irw_tpu_torch`` module.  It needs no JAX: leaves
+are read with ``np.asarray``.  Handled layouts:
+
+- ``BandedViT_0/VmapVisionTransformer_0/…`` with the band axis leading
+  (a ``MultiDinoHashing``), or a bare ``VisionTransformer`` tree;
+- the scanned block stack ``blocks/Block_0/…`` with a depth axis after the
+  band axis (``tools/convert_torch_weights.py:189-205``), its grouped form
+  ``blocks/inner/Block_0/…`` (depth split as (G, k)), and unrolled
+  ``Block_i``;
+- MHA kernels (D, H, hd) and (H, hd, D) → Linear (H·hd, D) and (D, H·hd);
+- Dense (in, out) → Linear (out, in);
+- conv HWIO → OIHW (the inverse of ``convert_torch_weights.py:131-186``);
+- ``batch_stats`` mean/var → BatchNorm ``running_mean``/``running_var``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _a(x) -> np.ndarray:
+    return np.asarray(x)
+
+
+def _dense(t) -> dict:
+    out = {"weight": np.swapaxes(_a(t["kernel"]), -1, -2)}
+    if "bias" in t:
+        out["bias"] = _a(t["bias"])
+    return out
+
+
+def _ln(t) -> dict:
+    return {"weight": _a(t["scale"]), "bias": _a(t["bias"])}
+
+
+def _mha(t) -> dict:
+    out = {}
+    for name in ("query", "key", "value"):
+        k, b = _a(t[name]["kernel"]), _a(t[name]["bias"])     # (…, D, H, hd), (…, H, hd)
+        out[f"{name}.weight"] = np.swapaxes(k.reshape(*k.shape[:-2], -1), -1, -2)
+        out[f"{name}.bias"] = b.reshape(*b.shape[:-2], -1)
+    k = _a(t["out"]["kernel"])                                 # (…, H, hd, D)
+    out["out.weight"] = np.swapaxes(k.reshape(*k.shape[:-3], -1, k.shape[-1]), -1, -2)
+    out["out.bias"] = _a(t["out"]["bias"])
+    return out
+
+
+def _prefixed(prefix: str, d: dict) -> dict:
+    return {f"{prefix}.{k}": v for k, v in d.items()}
+
+
+def _block(t) -> dict:
+    sd = {}
+    sd.update(_prefixed("norm1", _ln(t["norm1"]["LayerNorm_0"])))
+    sd.update(_prefixed("attn", _mha(t["attn"])))
+    sd["ls1"] = _a(t["ls1"])
+    sd.update(_prefixed("norm2", _ln(t["norm2"]["LayerNorm_0"])))
+    sd.update(_prefixed("mlp.fc1", _dense(t["Mlp_0"]["Dense_0"])))
+    sd.update(_prefixed("mlp.fc2", _dense(t["Mlp_0"]["Dense_1"])))
+    sd["ls2"] = _a(t["ls2"])
+    return sd
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(_a(tree))
+
+
+def _block_trees(t, lead: int) -> list:
+    """Per-block parameter trees; ``lead`` = number of band axes before depth."""
+    if "blocks" in t:
+        stack = t["blocks"]
+        if "inner" in stack:  # grouped remat scan: (…, G, k, …) → (…, G·k, …)
+            stack = _map_leaves(
+                lambda x: x.reshape(*x.shape[:lead], -1, *x.shape[lead + 2:]),
+                stack["inner"])
+        stack = stack["Block_0"]
+        depth = _a(stack["ls1"]).shape[lead]
+        return [_map_leaves(lambda x, i=i: np.take(x, i, axis=lead), stack)
+                for i in range(depth)]
+    blocks = []
+    while f"Block_{len(blocks)}" in t:
+        blocks.append(t[f"Block_{len(blocks)}"])
+    return blocks
+
+
+def _vit(t, lead: int) -> dict:
+    sd = {}
+    conv = t["PatchEmbed_0"]["Conv_0"]
+    k = _a(conv["kernel"])                                     # (…, p, p, C, D)
+    sd["patch_embed.weight"] = np.moveaxis(k, (-1, -2), (-4, -3))  # (…, D, C, p, p)
+    sd["patch_embed.bias"] = _a(conv["bias"])
+    cls, pos = _a(t["cls_token"]), _a(t["pos_embed"])          # (…, 1, 1, D), (…, 1, N, D)
+    sd["cls_token"] = cls.reshape(*cls.shape[:-3], 1, cls.shape[-1])
+    sd["pos_embed"] = pos.reshape(*pos.shape[:-3], *pos.shape[-2:])
+    for i, blk in enumerate(_block_trees(t, lead)):
+        sd.update(_prefixed(f"blocks.{i}", _block(blk)))
+    sd.update(_prefixed("norm", _ln(t["norm"]["LayerNorm_0"])))
+    return sd
+
+
+def _fusion_head(t) -> dict:
+    sd = {"query_tokens": _a(t["query_tokens"])}
+    sd.update(_prefixed("core.attn", _mha(t["_AttnCore_0"]["MultiHeadDotProductAttention_0"])))
+    sd.update(_prefixed("norm1", _ln(t["norm1"])))
+    sd.update(_prefixed("mlp.fc1", _dense(t["Mlp_0"]["Dense_0"])))
+    sd.update(_prefixed("mlp.fc2", _dense(t["Mlp_0"]["Dense_1"])))
+    sd.update(_prefixed("out_proj", _dense(t["out_proj"])))
+    sd.update(_prefixed("norm2", _ln(t["norm2"])))
+    i = 0
+    while f"proj_{i}" in t:
+        sd.update(_prefixed(f"proj.{i}", _dense(t[f"proj_{i}"])))
+        i += 1
+    return sd
+
+
+def from_jax_variables(variables) -> dict:
+    """flax variables of a ``MultiDinoHashing`` or a ``VisionTransformer`` →
+    the port module's state dict (numpy arrays)."""
+    params = variables["params"]
+    if "PatchEmbed_0" in params:
+        return _vit(params, lead=0)
+    if "BandedViT_0" not in params:
+        raise ValueError(f"no bridge for a tree with {sorted(params)}; this slice "
+                         "carries MultiDinoHashing and VisionTransformer")
+    sd = _prefixed("backbone.vit", _vit(params["BandedViT_0"]["VmapVisionTransformer_0"], lead=1))
+    heads = [k for k in params if k.startswith("CrossAttentionBottleneckHead")]
+    if len(heads) != 1:
+        raise ValueError(f"expected one cross-attention fusion head, found {heads}")
+    sd.update(_prefixed("head", _fusion_head(params[heads[0]])))
+    hh = params["HashHead_0"]
+    sd["hash_head.linear.weight"] = _dense(hh["Dense_0"])["weight"]
+    sd.update(_prefixed("hash_head.bn", _ln(hh["BatchNorm_0"])))
+    stats = variables["batch_stats"]["HashHead_0"]["BatchNorm_0"]
+    sd["hash_head.bn.running_mean"] = _a(stats["mean"])
+    sd["hash_head.bn.running_var"] = _a(stats["var"])
+    sd["hash_head.bn.num_batches_tracked"] = np.array(0, dtype=np.int64)
+    return sd
+
+
+def load_jax_variables(model, variables):
+    """Load flax ``variables`` into ``model`` strictly (every parameter and
+    buffer must be covered, with matching shapes); returns ``model``."""
+    import torch
+
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in from_jax_variables(variables).items()}
+    model.load_state_dict(sd, strict=True)
+    return model

@@ -1,0 +1,100 @@
+"""Retrieval evaluation on one device (port of
+``irw_tpu/engine/evaluate.py:26-82, 85-150, 196-274``).
+
+``compute_embeddings`` runs the eval-mode forward over a dataset's image
+array in batches (a plain iterator in place of ``EpochLoader``; the host
+transform stage waits for ROADMAP A8), padding the tail batch to keep one
+shape.  ``evaluate`` ranks and scores the embeddings with
+``ops.metrics.compute_retrieval_metrics``.  The out-of-memory retry, the
+distractor and landmark protocols and the multi-device paths wait for
+ROADMAP A12/A13.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from irw_tpu_torch.device import resolve_device
+from irw_tpu_torch.ops.metrics import compute_retrieval_metrics
+
+
+def compute_embeddings(model, dataset, device_transform=None, batch_size: int = 256,
+                       device=None):
+    """Embed ``dataset.images`` with ``model`` in eval mode.  Returns
+    (embeddings on ``device``, labels as numpy)."""
+    device = resolve_device(device)
+    chunks = []
+    with torch.inference_mode():
+        for start in range(0, len(dataset.images), batch_size):
+            images = dataset.images[start:start + batch_size]
+            n = images.shape[0]
+            if n < batch_size:  # pad the tail to keep one batch shape (:72-74)
+                images = np.concatenate(
+                    [images, np.zeros((batch_size - n,) + images.shape[1:], images.dtype)])
+            if device_transform is not None:
+                x = device_transform(images)
+            else:
+                x = torch.from_numpy(images).to(device).float() / 255.0
+            out = model(x)
+            emb = out[0] if isinstance(out, tuple) else out
+            chunks.append(emb[:n])
+    return torch.cat(chunks), dataset.labels
+
+
+def _looks_multilabel(labels: np.ndarray) -> bool:
+    """Float labels, or {0, 1} labels of any dtype, are multi-label
+    indicator vectors; anything else 2-D is a multi-level class hierarchy."""
+    if labels.dtype.kind == "f":
+        return True
+    u = np.unique(labels)
+    return u.size <= 2 and bool(np.isin(u, (0, 1)).all())
+
+
+def _metric_suite(query_emb, query_labels, gallery_emb, gallery_labels, cfg, device):
+    """The metric suite per label level (metrics suffixed ``_levelL``)."""
+    ql, gl = np.asarray(query_labels), np.asarray(gallery_labels)
+    multi_level = ql.ndim == 2 and not cfg.get("multi_label", _looks_multilabel(ql))
+    levels = ql.shape[1] if multi_level else 1
+    out = {}
+    for level in range(levels):
+        q = ql[:, level] if multi_level else ql
+        g = gl[:, level] if multi_level else gl
+        res = compute_retrieval_metrics(
+            query_emb, torch.as_tensor(q, device=device), gallery_emb,
+            torch.as_tensor(g, device=device), metric=cfg["distance_metric"],
+            k=cfg["top_k"], same_source=cfg["same_source"],
+            with_hashing_stats=cfg["distance_metric"] == "hamming",
+            query_chunk=cfg["query_chunk"])
+        out.update({f"{name}_level{level}": value for name, value in res.items()})
+    return out
+
+
+def evaluate(model, datasets, device_transform=None, batch_size: int = 256, top_k=None,
+             distance_metric: str = "cosine", multi_label: bool | None = None,
+             query_chunk: int = 512, device=None) -> dict:
+    """Evaluate retrieval quality; returns a flat dict of metrics.
+
+    ``datasets`` is one dataset (self-retrieval, drop-self) or
+    ``{"query": ds, "gallery": ds}``.  ``device=None`` means the card: the
+    model (and the transform) must live there.
+    """
+    device = resolve_device(device)
+    cfg = {"top_k": top_k, "distance_metric": distance_metric, "query_chunk": query_chunk}
+    if multi_label is not None:
+        cfg["multi_label"] = multi_label
+    if isinstance(datasets, dict):
+        if set(datasets) != {"query", "gallery"}:
+            raise NotImplementedError("distractor and landmark protocols wait for ROADMAP A12")
+        q_emb, q_labels = compute_embeddings(model, datasets["query"], device_transform,
+                                             batch_size, device)
+        if datasets["gallery"] is datasets["query"]:
+            g_emb, g_labels = q_emb, q_labels
+        else:
+            g_emb, g_labels = compute_embeddings(model, datasets["gallery"],
+                                                 device_transform, batch_size, device)
+        cfg["same_source"] = datasets["query"] is datasets["gallery"]
+        return _metric_suite(q_emb, q_labels, g_emb, g_labels, cfg, device)
+    emb, labels = compute_embeddings(model, datasets, device_transform, batch_size, device)
+    cfg["same_source"] = True
+    return _metric_suite(emb, labels, emb, labels, cfg, device)

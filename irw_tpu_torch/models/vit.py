@@ -1,0 +1,222 @@
+"""DINOv2-style Vision Transformer, eval forward (port of
+``irw_tpu/models/vit.py:43-60, 62-88, 320-391, 420-619, 636-675``).
+
+Patch embed → [CLS | patches] + position embeddings → pre-norm blocks with
+LayerScale → final LayerNorm → the CLS token.  With ``bands=S`` every
+parameter carries a leading band axis and the forward maps (S, B, H, W, C) →
+(S, B, D) as one batched computation: ``multi_dino.BandedViT`` is that, with
+S = 4.  The JAX ``scan_blocks`` layout is only a way of storing parameters;
+the port keeps a Python loop over blocks and ``bridge`` unstacks the depth
+axis.
+
+Compute policy (``dtype``): f32 parameters are cast to the compute dtype at
+use (vit.py:375-381, 491-494), so the residual stream stays in it;
+LayerNorm statistics are f32 and the result is cast back.  With
+``vmem_attn`` the attention core is ``ops.attention.vmem_attention_fn``
+(kernel K2 on the card); without it, flax's ``dot_product_attention``
+semantics.  ``remat_blocks`` is a training affordance and waits for the
+training slice (ROADMAP A6).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from irw_tpu_torch.models.layers import LayerNorm, Linear, Mlp, trunc_normal_
+from irw_tpu_torch.ops.attention import dot_product_attention, vmem_attention_fn
+
+
+class PatchEmbed(nn.Module):
+    """flax ``Conv`` with a p×p kernel, stride p, VALID padding, as one
+    matmul over flattened patches.  Weight in torch's OIHW layout."""
+
+    def __init__(self, in_chans: int, embed_dim: int, patch_size: int = 14,
+                 bands: int | None = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        lead = () if bands is None else (bands,)
+        self.patch_size = patch_size
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(*lead, embed_dim, in_chans, patch_size, patch_size))
+        self.bias = nn.Parameter(torch.zeros(*lead, embed_dim))
+
+    def reset_parameters(self, generator=None):
+        fan_in = math.prod(self.weight.shape[-3:])
+        trunc_normal_(self.weight, 1.0 / math.sqrt(fan_in) / 0.87962566, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        """(…, H, W, C) → (…, Np, D)."""
+        p = self.patch_size
+        *pre, h, w, c = x.shape
+        hp, wp = h // p, w // p
+        x = x[..., : hp * p, : wp * p, :].to(self.dtype)
+        x = x.reshape(*pre, hp, p, wp, p, c).transpose(-4, -3)
+        patches = x.reshape(*pre, hp * wp, p * p * c)
+        # OIHW → (O, H·W·C) in the patches' (ph, pw, c) order
+        lead = self.weight.dim() - 4
+        perm = list(range(lead)) + [lead, lead + 2, lead + 3, lead + 1]
+        wmat = self.weight.permute(*perm).reshape(*self.weight.shape[:lead + 1], -1)
+        wmat, b = wmat.to(self.dtype), self.bias.to(self.dtype)
+        if lead == 0:
+            return F.linear(patches, wmat, b)
+        s = patches.shape[0]
+        y = torch.bmm(patches.reshape(s, -1, patches.shape[-1]), wmat.transpose(1, 2))
+        return (y + b[:, None, :]).reshape(*pre, hp * wp, wmat.shape[1])
+
+
+class DomainLayerNorm(LayerNorm):
+    """``vit.py:62-88`` on its single-domain path, which is a LayerNorm.
+    Per-domain parameters (``num_domains > 1``) wait for ROADMAP A10."""
+
+    def __init__(self, dim: int, num_domains: int = 1, **kw):
+        if num_domains > 1:
+            raise NotImplementedError("DomainLayerNorm with num_domains > 1 waits for ROADMAP A10")
+        super().__init__(dim, **kw)
+
+
+class Attention(nn.Module):
+    """flax ``MultiHeadDotProductAttention`` self-attention: q/k/v/out
+    projections around an attention core on (…, N, H, hd)."""
+
+    def __init__(self, dim: int, num_heads: int, vmem_attn: bool = False,
+                 bands: int | None = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.query, self.key, self.value, self.out = (
+            Linear(dim, dim, bands=bands, dtype=dtype) for _ in range(4))
+        # a plain attribute, so a caller can hold the kernel against its plain
+        # version on the same weights (chip_smoke.py does)
+        self.core = vmem_attention_fn if vmem_attn else dot_product_attention
+
+    def forward(self, y):
+        *pre, n, d = y.shape
+        h = self.num_heads
+        q, k, v = (proj(y).reshape(*pre, n, h, d // h)
+                   for proj in (self.query, self.key, self.value))
+        return self.out(self.core(q, k, v).reshape(*pre, n, d))
+
+
+def _per_band(param, x):
+    """(D,) or (S, D) parameter → broadcastable against (…, N, D) / (S, …, N, D)."""
+    if param.dim() == 1:
+        return param
+    return param.reshape((param.shape[0],) + (1,) * (x.dim() - 2) + (param.shape[1],))
+
+
+class Block(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 layerscale_init: float = 1e-5, vmem_attn: bool = False,
+                 exact_gelu: bool = False, bands: int | None = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        lead = () if bands is None else (bands,)
+        self.dtype = dtype
+        self.norm1 = DomainLayerNorm(dim, bands=bands, dtype=dtype)
+        self.attn = Attention(dim, num_heads, vmem_attn, bands, dtype)
+        self.ls1 = nn.Parameter(torch.full((*lead, dim), layerscale_init))
+        self.norm2 = DomainLayerNorm(dim, bands=bands, dtype=dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, exact_gelu, bands, dtype)
+        self.ls2 = nn.Parameter(torch.full((*lead, dim), layerscale_init))
+
+    def forward(self, x):
+        x = torch.addcmul(x, self.attn(self.norm1(x)), _per_band(self.ls1, x).to(self.dtype))
+        return torch.addcmul(x, self.mlp(self.norm2(x)), _per_band(self.ls2, x).to(self.dtype))
+
+
+class VisionTransformer(nn.Module):
+    """DINOv2-flavoured ViT returning the normalised CLS token.
+
+    Input (B, H, W, C) → (B, D), or with ``bands=S`` (S, B, H, W, C) →
+    (S, B, D).  ``img_size`` fixes the position-embedding length, which the
+    JAX module infers at init.
+    """
+
+    def __init__(self, embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
+                 patch_size: int = 14, mlp_ratio: float = 4.0, img_size: int = 224,
+                 in_chans: int = 3, layerscale_init: float = 1e-5,
+                 vmem_attn: bool = False, exact_gelu: bool = False,
+                 dtype: torch.dtype | str = torch.float32, bands: int | None = None):
+        super().__init__()
+        if isinstance(dtype, str):  # 'bfloat16' / 'float32' from YAML configs
+            dtype = getattr(torch, dtype)
+        lead = () if bands is None else (bands,)
+        self.embed_dim = embed_dim
+        self.layerscale_init = layerscale_init
+        self.dtype = dtype
+        num_patches = (img_size // patch_size) ** 2
+        self.patch_embed = PatchEmbed(in_chans, embed_dim, patch_size, bands, dtype)
+        self.cls_token = nn.Parameter(torch.zeros(*lead, 1, embed_dim))
+        self.pos_embed = nn.Parameter(torch.zeros(*lead, num_patches + 1, embed_dim))
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, mlp_ratio, layerscale_init, vmem_attn,
+                  exact_gelu, bands, dtype) for _ in range(depth))
+        self.norm = DomainLayerNorm(embed_dim, bands=bands, dtype=dtype)
+
+    def reset_parameters(self, generator=None):
+        self.patch_embed.reset_parameters(generator)
+        trunc_normal_(self.cls_token, 0.02, generator)
+        trunc_normal_(self.pos_embed, 0.02, generator)
+        for m in self.modules():
+            if isinstance(m, Linear):
+                m.reset_parameters(generator)
+            elif isinstance(m, LayerNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+        for blk in self.blocks:
+            nn.init.constant_(blk.ls1, self.layerscale_init)
+            nn.init.constant_(blk.ls2, self.layerscale_init)
+
+    def forward(self, x):
+        tokens = self.patch_embed(x)                            # (…, B, Np, D)
+        *pre, _, d = tokens.shape
+        cls, pos = self.cls_token, self.pos_embed
+        if pos.dim() == 3:  # per band: (S, N, D) → (S, 1, N, D)
+            cls, pos = cls[:, None], pos[:, None]
+        cls = cls.expand(*pre, 1, d)
+        # the f32 cls/pos promote the concat, and the sum is cast back to the
+        # compute dtype, as in vit.py:479-494
+        tokens = (torch.cat([cls.float(), tokens.float()], dim=-2) + pos).to(self.dtype)
+        for blk in self.blocks:
+            tokens = blk(tokens)
+        return self.norm(tokens)[..., 0, :]
+
+
+VIT_DIMS = {
+    "dinov2_vits14": 384,
+    "dinov2_vitb14": 768,
+    "dinov3_vits16": 384,
+    "dinov3_vitb16": 768,
+    "vit_small": 384,
+    "vit_base": 768,
+    "deit_small": 384,
+    "deit_base": 768,
+    "vit_tiny": 64,
+    "test_tiny": 64,
+}
+
+
+def vit_config(name: str, **kw) -> dict:
+    """Constructor kwargs for a named ViT variant (vit.py:650-671, without
+    ``scan_blocks``: the port always loops over blocks)."""
+    if name in ("dinov2_vits14", "vit_small", "deit_small"):
+        base = dict(embed_dim=384, depth=12, num_heads=6)
+    elif name in ("dinov2_vitb14", "vit_base", "deit_base"):
+        base = dict(embed_dim=768, depth=12, num_heads=12)
+    elif name.startswith("dinov3_vits"):
+        base = dict(embed_dim=384, depth=12, num_heads=6, patch_size=16)
+    elif name.startswith("dinov3_vitb"):
+        base = dict(embed_dim=768, depth=12, num_heads=12, patch_size=16)
+    elif name in ("vit_tiny", "test_tiny"):
+        base = dict(embed_dim=64, depth=2, num_heads=2, patch_size=8)
+    else:
+        raise ValueError(f"unknown ViT variant {name!r}")
+    base.update(kw)
+    return base
+
+
+def make_vit(name: str, **kw) -> VisionTransformer:
+    return VisionTransformer(**vit_config(name, **kw))

@@ -1,0 +1,93 @@
+"""The port's two CUDA kernels and their build, without JAX.
+
+The tests marked ``cuda`` hold each kernel against its plain version on the
+card and skip elsewhere; on the card (no JAX there) run them with
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
+"""
+
+import pytest
+import torch
+
+from irw_tpu_torch import cuda_lib
+from irw_tpu_torch.ops.attention import attention_plain, fused_attention
+from irw_tpu_torch.ops.wavelets import haar_swt2, haar_swt2_plain
+
+
+@pytest.fixture()
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_lib.shutil, "which", lambda name: None)
+    monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_lib.build(["haar_swt2"])
+
+
+def test_library_name_is_keyed_on_the_sources():
+    paths = {name: cuda_lib.lib_path(name) for name in cuda_lib.KERNELS}
+    assert all(p.parent == cuda_lib.BUILD_DIR for p in paths.values())
+    assert len({p.name for p in paths.values()}) == len(paths)
+    assert paths["haar_swt2"] == cuda_lib.lib_path("haar_swt2")  # stable
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 33, 47), (2, 224, 224)])
+def test_swt_kernel_on_card(card, shape):
+    x = torch.randn(shape, generator=torch.Generator(device=card).manual_seed(0), device=card)
+    before = haar_swt2.launches
+    out = haar_swt2(x)
+    torch.cuda.synchronize()
+    assert haar_swt2.launches == before + 1
+    torch.testing.assert_close(out, haar_swt2_plain(x), rtol=0, atol=1e-5)
+    xb = x.to(torch.bfloat16)
+    assert haar_swt2(xb).dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ((3, 50, 2, 64), torch.float32, 1e-5),
+    ((2, 257, 6, 64), torch.bfloat16, 2 ** -7),
+    ((2, 70, 3, 32), torch.float32, 1e-5),
+    ((1, 130, 2, 128), torch.bfloat16, 2 ** -7),
+    ((2, 3, 65, 1, 64), torch.float32, 1e-5),
+])
+def test_attention_kernel_on_card(card, shape, dtype, tol):
+    gen = torch.Generator(device=card).manual_seed(1)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype) for _ in range(3))
+    before = fused_attention.launches
+    with torch.no_grad():
+        out = fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), attention_plain(q, k, v).float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)])
+def test_attention_kernel_reads_strided_inputs(card, dtype, tol):
+    gen = torch.Generator(device=card).manual_seed(2)
+    qkv = torch.randn(2, 40, 3, 2, 64, generator=gen, device=card).to(dtype)  # fused QKV
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    # rows 65 elements apart: not 16-byte aligned, so bf16 takes a copy
+    odd = torch.randn(2, 40, 2, 65, generator=gen, device=card).to(dtype)[..., :64]
+    with torch.no_grad():
+        for a, b, c in ((q, k, v), (odd, k, v)):
+            torch.testing.assert_close(fused_attention(a, b, c).float(),
+                                       attention_plain(a, b, c).float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_attention_kernel_refuses_what_it_does_not_take(card):
+    q = torch.zeros(1, 8, 1, 48, device=card)
+    with torch.no_grad(), pytest.raises(ValueError, match="head_dim"):
+        fused_attention(q, q, q)
+    h = torch.zeros(1, 8, 1, 64, device=card, dtype=torch.float16)
+    with torch.no_grad(), pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_attention(h, h, h)

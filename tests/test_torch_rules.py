@@ -1,0 +1,119 @@
+"""Rules of the port: it imports no JAX, its entry points run on the card
+unless told otherwise, and its wrappers never hide a missing kernel: on the
+CPU each runs its plain version and counts no launch, on a device that is
+neither CPU nor CUDA it raises."""
+
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import irw_tpu_torch
+from irw_tpu_torch.data import SyntheticVOCDataset
+from irw_tpu_torch.engine import compute_embeddings, evaluate
+from irw_tpu_torch.models import get_model
+from irw_tpu_torch.ops.attention import attention_plain, fused_attention
+from irw_tpu_torch.ops.wavelets import haar_swt2, haar_swt2_plain
+from irw_tpu_torch.transforms import DeviceTransform
+
+REPO = Path(__file__).resolve().parents[1]
+TINY = {"backbone": "test_tiny", "fusion_config": {"type": "cross_attention_advanced",
+                                                    "output_dim": 64, "num_heads": 2},
+        "vit_kwargs": {"img_size": 16}}
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    modules = sorted(m.name for m in pkgutil.walk_packages(irw_tpu_torch.__path__,
+                                                           "irw_tpu_torch."))
+    assert "irw_tpu_torch.ops.attention" in modules and "irw_tpu_torch.bridge" in modules
+    code = (
+        "import importlib, json, sys\n"
+        f"for name in {modules!r} + ['irw_tpu_torch', 'chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'irw_tpu'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, check=True, timeout=300)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.fixture()
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model("multidino_attention_hashing", **TINY)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceTransform([("SWTTransform", {})])
+    model = get_model("multidino_attention_hashing", device="cpu", **TINY)
+    ds = SyntheticVOCDataset(num_train=4, image_size=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate(model, ds, distance_metric="hamming")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compute_embeddings(model, ds)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model("multidino_attention_hashing", device="cuda", **TINY)
+
+
+def test_entry_points_run_on_cpu_when_asked(no_card):
+    model = get_model("multidino_attention_hashing", device="cpu", **TINY)
+    ds = SyntheticVOCDataset(num_train=6, image_size=16)
+    res = evaluate(model, ds, DeviceTransform([("SWTTransform", {})], device="cpu"),
+                   batch_size=4, distance_metric="hamming", device="cpu")
+    assert res["num_k_level0"] == 5 and np.isfinite(list(res.values())).all()
+
+
+def test_cpu_tensors_take_the_plain_path_uncounted():
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(3, 8, 10).astype(np.float32))
+    q, k, v = (torch.from_numpy(rng.randn(2, 9, 2, 32).astype(np.float32)) for _ in range(3))
+    before = (haar_swt2.launches, fused_attention.launches)
+    torch.testing.assert_close(haar_swt2(x), haar_swt2_plain(x), rtol=0, atol=0)
+    with torch.no_grad():
+        torch.testing.assert_close(fused_attention(q, k, v), attention_plain(q, k, v),
+                                   rtol=0, atol=0)
+    assert (haar_swt2.launches, fused_attention.launches) == before
+    with pytest.raises(ValueError):
+        haar_swt2(x[0])
+    with torch.no_grad(), pytest.raises(ValueError):
+        fused_attention(q, k[:, :5], v)
+
+
+def test_other_devices_raise_instead_of_falling_back():
+    with pytest.raises(ValueError, match="no kernel"):
+        haar_swt2(torch.empty(2, 4, 4, device="meta"))
+    q = torch.empty(1, 4, 1, 32, device="meta")
+    with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
+        fused_attention(q, q, q)
+
+
+def test_unported_models_and_heads_name_their_roadmap_item():
+    with pytest.raises(ValueError, match="A10"):
+        get_model("resnet50", device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        get_model("multidino_attention_hashing", device="cpu",
+                  **dict(TINY, fusion_config={"type": "gated"}))
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--phases", "card"], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    (tmp_path / "chip_smoke.py").write_bytes((REPO / "chip_smoke.py").read_bytes())
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
