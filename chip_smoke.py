@@ -2,26 +2,33 @@
 """Smoke test of irw_tpu_torch on one CUDA card (built for an H100, sm_90a).
 
     python3 chip_smoke.py                    # every phase
-    python3 chip_smoke.py --phases build,swt,attention
+    python3 chip_smoke.py --phases card,build,attention,train
 
 Drives the port's serving path — uint8 images → DeviceTransform (/255, Haar
 SWT: kernel K1) → the flagship MultiDinoHashing (4 × DINOv2 ViT-S/14 at
 224², bf16, cross_attention_advanced fusion, 64 bits; 12 attention blocks,
-kernel K2 each) → ±1 codes → Hamming retrieval metrics — and prints one
-line per phase:
+kernel K2 each) → ±1 codes → Hamming retrieval metrics — and its training
+path — the same model in training mode with block remat, HashLoss and
+AdamW, attention backward on kernel K3 — and prints one line per phase:
 
 1. card: name and power limit (nvidia-smi);
-2. build: both kernels from ``irw_tpu_torch/csrc``, one nvcc each, in parallel;
+2. build: the kernels from ``irw_tpu_torch/csrc``, one nvcc each, in parallel;
 3. swt: K1 against ``haar_swt2_plain`` at (192, 224, 224) f32, timed;
-4. attention: K2 against ``attention_plain`` at (256, 257, 6, 64) bf16 and
-   at ragged, f32 and other head-dim shapes, timed beside SDPA;
+4. attention: K2 against ``attention_plain`` at (256, 257, 6, 64) bf16, K3
+   against ``attention_plain_bwd`` at (384, 257, 6, 64) bf16, both also at
+   ragged, f32 and other head-dim shapes; timed beside SDPA;
 5. serve: full-width flagship with seeded random weights (LayerScale set to
    1 so attention reaches the codes), launch counts per batch, codes held
    against the same model on the plain versions, img/s;
 6. profile: one served batch under torch.profiler, device time by kernel
    group and the device's idle share;
 7. retrieval: ``evaluate`` on a few hundred images, GPU metrics against the
-   CPU port, and bench.py's VOC anchor (map 0.3865 at k = 5717).
+   CPU port, and bench.py's VOC anchor (map 0.3865 at k = 5717);
+8. train: the full-width flagship trains at batch 96 (HashLoss,
+   ``configs/optimizer/basic.yaml``'s AdamW at epoch 1): launch counts per
+   step, trained img/s, peak memory and finite metrics over 5 timed steps;
+   one step on the kernel route held against the plain route (loss, and
+   the gradient of each top-level module); one step profiled.
 
 Then a JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -33,13 +40,14 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval")
+PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -55,6 +63,20 @@ FLAGSHIP = {
         "with_autocast": True,
     },
 }
+# configs/loss/hash_loss.yaml and configs/optimizer/basic.yaml; the protocol's
+# experience settings (studies/voc_lambda_protocol.yaml over
+# configs/experience/default.yaml)
+HASH_LOSS = [{"name": "HashLoss", "weight": 1.0,
+              "kwargs": {"num_classes": 20, "embedding_size": 64, "quant_weight": 0.1,
+                         "scale": 15.0,
+                         "optimizer": {"name": "AdamW",
+                                       "kwargs": {"lr": 0.0001, "weight_decay": 0.0001}}}}]
+OPTIMIZER = [{"name": "AdamW", "params": None,
+              "kwargs": {"lr": 1.0e-05, "weight_decay": 0.0005},
+              "scheduler_on_epoch": {"name": "CosineAnnealingLR",
+                                     "kwargs": {"T_max": 50, "eta_min": 1.0e-07}},
+              "scheduler_on_step": None, "scheduler_on_val": None}]
+PROTOCOL = {"clip_grad": None, "warm_up": 0, "ortho_scale": None}
 # configs/transform/voc_swt.yaml's test split, device ops (Resize/CenterCrop
 # are host geometry; the synthetic images are made at 224 already)
 SWT_OPS = [("SWTTransform", {"level": 1, "wavelet": "haar"})]
@@ -67,6 +89,19 @@ K1_TOL = 1e-5
 # both sides round the same normalised P and output to bf16: at most one bf16
 # ulp apart for |o| < 2, well under BENCH_r05's 0.0117 parity bar
 K2_TOL = {"bfloat16": 2 ** -7, "float32": 1e-5}
+TRAIN_BATCH = 96         # studies/voc_lambda_protocol.yaml
+K3_SHAPE = (4 * TRAIN_BATCH, 257, 6, 64)
+# K3: both sides round P and ds to bf16 at the same points; only the f32
+# accumulation order differs, which can move a ds element by one bf16 ulp
+K3_TOL_BF16 = 2 ** -6    # of max|ref|, per output
+K3_TOL_F32 = 1e-5
+TRAIN_STEPS = 5
+TRAIN_METRICS = ("total_loss", "grad_norm", "batch_map", "loss_0_HashLoss", "ortho_raw")
+# the same step with every block's attention on the plain versions: the two
+# routes round P and ds alike, so the loss and the gradients differ only by
+# f32 accumulation order carried through twelve bf16 blocks
+ROUTE_LOSS_TOL = 1e-3
+ROUTE_COSINE = 0.999
 LOGIT_MARGIN = 0.05     # codes must agree wherever |logit| exceeds this
 VOC_ANCHOR_MAP = 0.3865
 
@@ -111,6 +146,21 @@ def phase_card(state):
                 f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
 
+def _kernel_name(mangled: str) -> str:
+    """``name<HD>`` of a mangled kernel template instance: walk the nested
+    name's length-prefixed parts to the one ending in ``kernel``, then read
+    its int template argument."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while (m := re.match(r"\d+", mangled[pos:])):
+        start = pos + m.end()
+        pos = start + int(m.group())
+        ident = mangled[start:pos]
+        if ident.endswith("kernel"):
+            arg = re.match(r"ILi(\d+)E", mangled[pos:])
+            return ident + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
+
+
 def phase_build(state):
     from irw_tpu_torch import cuda_lib
 
@@ -118,7 +168,13 @@ def phase_build(state):
     report = cuda_lib.build(cuda_lib.KERNELS)
     wall = time.perf_counter() - t0
     for name, rep in report.items():
-        usage = [ln.strip() for ln in rep["ptxas"].splitlines() if "Used" in ln]
+        # ptxas names each entry function, then its registers and spills
+        usage, entry = [], "?"
+        for ln in rep["ptxas"].splitlines():
+            if "Compiling entry function" in ln:
+                entry = _kernel_name(ln.split("'")[1] if "'" in ln else ln.strip())
+            elif "Used" in ln:
+                usage.append(f"{entry}: {ln.split(':', 1)[-1].strip()}")
         log("build", f"{name}: {rep['seconds']:.1f} s; " + " | ".join(usage))
     log("build", f"{len(report)} kernels built in {wall:.1f} s wall (parallel nvcc)")
 
@@ -188,12 +244,44 @@ def _attention_case(shape, dtype, seed):
     return (q, k, v), err
 
 
+def _attention_bwd_case(shape, dtype, seed):
+    """K3 against ``attention_plain_bwd`` on unit-normal q, k, v, g; the
+    largest error over dq, dk, dv relative to each output's limit."""
+    import torch
+
+    from irw_tpu_torch.ops.attention import attention_plain_bwd, fused_attention_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    outs = fused_attention_bwd(q, k, v, g)
+    refs = attention_plain_bwd(q, k, v, g)
+    torch.cuda.synchronize()
+    worst, report = 0.0, []
+    for name, out, ref in zip(("dq", "dk", "dv"), outs, refs):
+        err = (out.float() - ref.float()).abs().max().item()
+        peak = ref.float().abs().max().item()
+        tol = K3_TOL_F32 if dtype == torch.float32 else K3_TOL_BF16 * peak
+        report.append(f"{name} {err:.3e} (limit {tol:.3e})")
+        if not (err <= tol and torch.isfinite(out).all()):
+            raise AssertionError(f"K3 {name} disagrees with its plain version at {shape} "
+                                 f"{dtype}: {err} > {tol}")
+        worst = max(worst, err)
+    log("attention", f"K3 {tuple(shape)} {dtype}: max|kernel - plain| " + ", ".join(report))
+    return (q, k, v, g), worst
+
+
 def phase_attention(state):
     import torch
     import torch.nn.functional as F
 
-    from irw_tpu_torch.ops.attention import attention_plain, fused_attention
+    from irw_tpu_torch.ops.attention import (
+        attention_plain,
+        attention_plain_bwd,
+        fused_attention,
+        fused_attention_bwd,
+    )
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     for shape, dtype in [((3, 50, 2, 64), torch.bfloat16), ((3, 50, 2, 64), torch.float32),
                          ((2, 70, 3, 32), torch.float32), ((2, 130, 1, 128), torch.bfloat16),
                          ((64, 257, 6, 64), torch.float32)]:
@@ -208,12 +296,50 @@ def phase_attention(state):
     nbytes = 4 * b * n * h * hd * 2
     flops = 4 * b * h * n * n * hd
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-    log("attention", f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | SDPA {lib_ms:.4f} ms | "
-                     f"bound {b_ms:.4f} ms ({b_by}) | {state['card']}")
+    log("attention", f"K2 at the serve shape {K2_SHAPE}: kernel {ms:.4f} ms | plain "
+                     f"{plain_ms:.4f} ms | SDPA {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}) "
+                     f"| {state['card']}")
     state["kernels"]["fused_attention"] = {
         "name": "fused_attention", "route": "cuda",
         "source": "irw_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "irw_tpu/ops/vmem_attention.py:207", "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms}
+
+    # K3, and K2 at the training shape
+    for shape, dtype in [((3, 50, 2, 64), torch.bfloat16), ((3, 50, 2, 64), torch.float32),
+                         ((2, 70, 3, 32), torch.float32), ((2, 70, 3, 32), torch.bfloat16),
+                         ((2, 130, 1, 128), torch.bfloat16), ((2, 130, 1, 128), torch.float32),
+                         ((2, 3, 65, 1, 64), torch.float32), ((64, 257, 6, 64), torch.float32)]:
+        _attention_bwd_case(shape, dtype, seed=3)
+    (q, k, v, g), err = _attention_bwd_case(K3_SHAPE, torch.bfloat16, seed=4)
+    qt, kt, vt, gt = (t.transpose(1, 2) for t in (q, k, v, g))
+    with torch.no_grad():
+        fwd_train_ms = time_ms(lambda: fused_attention(q, k, v))
+    ms = time_ms(lambda: fused_attention_bwd(q, k, v, g))
+    plain_ms = time_ms(lambda: attention_plain_bwd(q, k, v, g), iters=5)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (qt, kt, vt))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qr, kr, vr)
+        torch.autograd.grad(out, (qr, kr, vr), gt)
+
+    with torch.no_grad():
+        sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr))
+    lib_ms = time_ms(sdpa_fwd_bwd) - sdpa_fwd_ms
+    b, n, h, hd = K3_SHAPE
+    nbytes = 7 * b * n * h * hd * 2
+    flops = 10 * b * h * n * n * hd
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    log("attention", f"K2 at the training shape {K3_SHAPE}: kernel {fwd_train_ms:.4f} ms | "
+                     f"{state['card']}")
+    log("attention", f"K3 at {K3_SHAPE}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+                     f"SDPA backward {lib_ms:.4f} ms (fwd+bwd minus fwd {sdpa_fwd_ms:.4f}) | "
+                     f"bound {b_ms:.4f} ms ({b_by}) | {state['card']}")
+    state["kernels"]["fused_attention_bwd"] = {
+        "name": "fused_attention_bwd", "route": "cuda",
+        "source": "irw_tpu_torch/csrc/attention_bwd.cu",
+        "replaces": "irw_tpu/ops/vmem_attention.py:227", "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms}
 
@@ -264,7 +390,7 @@ def phase_serve(state):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = {"haar_swt2": haar_swt2.launches, "fused_attention": fused_attention.launches}
-        state["launches"] = counts
+        state["launches"]["serve"] = counts
         log("serve", f"launches over {SERVE_BATCHES} batches: {counts}; per batch "
                      f"(K1, K2): {per_batch}")
         if per_batch != [(1, 12)] * SERVE_BATCHES:
@@ -300,35 +426,30 @@ def phase_serve(state):
                 blk.attn.core = core
 
 
-_KERNEL_GROUPS = (("K2 attention", ("attention_fwd",)), ("K1 swt", ("haar_swt2",)),
+_KERNEL_GROUPS = (("K3 attention bwd", ("attention_bwd",)), ("K2 attention", ("attention_fwd",)),
+                  ("K1 swt", ("haar_swt2",)),
                   ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
                   ("reduce", ("reduce",)), ("elementwise", ("elementwise", "vectorized")))
 
 
-def phase_profile(state):
-    """Device time of one served batch by kernel, from torch.profiler."""
+def _device_profile(phase: str, run, what: str, state) -> float | None:
+    """Device time of one ``run()`` by kernel group, from torch.profiler,
+    and the device's idle share over the call's wall time (which the
+    profiler's own host overhead lengthens).  Returns the device-busy ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from irw_tpu_torch.data import SyntheticVOCDataset
-    from irw_tpu_torch.transforms import DeviceTransform
-
-    model = state["model"] if "model" in state else _flagship_model()
-    transform = DeviceTransform(SWT_OPS)
-    images = SyntheticVOCDataset(num_train=BATCH, image_size=224, seed=2).images
-    with torch.inference_mode():
-        model(transform(images))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model(transform(images))
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:  # a measurement, not a check: say so rather than guess
-        log("profile", "the profiler recorded no device kernel: device time not measured")
-        return
+        log(phase, "the profiler recorded no device kernel: device time not measured")
+        return None
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -339,12 +460,145 @@ def phase_profile(state):
         low = name.lower()
         group = next((g for g, keys in _KERNEL_GROUPS if any(k in low for k in keys)), "other")
         groups[group] += us
-    log("profile", f"one batch of {BATCH}: wall {wall_us / 1e3:.2f} ms, device busy "
-                   f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f} | {state['card']}")
-    log("profile", "by group: " + ", ".join(f"{g} {us / 1e3:.2f} ms ({us / busy:.1%})"
-                                            for g, us in groups.items()))
+    log(phase, f"{what}: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, "
+               f"idle share {1 - busy / wall_us:.3f} | {state['card']}")
+    log(phase, "by group: " + ", ".join(f"{g} {us / 1e3:.2f} ms ({us / busy:.1%})"
+                                        for g, us in groups.items()))
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        log("profile", f"{us / 1e3:8.3f} ms  {name[:110]}")
+        log(phase, f"{us / 1e3:8.3f} ms  {name[:110]}")
+    return busy / 1e3
+
+
+def phase_profile(state):
+    """Device time of one served batch by kernel, from torch.profiler."""
+    import torch
+
+    from irw_tpu_torch.data import SyntheticVOCDataset
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    model = state["model"] if "model" in state else _flagship_model()
+    transform = DeviceTransform(SWT_OPS)
+    images = SyntheticVOCDataset(num_train=BATCH, image_size=224, seed=2).images
+    with torch.inference_mode():
+        model(transform(images))
+        _device_profile("profile", lambda: model(transform(images)),
+                        f"one batch of {BATCH}", state)
+
+
+def _route_step(tstate, step, batch, hyper, snapshot, core=None):
+    """One train step from ``snapshot`` (parameters, BatchNorm statistics,
+    HashLoss proxies, rng states), optionally with every block's attention
+    core replaced; returns (total_loss, flattened gradient per top-level
+    module)."""
+    import torch
+
+    model = tstate.model
+    model.load_state_dict(snapshot["model"])
+    tstate.losses[0][0].load_state_dict(snapshot["loss"])
+    for name, gen in tstate.generators.items():
+        gen.set_state(snapshot["rng"][name])
+    blocks = model.backbone.vit.blocks
+    cores = [blk.attn.core for blk in blocks]
+    if core is not None:
+        for blk in blocks:
+            blk.attn.core = core
+    try:
+        metrics = step(tstate, batch, hyper)
+    finally:
+        for blk, c in zip(blocks, cores):
+            blk.attn.core = c
+    grads = {m: torch.cat([p.grad.float().flatten() for p in getattr(model, m).parameters()
+                           if p.grad is not None])
+             for m in ("backbone", "head", "hash_head")}
+    return float(metrics["total_loss"]), grads
+
+
+def phase_train(state):
+    """The flagship trains: TRAIN_STEPS timed AdamW steps at batch 96, the
+    kernel route held against the plain route, one step profiled."""
+    import torch
+
+    from irw_tpu_torch.data import SyntheticVOCDataset
+    from irw_tpu_torch.engine import build_train_step, init_train_state
+    from irw_tpu_torch.engine.train import _build_hyper
+    from irw_tpu_torch.losses import build_losses
+    from irw_tpu_torch.ops.attention import (
+        attention_plain_autograd,
+        fused_attention,
+        fused_attention_bwd,
+    )
+    from irw_tpu_torch.ops.wavelets import haar_swt2
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    model = _flagship_model()
+    vit = model.backbone.vit
+    assert vit.dtype == torch.bfloat16 and vit.embed_dim == 384 and len(vit.blocks) == 12
+    assert vit.remat_blocks and not model.frozen_backbone
+    assert all(blk.attn.core.__name__ == "vmem_attention_fn" for blk in vit.blocks)
+    ds = SyntheticVOCDataset(num_train=TRAIN_BATCH * 2, image_size=224, seed=3)
+    batches = [{"image": ds.images[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+                "label": ds.labels[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]} for i in range(2)]
+    tstate = init_train_state(model, build_losses(HASH_LOSS), OPTIMIZER, HASH_LOSS, seed=0)
+    step = build_train_step(DeviceTransform(SWT_OPS), clip_grad=PROTOCOL["clip_grad"],
+                            proxy_map_metric="hamming")
+
+    def hyper():
+        return _build_hyper(tstate.optimizer_entries, 1, tstate.step, PROTOCOL["warm_up"], None,
+                            PROTOCOL["ortho_scale"])
+
+    step(tstate, batches[0], hyper())  # warm-up: cuBLAS handles, allocator, build
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (haar_swt2, fused_attention, fused_attention_bwd)
+    for fn in kernels:
+        fn.launches = 0
+    per_step, metrics = [], []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        before = [fn.launches for fn in kernels]
+        metrics.append(step(tstate, batches[i % 2], hyper()))
+        per_step.append(tuple(fn.launches - b for fn, b in zip(kernels, before)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    state["launches"]["train"] = counts
+    peak = torch.cuda.max_memory_allocated()
+    log("train", f"launches over {TRAIN_STEPS} steps: {counts}; per step (K1, K2, K3): {per_step}")
+    if per_step != [(1, 24, 12)] * TRAIN_STEPS:
+        raise AssertionError(f"expected K1 = 1, K2 = 24 and K3 = 12 launches per step, "
+                             f"got {per_step}")
+    log("train", f"{TRAIN_STEPS * TRAIN_BATCH / seconds:.1f} trained img/s, "
+                 f"{seconds / TRAIN_STEPS * 1e3:.1f} ms per step (batch {TRAIN_BATCH}, bf16, "
+                 f"block remat, AdamW) | peak memory {peak / 2 ** 30:.2f} GiB | {state['card']}")
+    for i, m in enumerate(metrics):
+        values = {k: float(v) for k, v in m.items()}
+        log("train", f"step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in values.items()))
+        if not all(math.isfinite(values[k]) for k in TRAIN_METRICS):
+            raise AssertionError(f"step {i}: non-finite metrics {values}")
+
+    # the kernel route against the plain route, from one saved state
+    snapshot = {"model": {k: v.clone() for k, v in model.state_dict().items()},
+                "loss": {k: v.clone() for k, v in tstate.losses[0][0].state_dict().items()},
+                "rng": {k: g.get_state() for k, g in tstate.generators.items()}}
+    loss_k, grads_k = _route_step(tstate, step, batches[0], hyper(), snapshot)
+    loss_p, grads_p = _route_step(tstate, step, batches[0], hyper(), snapshot,
+                                  core=attention_plain_autograd)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cosines = {m: float(torch.nn.functional.cosine_similarity(grads_k[m], grads_p[m], dim=0))
+               for m in grads_k}
+    log("train", f"kernel vs plain route: total_loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+                 f"{rel:.2e}, limit {ROUTE_LOSS_TOL}); gradient cosine per module "
+                 + ", ".join(f"{m} {c:.6f}" for m, c in cosines.items())
+                 + f" (limit {ROUTE_COSINE})")
+    if not (rel <= ROUTE_LOSS_TOL and all(c >= ROUTE_COSINE for c in cosines.values())):
+        raise AssertionError(f"the kernel route disagrees with the plain route: {rel}, {cosines}")
+
+    busy_ms = _device_profile("train", lambda: step(tstate, batches[1], hyper()),
+                              f"one train step of {TRAIN_BATCH}", state)
+    if busy_ms is not None:
+        step_ms = seconds / TRAIN_STEPS * 1e3
+        log("train", f"idle share against the timed steps' {step_ms:.1f} ms: "
+                     f"{1 - busy_ms / step_ms:.3f}")
 
 
 def phase_retrieval(state):
@@ -424,18 +678,25 @@ def main(argv=None) -> int:
         print(f"chip_smoke: run from a checkout of the repository ({exc})", file=sys.stderr)
         return 2
 
-    state = {"kernels": {}, "card": None}
+    state = {"kernels": {}, "card": None, "launches": {}}
     phase_card(state)
     runners = {"build": phase_build, "swt": phase_swt, "attention": phase_attention,
-               "serve": phase_serve, "profile": phase_profile, "retrieval": phase_retrieval}
+               "serve": phase_serve, "profile": phase_profile, "retrieval": phase_retrieval,
+               "train": phase_train}
     for name in phases:
         if name != "card":
             t0 = time.perf_counter()
             runners[name](state)
             log(name, f"phase done in {time.perf_counter() - t0:.1f} s")
 
-    launches = state.get("launches", {})
-    kernels = [dict(k, launches=launches.get(k["name"])) for k in state["kernels"].values()]
+    # launches: the count over the training phase's timed steps, the path
+    # that runs all three kernels; per step and per served batch beside it
+    serve, train = (state["launches"].get(k, {}) for k in ("serve", "train"))
+    kernels = [dict(k, launches=train.get(k["name"]),
+                    launches_per_train_step=train.get(k["name"], 0) / TRAIN_STEPS if train else None,
+                    launches_per_served_batch=(serve.get(k["name"], 0) / SERVE_BATCHES
+                                               if serve else None))
+               for k in state["kernels"].values()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

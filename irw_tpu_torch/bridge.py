@@ -15,6 +15,9 @@ are read with ``np.asarray``.  Handled layouts:
 - Dense (in, out) → Linear (out, in);
 - conv HWIO → OIHW (the inverse of ``convert_torch_weights.py:131-186``);
 - ``batch_stats`` mean/var → BatchNorm ``running_mean``/``running_var``.
+
+``load_jax_loss_params`` carries a JAX train state's ``loss_params`` (the
+HashLoss proxies) into the port's loss modules.
 """
 
 from __future__ import annotations
@@ -151,3 +154,16 @@ def load_jax_variables(model, variables):
     sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in from_jax_variables(variables).items()}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def load_jax_loss_params(losses, loss_params):
+    """Load a JAX train state's ``loss_params`` (loss index → leaves, e.g.
+    ``{"0": {"proxies": (C, D)}}``) into the port's ``[(loss, weight)]``,
+    strictly; returns ``losses``."""
+    import torch
+
+    for idx, (loss, _) in enumerate(losses):
+        tree = loss_params.get(str(idx)) or {}
+        loss.load_state_dict({k: torch.from_numpy(np.array(v, dtype=np.float32))
+                              for k, v in tree.items()}, strict=True)
+    return losses

@@ -41,20 +41,14 @@
 //
 // Not yet: wgmma, TMA, cp.async double buffering, a single pass.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
+using namespace irw;
+
 constexpr int kBQ = 64;                 // query rows per block
 constexpr int kBK = 64;                 // keys per tile
-
-struct Strides {
-    long long b, n, h;
-};
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 // ------------------------------------------------------------------------
 // bf16: mma.sync tensor-core path
@@ -63,40 +57,6 @@ __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); 
 constexpr int kWarps = 4;                       // 16 query rows each
 constexpr int kMmaThreads = 32 * kWarps;
 constexpr int kPad = 8;                         // bf16 elements (16 bytes) per row
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo, the low half
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // 64 rows of hd bf16 from global (16-byte loads) into a padded smem tile;
 // rows at or past n are zero

@@ -28,10 +28,9 @@ def pop_common(kw: dict, device: torch.device) -> dict:
     - ``with_autocast`` → the bf16 compute policy;
     - ``binary_config.nbits`` → ``nbits``;
     - ``backbones_config[0]`` → ``backbone`` and ``frozen_backbone``;
-    - unfrozen backbones → ``vmem_attn`` on the card (factory.py:106 reads
-      "on TPU"; here it means kernel K2 on a CUDA device).  The JAX factory
-      also turns on block remat there, a training affordance that lands with
-      the training slice (ROADMAP A6).
+    - unfrozen backbones → block remat with policy ``"nothing"``
+      (factory.py:86-88) and ``vmem_attn`` on the card (factory.py:106 reads
+      "on TPU"; here it means kernels K2 and K3 on a CUDA device).
     """
     kw = dict(kw)
     autocast = kw.pop("with_autocast", None)
@@ -48,6 +47,8 @@ def pop_common(kw: dict, device: torch.device) -> dict:
     if autocast:
         vit_kw.setdefault("dtype", "bfloat16")
     if kw.get("frozen_backbone") is False:
+        vit_kw.setdefault("remat_blocks", True)
+        vit_kw.setdefault("remat_policy", "nothing")
         vit_kw.setdefault("vmem_attn", device.type == "cuda")
     if vit_kw:
         kw["vit_kwargs"] = vit_kw

@@ -82,39 +82,65 @@ class LayerNorm(nn.Module):
         dim = x.shape[-1:]
         if self.weight.dim() == 1:
             return F.layer_norm(x.float(), dim, self.weight, self.bias, self.eps).to(self.dtype)
-        out = torch.empty(x.shape, dtype=self.dtype, device=x.device)
-        for s in range(x.shape[0]):  # per band: its own scale and bias
-            out[s] = F.layer_norm(x[s].float(), dim, self.weight[s], self.bias[s], self.eps)
-        return out
+        return torch.stack([  # per band: its own scale and bias
+            F.layer_norm(x[s].float(), dim, self.weight[s], self.bias[s], self.eps).to(self.dtype)
+            for s in range(x.shape[0])])
+
+
+def apply_dropout(x, rate: float, training: bool, generator: torch.Generator | None = None):
+    """flax ``Dropout``: keep each element with probability 1 − rate and
+    divide the kept ones by it.  The mask comes from ``generator`` (flax's
+    ``dropout`` rng stream); its bits cannot match JAX's."""
+    if not training or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
+
+
+def draw_seed(generator: torch.Generator | None) -> int | None:
+    """One seed drawn from ``generator`` (flax's split of an rng stream), to
+    seed a child generator; ``None`` stays ``None``."""
+    if generator is None:
+        return None
+    return int(torch.randint(0, 2 ** 62, (), generator=generator, device=generator.device))
 
 
 class Mlp(nn.Module):
-    """Linear → GELU → Linear (``layers.py:62-99``).  GELU is the tanh form
-    by default (flax ``nn.gelu``); ``exact_gelu=True`` is the erf form.
-    Dropout is a training affordance and waits for the training slice."""
+    """Linear → GELU → Linear → Dropout (``layers.py:62-99``).  GELU is the
+    tanh form by default (flax ``nn.gelu``); ``exact_gelu=True`` is the erf
+    form."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  exact_gelu: bool = False, bands: int | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.fc1 = Linear(in_dim, hidden_dim, bands=bands, dtype=dtype)
         self.fc2 = Linear(hidden_dim, out_dim, bands=bands, dtype=dtype)
         self.approximate = "none" if exact_gelu else "tanh"
+        self.dropout = dropout
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+    def forward(self, x, generator: torch.Generator | None = None):
+        x = self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        return apply_dropout(x, self.dropout, self.training, generator)
 
 
 class HashHead(nn.Module):
-    """Linear hash projection (no bias) + BatchNorm1d (``layers.py:123-146``),
-    eval mode: the running statistics, flax's eps 1e-5."""
+    """Linear hash projection (no bias) + BatchNorm1d (``layers.py:123-146``)
+    with flax ``BatchNorm`` semantics, eps 1e-5.  Eval: the running
+    statistics.  Training: the batch mean and the BIASED batch variance,
+    max(E[x²] − E[x]², 0) in f32, and the running statistics updated in place
+    as 0.99·running + 0.01·batch (flax momentum 0.99, torch momentum 0.01 —
+    torch's ``BatchNorm1d`` would store the unbiased variance)."""
+
+    momentum = 0.99
 
     def __init__(self, in_dim: int, nbits: int, use_bn: bool = True):
         super().__init__()
         if not use_bn:
             raise NotImplementedError("HashHead(use_bn=False) waits for ROADMAP A10")
         self.linear = Linear(in_dim, nbits, bias=False)
-        self.bn = nn.BatchNorm1d(nbits, eps=1e-5, momentum=0.01)
+        self.bn = nn.BatchNorm1d(nbits, eps=1e-5, momentum=1.0 - self.momentum)
 
     def reset_parameters(self, generator=None):
         with torch.no_grad():
@@ -124,8 +150,16 @@ class HashHead(nn.Module):
     def forward(self, x):
         x = self.linear(x.float())
         bn = self.bn
-        mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-        return (x - bn.running_mean) * mul + bn.bias
+        if self.training:
+            mean = x.mean(dim=0)
+            var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+            with torch.no_grad():
+                bn.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
+                bn.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        mul = torch.rsqrt(var + bn.eps) * bn.weight
+        return (x - mean) * mul + bn.bias
 
 
 def binarize(logits, train: bool = False, continuous: str = "identity"):

@@ -1,4 +1,4 @@
-"""DINOv2-style Vision Transformer, eval forward (port of
+"""DINOv2-style Vision Transformer (port of
 ``irw_tpu/models/vit.py:43-60, 62-88, 320-391, 420-619, 636-675``).
 
 Patch embed → [CLS | patches] + position embeddings → pre-norm blocks with
@@ -13,9 +13,16 @@ Compute policy (``dtype``): f32 parameters are cast to the compute dtype at
 use (vit.py:375-381, 491-494), so the residual stream stays in it;
 LayerNorm statistics are f32 and the result is cast back.  With
 ``vmem_attn`` the attention core is ``ops.attention.vmem_attention_fn``
-(kernel K2 on the card); without it, flax's ``dot_product_attention``
-semantics.  ``remat_blocks`` is a training affordance and waits for the
-training slice (ROADMAP A6).
+(kernels K2 forward and K3 backward on the card); without it, or while
+attention dropout is active, flax's ``dot_product_attention`` semantics.
+
+Training: ``dropout`` drops attention probabilities and MLP outputs, with
+masks drawn from the ``generator`` passed to ``forward`` (flax's
+``dropout`` rng stream).  ``remat_blocks`` recomputes each block in the
+backward (``torch.utils.checkpoint``), the port of the scanned-block
+``nn.remat`` with policy ``None`` or ``"nothing"``; the selective policies
+wait for ROADMAP A6-remainder.  ``scan_group`` is only a parameter layout,
+which ``bridge`` unstacks.
 """
 
 from __future__ import annotations
@@ -26,8 +33,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from irw_tpu_torch.models.layers import LayerNorm, Linear, Mlp, trunc_normal_
+from torch.utils.checkpoint import checkpoint
+
+from irw_tpu_torch.models.layers import LayerNorm, Linear, Mlp, draw_seed, trunc_normal_
 from irw_tpu_torch.ops.attention import dot_product_attention, vmem_attention_fn
+
+_REMAT_POLICIES = (None, "nothing")
+_LATER_REMAT_POLICIES = ("dots", "dots_no_batch", "dots_no_batch_gelu", "everything",
+                         "dots_no_batch_attn", "dots_no_batch_gelu_attn")
 
 
 class PatchEmbed(nn.Module):
@@ -80,24 +93,32 @@ class DomainLayerNorm(LayerNorm):
 
 class Attention(nn.Module):
     """flax ``MultiHeadDotProductAttention`` self-attention: q/k/v/out
-    projections around an attention core on (…, N, H, hd)."""
+    projections around an attention core on (…, N, H, hd).  Active dropout
+    takes ``dot_product_attention`` (vmem_attention.py:338-343)."""
 
     def __init__(self, dim: int, num_heads: int, vmem_attn: bool = False,
-                 bands: int | None = None, dtype: torch.dtype = torch.float32):
+                 bands: int | None = None, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.query, self.key, self.value, self.out = (
             Linear(dim, dim, bands=bands, dtype=dtype) for _ in range(4))
         # a plain attribute, so a caller can hold the kernel against its plain
         # version on the same weights (chip_smoke.py does)
         self.core = vmem_attention_fn if vmem_attn else dot_product_attention
 
-    def forward(self, y):
+    def forward(self, y, generator: torch.Generator | None = None):
         *pre, n, d = y.shape
         h = self.num_heads
         q, k, v = (proj(y).reshape(*pre, n, h, d // h)
                    for proj in (self.query, self.key, self.value))
-        return self.out(self.core(q, k, v).reshape(*pre, n, d))
+        if self.training and self.dropout > 0.0:
+            o = dot_product_attention(q, k, v, dropout_rate=self.dropout, deterministic=False,
+                                      generator=generator)
+        else:
+            o = self.core(q, k, v)
+        return self.out(o.reshape(*pre, n, d))
 
 
 def _per_band(param, x):
@@ -111,20 +132,29 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  layerscale_init: float = 1e-5, vmem_attn: bool = False,
                  exact_gelu: bool = False, bands: int | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         lead = () if bands is None else (bands,)
         self.dtype = dtype
         self.norm1 = DomainLayerNorm(dim, bands=bands, dtype=dtype)
-        self.attn = Attention(dim, num_heads, vmem_attn, bands, dtype)
+        self.attn = Attention(dim, num_heads, vmem_attn, bands, dtype, dropout)
         self.ls1 = nn.Parameter(torch.full((*lead, dim), layerscale_init))
         self.norm2 = DomainLayerNorm(dim, bands=bands, dtype=dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, exact_gelu, bands, dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, exact_gelu, bands, dtype, dropout)
         self.ls2 = nn.Parameter(torch.full((*lead, dim), layerscale_init))
 
-    def forward(self, x):
-        x = torch.addcmul(x, self.attn(self.norm1(x)), _per_band(self.ls1, x).to(self.dtype))
-        return torch.addcmul(x, self.mlp(self.norm2(x)), _per_band(self.ls2, x).to(self.dtype))
+    def forward(self, x, generator: torch.Generator | None = None):
+        x = torch.addcmul(x, self.attn(self.norm1(x), generator),
+                          _per_band(self.ls1, x).to(self.dtype))
+        return torch.addcmul(x, self.mlp(self.norm2(x), generator),
+                             _per_band(self.ls2, x).to(self.dtype))
+
+
+def _run_block(blk, tokens, seed: int | None):
+    """``blk`` with its dropout generator made from ``seed`` inside the call,
+    so that a block recomputed in the backward draws the same masks."""
+    gen = None if seed is None else torch.Generator(device=tokens.device).manual_seed(seed)
+    return blk(tokens, gen)
 
 
 class VisionTransformer(nn.Module):
@@ -139,21 +169,31 @@ class VisionTransformer(nn.Module):
                  patch_size: int = 14, mlp_ratio: float = 4.0, img_size: int = 224,
                  in_chans: int = 3, layerscale_init: float = 1e-5,
                  vmem_attn: bool = False, exact_gelu: bool = False,
-                 dtype: torch.dtype | str = torch.float32, bands: int | None = None):
+                 dtype: torch.dtype | str = torch.float32, bands: int | None = None,
+                 dropout: float = 0.0, remat_blocks: bool = False,
+                 remat_policy: str | None = None):
         super().__init__()
         if isinstance(dtype, str):  # 'bfloat16' / 'float32' from YAML configs
             dtype = getattr(torch, dtype)
+        if remat_policy in _LATER_REMAT_POLICIES:
+            raise NotImplementedError(f"remat_policy {remat_policy!r} waits for ROADMAP "
+                                      "A6-remainder; the port remats whole blocks "
+                                      "(None or 'nothing')")
+        if remat_policy not in _REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r}")
         lead = () if bands is None else (bands,)
         self.embed_dim = embed_dim
         self.layerscale_init = layerscale_init
         self.dtype = dtype
+        self.dropout = dropout
+        self.remat_blocks = remat_blocks
         num_patches = (img_size // patch_size) ** 2
         self.patch_embed = PatchEmbed(in_chans, embed_dim, patch_size, bands, dtype)
         self.cls_token = nn.Parameter(torch.zeros(*lead, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(*lead, num_patches + 1, embed_dim))
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, layerscale_init, vmem_attn,
-                  exact_gelu, bands, dtype) for _ in range(depth))
+                  exact_gelu, bands, dtype, dropout) for _ in range(depth))
         self.norm = DomainLayerNorm(embed_dim, bands=bands, dtype=dtype)
 
     def reset_parameters(self, generator=None):
@@ -170,7 +210,7 @@ class VisionTransformer(nn.Module):
             nn.init.constant_(blk.ls1, self.layerscale_init)
             nn.init.constant_(blk.ls2, self.layerscale_init)
 
-    def forward(self, x):
+    def forward(self, x, generator: torch.Generator | None = None):
         tokens = self.patch_embed(x)                            # (…, B, Np, D)
         *pre, _, d = tokens.shape
         cls, pos = self.cls_token, self.pos_embed
@@ -181,7 +221,12 @@ class VisionTransformer(nn.Module):
         # compute dtype, as in vit.py:479-494
         tokens = (torch.cat([cls.float(), tokens.float()], dim=-2) + pos).to(self.dtype)
         for blk in self.blocks:
-            tokens = blk(tokens)
+            # one seed per block, as nn.scan splits the dropout rng
+            seed = draw_seed(generator) if self.training and self.dropout > 0.0 else None
+            if self.remat_blocks and torch.is_grad_enabled():
+                tokens = checkpoint(_run_block, blk, tokens, seed, use_reentrant=False)
+            else:
+                tokens = _run_block(blk, tokens, seed)
         return self.norm(tokens)[..., 0, :]
 
 

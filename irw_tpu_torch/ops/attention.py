@@ -1,15 +1,19 @@
-"""Fused multi-head attention forward for short sequences (ViT, N = 257).
+"""Fused multi-head attention for short sequences (ViT, N = 257), forward
+and backward.
 
-Port of ``irw_tpu/ops/vmem_attention.py``: ``fused_attention`` (:273-324,
-kernel body ``_fwd_kernel`` :166-173) and ``vmem_attention_fn``'s routing
-rule (:327-370).  ``fused_attention`` launches the CUDA kernel K2
-(``csrc/attention_fwd.cu``) for CUDA tensors and runs ``attention_plain`` for
-CPU tensors.  The public layout stays ``(…, N, H, hd)``; the kernel reads it
-through strides (the JAX wrapper's transpose to (B, H, N, hd) existed only
-for Mosaic's block rules).
+Port of ``irw_tpu/ops/vmem_attention.py``: ``fused_attention`` (:273-324)
+with its custom VJP ``_core`` (:242-256) over the kernel bodies
+``_fwd_kernel`` (:166-173) and ``_bwd_kernel`` (:176-192), and
+``vmem_attention_fn``'s routing rule (:327-370).  ``fused_attention`` is a
+``torch.autograd.Function``: for CUDA tensors its forward launches kernel K2
+(``csrc/attention_fwd.cu``) and its backward kernel K3
+(``csrc/attention_bwd.cu``), and it raises rather than fall back; for CPU
+tensors they run ``attention_plain`` and ``attention_plain_bwd``.  Like the
+TPU kernel, the backward saves only q, k and v and recomputes the
+probabilities.  The public layout stays ``(…, N, H, hd)``; the kernels read
+it through strides (the JAX wrapper's transpose to (B, H, N, hd) existed
+only for Mosaic's block rules).
 
-The attention backward kernel (``_bwd_kernel``, K3) lands with the training
-slice: until then a call that needs a gradient raises, on every device.
 The multi-device mesh context (vmem_attention.py:57-138) waits for ROADMAP
 A13.
 """
@@ -22,9 +26,6 @@ import math
 import torch
 
 from irw_tpu_torch import cuda_lib
-
-_NO_BACKWARD = ("fused_attention has no backward yet: the attention backward "
-                "kernel lands with the training slice, ROADMAP A6/B2")
 
 
 def attention_plain(q, k, v, scale: float | None = None):
@@ -41,10 +42,38 @@ def attention_plain(q, k, v, scale: float | None = None):
     return o.to(q.dtype)
 
 
-_SIGNATURES = {
+def attention_plain_bwd(q, k, v, g, scale: float | None = None):
+    """dq, dk, dv of ``attention_plain`` with the TPU backward kernel's math
+    and rounding points (``_bwd_kernel``): P recomputed in f32, dv = bf16(P)ᵀ·g,
+    dp = g·vᵀ, t = rowsum(dp ∘ P) with the f32 P, ds = (P ∘ (dp − t)·scale)
+    rounded to the input dtype, dq = ds·k and dk = dsᵀ·q, every product
+    accumulated in f32 and each result cast to the input dtype."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    s = torch.einsum("...qhd,...khd->...hqk", qf, kf) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = torch.einsum("...hqk,...qhd->...khd", p.to(q.dtype).float(), gf)
+    dp = torch.einsum("...qhd,...khd->...hqk", gf, vf)
+    t = (dp * p).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - t) * scale).to(q.dtype).float()
+    dq = torch.einsum("...hqk,...khd->...qhd", ds, kf)
+    dk = torch.einsum("...hqk,...qhd->...khd", ds, qf)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+_FWD_SIGNATURES = {
     "irw_attention_fwd": (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]
         + [ctypes.c_longlong] * 12 + [ctypes.c_void_p],
+        ctypes.c_int),
+}
+_BWD_SIGNATURES = {
+    "irw_attention_bwd": (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
+        + [ctypes.c_longlong] * 21 + [ctypes.c_void_p],
         ctypes.c_int),
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,39 +90,40 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.contiguous()
 
 
-def fused_attention(q, k, v, *, scale: float | None = None):
-    """softmax(q·kᵀ·scale)·v per head; q, k, v ``(…, N, H, hd)`` of one shape.
-
-    ``scale`` defaults to 1/√hd.  CPU tensors: ``attention_plain``.  CUDA
-    tensors: kernel K2 (f32 or bf16, hd ∈ {32, 64, 128}), counted in
-    ``fused_attention.launches``.  Raises if a gradient is needed.
-    """
-    if q.shape != k.shape or q.shape != v.shape or q.dim() < 3:
-        raise ValueError(f"fused_attention takes q, k, v of one (..., N, H, hd) shape, "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise ValueError(f"fused_attention: mixed dtypes {q.dtype}, {k.dtype}, {v.dtype}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise RuntimeError(_NO_BACKWARD)
-    *lead, n, h, hd = q.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(hd)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"fused_attention: no kernel for devices "
-                         f"{q.device}, {k.device}, {v.device}")
+def _check_inputs(what: str, *ts) -> bool:
+    """Validate q, k, v (and g) for ``what``; True when they lie on the CPU
+    (the plain version's case), False for the CUDA kernel's, and raise for
+    anything the kernel does not take."""
+    q = ts[0]
+    if any(t.shape != q.shape for t in ts) or q.dim() < 3:
+        raise ValueError(f"{what} takes tensors of one (..., N, H, hd) shape, "
+                         f"got {[tuple(t.shape) for t in ts]}")
+    if any(t.dtype != q.dtype for t in ts):
+        raise ValueError(f"{what}: mixed dtypes {[t.dtype for t in ts]}")
+    if all(t.device.type == "cpu" for t in ts):
+        return True
+    if q.device.type != "cuda" or any(t.device != q.device for t in ts):
+        raise ValueError(f"{what}: no kernel for devices {[str(t.device) for t in ts]}")
     if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"fused_attention kernel takes float32 or bfloat16, got {q.dtype}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"fused_attention kernel takes head_dim in {_HEAD_DIMS}, got {hd}")
+        raise ValueError(f"{what} kernel takes float32 or bfloat16, got {q.dtype}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"{what} kernel takes head_dim in {_HEAD_DIMS}, got {q.shape[-1]}")
+    return False
+
+
+def _forward(q, k, v, scale: float):
+    """The forward without autograd: ``attention_plain`` on the CPU, K2 on
+    the card."""
+    if _check_inputs("fused_attention", q, k, v):
+        return attention_plain(q, k, v, scale)
+    *lead, n, h, hd = q.shape
     b = math.prod(lead)
     # flatten the batch dims without copying when the layout allows it
     q3, k3, v3 = (_kernel_layout(t.reshape(b, n, h, hd)) for t in (q, k, v))
     out = torch.empty((b, n, h, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out.reshape(q.shape)
-    lib = cuda_lib.load("attention_fwd", _SIGNATURES)
+    lib = cuda_lib.load("attention_fwd", _FWD_SIGNATURES)
     strides = [s for t in (q3, k3, v3, out) for s in t.stride()[:3]]
     status = lib.irw_attention_fwd(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
@@ -104,7 +134,83 @@ def fused_attention(q, k, v, *, scale: float | None = None):
     return out.reshape(q.shape)
 
 
+def fused_attention_bwd(q, k, v, g, scale: float | None = None):
+    """(dq, dk, dv) of ``fused_attention`` for the output gradient ``g``.
+
+    CPU tensors: ``attention_plain_bwd``.  CUDA tensors: kernel K3 (f32 or
+    bf16, hd ∈ {32, 64, 128}), counted in ``fused_attention_bwd.launches``;
+    it raises for anything else.
+    """
+    cpu = _check_inputs("fused_attention_bwd", q, k, v, g)
+    *lead, n, h, hd = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    if cpu:
+        return attention_plain_bwd(q, k, v, g, scale)
+    b = math.prod(lead)
+    # g comes from autograd and may be strided or expanded: copied if the
+    # kernel cannot read it in place
+    q3, k3, v3, g3 = (_kernel_layout(t.reshape(b, n, h, hd)) for t in (q, k, v, g))
+    grads = [torch.empty((b, n, h, hd), dtype=q.dtype, device=q.device) for _ in range(3)]
+    if q3.numel() == 0:
+        return tuple(t.reshape(q.shape) for t in grads)
+    stats = torch.empty((3, b * h, n), dtype=torch.float32, device=q.device)  # m, l, t
+    lib = cuda_lib.load("attention_bwd", _BWD_SIGNATURES)
+    tensors = (q3, k3, v3, g3, *grads)
+    strides = [s for t in tensors for s in t.stride()[:3]]
+    status = lib.irw_attention_bwd(
+        *(t.data_ptr() for t in tensors), stats.data_ptr(),
+        _DTYPE_CODES[q.dtype], b, n, h, hd, float(scale), *strides,
+        cuda_lib.stream_of(q3))
+    cuda_lib.check(status, "fused_attention_bwd", lib)
+    fused_attention_bwd.launches += 1
+    return tuple(t.reshape(q.shape) for t in grads)
+
+
+fused_attention_bwd.launches = 0
+
+
+class _Attention(torch.autograd.Function):
+    """The custom VJP of ``_core``: saves q, k, v; the backward recomputes
+    the probabilities.  ``plain`` picks ``attention_plain`` and
+    ``attention_plain_bwd`` on any device in place of the kernel wrappers."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, plain):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.plain = scale, plain
+        return attention_plain(q, k, v, scale) if plain else _forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        bwd = attention_plain_bwd if ctx.plain else fused_attention_bwd
+        return (*bwd(q, k, v, g, ctx.scale), None, None)
+
+
+def fused_attention(q, k, v, *, scale: float | None = None):
+    """softmax(q·kᵀ·scale)·v per head; q, k, v ``(…, N, H, hd)`` of one shape.
+
+    ``scale`` defaults to 1/√hd.  CPU tensors: ``attention_plain`` forward,
+    ``attention_plain_bwd`` backward.  CUDA tensors: kernels K2 forward and
+    K3 backward (f32 or bf16, hd ∈ {32, 64, 128}), counted in
+    ``fused_attention.launches`` and ``fused_attention_bwd.launches``.
+    """
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _Attention.apply(q, k, v, float(scale), False)
+
+
 fused_attention.launches = 0
+
+
+def attention_plain_autograd(q, k, v, *, scale: float | None = None):
+    """``fused_attention`` with the plain versions on every device: the
+    forward is ``attention_plain``, the backward ``attention_plain_bwd``.
+    What the kernel route is held against on the card."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _Attention.apply(q, k, v, float(scale), True)
 
 
 def dot_product_attention(query, key, value, bias=None, mask=None,

@@ -1,13 +1,17 @@
 """The port's attention against irw_tpu's fused_attention (Pallas interpret
-mode on the CPU) and flax's dot_product_attention.
+mode on the CPU) and flax's dot_product_attention, forward and backward.
 
 Tolerances: 1e-5 in f32 (same math, another summation order).  In bf16
 both sides round the normalised probabilities and the output to bf16, so
-they may land one bf16 ulp apart: 2^-7 relative to the output's scale.
+they may land one bf16 ulp apart: 2^-7 relative to the output's scale.  The
+backward rounds P and ds to bf16 at the same points on both sides; another
+f32 accumulation order can move a ds element by one bf16 ulp, which dq and
+dk carry: 2^-6 of each gradient's max.
 """
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +21,11 @@ from flax.linen.attention import dot_product_attention as flax_attention
 from irw_tpu.ops.vmem_attention import fused_attention as jax_fused_attention
 from irw_tpu_torch.ops.attention import (
     attention_plain,
+    attention_plain_autograd,
+    attention_plain_bwd,
     dot_product_attention,
     fused_attention,
+    fused_attention_bwd,
     vmem_attention_fn,
 )
 
@@ -58,11 +65,17 @@ def test_explicit_scale():
 
 
 def test_fused_attention_raises_when_a_gradient_is_needed():
+    """A gradient of fused_attention is the backward's: on the CPU that is
+    attention_plain_bwd, bit for bit; where no kernel exists (a device that
+    is neither CPU nor CUDA) asking for one raises instead of falling back."""
     q, k, v = (torch.from_numpy(t).requires_grad_() for t in _qkv((1, 4, 1, 8)))
-    with pytest.raises(RuntimeError, match="A6/B2"):
-        fused_attention(q, k, v)
-    with torch.no_grad():
-        fused_attention(q, k, v)  # no gradient needed: fine
+    g = torch.from_numpy(_qkv((1, 4, 1, 8), seed=9)[0])
+    fused_attention(q, k, v).backward(g)
+    for leaf, ref in zip((q, k, v), attention_plain_bwd(q.detach(), k.detach(), v.detach(), g)):
+        torch.testing.assert_close(leaf.grad, ref, rtol=0, atol=0)
+    meta = torch.empty(1, 4, 1, 32, device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_attention(meta, meta, meta)
 
 
 def test_dot_product_attention_matches_flax_with_bias_and_mask():
@@ -107,3 +120,52 @@ def test_default_scale_is_inverse_sqrt_head_dim():
     q, k, v = (torch.from_numpy(t) for t in _qkv((1, 5, 1, 16), seed=6))
     torch.testing.assert_close(attention_plain(q, k, v),
                                attention_plain(q, k, v, scale=1 / math.sqrt(16)))
+
+
+def _jax_vjp(q, k, v, g, dtype):
+    """dq, dk, dv of irw_tpu's fused_attention (its Pallas backward kernel in
+    interpret mode) as f32 numpy."""
+    jq, jk, jv, jg = (jnp.asarray(t).astype(dtype) for t in (q, k, v, g))
+    _, vjp = jax.vjp(lambda a, b, c: jax_fused_attention(a, b, c, interpret=True), jq, jk, jv)
+    return [np.asarray(t, np.float32) for t in vjp(jg)]
+
+
+@pytest.mark.parametrize("shape", [(2, 50, 2, 32), (3, 17, 3, 16), (2, 2, 21, 1, 8)])
+def test_plain_bwd_matches_pallas_f32(shape):
+    q, k, v = _qkv(shape, seed=7)
+    g = _qkv(shape, seed=8)[0]
+    ours = attention_plain_bwd(*(torch.from_numpy(t) for t in (q, k, v, g)))
+    for a, ref in zip(ours, _jax_vjp(q, k, v, g, jnp.float32)):
+        np.testing.assert_allclose(a.numpy(), ref, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("shape", [(3, 50, 2, 64), (2, 33, 2, 32)])
+def test_plain_bwd_matches_pallas_bf16(shape):
+    q, k, v = _qkv(shape, seed=9)
+    g = _qkv(shape, seed=10)[0]
+    # round the inputs to bf16 once, so both sides start from the same values
+    tq, tk, tv, tg = (torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v, g))
+    ours = attention_plain_bwd(tq, tk, tv, tg)
+    refs = _jax_vjp(*(t.float().numpy() for t in (tq, tk, tv, tg)), jnp.bfloat16)
+    for a, ref in zip(ours, refs):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_allclose(a.float().numpy(), ref, atol=2 ** -6 * np.abs(ref).max(), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_on_cpu_is_the_plain_backward(dtype):
+    """On the CPU both autograd routes, the kernel wrapper's and the plain
+    one, give attention_plain_bwd's gradients exactly, and the kernel
+    wrappers count no launch."""
+    q, k, v = (torch.from_numpy(t).to(dtype) for t in _qkv((2, 11, 2, 32), seed=11))
+    g = torch.from_numpy(_qkv((2, 11, 2, 32), seed=12)[0]).to(dtype)
+    ref = attention_plain_bwd(q, k, v, g, 0.2)
+    before = (fused_attention.launches, fused_attention_bwd.launches)
+    for fn in (fused_attention, attention_plain_autograd):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, scale=0.2)
+        torch.testing.assert_close(out, attention_plain(q, k, v, 0.2), rtol=0, atol=0)
+        out.backward(g)
+        for leaf, r in zip(leaves, ref):
+            torch.testing.assert_close(leaf.grad, r, rtol=0, atol=0)
+    assert (fused_attention.launches, fused_attention_bwd.launches) == before

@@ -1,4 +1,4 @@
-"""The port's two CUDA kernels and their build, without JAX.
+"""The port's CUDA kernels and their build, without JAX.
 
 The tests marked ``cuda`` hold each kernel against its plain version on the
 card and skip elsewhere; on the card (no JAX there) run them with
@@ -10,7 +10,12 @@ import pytest
 import torch
 
 from irw_tpu_torch import cuda_lib
-from irw_tpu_torch.ops.attention import attention_plain, fused_attention
+from irw_tpu_torch.ops.attention import (
+    attention_plain,
+    attention_plain_bwd,
+    fused_attention,
+    fused_attention_bwd,
+)
 from irw_tpu_torch.ops.wavelets import haar_swt2, haar_swt2_plain
 
 
@@ -91,3 +96,63 @@ def test_attention_kernel_refuses_what_it_does_not_take(card):
     h = torch.zeros(1, 8, 1, 64, device=card, dtype=torch.float16)
     with torch.no_grad(), pytest.raises(ValueError, match="float32 or bfloat16"):
         fused_attention(h, h, h)
+
+
+def _k3_tol(dtype, ref):
+    # f32: same math, another summation order; bf16: P and ds are rounded at
+    # the same points on both sides, but the f32 accumulation order can move
+    # a ds element by one bf16 ulp
+    return 1e-5 if dtype == torch.float32 else 2 ** -6 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((3, 50, 2, 64), torch.float32),
+    ((2, 257, 6, 64), torch.bfloat16),
+    ((2, 70, 3, 32), torch.float32),
+    ((2, 70, 3, 32), torch.bfloat16),
+    ((1, 130, 2, 128), torch.bfloat16),
+    ((2, 3, 65, 1, 64), torch.float32),
+])
+def test_attention_bwd_kernel_on_card(card, shape, dtype):
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=card).to(dtype) for _ in range(4))
+    before = fused_attention_bwd.launches
+    outs = fused_attention_bwd(q, k, v, g)
+    torch.cuda.synchronize()
+    assert fused_attention_bwd.launches == before + 1
+    for out, ref in zip(outs, attention_plain_bwd(q, k, v, g)):
+        assert out.dtype == dtype and out.shape == q.shape
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=_k3_tol(dtype, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_autograd_launches_both_kernels(card, dtype):
+    gen = torch.Generator(device=card).manual_seed(4)
+    q, k, v, g = (torch.randn(2, 40, 2, 64, generator=gen, device=card).to(dtype)
+                  for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fused_attention.launches, fused_attention_bwd.launches)
+    fused_attention(*leaves).backward(g)
+    assert (fused_attention.launches, fused_attention_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    for leaf, ref in zip(leaves, fused_attention_bwd(q, k, v, g)):
+        torch.testing.assert_close(leaf.grad, ref, rtol=0, atol=0)
+    # a broadcast output gradient (stride 0) is copied before the kernel reads it
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fused_attention(*leaves).float().sum().backward()
+    ones = torch.ones_like(q)
+    for leaf, ref in zip(leaves, attention_plain_bwd(q, k, v, ones)):
+        torch.testing.assert_close(leaf.grad.float(), ref.float(), rtol=0,
+                                   atol=_k3_tol(dtype, ref))
+
+
+@pytest.mark.cuda
+def test_attention_bwd_kernel_refuses_what_it_does_not_take(card):
+    q = torch.zeros(1, 8, 1, 48, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        fused_attention_bwd(q, q, q, q)
+    h = torch.zeros(1, 8, 1, 64, device=card, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_attention_bwd(h, h, h, h)

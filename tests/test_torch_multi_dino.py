@@ -141,12 +141,45 @@ def test_chip_smoke_config_equals_yaml():
 
     cfg = flagship_yaml()
     assert chip_smoke.FLAGSHIP == {"name": cfg["name"], "kwargs": cfg["kwargs"]}
+    configs = YAML.parents[1]
+    for name, path in (("HASH_LOSS", "loss/hash_loss.yaml"), ("OPTIMIZER", "optimizer/basic.yaml")):
+        with open(configs / path) as f:
+            assert getattr(chip_smoke, name) == yaml.safe_load(f), name
+    with open(configs / "experience/default.yaml") as f:
+        experience = yaml.safe_load(f)
+    with open(YAML.parents[2] / "studies/voc_lambda_protocol.yaml") as f:
+        protocol = yaml.safe_load(f)["base_overrides"]
+    assert "experience.clip_grad=null" in protocol and "experience.sub_batch=96" in protocol
+    assert chip_smoke.PROTOCOL == {"clip_grad": None, "warm_up": experience["warm_up"],
+                                   "ortho_scale": experience["ortho_scale"]}
+    assert "dataset.sampler.kwargs.batch_size=96" in protocol and chip_smoke.TRAIN_BATCH == 96
 
 
 def test_training_mode_waits_for_the_training_slice():
+    """The training slice has landed: ``.train()`` trains.  Logits, not
+    codes, the advanced head's ortho term, BatchNorm batch statistics with
+    updated running statistics, and gradients through the remat'd banded
+    backbone; back in eval mode the model serves codes again."""
     cfg = flagship_yaml()
     model = get_model(cfg["name"], device="cpu", **dict(cfg["kwargs"],
                                                         vit_kwargs={"depth": 1, "img_size": 28}))
+    assert model.backbone.vit.remat_blocks and not model.frozen_backbone
     model.train()
-    with pytest.raises(NotImplementedError, match="A6"):
-        model(torch.zeros(1, 4, 28, 28, 3))
+    x = torch.from_numpy(np.random.RandomState(0).randn(3, 4, 28, 28, 3).astype(np.float32))
+    rngs = {"dropout": torch.Generator().manual_seed(1),
+            "band_drop": torch.Generator().manual_seed(2)}
+    var_before = model.hash_head.bn.running_var.clone()
+    logits, aux = model(x, rngs)
+    assert logits.shape == (3, 64) and not torch.isin(logits.detach(), torch.tensor([-1.0, 1.0])).all()
+    assert aux["ortho_raw"].item() > 0
+    assert aux["ortho_loss"].item() == pytest.approx(0.01 * aux["ortho_raw"].item())
+    assert not torch.equal(model.hash_head.bn.running_var, var_before)
+    (logits.sum() + aux["ortho_loss"]).backward()
+    vit = model.backbone.vit
+    for p in (vit.patch_embed.weight, vit.blocks[0].norm1.weight, vit.blocks[0].attn.query.weight,
+              model.head.query_tokens, model.hash_head.bn.weight):
+        assert p.grad is not None and p.grad.abs().sum() > 0
+    model.eval()
+    with torch.no_grad():
+        codes, aux = model(x)
+    assert torch.isin(codes, torch.tensor([-1.0, 1.0])).all() and aux["ortho_raw"] == 0

@@ -18,7 +18,12 @@ import irw_tpu_torch
 from irw_tpu_torch.data import SyntheticVOCDataset
 from irw_tpu_torch.engine import compute_embeddings, evaluate
 from irw_tpu_torch.models import get_model
-from irw_tpu_torch.ops.attention import attention_plain, fused_attention
+from irw_tpu_torch.ops.attention import (
+    attention_plain,
+    attention_plain_bwd,
+    fused_attention,
+    fused_attention_bwd,
+)
 from irw_tpu_torch.ops.wavelets import haar_swt2, haar_swt2_plain
 from irw_tpu_torch.transforms import DeviceTransform
 
@@ -32,6 +37,8 @@ def test_port_and_chip_smoke_import_no_jax():
     modules = sorted(m.name for m in pkgutil.walk_packages(irw_tpu_torch.__path__,
                                                            "irw_tpu_torch."))
     assert "irw_tpu_torch.ops.attention" in modules and "irw_tpu_torch.bridge" in modules
+    assert {"irw_tpu_torch.engine.train_step", "irw_tpu_torch.engine.optimizers",
+            "irw_tpu_torch.losses.hashing"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r} + ['irw_tpu_torch', 'chip_smoke']:\n"
@@ -75,12 +82,16 @@ def test_cpu_tensors_take_the_plain_path_uncounted():
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.randn(3, 8, 10).astype(np.float32))
     q, k, v = (torch.from_numpy(rng.randn(2, 9, 2, 32).astype(np.float32)) for _ in range(3))
-    before = (haar_swt2.launches, fused_attention.launches)
+    before = (haar_swt2.launches, fused_attention.launches, fused_attention_bwd.launches)
     torch.testing.assert_close(haar_swt2(x), haar_swt2_plain(x), rtol=0, atol=0)
     with torch.no_grad():
         torch.testing.assert_close(fused_attention(q, k, v), attention_plain(q, k, v),
                                    rtol=0, atol=0)
-    assert (haar_swt2.launches, fused_attention.launches) == before
+    for a, b in zip(fused_attention_bwd(q, k, v, q), attention_plain_bwd(q, k, v, q)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fused_attention(*leaves).sum().backward()
+    assert (haar_swt2.launches, fused_attention.launches, fused_attention_bwd.launches) == before
     with pytest.raises(ValueError):
         haar_swt2(x[0])
     with torch.no_grad(), pytest.raises(ValueError):
@@ -93,6 +104,10 @@ def test_other_devices_raise_instead_of_falling_back():
     q = torch.empty(1, 4, 1, 32, device="meta")
     with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
         fused_attention(q, q, q)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_attention_bwd(q, q, q, q)
+    with pytest.raises(ValueError, match="no kernel"):  # a CPU gradient for meta inputs
+        fused_attention_bwd(q, q, q, torch.zeros(1, 4, 1, 32))
 
 
 def test_unported_models_and_heads_name_their_roadmap_item():
