@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --phases card,build,attention,train
+    python3 chip_smoke.py --phases card,build,dwt,wcnn
 
 Drives the port's serving path — uint8 images → DeviceTransform (/255, Haar
 SWT: kernel K1) → the flagship MultiDinoHashing (4 × DINOv2 ViT-S/14 at
 224², bf16, cross_attention_advanced fusion, 64 bits; 12 attention blocks,
-kernel K2 each) → ±1 codes → Hamming retrieval metrics — and its training
+kernel K2 each) → ±1 codes → Hamming retrieval metrics — its training
 path — the same model in training mode with block remat, HashLoss and
-AdamW, attention backward on kernel K3 — and prints one line per phase:
+AdamW, attention backward on kernel K3 — and the DWT serving path — uint8
+images → DeviceTransform (Normalize, CustomTransform haar level 1: kernel
+K4) → RetrievalNet ``wcnn_attention_ce`` (4 × ResNet-50 at 112², CBAM
+subband gate, f32) → L2-normalised embeddings → cosine retrieval metrics —
+and prints one line per phase:
 
 1. card: name and power limit (nvidia-smi);
 2. build: the kernels from ``irw_tpu_torch/csrc``, one nvcc each, in parallel;
@@ -28,7 +33,15 @@ AdamW, attention backward on kernel K3 — and prints one line per phase:
    ``configs/optimizer/basic.yaml``'s AdamW at epoch 1): launch counts per
    step, trained img/s, peak memory and finite metrics over 5 timed steps;
    one step on the kernel route held against the plain route (loss, and
-   the gradient of each top-level module); one step profiled.
+   the gradient of each top-level module); one step profiled;
+9. dwt: K4 against ``lifting_multi_level_plain`` for haar at levels 1-3 at
+   the served shape (192, 224, 224), cdf97 at (192, 448, 448), bior48 and
+   daub4 at level 2, and a ragged batch of non-square planes; timed beside
+   the ``conv2d`` that computes haar level 1;
+10. wcnn: the full-width WCNN-attention model serves batches of 64: launch
+   counts per batch, embeddings held against the same model with K4's
+   plain version, img/s, peak memory, one batch profiled; then ``evaluate``
+   (cosine) on a CUB-test-sized synthetic set (5794 images, 100 classes).
 
 Then a JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -47,7 +60,8 @@ import time
 
 import numpy as np
 
-PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train")
+PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train", "dwt",
+          "wcnn")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -80,6 +94,19 @@ PROTOCOL = {"clip_grad": None, "warm_up": 0, "ortho_scale": None}
 # configs/transform/voc_swt.yaml's test split, device ops (Resize/CenterCrop
 # are host geometry; the synthetic images are made at 224 already)
 SWT_OPS = [("SWTTransform", {"level": 1, "wavelet": "haar"})]
+# configs/model/wcnn_attention_ce.yaml (name + kwargs) and
+# configs/transform/cub_dwt.yaml's test split, device ops (Resize/CenterCrop
+# are host geometry); tests/test_torch_wcnn_slice.py holds both to the files
+WCNN = {
+    "name": "RetrievalNet",
+    "kwargs": {"backbone_name": "wcnn_attention_ce", "embed_dim": 512, "norm_features": False,
+               "without_fc": False, "with_autocast": True, "attention": True,
+               "decom_level": 1, "wave": "haar", "feature_size": 512, "attention_type": "cbam",
+               "coarse_only": True, "num_classes": 64, "pretrained": False},
+}
+DWT_OPS = [("Normalize", {"mean": [0.485, 0.456, 0.406], "std": [0.229, 0.224, 0.225]}),
+           ("CustomTransform", {"decompose_levels": 1, "basis": "haar", "coarse_only": True,
+                                "ll_only": False})]
 
 BATCH = 64
 SERVE_BATCHES = 6      # timed on the host clock: more batches, less noise
@@ -104,6 +131,14 @@ ROUTE_LOSS_TOL = 1e-3
 ROUTE_COSINE = 0.999
 LOGIT_MARGIN = 0.05     # codes must agree wherever |logit| exceeds this
 VOC_ANCHOR_MAP = 0.3865
+# K4 and its plain version round every product, sum and quotient alike; the
+# limits, of max(1, max|plain|), leave room for an FMA contraction
+K4_TOL = {"haar": 1e-5, "other": 1e-4}
+K4_SHAPE = K1_SHAPE       # (3 · 64) planes of 224²: one served batch
+K4_CDF97_SHAPE = (3 * BATCH, 448, 448)   # configs/transform/cub_dwt_cdf97.yaml
+WCNN_BATCHES = 6
+WCNN_EMB_TOL = 1e-4      # K4 against its plain version, on the L2-normalised embeddings
+CUB_TEST = 5794          # CUB-200-2011's test split (100 classes)
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -144,6 +179,23 @@ def phase_card(state):
     print(smi[0], flush=True)  # name, power limit: as nvidia-smi gives them
     log("card", f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()} | "
                 f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+
+def log_unported_bounds():
+    """The least time the card could take for the TPU kernels not ported
+    yet, from the shapes their callers give them (PERF.md's table): K5 at
+    benchmarks/vmem_qkv_micro.py's defaults, K6 at the flagship's served
+    attention (4 bands x 64 images, 257 tokens, 6 heads of 64, bf16)."""
+    b, n, d, heads = 192, 257, 384, 6          # K5: x (b, n, d) → Q/K/V → attention
+    nbytes = 2 * (2 * b * n * d + 3 * d * d + 3 * d)
+    flops = 3 * 2 * b * n * d * d + 4 * b * heads * n * n * (d // heads)
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    log("card", f"K5 fused_qkv_attention ({b}, {n}, {d}) bf16, {heads} heads: bound "
+                f"{b_ms:.4f} ms ({b_by}); not ported")
+    b, n, h, hd = 4 * BATCH, 257, 6, 64        # K6: q, k, v, o (b, n, h, hd)
+    b_ms, b_by = bound_ms(4 * b * n * h * hd * 2, 4 * b * h * n * n * hd, "bfloat16")
+    log("card", f"K6 _flash_mha ({b}, {n}, {h}, {hd}) bf16: bound {b_ms:.4f} ms ({b_by}); "
+                "not ported")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -195,6 +247,7 @@ def phase_swt(state):
         raise AssertionError(f"K1 disagrees with its plain version: {err}")
     # yardstick: one conv with circular padding computes the same bands
     # (shifted by one row and column); TF32 off so it is the same f32 math
+    tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     s = math.sqrt(2.0) / 2.0
     w = torch.tensor([[[[1, 1], [1, 1]]], [[[1, 1], [-1, -1]]],
@@ -211,6 +264,7 @@ def phase_swt(state):
     plain_ms = time_ms(lambda: haar_swt2_plain(x))
     with torch.no_grad():
         lib_ms = time_ms(lambda: conv(x4))
+    torch.backends.cudnn.allow_tf32 = tf32
     n, h, w_ = K1_SHAPE
     nbytes = 4 * n * h * w_ * (1 + 4)
     flops = 16 * n * h * w_
@@ -357,12 +411,20 @@ def _flagship_model():
     return model
 
 
+def _kernel_wrappers():
+    """K1-K4's wrappers, whose ``launches`` each path sets to 0 and reads."""
+    from irw_tpu_torch.ops.attention import fused_attention, fused_attention_bwd
+    from irw_tpu_torch.ops.wavelets import haar_swt2, lifting_multi_level
+
+    return (haar_swt2, fused_attention, fused_attention_bwd, lifting_multi_level)
+
+
 def phase_serve(state):
     import torch
 
     from irw_tpu_torch.data import SyntheticVOCDataset
-    from irw_tpu_torch.ops.attention import attention_plain, fused_attention
-    from irw_tpu_torch.ops.wavelets import haar_swt2, haar_swt2_plain
+    from irw_tpu_torch.ops.attention import attention_plain
+    from irw_tpu_torch.ops.wavelets import haar_swt2_plain
     from irw_tpu_torch.transforms import DeviceTransform
 
     model = _flagship_model()
@@ -374,27 +436,29 @@ def phase_serve(state):
     ds = SyntheticVOCDataset(num_train=BATCH * (SERVE_BATCHES + 1), image_size=224, seed=0)
     batches = [ds.images[i * BATCH:(i + 1) * BATCH] for i in range(SERVE_BATCHES + 1)]
 
+    kernels = _kernel_wrappers()
     with torch.inference_mode():
         model(transform(batches[0]))  # warm-up: cuBLAS handles, allocator
         torch.cuda.synchronize()
-        haar_swt2.launches = fused_attention.launches = 0
+        for fn in kernels:
+            fn.launches = 0
         outs, per_batch = [], []
         t0 = time.perf_counter()
         for images in batches[1:]:
-            before = (haar_swt2.launches, fused_attention.launches)
+            before = [fn.launches for fn in kernels]
             bands = transform(images)
             logits, aux = model.forward_logits(bands)
             outs.append((images, logits, torch.sign(logits)))
-            per_batch.append((haar_swt2.launches - before[0],
-                              fused_attention.launches - before[1]))
+            per_batch.append(tuple(fn.launches - b for fn, b in zip(kernels, before)))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = {"haar_swt2": haar_swt2.launches, "fused_attention": fused_attention.launches}
+        counts = {fn.__name__: fn.launches for fn in kernels}
         state["launches"]["serve"] = counts
         log("serve", f"launches over {SERVE_BATCHES} batches: {counts}; per batch "
-                     f"(K1, K2): {per_batch}")
-        if per_batch != [(1, 12)] * SERVE_BATCHES:
-            raise AssertionError(f"expected K1 = 1 and K2 = 12 launches per batch, got {per_batch}")
+                     f"(K1, K2, K3, K4): {per_batch}")
+        if per_batch != [(1, 12, 0, 0)] * SERVE_BATCHES:
+            raise AssertionError(f"expected K1 = 1, K2 = 12, K3 = K4 = 0 launches per batch, "
+                                 f"got {per_batch}")
         ips = SERVE_BATCHES * BATCH / seconds
         log("serve", f"{ips:.1f} img/s (batch {BATCH}, SWT + 4 x ViT-S/14 + fusion + hash, "
                      f"bf16) | {state['card']}")
@@ -432,7 +496,7 @@ _KERNEL_GROUPS = (("K3 attention bwd", ("attention_bwd",)), ("K2 attention", ("a
                   ("reduce", ("reduce",)), ("elementwise", ("elementwise", "vectorized")))
 
 
-def _device_profile(phase: str, run, what: str, state) -> float | None:
+def _device_profile(phase: str, run, what: str, state, groups=_KERNEL_GROUPS) -> float | None:
     """Device time of one ``run()`` by kernel group, from torch.profiler,
     and the device's idle share over the call's wall time (which the
     profiler's own host overhead lengthens).  Returns the device-busy ms."""
@@ -454,16 +518,16 @@ def _device_profile(phase: str, run, what: str, state) -> float | None:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
-    groups = {g: 0.0 for g, _ in _KERNEL_GROUPS}
-    groups["other"] = 0.0
+    by_group = {g: 0.0 for g, _ in groups}
+    by_group["other"] = 0.0
     for name, us in by_name.items():
         low = name.lower()
-        group = next((g for g, keys in _KERNEL_GROUPS if any(k in low for k in keys)), "other")
-        groups[group] += us
+        group = next((g for g, keys in groups if any(k in low for k in keys)), "other")
+        by_group[group] += us
     log(phase, f"{what}: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, "
                f"idle share {1 - busy / wall_us:.3f} | {state['card']}")
     log(phase, "by group: " + ", ".join(f"{g} {us / 1e3:.2f} ms ({us / busy:.1%})"
-                                        for g, us in groups.items()))
+                                        for g, us in by_group.items()))
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(phase, f"{us / 1e3:8.3f} ms  {name[:110]}")
     return busy / 1e3
@@ -522,12 +586,7 @@ def phase_train(state):
     from irw_tpu_torch.engine import build_train_step, init_train_state
     from irw_tpu_torch.engine.train import _build_hyper
     from irw_tpu_torch.losses import build_losses
-    from irw_tpu_torch.ops.attention import (
-        attention_plain_autograd,
-        fused_attention,
-        fused_attention_bwd,
-    )
-    from irw_tpu_torch.ops.wavelets import haar_swt2
+    from irw_tpu_torch.ops.attention import attention_plain_autograd
     from irw_tpu_torch.transforms import DeviceTransform
 
     model = _flagship_model()
@@ -549,7 +608,7 @@ def phase_train(state):
     step(tstate, batches[0], hyper())  # warm-up: cuBLAS handles, allocator, build
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels = (haar_swt2, fused_attention, fused_attention_bwd)
+    kernels = _kernel_wrappers()
     for fn in kernels:
         fn.launches = 0
     per_step, metrics = [], []
@@ -563,9 +622,10 @@ def phase_train(state):
     counts = {fn.__name__: fn.launches for fn in kernels}
     state["launches"]["train"] = counts
     peak = torch.cuda.max_memory_allocated()
-    log("train", f"launches over {TRAIN_STEPS} steps: {counts}; per step (K1, K2, K3): {per_step}")
-    if per_step != [(1, 24, 12)] * TRAIN_STEPS:
-        raise AssertionError(f"expected K1 = 1, K2 = 24 and K3 = 12 launches per step, "
+    log("train", f"launches over {TRAIN_STEPS} steps: {counts}; per step (K1, K2, K3, K4): "
+                 f"{per_step}")
+    if per_step != [(1, 24, 12, 0)] * TRAIN_STEPS:
+        raise AssertionError(f"expected K1 = 1, K2 = 24, K3 = 12 and K4 = 0 launches per step, "
                              f"got {per_step}")
     log("train", f"{TRAIN_STEPS * TRAIN_BATCH / seconds:.1f} trained img/s, "
                  f"{seconds / TRAIN_STEPS * 1e3:.1f} ms per step (batch {TRAIN_BATCH}, bf16, "
@@ -655,6 +715,217 @@ def phase_retrieval(state):
     if round(voc["map"], 4) != VOC_ANCHOR_MAP:
         raise AssertionError(f"VOC anchor map {voc['map']} != {VOC_ANCHOR_MAP}")
 
+def _lifting_flops(n: int, h: int, w: int, levels: int, basis: str) -> float:
+    """Operations of the multi-level lifting DWT: per level, each step adds
+    2 per tap (1 mul + 1 add; a cdf97 pair step 3) to every target element,
+    along H over the plane and along W over the rows the next stage needs,
+    then one scale per element and the v6 products."""
+    from irw_tpu_torch.ops.wavelets.lifting_dwt import kernel_steps
+
+    steps, _ = kernel_steps(basis)
+    per_pair = sum(3 if pair else 2 * len(shifts) for _, pair, shifts, _ in steps)
+    flops = 0.0
+    for lvl in range(levels):
+        hl, wl = h >> lvl, w >> lvl
+        rows = hl if lvl == levels - 1 else hl // 2   # the W pass of an earlier level: LL only
+        flops += n * (wl * (hl // 2) * per_pair + hl * wl          # H pass and its scale
+                      + rows * (wl // 2) * per_pair + 2 * rows * wl)  # W pass, scale, v6
+    return flops
+
+
+def _k4_case(basis, levels, shape, seed, time_it=False):
+    """K4 against ``lifting_multi_level_plain`` on uniform [0, 1) planes;
+    returns (x, max error, max|plain|)."""
+    import torch
+
+    from irw_tpu_torch.ops.wavelets import lifting_multi_level, lifting_multi_level_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(shape, generator=gen, device="cuda") * 2.0 - 1.0
+    out = lifting_multi_level(x, levels, basis)
+    ref = lifting_multi_level_plain(x, levels, basis)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    peak = ref.abs().max().item()
+    tol = K4_TOL["haar" if basis == "haar" else "other"] * max(1.0, peak)
+    n, h, w = shape
+    msg = (f"K4 {basis} l={levels} {tuple(shape)} f32: max|kernel - plain| = {err:.3e} "
+           f"(limit {tol:.3e})")
+    if time_it:
+        ms = time_ms(lambda: lifting_multi_level(x, levels, basis))
+        nbytes = 4 * (n * h * w + n * 4 * (h >> levels) * (w >> levels))
+        b_ms, b_by = bound_ms(nbytes, _lifting_flops(n, h, w, levels, basis), "float32")
+        msg += f" | kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+    log("dwt", msg)
+    if not (err <= tol and out.shape == ref.shape and torch.isfinite(out).all()):
+        raise AssertionError(f"K4 disagrees with its plain version: {basis} l={levels} "
+                             f"{shape}: {err} > {tol}")
+    return x, err
+
+
+def phase_dwt(state):
+    import torch
+    import torch.nn.functional as F
+
+    from irw_tpu_torch.ops.wavelets import lifting_multi_level, lifting_multi_level_plain
+
+    for basis, levels, shape in [("haar", 2, K4_SHAPE), ("haar", 3, K4_SHAPE),
+                                 ("cdf97", 2, K4_CDF97_SHAPE), ("bior48", 2, K4_SHAPE),
+                                 ("daub4", 2, K4_SHAPE), ("haar", 2, (5, 72, 200)),
+                                 ("coif12", 2, (5, 72, 200)), ("rev_bior_spline_39", 1, (3, 20, 12))]:
+        _k4_case(basis, levels, shape, seed=5, time_it=shape[0] == 3 * BATCH)
+
+    # cdf97 level 1 at cub_dwt_cdf97.yaml's 448² (no single library call computes it)
+    x, err = _k4_case("cdf97", 1, K4_CDF97_SHAPE, seed=6)
+    ms = time_ms(lambda: lifting_multi_level(x, 1, "cdf97"))
+    plain_ms = time_ms(lambda: lifting_multi_level_plain(x, 1, "cdf97"), iters=5)
+    n, h, w = K4_CDF97_SHAPE
+    b_ms, b_by = bound_ms(4 * n * h * w * 2, _lifting_flops(n, h, w, 1, "cdf97"), "float32")
+    log("dwt", f"K4 cdf97 l=1 at {K4_CDF97_SHAPE}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+               f"library — | bound {b_ms:.4f} ms ({b_by}) | {state['card']}")
+
+    # the served case, haar level 1 at (192, 224, 224)
+    x, err = _k4_case("haar", 1, K4_SHAPE, seed=7)
+    # yardstick: conv2d, stride 2, with the four 2x2 haar · v6 filters computes
+    # the same bands up to rounding; TF32 off so it is the same f32 math
+    r = 1.0 / math.sqrt(2.0)
+    filt = torch.tensor([[[[0.25, 0.25], [0.25, 0.25]]], [[[-0.5, -0.5], [0.5, 0.5]]],
+                         [[[-0.5, 0.5], [-0.5, 0.5]]], [[[r, -r], [-r, r]]]],
+                        dtype=torch.float32, device="cuda")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        x4 = x[:, None]
+        with torch.no_grad():
+            lib_err = (F.conv2d(x4, filt, stride=2) - lifting_multi_level_plain(x)).abs().max()
+            log("dwt", f"library conv2d(stride 2, haar·v6 filters) vs plain: {lib_err.item():.3e}")
+            lib_ms = time_ms(lambda: F.conv2d(x4, filt, stride=2))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    ms = time_ms(lambda: lifting_multi_level(x))
+    plain_ms = time_ms(lambda: lifting_multi_level_plain(x))
+    n, h, w = K4_SHAPE
+    b_ms, b_by = bound_ms(4 * n * h * w * 2, _lifting_flops(n, h, w, 1, "haar"), "float32")
+    log("dwt", f"K4 haar l=1 at the served shape {K4_SHAPE}: kernel {ms:.4f} ms | plain "
+               f"{plain_ms:.4f} ms | conv2d {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | "
+               f"{state['card']}")
+    state["kernels"]["lifting_multi_level"] = {
+        "name": "lifting_multi_level", "route": "cuda",
+        "source": "irw_tpu_torch/csrc/lifting_dwt.cu",
+        "replaces": "irw_tpu/ops/wavelets/pallas_dwt.py:208", "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms}
+
+
+_WCNN_GROUPS = (("K4 lifting", ("lift_h_kernel", "lift_w_kernel")),
+                ("BatchNorm/ReLU elementwise", ("bn_fw", "batch_norm", "batchnorm", "elementwise",
+                                                "vectorized")),
+                ("cuDNN convs", ("conv", "xmma", "implicit", "cudnn", "fprop", "winograd",
+                                 "gemm", "cutlass", "nvjet", "sm90_", "sm80_")),
+                ("reduce", ("reduce",)))
+
+
+def phase_wcnn(state):
+    """The DWT serving path at full width: WCNN_BATCHES timed batches of 64,
+    the K4 route held against the plain route, one batch profiled, then the
+    cosine ``evaluate`` on a CUB-test-sized set."""
+    import torch
+
+    from irw_tpu_torch.data import SyntheticDataset
+    from irw_tpu_torch.engine import evaluate
+    from irw_tpu_torch.models import get_model
+    from irw_tpu_torch.models.wresnet import WCNNAttention
+    from irw_tpu_torch.ops.wavelets import lifting_multi_level_plain
+    from irw_tpu_torch.transforms import DeviceTransform, pipeline
+
+    t0 = time.perf_counter()
+    model = get_model(WCNN["name"], seed=0, **WCNN["kwargs"])
+    build_s = time.perf_counter() - t0
+    assert isinstance(model, WCNNAttention) and model.backbone.out_dim == 2048
+    assert len(model.backbone.branches) == 4 and len(model.backbone.branches[0].blocks) == 16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    precision = (f"f32 parameters; cuDNN convs allow TF32 = {torch.backends.cudnn.allow_tf32}, "
+                 f"matmuls allow TF32 = {torch.backends.cuda.matmul.allow_tf32}")
+    log("wcnn", f"model built in {build_s:.1f} s (4 x ResNet-50, CBAM gate, 64 classes); "
+                f"{precision}")
+    transform = DeviceTransform(DWT_OPS)
+    ds = SyntheticDataset(num_samples=BATCH * (WCNN_BATCHES + 1), num_classes=100,
+                          image_size=224, seed=4)
+    batches = [ds.images[i * BATCH:(i + 1) * BATCH] for i in range(WCNN_BATCHES + 1)]
+    kernels = _kernel_wrappers()
+
+    with torch.inference_mode():
+        model(transform(batches[0]))  # warm-up: cuDNN plans, allocator, K4's build
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels:
+            fn.launches = 0
+        outs, per_batch = [], []
+        t0 = time.perf_counter()
+        for images in batches[1:]:
+            before = [fn.launches for fn in kernels]
+            emb, aux = model(transform(images))
+            outs.append((images, emb, aux["gate"]))
+            per_batch.append(tuple(fn.launches - b for fn, b in zip(kernels, before)))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {fn.__name__: fn.launches for fn in kernels}
+        state["launches"]["wcnn"] = counts
+        peak = torch.cuda.max_memory_allocated()
+        log("wcnn", f"launches over {WCNN_BATCHES} batches: {counts}; per batch "
+                    f"(K1, K2, K3, K4): {per_batch}")
+        if per_batch != [(0, 0, 0, 1)] * WCNN_BATCHES:
+            raise AssertionError(f"expected K4 = 1 and K1 = K2 = K3 = 0 launches per batch, "
+                                 f"got {per_batch}")
+        log("wcnn", f"{WCNN_BATCHES * BATCH / seconds:.1f} img/s (batch {BATCH}, Normalize + "
+                    f"haar DWT + 4 x ResNet-50 at 112² + CBAM gate) | peak memory "
+                    f"{peak / 2 ** 30:.2f} GiB | {precision} | {state['card']}")
+
+        # the same model with CustomTransform on K4's plain version
+        kernel_fn = pipeline.lifting_multi_level
+        pipeline.lifting_multi_level = lifting_multi_level_plain
+        try:
+            for i, (images, emb, gate) in enumerate(outs):
+                ref, ref_aux = model(transform(images))
+                if not (emb.shape == (BATCH, 2048) and torch.isfinite(emb).all()
+                        and torch.allclose(emb.norm(dim=-1), torch.ones_like(emb[:, 0]),
+                                           atol=1e-5)
+                        and gate.shape == (BATCH, 4)):
+                    raise AssertionError(f"batch {i}: embeddings not finite, unit, (64, 2048)")
+                dmax = (emb - ref).abs().max().item()
+                gmax = (gate - ref_aux["gate"]).abs().max().item()
+                log("wcnn", f"batch {i}: max|emb - plain route| = {dmax:.3e} (limit "
+                            f"{WCNN_EMB_TOL}), gate {gmax:.3e}")
+                if not dmax <= WCNN_EMB_TOL:
+                    raise AssertionError(f"batch {i}: the K4 route disagrees with the plain "
+                                         f"route: {dmax}")
+        finally:
+            pipeline.lifting_multi_level = kernel_fn
+
+        images = batches[1]
+        busy_ms = _device_profile("wcnn", lambda: model(transform(images)),
+                                  f"one batch of {BATCH}", state, _WCNN_GROUPS)
+        if busy_ms is not None:
+            batch_ms = seconds / WCNN_BATCHES * 1e3
+            log("wcnn", f"idle share against the timed batches' {batch_ms:.1f} ms: "
+                        f"{1 - busy_ms / batch_ms:.3f}")
+
+    t0 = time.perf_counter()
+    cub = SyntheticDataset(num_samples=CUB_TEST, num_classes=100, image_size=224, seed=5)
+    make_s = time.perf_counter() - t0
+    k = min(5000, len(cub) - 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = evaluate(model, cub, transform, batch_size=BATCH, top_k=k, distance_metric="cosine")
+    eval_s = time.perf_counter() - t0
+    log("wcnn", f"evaluate (cosine, k {k}) on {len(cub)} images of 224², 100 classes: "
+                f"{eval_s:.2f} s ({make_s:.1f} s to make the set); map "
+                f"{res['map_level0']:.4f}, map_at_r {res['map_at_r_level0']:.4f}, recall@1 "
+                f"{res['recall_at_1_level0']:.4f} | {state['card']}")
+    if not (all(math.isfinite(v) for v in res.values()) and 0.0 <= res["map_level0"] <= 1.0
+            and res["num_k_level0"] == k):
+        raise AssertionError(f"evaluate gave non-finite or out-of-range metrics: {res}")
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -680,23 +951,30 @@ def main(argv=None) -> int:
 
     state = {"kernels": {}, "card": None, "launches": {}}
     phase_card(state)
+    log_unported_bounds()
     runners = {"build": phase_build, "swt": phase_swt, "attention": phase_attention,
                "serve": phase_serve, "profile": phase_profile, "retrieval": phase_retrieval,
-               "train": phase_train}
+               "train": phase_train, "dwt": phase_dwt, "wcnn": phase_wcnn}
     for name in phases:
         if name != "card":
             t0 = time.perf_counter()
             runners[name](state)
             log(name, f"phase done in {time.perf_counter() - t0:.1f} s")
 
-    # launches: the count over the training phase's timed steps, the path
-    # that runs all three kernels; per step and per served batch beside it
-    serve, train = (state["launches"].get(k, {}) for k in ("serve", "train"))
-    kernels = [dict(k, launches=train.get(k["name"]),
-                    launches_per_train_step=train.get(k["name"], 0) / TRAIN_STEPS if train else None,
-                    launches_per_served_batch=(serve.get(k["name"], 0) / SERVE_BATCHES
-                                               if serve else None))
-               for k in state["kernels"].values()]
+    # launches: the count over the run of the path that runs the kernel (the
+    # training phase's timed steps for K1-K3, the wcnn phase's batches for
+    # K4); per train step and per served batch of each serving path beside it
+    runs = state["launches"]
+    train = runs.get("train", {})
+    served = {"flagship": ("serve", SERVE_BATCHES), "wcnn": ("wcnn", WCNN_BATCHES)}
+    kernels = []
+    for k in state["kernels"].values():
+        main_path = runs.get("wcnn" if k["name"] == "lifting_multi_level" else "train", {})
+        kernels.append(dict(
+            k, launches=main_path.get(k["name"]),
+            launches_per_train_step=train.get(k["name"], 0) / TRAIN_STEPS if train else None,
+            launches_per_served_batch={path: runs[key].get(k["name"], 0) / n
+                                       for path, (key, n) in served.items() if key in runs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,11 @@ are read with ``np.asarray``.  Handled layouts:
 
 - ``BandedViT_0/VmapVisionTransformer_0/…`` with the band axis leading
   (a ``MultiDinoHashing``), or a bare ``VisionTransformer`` tree;
+- ``BandedResNet_0/VmapResNet_0/…`` with the band axis leading (a ``WCNN``
+  or ``WCNNAttention``; the subband gate's Dense or ECA conv and the
+  classifiers ``DenseGeneral_0`` and ``Dense_0`` beside it), or a bare
+  ``ResNet`` tree (``Conv_0``, ``BatchNorm_0``, ``Bottleneck_i`` or
+  ``BasicBlock_i``), or a bare subband gate;
 - the scanned block stack ``blocks/Block_0/…`` with a depth axis after the
   band axis (``tools/convert_torch_weights.py:189-205``), its grouped form
   ``blocks/inner/Block_0/…`` (depth split as (G, k)), and unrolled
@@ -122,15 +127,87 @@ def _fusion_head(t) -> dict:
     return sd
 
 
+def _conv(kernel) -> np.ndarray:
+    """flax conv kernel (…, kh, kw, in, out) → torch (…, out, in, kh, kw)."""
+    return np.moveaxis(_a(kernel), (-1, -2), (-4, -3))
+
+
+def _batch_norm(params, stats) -> dict:
+    return {"weight": _a(params["scale"]), "bias": _a(params["bias"]),
+            "running_mean": _a(stats["mean"]), "running_var": _a(stats["var"]),
+            "num_batches_tracked": np.array(0, dtype=np.int64)}
+
+
+def _resnet(params, stats) -> dict:
+    """A ``ResNet`` tree (no band axis) → ``models.resnet.ResNet``."""
+    sd = {"stem.weight": _conv(params["Conv_0"]["kernel"])}
+    sd.update(_prefixed("stem_norm", _batch_norm(params["BatchNorm_0"], stats["BatchNorm_0"])))
+    name = "Bottleneck" if "Bottleneck_0" in params else "BasicBlock"
+    i = 0
+    while f"{name}_{i}" in params:
+        blk, blk_stats = params[f"{name}_{i}"], stats[f"{name}_{i}"]
+        j = 0
+        while f"Conv_{j}" in blk:
+            sd[f"blocks.{i}.convs.{j}.weight"] = _conv(blk[f"Conv_{j}"]["kernel"])
+            sd.update(_prefixed(f"blocks.{i}.norms.{j}",
+                                _batch_norm(blk[f"BatchNorm_{j}"], blk_stats[f"BatchNorm_{j}"])))
+            j += 1
+        i += 1
+    return sd
+
+
+def _gate(tree) -> dict:
+    """A subband gate's own tree → its state dict: ``SubbandCBAM``
+    (``SubbandChannelGate_0``), ``SubbandChannelGate`` (``Dense_0``,
+    ``Dense_1``: the MLP shared by both pools) or ``SubbandEca`` (``Conv_0``,
+    kernel (k, 1, 1))."""
+    if "SubbandChannelGate_0" in tree:
+        return _prefixed("gate", _gate(tree["SubbandChannelGate_0"]))
+    if "Conv_0" in tree:
+        return {"weight": _a(tree["Conv_0"]["kernel"]).reshape(1, 1, -1)}
+    return {**_prefixed("fc1", _dense(tree["Dense_0"])), **_prefixed("fc2", _dense(tree["Dense_1"]))}
+
+
+_GATES = ("SubbandCBAM_0", "SubbandEca_0", "SubbandChannelGate_0")
+
+
+def _wcnn(variables) -> dict:
+    """``WCNN`` / ``WCNNAttention``: per-band ResNets, gate, classifiers."""
+    params = variables["params"]
+    tree = params["BandedResNet_0"]["VmapResNet_0"]
+    stats = variables["batch_stats"]["BandedResNet_0"]["VmapResNet_0"]
+    bands = _a(tree["Conv_0"]["kernel"]).shape[0]
+    sd = {}
+    for s in range(bands):
+        take = (lambda t, s=s: _map_leaves(lambda x: x[s], t))
+        sd.update(_prefixed(f"backbone.branches.{s}", _resnet(take(tree), take(stats))))
+    for name in _GATES:
+        if name in params:
+            sd.update(_prefixed("gate", _gate(params[name])))
+    if "DenseGeneral_0" in params:
+        sd.update(_prefixed("branch_classifier", _dense(params["DenseGeneral_0"])))
+    if "Dense_0" in params:
+        sd.update(_prefixed("classifier", _dense(params["Dense_0"])))
+    return sd
+
+
 def from_jax_variables(variables) -> dict:
-    """flax variables of a ``MultiDinoHashing`` or a ``VisionTransformer`` →
-    the port module's state dict (numpy arrays)."""
+    """flax variables of a ``MultiDinoHashing``, ``VisionTransformer``,
+    ``WCNN``, ``WCNNAttention``, ``ResNet`` or subband gate → the port
+    module's state dict (numpy arrays)."""
     params = variables["params"]
     if "PatchEmbed_0" in params:
         return _vit(params, lead=0)
+    if "BandedResNet_0" in params:
+        return _wcnn(variables)
+    if "Conv_0" in params and "BatchNorm_0" in params:
+        return _resnet(params, variables["batch_stats"])
+    if set(params) in ({"SubbandChannelGate_0"}, {"Conv_0"}, {"Dense_0", "Dense_1"}):
+        return _gate(params)
     if "BandedViT_0" not in params:
-        raise ValueError(f"no bridge for a tree with {sorted(params)}; this slice "
-                         "carries MultiDinoHashing and VisionTransformer")
+        raise ValueError(f"no bridge for a tree with {sorted(params)}; the port carries "
+                         "MultiDinoHashing, VisionTransformer, WCNN, WCNNAttention, ResNet "
+                         "and the subband gates")
     sd = _prefixed("backbone.vit", _vit(params["BandedViT_0"]["VmapVisionTransformer_0"], lead=1))
     heads = [k for k in params if k.startswith("CrossAttentionBottleneckHead")]
     if len(heads) != 1:

@@ -1,0 +1,160 @@
+"""ResNet family, the conv backbone of the wavelet-CNN models (port of
+``irw_tpu/models/resnet.py:23-125``).
+
+Input and output keep the JAX package's NHWC layout at the module boundary:
+``ResNet`` takes (B, H, W, C) and returns pooled (B, D) features; inside,
+the tensors are NCHW views of channels-last memory, which cuDNN takes as
+they are.  f32 throughout.  flax semantics kept:
+
+- ``BatchNorm``: eps 1e-5, flax momentum 0.9 (= torch momentum 0.1); eval
+  uses the running statistics; training normalises with the batch
+  statistics as flax computes them and updates the running variance with
+  the BIASED batch variance (torch's own module would store the unbiased
+  one);
+- 3×3 convs pad 1, the 7×7 stride-2 stem pads 3; the 1×1 projections of
+  ``padding='SAME'`` pad nothing at any size;
+- the stem's 3×3 stride-2 max-pool pads with −inf (the 1×1 stem without
+  it belongs to ``WaveResNet``, ROADMAP A10);
+- convs are bias-free; parameters start from flax's initialisers
+  (lecun-normal kernels, BatchNorm scale 1 and bias 0).
+
+``convs`` and ``norms`` of a block follow flax's auto-naming order
+(``Conv_i``/``BatchNorm_i``; a projection comes last), which is all the
+bridge needs.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from irw_tpu_torch.models.layers import trunc_normal_
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None):
+    """flax ``lecun_normal``: truncated normal (±2σ) of variance 1/fan_in,
+    fan_in = every axis but the output one."""
+    fan_in = weight[0].numel()
+    # 0.8796 is the std of a unit normal truncated at ±2
+    return trunc_normal_(weight, 1.0 / math.sqrt(fan_in) / 0.87962566, generator)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """flax ``BatchNorm`` over the channel axis of an NCHW tensor.  Eval:
+    PyTorch's (cuDNN's) batch norm on the running statistics.  Training:
+    flax's arithmetic (``flax/linen/normalization.py`` ``_compute_stats``,
+    ``_normalize``): var = max(E[x²] − E[x]², 0), y = (x − mean) ·
+    (rsqrt(var + eps) · scale) + bias, and the running statistics updated in
+    place as 0.9·running + 0.1·batch with that biased variance."""
+
+    momentum_flax = 0.9
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=1.0 - self.momentum_flax)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum_flax
+            self.running_mean.mul_(m).add_((1.0 - m) * mean)
+            self.running_var.mul_(m).add_((1.0 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+
+
+def _conv(cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding, bias=False)
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, cin: int, filters: int, stride: int = 1):
+        super().__init__()
+        convs = [_conv(cin, filters, 3, stride, 1), _conv(filters, filters, 3, 1, 1)]
+        self.project = stride != 1 or cin != filters
+        if self.project:
+            convs.append(_conv(cin, filters, 1, stride))
+        self.convs = nn.ModuleList(convs)
+        self.norms = nn.ModuleList(BatchNorm(c.out_channels) for c in convs)
+
+    def forward(self, x):
+        y = F.relu(self.norms[0](self.convs[0](x)))
+        y = self.norms[1](self.convs[1](y))
+        residual = self.norms[2](self.convs[2](x)) if self.project else x
+        return F.relu(y + residual)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, cin: int, filters: int, stride: int = 1):
+        super().__init__()
+        convs = [_conv(cin, filters, 1), _conv(filters, filters, 3, stride, 1),
+                 _conv(filters, filters * 4, 1)]
+        self.project = stride != 1 or cin != filters * 4
+        if self.project:
+            convs.append(_conv(cin, filters * 4, 1, stride))
+        self.convs = nn.ModuleList(convs)
+        self.norms = nn.ModuleList(BatchNorm(c.out_channels) for c in convs)
+
+    def forward(self, x):
+        y = F.relu(self.norms[0](self.convs[0](x)))
+        y = F.relu(self.norms[1](self.convs[1](y)))
+        y = self.norms[2](self.convs[2](y))
+        residual = self.norms[3](self.convs[3](x)) if self.project else x
+        return F.relu(y + residual)
+
+
+BLOCKS = {"basic": BasicBlock, "bottleneck": Bottleneck}
+
+
+class ResNet(nn.Module):
+    """Stage-structured ResNet: (B, H, W, C) → globally average-pooled (B, D)."""
+
+    def __init__(self, stage_sizes=(3, 4, 6, 3), block: str = "bottleneck", width: int = 64):
+        super().__init__()
+        cls = BLOCKS[block]
+        self.stem = _conv(3, width, 7, 2, 3)
+        self.stem_norm = BatchNorm(width)
+        blocks, cin = [], width
+        for stage, num_blocks in enumerate(stage_sizes):
+            filters = width * 2 ** stage
+            for i in range(num_blocks):
+                blocks.append(cls(cin, filters, 2 if stage > 0 and i == 0 else 1))
+                cin = filters * cls.expansion
+        self.blocks = nn.ModuleList(blocks)
+        self.out_dim = cin
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        for mod in self.modules():
+            if isinstance(mod, nn.Conv2d):
+                lecun_normal_(mod.weight, generator)
+            elif isinstance(mod, BatchNorm):
+                mod.reset_parameters()
+
+    def forward(self, x):
+        x = x.permute(0, 3, 1, 2)  # NHWC memory as an NCHW view (channels last)
+        x = F.max_pool2d(F.relu(self.stem_norm(self.stem(x))), 3, 2, padding=1)
+        for blk in self.blocks:
+            x = blk(x)
+        return x.mean(dim=(2, 3))
+
+
+def resnet18(**kw) -> ResNet:
+    return ResNet(stage_sizes=(2, 2, 2, 2), block="basic", **kw)
+
+
+def resnet34(**kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), block="basic", **kw)
+
+
+def resnet50(**kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), block="bottleneck", **kw)
+

@@ -7,10 +7,15 @@ configured ops, in order:
 - ``Normalize`` (ImageNet mean/std by default);
 - ``SWTTransform`` with ``wavelet="haar"``, ``level=1``: kernel K1 on the
   card (``ops.wavelets.haar_swt2``) → (B, 4, H, W, C), bands [LL, LH, HL, HH];
+- ``CustomTransform`` (the lifting DWT, ``pipeline.py:401-447``): kernel K4
+  (``ops.wavelets.lifting_multi_level``) where the JAX package calls its
+  Pallas kernel, else the plain lifting stack → (B, 4, h, w, C), or
+  (B, h, w, C) with ``ll_only``, or the 3·levels + 1 band stack with
+  ``coarse_only=False``;
 - ``RGBToBGR``.
 
-``CustomTransform``, ``DWTTransform``, ``ResizeSubBands`` and SWT with
-another wavelet or level wait for ROADMAP A9.  The host stage (PIL
+``DWTTransform``, ``ResizeSubBands`` and SWT with another wavelet or level
+wait for ROADMAP A9.  The host stage (PIL
 geometry) waits for A8: the served datasets hold images at their final size.
 """
 
@@ -22,12 +27,14 @@ import numpy as np
 import torch
 
 from irw_tpu_torch.device import resolve_device
+from irw_tpu_torch.ops.wavelets.lifting import BASES, lifting_decompose, subband_stack
+from irw_tpu_torch.ops.wavelets.lifting_dwt import lifting_multi_level
 from irw_tpu_torch.ops.wavelets.swt import haar_swt2
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
-_LATER = ("CustomTransform", "DWTTransform", "ResizeSubBands")
+_LATER = ("DWTTransform", "ResizeSubBands")
 
 
 class DeviceTransform:
@@ -42,7 +49,7 @@ class DeviceTransform:
                                            or int(kw.get("level", 1)) != 1):
                 raise NotImplementedError("SWTTransform other than haar level 1 "
                                           "waits for ROADMAP A9")
-            if name not in ("Normalize", "SWTTransform", "RGBToBGR"):
+            if name not in ("Normalize", "SWTTransform", "CustomTransform", "RGBToBGR"):
                 raise ValueError(f"unknown device transform {name!r}")
         self.device = resolve_device(device)
 
@@ -60,6 +67,46 @@ class DeviceTransform:
                 b, h, w, c = x.shape
                 flat = x.permute(0, 3, 1, 2).reshape(b * c, h, w)
                 x = haar_swt2(flat).reshape(b, c, 4, h, w).permute(0, 2, 3, 4, 1)
+            elif name == "CustomTransform":
+                x = custom_transform(x, **kw)
             elif name == "RGBToBGR":
                 x = x.flip(-1)
         return x
+
+
+def custom_transform(x: torch.Tensor, decompose_levels=None, levels=1, basis: str = "haar",
+                     ll_only: bool = False, coarse_only: bool = True, **_) -> torch.Tensor:
+    """The ``CustomTransform`` branch of the JAX ``DeviceTransform``
+    (``pipeline.py:401-447``) on (B, H, W, C), with its own dispatch:
+
+    1. the coarsest level's four bands of H, W divisible by 2ˡ: kernel K4;
+    2. otherwise ``coarse_only`` or one level: ``subband_stack`` (pads H and
+       W to a multiple first), also for ``ll_only``;
+    3. otherwise the full stack: coarsest LL, then every level's details
+       from coarse to fine, finer levels average-pooled to the coarsest size
+       (the 7-band input of ``WCNN_ALL`` at two levels).
+
+    Routes 2 and 3 are plain PyTorch on every device because the JAX package
+    computes them in jnp, outside its kernel: that is its dispatch, not a
+    fallback (``chip_smoke.py`` counts K4's launches on the served path)."""
+    levels = int(levels if decompose_levels is None else decompose_levels)
+    if basis not in BASES:
+        raise ValueError(f"CustomTransform: unknown lifting basis {basis!r}; one of {list(BASES)}")
+    b, h, w, c = x.shape
+    divisible = h % 2 ** levels == 0 and w % 2 ** levels == 0
+    if (coarse_only or levels == 1) and not ll_only and divisible:
+        flat = lifting_multi_level(x.permute(0, 3, 1, 2).reshape(b * c, h, w), levels, basis)
+        ho, wo = flat.shape[-2:]
+        return flat.reshape(b, c, 4, ho, wo).permute(0, 2, 3, 4, 1)
+    if coarse_only or levels == 1:
+        return subband_stack(x, levels=levels, basis=basis, ll_only=ll_only)
+    approx, details = lifting_decompose(x.permute(0, 3, 1, 2), levels=levels, basis=basis)
+    th, tw = approx[-1].shape[-2:]
+    bands = [approx[-1]]
+    for lvl in range(levels - 1, -1, -1):
+        for det in details[lvl]:
+            factor = det.shape[-1] // tw
+            if factor > 1:
+                det = det.reshape(b, c, th, factor, tw, factor).mean(dim=(3, 5))
+            bands.append(det)
+    return torch.stack(bands, dim=1).movedim(2, -1)

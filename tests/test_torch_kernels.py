@@ -16,7 +16,12 @@ from irw_tpu_torch.ops.attention import (
     fused_attention,
     fused_attention_bwd,
 )
-from irw_tpu_torch.ops.wavelets import haar_swt2, haar_swt2_plain
+from irw_tpu_torch.ops.wavelets import (
+    haar_swt2,
+    haar_swt2_plain,
+    lifting_multi_level,
+    lifting_multi_level_plain,
+)
 
 
 @pytest.fixture()
@@ -156,3 +161,34 @@ def test_attention_bwd_kernel_refuses_what_it_does_not_take(card):
     h = torch.zeros(1, 8, 1, 64, device=card, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fused_attention_bwd(h, h, h, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("basis,levels,shape", [
+    ("haar", 1, (6, 224, 224)),
+    ("haar", 3, (5, 72, 200)),
+    ("cdf97", 1, (2, 448, 448)),
+    ("cdf97", 2, (3, 40, 24)),
+    ("bior48", 2, (4, 64, 32)),
+    ("coif12", 1, (1, 6, 2)),
+    ("rev_bior_spline_39", 2, (7, 36, 100)),
+])
+def test_lifting_kernel_on_card(card, basis, levels, shape):
+    """K4 rounds each product, sum and quotient as the plain version does:
+    the two agree bit for bit, well inside chip_smoke.py's limits."""
+    x = torch.randn(shape, generator=torch.Generator(device=card).manual_seed(0), device=card)
+    before = lifting_multi_level.launches
+    out = lifting_multi_level(x, levels, basis)
+    torch.cuda.synchronize()
+    assert lifting_multi_level.launches == before + 1
+    torch.testing.assert_close(out, lifting_multi_level_plain(x, levels, basis), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_lifting_kernel_refuses_what_it_does_not_take(card):
+    with pytest.raises(NotImplementedError, match="float32"):
+        lifting_multi_level(torch.zeros(1, 8, 8, device=card, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="shared"):
+        lifting_multi_level(torch.zeros(1, 8192, 8, device=card))
+    with pytest.raises(ValueError, match="divide"):
+        lifting_multi_level(torch.zeros(1, 12, 8, device=card), levels=3)

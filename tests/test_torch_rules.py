@@ -24,13 +24,21 @@ from irw_tpu_torch.ops.attention import (
     fused_attention,
     fused_attention_bwd,
 )
-from irw_tpu_torch.ops.wavelets import haar_swt2, haar_swt2_plain
+from irw_tpu_torch.ops.wavelets import (
+    haar_swt2,
+    haar_swt2_plain,
+    lifting_multi_level,
+    lifting_multi_level_plain,
+)
 from irw_tpu_torch.transforms import DeviceTransform
 
 REPO = Path(__file__).resolve().parents[1]
 TINY = {"backbone": "test_tiny", "fusion_config": {"type": "cross_attention_advanced",
                                                     "output_dim": 64, "num_heads": 2},
         "vit_kwargs": {"img_size": 16}}
+# configs/model/wcnn_attention_ce.yaml's dialect on resnet18 branches
+WCNN_KW = {"backbone_name": "wcnn_attention_ce", "attention": True, "attention_type": "cbam",
+           "num_classes": 4, "with_autocast": True, "backbone": "resnet18"}
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -39,6 +47,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "irw_tpu_torch.ops.attention" in modules and "irw_tpu_torch.bridge" in modules
     assert {"irw_tpu_torch.engine.train_step", "irw_tpu_torch.engine.optimizers",
             "irw_tpu_torch.losses.hashing"} <= set(modules)
+    assert {"irw_tpu_torch.ops.wavelets.lifting", "irw_tpu_torch.ops.wavelets.lifting_families",
+            "irw_tpu_torch.ops.wavelets.lifting_dwt", "irw_tpu_torch.models.resnet",
+            "irw_tpu_torch.models.attention_blocks", "irw_tpu_torch.models.wresnet"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r} + ['irw_tpu_torch', 'chip_smoke']:\n"
@@ -68,6 +79,10 @@ def test_entry_points_raise_without_a_card(no_card):
         compute_embeddings(model, ds)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         get_model("multidino_attention_hashing", device="cuda", **TINY)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model("RetrievalNet", **WCNN_KW)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceTransform([("CustomTransform", {"decompose_levels": 1})])
 
 
 def test_entry_points_run_on_cpu_when_asked(no_card):
@@ -78,12 +93,28 @@ def test_entry_points_run_on_cpu_when_asked(no_card):
     assert res["num_k_level0"] == 5 and np.isfinite(list(res.values())).all()
 
 
+def test_wcnn_entry_points_run_on_cpu_when_asked(no_card):
+    from irw_tpu_torch.data import SyntheticDataset
+    from irw_tpu_torch.models.wresnet import WCNNAttention
+
+    model = get_model("RetrievalNet", device="cpu", **WCNN_KW)
+    assert isinstance(model, WCNNAttention) and model.ce and not model.training
+    assert all(p.dtype == torch.float32 and p.device.type == "cpu" for p in model.parameters())
+    ds = SyntheticDataset(num_samples=6, num_classes=2, image_size=32)
+    transform = DeviceTransform([("CustomTransform", {"decompose_levels": 1})], device="cpu")
+    res = evaluate(model, ds, transform, batch_size=4, device="cpu")
+    assert res["num_k_level0"] == 5 and np.isfinite(list(res.values())).all()
+
+
 def test_cpu_tensors_take_the_plain_path_uncounted():
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.randn(3, 8, 10).astype(np.float32))
     q, k, v = (torch.from_numpy(rng.randn(2, 9, 2, 32).astype(np.float32)) for _ in range(3))
-    before = (haar_swt2.launches, fused_attention.launches, fused_attention_bwd.launches)
+    before = (haar_swt2.launches, fused_attention.launches, fused_attention_bwd.launches,
+              lifting_multi_level.launches)
     torch.testing.assert_close(haar_swt2(x), haar_swt2_plain(x), rtol=0, atol=0)
+    torch.testing.assert_close(lifting_multi_level(x, 1, "cdf97"),
+                               lifting_multi_level_plain(x, 1, "cdf97"), rtol=0, atol=0)
     with torch.no_grad():
         torch.testing.assert_close(fused_attention(q, k, v), attention_plain(q, k, v),
                                    rtol=0, atol=0)
@@ -91,9 +122,14 @@ def test_cpu_tensors_take_the_plain_path_uncounted():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     fused_attention(*leaves).sum().backward()
-    assert (haar_swt2.launches, fused_attention.launches, fused_attention_bwd.launches) == before
+    assert (haar_swt2.launches, fused_attention.launches, fused_attention_bwd.launches,
+            lifting_multi_level.launches) == before
     with pytest.raises(ValueError):
         haar_swt2(x[0])
+    with pytest.raises(ValueError, match="divide"):
+        lifting_multi_level(x, 2)
+    with pytest.raises(ValueError, match="unknown lifting basis"):
+        lifting_multi_level(x, 1, "db2")
     with torch.no_grad(), pytest.raises(ValueError):
         fused_attention(q, k[:, :5], v)
 
@@ -101,6 +137,8 @@ def test_cpu_tensors_take_the_plain_path_uncounted():
 def test_other_devices_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="no kernel"):
         haar_swt2(torch.empty(2, 4, 4, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        lifting_multi_level(torch.empty(2, 4, 4, device="meta"))
     q = torch.empty(1, 4, 1, 32, device="meta")
     with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
         fused_attention(q, q, q)
@@ -110,9 +148,34 @@ def test_other_devices_raise_instead_of_falling_back():
         fused_attention_bwd(q, q, q, torch.zeros(1, 4, 1, 32))
 
 
+class _CudaBf16:
+    """Stands in for a bf16 tensor on the card, which this machine cannot
+    make: what ``lifting_multi_level`` reads before it would launch."""
+
+    device = torch.device("cuda")
+    dtype = torch.bfloat16
+    shape = (2, 8, 8)
+
+    def dim(self):
+        return 3
+
+    def is_floating_point(self):
+        return True
+
+
+def test_lifting_kernel_refuses_other_dtypes_on_the_card():
+    before = lifting_multi_level.launches
+    with pytest.raises(NotImplementedError, match="float32"):
+        lifting_multi_level(_CudaBf16())
+    assert lifting_multi_level.launches == before
+
+
 def test_unported_models_and_heads_name_their_roadmap_item():
     with pytest.raises(ValueError, match="A10"):
         get_model("resnet50", device="cpu")
+    for name in ("wresnet", "resnet_ce", "mtwavenet", "vit", "resnet50"):
+        with pytest.raises(ValueError, match="A10"):
+            get_model("RetrievalNet", device="cpu", backbone_name=name)
     with pytest.raises(NotImplementedError, match="A10"):
         get_model("multidino_attention_hashing", device="cpu",
                   **dict(TINY, fusion_config={"type": "gated"}))
