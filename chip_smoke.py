@@ -4,6 +4,7 @@
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --phases card,build,attention,train
     python3 chip_smoke.py --phases card,build,dwt,wcnn
+    python3 chip_smoke.py --phases card,build,flash,flash_serve,flash_train
 
 Drives the port's serving path — uint8 images → DeviceTransform (/255, Haar
 SWT: kernel K1) → the flagship MultiDinoHashing (4 × DINOv2 ViT-S/14 at
@@ -14,7 +15,9 @@ AdamW, attention backward on kernel K3 — and the DWT serving path — uint8
 images → DeviceTransform (Normalize, CustomTransform haar level 1: kernel
 K4) → RetrievalNet ``wcnn_attention_ce`` (4 × ResNet-50 at 112², CBAM
 subband gate, f32) → L2-normalised embeddings → cosine retrieval metrics —
-and prints one line per phase:
+and the flagship with ``vit_kwargs={"use_flash": True}``, served and
+trained with every block's attention on the flash kernels K6-fwd and K6-bwd
+— and prints one line per phase:
 
 1. card: name and power limit (nvidia-smi);
 2. build: the kernels from ``irw_tpu_torch/csrc``, one nvcc each, in parallel;
@@ -31,7 +34,8 @@ and prints one line per phase:
    CPU port, and bench.py's VOC anchor (map 0.3865 at k = 5717);
 8. train: the full-width flagship trains at batch 96 (HashLoss,
    ``configs/optimizer/basic.yaml``'s AdamW at epoch 1): launch counts per
-   step, trained img/s, peak memory and finite metrics over 5 timed steps;
+   step, trained img/s over the synchronised window of 5 steps (each
+   step's time beside it), the path's own peak memory and finite metrics;
    one step on the kernel route held against the plain route (loss, and
    the gradient of each top-level module); one step profiled;
 9. dwt: K4 against ``lifting_multi_level_plain`` for haar at levels 1-3 at
@@ -41,7 +45,21 @@ and prints one line per phase:
 10. wcnn: the full-width WCNN-attention model serves batches of 64: launch
    counts per batch, embeddings held against the same model with K4's
    plain version, img/s, peak memory, one batch profiled; then ``evaluate``
-   (cosine) on a CUB-test-sized synthetic set (5794 images, 100 classes).
+   (cosine) on a CUB-test-sized synthetic set (5794 images, 100 classes);
+11. flash: K6-fwd against ``flash_attention_plain`` at the served shape
+   (256, 257, 6, 64) bf16 on the strided views of a fused projection, as
+   the path gives them, at f32, head dims 32 and 128, N = 37 (one key
+   block) and N = 384 (no masked key); K6-bwd against
+   ``flash_attention_plain_bwd`` at the training shape (384, 257, 6, 64) in
+   bf16 on the fused views with the kernel forward's o, l, m, as the path
+   gives them, in f32 and at other shapes; both timed on the path's layout
+   beside SDPA;
+12. flash_serve: the full-width flagship with ``use_flash`` serves batches
+   of 64 (launch counts, codes against the plain route, img/s), one batch
+   profiled;
+13. flash_train: the same model trains at batch 96 (launch counts per step,
+   the kernel route against the plain route, trained img/s, peak memory),
+   one step profiled.
 
 Then a JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -54,6 +72,7 @@ import argparse
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -61,7 +80,7 @@ import time
 import numpy as np
 
 PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train", "dwt",
-          "wcnn")
+          "wcnn", "flash", "flash_serve", "flash_train")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -139,6 +158,14 @@ K4_CDF97_SHAPE = (3 * BATCH, 448, 448)   # configs/transform/cub_dwt_cdf97.yaml
 WCNN_BATCHES = 6
 WCNN_EMB_TOL = 1e-4      # K4 against its plain version, on the L2-normalised embeddings
 CUB_TEST = 5794          # CUB-200-2011's test split (100 classes)
+# K6: the flagship's attention with use_flash, served (4 bands x 64) and
+# trained (4 bands x 96); the forward's outputs are averages of unit-normal
+# rows (|o| < 2), so one bf16 ulp flip is at most 2^-7 absolute; the
+# backward's limits are of max|plain| per output, as K3's
+K6_SERVE_SHAPE = K2_SHAPE
+K6_TRAIN_SHAPE = K3_SHAPE
+K6_FWD_TOL = K2_TOL
+FLASH = {"use_flash": True}
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -182,20 +209,15 @@ def phase_card(state):
 
 
 def log_unported_bounds():
-    """The least time the card could take for the TPU kernels not ported
-    yet, from the shapes their callers give them (PERF.md's table): K5 at
-    benchmarks/vmem_qkv_micro.py's defaults, K6 at the flagship's served
-    attention (4 bands x 64 images, 257 tokens, 6 heads of 64, bf16)."""
+    """The least time the card could take for the TPU kernel not ported
+    yet, from the shapes its caller gives it (PERF.md's table): K5 at
+    benchmarks/vmem_qkv_micro.py's defaults."""
     b, n, d, heads = 192, 257, 384, 6          # K5: x (b, n, d) → Q/K/V → attention
     nbytes = 2 * (2 * b * n * d + 3 * d * d + 3 * d)
     flops = 3 * 2 * b * n * d * d + 4 * b * heads * n * n * (d // heads)
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
     log("card", f"K5 fused_qkv_attention ({b}, {n}, {d}) bf16, {heads} heads: bound "
                 f"{b_ms:.4f} ms ({b_by}); not ported")
-    b, n, h, hd = 4 * BATCH, 257, 6, 64        # K6: q, k, v, o (b, n, h, hd)
-    b_ms, b_by = bound_ms(4 * b * n * h * hd * 2, 4 * b * h * n * n * hd, "bfloat16")
-    log("card", f"K6 _flash_mha ({b}, {n}, {h}, {hd}) bf16: bound {b_ms:.4f} ms ({b_by}); "
-                "not ported")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -398,40 +420,80 @@ def phase_attention(state):
         "library_ms": lib_ms}
 
 
-def _flagship_model():
+def _flagship_model(vit_kwargs=None):
+    """The flagship from its YAML kwargs at full width, random weights from
+    seed 0; ``vit_kwargs`` are added to the backbone's (``FLASH``)."""
     import torch
 
     from irw_tpu_torch.models import get_model
 
-    model = get_model(FLAGSHIP["name"], seed=0, **FLAGSHIP["kwargs"])
+    kwargs = dict(FLAGSHIP["kwargs"], vit_kwargs=dict(vit_kwargs or {}))
+    model = get_model(FLAGSHIP["name"], seed=0, **kwargs)
+    vit = model.backbone.vit
+    assert vit.dtype == torch.bfloat16 and vit.embed_dim == 384 and len(vit.blocks) == 12
     with torch.no_grad():  # LayerScale 1: at the 1e-5 init attention barely reaches the codes
-        for blk in model.backbone.vit.blocks:
+        for blk in vit.blocks:
             blk.ls1.fill_(1.0)
             blk.ls2.fill_(1.0)
     return model
 
 
+def _check_cores(model, name: str):
+    """Every block's attention core is ``name`` (the kernel route)."""
+    cores = {blk.attn.core.__name__ for blk in model.backbone.vit.blocks}
+    if cores != {name}:
+        raise AssertionError(f"expected every block's attention core to be {name}, got {cores}")
+
+
+KERNEL_IDS = ("K1", "K2", "K3", "K4", "K6-fwd", "K6-bwd")
+
+
 def _kernel_wrappers():
-    """K1-K4's wrappers, whose ``launches`` each path sets to 0 and reads."""
+    """The wrappers of K1-K6 (in ``KERNEL_IDS``' order), whose ``launches``
+    each path sets to 0 and reads."""
     from irw_tpu_torch.ops.attention import fused_attention, fused_attention_bwd
+    from irw_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
     from irw_tpu_torch.ops.wavelets import haar_swt2, lifting_multi_level
 
-    return (haar_swt2, fused_attention, fused_attention_bwd, lifting_multi_level)
+    return (haar_swt2, fused_attention, fused_attention_bwd, lifting_multi_level,
+            flash_attention_fwd, flash_attention_bwd)
 
 
-def phase_serve(state):
+def _check_launches(phase: str, per_run: list, expected: tuple, what: str):
+    log(phase, f"launches per {what} ({', '.join(KERNEL_IDS)}): {per_run}")
+    if per_run != [expected] * len(per_run):
+        want = ", ".join(f"{k} = {n}" for k, n in zip(KERNEL_IDS, expected))
+        raise AssertionError(f"{phase}: expected {want} launches per {what}, got {per_run}")
+
+
+def _release_earlier_phases(state) -> int:
+    """Drop what earlier phases keep on the card (the served flagship that
+    profile and retrieval reuse); the bytes still allocated, above which a
+    path's own peak memory is counted."""
+    import gc
+
+    import torch
+
+    state.pop("model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _serve_flagship(state, phase: str, model, expected: tuple, plain_core, held: int):
+    """SERVE_BATCHES timed batches of BATCH through the flagship ``model``:
+    the launches of every kernel per batch must equal ``expected``; then the
+    codes are held against the same weights with every block's attention
+    core set to ``plain_core`` and K1's plain version, on the card.  Peak
+    memory is counted above the ``held`` bytes allocated before the model
+    was built."""
     import torch
 
     from irw_tpu_torch.data import SyntheticVOCDataset
-    from irw_tpu_torch.ops.attention import attention_plain
     from irw_tpu_torch.ops.wavelets import haar_swt2_plain
     from irw_tpu_torch.transforms import DeviceTransform
 
-    model = _flagship_model()
     vit = model.backbone.vit
-    assert vit.dtype == torch.bfloat16 and vit.embed_dim == 384 and len(vit.blocks) == 12
-    assert all(blk.attn.core.__name__ == "vmem_attention_fn" for blk in vit.blocks)
-    state["model"] = model
     transform = DeviceTransform(SWT_OPS)
     ds = SyntheticVOCDataset(num_train=BATCH * (SERVE_BATCHES + 1), image_size=224, seed=0)
     batches = [ds.images[i * BATCH:(i + 1) * BATCH] for i in range(SERVE_BATCHES + 1)]
@@ -440,6 +502,7 @@ def phase_serve(state):
     with torch.inference_mode():
         model(transform(batches[0]))  # warm-up: cuBLAS handles, allocator
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         for fn in kernels:
             fn.launches = 0
         outs, per_batch = [], []
@@ -453,20 +516,20 @@ def phase_serve(state):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = {fn.__name__: fn.launches for fn in kernels}
-        state["launches"]["serve"] = counts
-        log("serve", f"launches over {SERVE_BATCHES} batches: {counts}; per batch "
-                     f"(K1, K2, K3, K4): {per_batch}")
-        if per_batch != [(1, 12, 0, 0)] * SERVE_BATCHES:
-            raise AssertionError(f"expected K1 = 1, K2 = 12, K3 = K4 = 0 launches per batch, "
-                                 f"got {per_batch}")
+        state["launches"][phase] = counts
+        peak = torch.cuda.max_memory_allocated() - held
+        log(phase, f"launches over {SERVE_BATCHES} batches: {counts}")
+        _check_launches(phase, per_batch, expected, "batch")
         ips = SERVE_BATCHES * BATCH / seconds
-        log("serve", f"{ips:.1f} img/s (batch {BATCH}, SWT + 4 x ViT-S/14 + fusion + hash, "
-                     f"bf16) | {state['card']}")
+        log(phase, f"{ips:.1f} img/s, {seconds / SERVE_BATCHES * 1e3:.1f} ms per batch (batch "
+                   f"{BATCH}, SWT + 4 x ViT-S/14 + fusion + hash, bf16) | the path's own peak "
+                   f"memory {peak / 2 ** 30:.2f} GiB (above {held / 2 ** 30:.2f} GiB held "
+                   f"before its model) | {state['card']}")
 
         # the same weights on the plain versions, on the card
         cores = [blk.attn.core for blk in vit.blocks]
         for blk in vit.blocks:
-            blk.attn.core = attention_plain
+            blk.attn.core = plain_core
         try:
             for i, (images, logits, codes) in enumerate(outs):
                 x = torch.from_numpy(images).cuda().float() / 255.0
@@ -480,17 +543,29 @@ def phase_serve(state):
                 n_sure = int(sure.sum())
                 n_differ = int(((codes != torch.sign(ref)) & sure).sum())
                 dmax = (logits - ref).abs().max().item()
-                log("serve", f"batch {i}: max|logit - plain| = {dmax:.3e}; codes differ at "
-                             f"{n_differ} of the {n_sure}/{sure.numel()} bits with "
-                             f"|logit| > {LOGIT_MARGIN}")
+                log(phase, f"batch {i}: max|logit - plain| = {dmax:.3e}; codes differ at "
+                           f"{n_differ} of the {n_sure}/{sure.numel()} bits with "
+                           f"|logit| > {LOGIT_MARGIN}")
                 if n_differ or 2 * n_sure < sure.numel():
                     raise AssertionError(f"batch {i}: codes disagree with the plain path")
         finally:
             for blk, core in zip(vit.blocks, cores):
                 blk.attn.core = core
+    return seconds / SERVE_BATCHES * 1e3
+
+
+def phase_serve(state):
+    from irw_tpu_torch.ops.attention import attention_plain
+
+    held = _release_earlier_phases(state)
+    model = _flagship_model()
+    _check_cores(model, "vmem_attention_fn")
+    state["model"] = model
+    _serve_flagship(state, "serve", model, (1, 12, 0, 0, 0, 0), attention_plain, held)
 
 
 _KERNEL_GROUPS = (("K3 attention bwd", ("attention_bwd",)), ("K2 attention", ("attention_fwd",)),
+                  ("K6 flash bwd", ("flash_bwd",)), ("K6 flash fwd", ("flash_fwd",)),
                   ("K1 swt", ("haar_swt2",)),
                   ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
                   ("reduce", ("reduce",)), ("elementwise", ("elementwise", "vectorized")))
@@ -498,8 +573,10 @@ _KERNEL_GROUPS = (("K3 attention bwd", ("attention_bwd",)), ("K2 attention", ("a
 
 def _device_profile(phase: str, run, what: str, state, groups=_KERNEL_GROUPS) -> float | None:
     """Device time of one ``run()`` by kernel group, from torch.profiler,
-    and the device's idle share over the call's wall time (which the
-    profiler's own host overhead lengthens).  Returns the device-busy ms."""
+    the device's idle share over the call's wall time (which the profiler's
+    own host overhead lengthens), and the idle gaps between its first and
+    last kernel with the kernels after the largest ones.  Returns the
+    device-busy ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -530,6 +607,12 @@ def _device_profile(phase: str, run, what: str, state, groups=_KERNEL_GROUPS) ->
                                         for g, us in by_group.items()))
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(phase, f"{us / 1e3:8.3f} ms  {name[:110]}")
+    kernels.sort(key=lambda e: e.time_range.start)
+    gaps = sorted(((b.time_range.start - a.time_range.end, b.name)
+                   for a, b in zip(kernels, kernels[1:])), reverse=True)
+    idle = sum(g for g, _ in gaps if g > 0)
+    log(phase, f"device idle between its kernels {idle / 1e3:.2f} ms; largest gaps: "
+               + "; ".join(f"{g / 1e3:.3f} ms before {name[:48]}" for g, name in gaps[:3]))
     return busy / 1e3
 
 
@@ -577,23 +660,23 @@ def _route_step(tstate, step, batch, hyper, snapshot, core=None):
     return float(metrics["total_loss"]), grads
 
 
-def phase_train(state):
-    """The flagship trains: TRAIN_STEPS timed AdamW steps at batch 96, the
-    kernel route held against the plain route, one step profiled."""
+def _train_flagship(state, phase: str, model, expected: tuple, plain_core, held: int):
+    """The flagship ``model`` trains: TRAIN_STEPS AdamW steps at batch 96,
+    trained img/s over the whole window to a synchronize (each step's time
+    between CUDA events beside it), whose launches of every kernel per step
+    must equal ``expected``; peak memory above the ``held`` bytes allocated
+    before the model was built; the kernel route held against the same step
+    with every block's attention core set to ``plain_core``; one step
+    profiled."""
     import torch
 
     from irw_tpu_torch.data import SyntheticVOCDataset
     from irw_tpu_torch.engine import build_train_step, init_train_state
     from irw_tpu_torch.engine.train import _build_hyper
     from irw_tpu_torch.losses import build_losses
-    from irw_tpu_torch.ops.attention import attention_plain_autograd
     from irw_tpu_torch.transforms import DeviceTransform
 
-    model = _flagship_model()
-    vit = model.backbone.vit
-    assert vit.dtype == torch.bfloat16 and vit.embed_dim == 384 and len(vit.blocks) == 12
-    assert vit.remat_blocks and not model.frozen_backbone
-    assert all(blk.attn.core.__name__ == "vmem_attention_fn" for blk in vit.blocks)
+    assert model.backbone.vit.remat_blocks and not model.frozen_backbone
     ds = SyntheticVOCDataset(num_train=TRAIN_BATCH * 2, image_size=224, seed=3)
     batches = [{"image": ds.images[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
                 "label": ds.labels[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]} for i in range(2)]
@@ -612,27 +695,32 @@ def phase_train(state):
     for fn in kernels:
         fn.launches = 0
     per_step, metrics = [], []
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
     t0 = time.perf_counter()
     for i in range(TRAIN_STEPS):
         before = [fn.launches for fn in kernels]
+        marks[i].record()
         metrics.append(step(tstate, batches[i % 2], hyper()))
         per_step.append(tuple(fn.launches - b for fn, b in zip(kernels, before)))
+    marks[-1].record()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    mean_ms = seconds / TRAIN_STEPS * 1e3
     counts = {fn.__name__: fn.launches for fn in kernels}
-    state["launches"]["train"] = counts
-    peak = torch.cuda.max_memory_allocated()
-    log("train", f"launches over {TRAIN_STEPS} steps: {counts}; per step (K1, K2, K3, K4): "
-                 f"{per_step}")
-    if per_step != [(1, 24, 12, 0)] * TRAIN_STEPS:
-        raise AssertionError(f"expected K1 = 1, K2 = 24, K3 = 12 and K4 = 0 launches per step, "
-                             f"got {per_step}")
-    log("train", f"{TRAIN_STEPS * TRAIN_BATCH / seconds:.1f} trained img/s, "
-                 f"{seconds / TRAIN_STEPS * 1e3:.1f} ms per step (batch {TRAIN_BATCH}, bf16, "
-                 f"block remat, AdamW) | peak memory {peak / 2 ** 30:.2f} GiB | {state['card']}")
+    state["launches"][phase] = counts
+    peak = torch.cuda.max_memory_allocated() - held
+    log(phase, f"launches over {TRAIN_STEPS} steps: {counts}")
+    _check_launches(phase, per_step, expected, "step")
+    log(phase, f"{TRAIN_STEPS * TRAIN_BATCH / seconds:.1f} trained img/s, {mean_ms:.1f} ms per "
+               f"step over the window (batch {TRAIN_BATCH}, bf16, block remat, AdamW); steps "
+               + ", ".join(f"{t:.1f}" for t in step_ms)
+               + f" ms between CUDA events, median {statistics.median(step_ms):.1f} | the "
+               f"path's own peak memory {peak / 2 ** 30:.2f} GiB (above {held / 2 ** 30:.2f} "
+               f"GiB held before its model) | {state['card']}")
     for i, m in enumerate(metrics):
         values = {k: float(v) for k, v in m.items()}
-        log("train", f"step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in values.items()))
+        log(phase, f"step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in values.items()))
         if not all(math.isfinite(values[k]) for k in TRAIN_METRICS):
             raise AssertionError(f"step {i}: non-finite metrics {values}")
 
@@ -641,24 +729,33 @@ def phase_train(state):
                 "loss": {k: v.clone() for k, v in tstate.losses[0][0].state_dict().items()},
                 "rng": {k: g.get_state() for k, g in tstate.generators.items()}}
     loss_k, grads_k = _route_step(tstate, step, batches[0], hyper(), snapshot)
-    loss_p, grads_p = _route_step(tstate, step, batches[0], hyper(), snapshot,
-                                  core=attention_plain_autograd)
+    loss_p, grads_p = _route_step(tstate, step, batches[0], hyper(), snapshot, core=plain_core)
     rel = abs(loss_k - loss_p) / abs(loss_p)
     cosines = {m: float(torch.nn.functional.cosine_similarity(grads_k[m], grads_p[m], dim=0))
                for m in grads_k}
-    log("train", f"kernel vs plain route: total_loss {loss_k:.6f} vs {loss_p:.6f} (rel "
-                 f"{rel:.2e}, limit {ROUTE_LOSS_TOL}); gradient cosine per module "
-                 + ", ".join(f"{m} {c:.6f}" for m, c in cosines.items())
-                 + f" (limit {ROUTE_COSINE})")
+    log(phase, f"kernel vs plain route: total_loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+               f"{rel:.2e}, limit {ROUTE_LOSS_TOL}); gradient cosine per module "
+               + ", ".join(f"{m} {c:.6f}" for m, c in cosines.items())
+               + f" (limit {ROUTE_COSINE})")
     if not (rel <= ROUTE_LOSS_TOL and all(c >= ROUTE_COSINE for c in cosines.values())):
         raise AssertionError(f"the kernel route disagrees with the plain route: {rel}, {cosines}")
 
-    busy_ms = _device_profile("train", lambda: step(tstate, batches[1], hyper()),
+    busy_ms = _device_profile(phase, lambda: step(tstate, batches[1], hyper()),
                               f"one train step of {TRAIN_BATCH}", state)
     if busy_ms is not None:
-        step_ms = seconds / TRAIN_STEPS * 1e3
-        log("train", f"idle share against the timed steps' {step_ms:.1f} ms: "
-                     f"{1 - busy_ms / step_ms:.3f}")
+        log(phase, f"idle share against the timed steps' {mean_ms:.1f} ms: "
+                   f"{1 - busy_ms / mean_ms:.3f}")
+
+
+def phase_train(state):
+    """The flagship trains with K2 and K3 (``vmem_attn``, the factory's
+    default for unfrozen backbones on the card)."""
+    from irw_tpu_torch.ops.attention import attention_plain_autograd
+
+    held = _release_earlier_phases(state)
+    model = _flagship_model()
+    _check_cores(model, "vmem_attention_fn")
+    _train_flagship(state, "train", model, (1, 24, 12, 0, 0, 0), attention_plain_autograd, held)
 
 
 def phase_retrieval(state):
@@ -872,11 +969,8 @@ def phase_wcnn(state):
         counts = {fn.__name__: fn.launches for fn in kernels}
         state["launches"]["wcnn"] = counts
         peak = torch.cuda.max_memory_allocated()
-        log("wcnn", f"launches over {WCNN_BATCHES} batches: {counts}; per batch "
-                    f"(K1, K2, K3, K4): {per_batch}")
-        if per_batch != [(0, 0, 0, 1)] * WCNN_BATCHES:
-            raise AssertionError(f"expected K4 = 1 and K1 = K2 = K3 = 0 launches per batch, "
-                                 f"got {per_batch}")
+        log("wcnn", f"launches over {WCNN_BATCHES} batches: {counts}")
+        _check_launches("wcnn", per_batch, (0, 0, 0, 1, 0, 0), "batch")
         log("wcnn", f"{WCNN_BATCHES * BATCH / seconds:.1f} img/s (batch {BATCH}, Normalize + "
                     f"haar DWT + 4 x ResNet-50 at 112² + CBAM gate) | peak memory "
                     f"{peak / 2 ** 30:.2f} GiB | {precision} | {state['card']}")
@@ -927,6 +1021,198 @@ def phase_wcnn(state):
         raise AssertionError(f"evaluate gave non-finite or out-of-range metrics: {res}")
 
 
+def _qkv(shape, dtype, gen, fused: bool):
+    """Unit-normal q, k, v of ``shape``; with ``fused`` the three strided
+    views of one (…, N, 3, H, hd) projection, as ``FlashAttention`` passes
+    them."""
+    import torch
+
+    if fused:
+        *lead, n, h, hd = shape
+        qkv = torch.randn((*lead, n, 3, h, hd), generator=gen, device="cuda").to(dtype)
+        return qkv.unbind(-3)
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+
+
+def _flash_fwd_case(shape, dtype, seed, fused=False, residuals=False):
+    """K6-fwd against ``flash_attention_plain`` on unit-normal q, k, v
+    (``_qkv``); returns (q, k, v), the error."""
+    import torch
+
+    from irw_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = _qkv(shape, dtype, gen, fused)
+    out = flash_attention_fwd(q, k, v, save_residuals=residuals)
+    ref = flash_attention_plain(q, k, v, save_residuals=residuals)
+    torch.cuda.synchronize()
+    if residuals:
+        (out, l, m), (ref, rl, rm) = out, ref
+        stats = max(((l - rl).abs() / rl).max().item(), ((m - rm).abs().max().item()))
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = K6_FWD_TOL[str(dtype).removeprefix("torch.")]
+    what = f"K6-fwd {tuple(shape)} {dtype}" + (" fused views" if fused else "")
+    log("flash", f"{what}: max|kernel - plain| = {err:.3e} (limit {tol:.3e}, max|o| "
+                 f"{ref.float().abs().max().item():.3f})"
+                 + (f"; l, m {stats:.3e} (limit 1e-5)" if residuals else ""))
+    if not (err <= tol and torch.isfinite(out).all() and (not residuals or stats <= 1e-5)):
+        raise AssertionError(f"{what} disagrees with its plain version: {err}")
+    return (q, k, v), err
+
+
+def _flash_bwd_case(shape, dtype, seed, path_layout=False):
+    """K6-bwd against ``flash_attention_plain_bwd`` from the same residuals
+    on unit-normal q, k, v, do: the plain forward's o, l, m, or with
+    ``path_layout`` the strided views of a fused projection and the kernel
+    forward's o, l, m, as the training path gives them; returns the inputs
+    and the largest error over dq, dk, dv."""
+    import torch
+
+    from irw_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+        flash_attention_plain,
+        flash_attention_plain_bwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = _qkv(shape, dtype, gen, path_layout)
+    do = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    fwd = flash_attention_fwd if path_layout else flash_attention_plain
+    o, l, m = fwd(q, k, v, save_residuals=True)
+    outs = flash_attention_bwd(q, k, v, o, do, l, m)
+    refs = flash_attention_plain_bwd(q, k, v, o, do, l, m)
+    torch.cuda.synchronize()
+    worst, report = 0.0, []
+    for name, out, ref in zip(("dq", "dk", "dv"), outs, refs):
+        err = (out.float() - ref.float()).abs().max().item()
+        peak = ref.float().abs().max().item()
+        tol = K3_TOL_F32 if dtype == torch.float32 else K3_TOL_BF16 * peak
+        report.append(f"{name} {err:.3e} (limit {tol:.3e})")
+        if not (err <= tol and torch.isfinite(out).all()):
+            raise AssertionError(f"K6-bwd {name} disagrees with its plain version at {shape} "
+                                 f"{dtype}: {err} > {tol}")
+        worst = max(worst, err)
+    what = " fused views, kernel o, l, m" if path_layout else ""
+    log("flash", f"K6-bwd {tuple(shape)} {dtype}{what}: max|kernel - plain| " + ", ".join(report))
+    return (q, k, v, o, do, l, m), worst
+
+
+def phase_flash(state):
+    """K6-fwd and K6-bwd against their plain versions, then timed at the
+    served and the training shape, on the path's layout, beside SDPA and
+    their bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from irw_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+        flash_attention_plain,
+        flash_attention_plain_bwd,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
+    bf16, f32 = torch.bfloat16, torch.float32
+    for shape, dtype in [((64, 257, 6, 64), f32), ((8, 257, 6, 32), f32), ((8, 257, 2, 128), f32),
+                         ((8, 257, 2, 128), bf16), ((8, 37, 6, 64), bf16), ((8, 37, 6, 32), f32),
+                         ((8, 384, 6, 64), bf16), ((8, 384, 6, 64), f32),
+                         (K6_SERVE_SHAPE, bf16)]:
+        _flash_fwd_case(shape, dtype, seed=10)
+    _flash_fwd_case(K6_TRAIN_SHAPE, bf16, seed=12, fused=True, residuals=True)
+    (q, k, v), err = _flash_fwd_case(K6_SERVE_SHAPE, bf16, seed=11, fused=True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # SDPA's (B, H, N, hd)
+    with torch.no_grad():
+        ms = time_ms(lambda: flash_attention_fwd(q, k, v))
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), iters=5)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    b, n, h, hd = K6_SERVE_SHAPE
+    b_ms, b_by = bound_ms(4 * b * n * h * hd * 2, 4 * b * h * n * n * hd, "bfloat16")
+    log("flash", f"K6-fwd at the serve shape {K6_SERVE_SHAPE}, fused views: kernel {ms:.4f} ms "
+                 f"| plain {plain_ms:.4f} ms | SDPA {lib_ms:.4f} ms | bound {b_ms:.4f} ms "
+                 f"({b_by}) | {state['card']}")
+    state["kernels"]["flash_attention_fwd"] = {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "irw_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": lib_ms}
+
+    for shape, dtype in [((8, 37, 2, 32), f32), ((8, 37, 2, 64), bf16), ((8, 384, 2, 128), bf16),
+                         ((4, 130, 2, 128), f32), ((2, 3, 200, 2, 64), f32),
+                         (K6_TRAIN_SHAPE, f32)]:
+        _flash_bwd_case(shape, dtype, seed=13)
+    (q, k, v, o, do, l, m), err = _flash_bwd_case(K6_TRAIN_SHAPE, bf16, seed=14, path_layout=True)
+    with torch.no_grad():
+        fwd_train_ms = time_ms(lambda: flash_attention_fwd(q, k, v, save_residuals=True))
+    ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, do, l, m))
+    plain_ms = time_ms(lambda: flash_attention_plain_bwd(q, k, v, o, do, l, m), iters=3)
+    qr, kr, vr = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qr, kr, vr)
+        torch.autograd.grad(out, (qr, kr, vr), dot)
+
+    with torch.no_grad():
+        sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr))
+    lib_ms = time_ms(sdpa_fwd_bwd) - sdpa_fwd_ms
+    b, n, h, hd = K6_TRAIN_SHAPE
+    # read q, k, v, do and l, m, di; write dq, dk, dv; five products
+    nbytes = 7 * b * n * h * hd * 2 + 3 * b * h * n * 4
+    b_ms, b_by = bound_ms(nbytes, 10 * b * h * n * n * hd, "bfloat16")
+    log("flash", f"K6-fwd with l, m at the training shape {K6_TRAIN_SHAPE}, fused views: "
+                 f"kernel {fwd_train_ms:.4f} ms | {state['card']}")
+    log("flash", f"K6-bwd at {K6_TRAIN_SHAPE}, fused views (di, then the dK/dV and dQ "
+                 f"kernels): kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | SDPA backward "
+                 f"{lib_ms:.4f} ms (fwd+bwd minus fwd {sdpa_fwd_ms:.4f}) | bound {b_ms:.4f} ms "
+                 f"({b_by}) | {state['card']}")
+    state["kernels"]["flash_attention_bwd"] = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "irw_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121,1456",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": lib_ms}
+
+
+def phase_flash_serve(state):
+    """The flagship with ``use_flash`` serves: K1 = 1 and K6-fwd = 12
+    launches per batch, codes against the plain route, img/s, one batch
+    profiled."""
+    import torch
+
+    from irw_tpu_torch.data import SyntheticVOCDataset
+    from irw_tpu_torch.ops.flash_attention import flash_attention_plain_autograd
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    held = _release_earlier_phases(state)
+    model = _flagship_model(FLASH)
+    _check_cores(model, "flash_attention")
+    batch_ms = _serve_flagship(state, "flash_serve", model, (1, 0, 0, 0, 12, 0),
+                               flash_attention_plain_autograd, held)
+    transform = DeviceTransform(SWT_OPS)
+    images = SyntheticVOCDataset(num_train=BATCH, image_size=224, seed=2).images
+    with torch.inference_mode():
+        busy_ms = _device_profile("flash_serve", lambda: model(transform(images)),
+                                  f"one batch of {BATCH}", state)
+    if busy_ms is not None:
+        log("flash_serve", f"idle share against the timed batches' {batch_ms:.1f} ms: "
+                           f"{1 - busy_ms / batch_ms:.3f}")
+
+
+def phase_flash_train(state):
+    """The flagship with ``use_flash`` trains: K1 = 1, K6-fwd = 24 (forward
+    and remat recompute) and K6-bwd = 12 launches per step; the factory's
+    ``vmem_attn`` for unfrozen backbones is on, and the flash route wins."""
+    from irw_tpu_torch.ops.flash_attention import flash_attention_plain_autograd
+
+    held = _release_earlier_phases(state)
+    model = _flagship_model(FLASH)
+    _check_cores(model, "flash_attention")
+    _train_flagship(state, "flash_train", model, (1, 0, 0, 0, 24, 12),
+                    flash_attention_plain_autograd, held)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -954,7 +1240,8 @@ def main(argv=None) -> int:
     log_unported_bounds()
     runners = {"build": phase_build, "swt": phase_swt, "attention": phase_attention,
                "serve": phase_serve, "profile": phase_profile, "retrieval": phase_retrieval,
-               "train": phase_train, "dwt": phase_dwt, "wcnn": phase_wcnn}
+               "train": phase_train, "dwt": phase_dwt, "wcnn": phase_wcnn, "flash": phase_flash,
+               "flash_serve": phase_flash_serve, "flash_train": phase_flash_train}
     for name in phases:
         if name != "card":
             t0 = time.perf_counter()
@@ -962,19 +1249,24 @@ def main(argv=None) -> int:
             log(name, f"phase done in {time.perf_counter() - t0:.1f} s")
 
     # launches: the count over the run of the path that runs the kernel (the
-    # training phase's timed steps for K1-K3, the wcnn phase's batches for
-    # K4); per train step and per served batch of each serving path beside it
+    # train phases' timed steps for K1-K3 and K6, the wcnn phase's batches for
+    # K4); per train step and per served batch of each path beside it
     runs = state["launches"]
-    train = runs.get("train", {})
-    served = {"flagship": ("serve", SERVE_BATCHES), "wcnn": ("wcnn", WCNN_BATCHES)}
+    main_paths = {"lifting_multi_level": "wcnn", "flash_attention_fwd": "flash_train",
+                  "flash_attention_bwd": "flash_train"}
+    trained = {"flagship": ("train", TRAIN_STEPS), "flash": ("flash_train", TRAIN_STEPS)}
+    served = {"flagship": ("serve", SERVE_BATCHES), "wcnn": ("wcnn", WCNN_BATCHES),
+              "flash": ("flash_serve", SERVE_BATCHES)}
+
+    def per_run(paths, name):
+        return {path: runs[key].get(name, 0) / n for path, (key, n) in paths.items() if key in runs}
+
     kernels = []
     for k in state["kernels"].values():
-        main_path = runs.get("wcnn" if k["name"] == "lifting_multi_level" else "train", {})
-        kernels.append(dict(
-            k, launches=main_path.get(k["name"]),
-            launches_per_train_step=train.get(k["name"], 0) / TRAIN_STEPS if train else None,
-            launches_per_served_batch={path: runs[key].get(k["name"], 0) / n
-                                       for path, (key, n) in served.items() if key in runs}))
+        main_path = runs.get(main_paths.get(k["name"], "train"), {})
+        kernels.append(dict(k, launches=main_path.get(k["name"]),
+                            launches_per_train_step=per_run(trained, k["name"]),
+                            launches_per_served_batch=per_run(served, k["name"])))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

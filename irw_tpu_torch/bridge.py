@@ -17,6 +17,8 @@ are read with ``np.asarray``.  Handled layouts:
   ``blocks/inner/Block_0/…`` (depth split as (G, k)), and unrolled
   ``Block_i``;
 - MHA kernels (D, H, hd) and (H, hd, D) → Linear (H·hd, D) and (D, H·hd);
+  a ``use_flash`` Block's ``attn_qkv`` kernel (D, 3, H, hd) and bias
+  (3, H, hd) → Linear (3·H·hd, D) and (3·H·hd,), its ``attn_out`` as Dense;
 - Dense (in, out) → Linear (out, in);
 - conv HWIO → OIHW (the inverse of ``convert_torch_weights.py:131-186``);
 - ``batch_stats`` mean/var → BatchNorm ``running_mean``/``running_var``.
@@ -57,6 +59,15 @@ def _mha(t) -> dict:
     return out
 
 
+def _flash_mha(t) -> dict:
+    """A ``use_flash`` Block's ``attn_qkv`` and ``attn_out`` → ``FlashAttention``."""
+    k, b = _a(t["attn_qkv"]["kernel"]), _a(t["attn_qkv"]["bias"])  # (…, D, 3, H, hd), (…, 3, H, hd)
+    out = {"qkv.weight": np.swapaxes(k.reshape(*k.shape[:-3], -1), -1, -2),
+           "qkv.bias": b.reshape(*b.shape[:-3], -1)}
+    out.update(_prefixed("out", _dense(t["attn_out"])))
+    return out
+
+
 def _prefixed(prefix: str, d: dict) -> dict:
     return {f"{prefix}.{k}": v for k, v in d.items()}
 
@@ -64,7 +75,7 @@ def _prefixed(prefix: str, d: dict) -> dict:
 def _block(t) -> dict:
     sd = {}
     sd.update(_prefixed("norm1", _ln(t["norm1"]["LayerNorm_0"])))
-    sd.update(_prefixed("attn", _mha(t["attn"])))
+    sd.update(_prefixed("attn", _flash_mha(t) if "attn_qkv" in t else _mha(t["attn"])))
     sd["ls1"] = _a(t["ls1"])
     sd.update(_prefixed("norm2", _ln(t["norm2"]["LayerNorm_0"])))
     sd.update(_prefixed("mlp.fc1", _dense(t["Mlp_0"]["Dense_0"])))

@@ -56,22 +56,6 @@ constexpr int kBK = 64;                 // keys per tile
 
 constexpr int kWarps = 4;                       // 16 query rows each
 constexpr int kMmaThreads = 32 * kWarps;
-constexpr int kPad = 8;                         // bf16 elements (16 bytes) per row
-
-// 64 rows of hd bf16 from global (16-byte loads) into a padded smem tile;
-// rows at or past n are zero
-template <int HD>
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               long long row_stride, int row0, int n) {
-    constexpr int kVec = 8, kPerRow = HD / kVec, kLd = HD + kPad;
-    for (int idx = threadIdx.x; idx < kBK * kPerRow; idx += kMmaThreads) {
-        const int r = idx / kPerRow, c = (idx % kPerRow) * kVec;
-        const int row = row0 + r;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (row < n) val = *reinterpret_cast<const uint4*>(src + row * row_stride + c);
-        *reinterpret_cast<uint4*>(dst + r * kLd + c) = val;
-    }
-}
 
 // this warp's 16 x 64 score tile: s[j] is the m16n8 fragment of keys
 // k0 + 8 j .. 8 j + 7; rows g and g + 8 of the warp's slice, columns 2 t, 2 t + 1
@@ -79,7 +63,7 @@ template <int HD>
 __device__ __forceinline__ void score_tile_mma(const uint32_t (&qa)[HD / 16][4],
                                                const __nv_bfloat16* sK, float scale,
                                                int k0, int n, float (&s)[kBK / 8][4]) {
-    constexpr int kLd = HD + kPad;
+    constexpr int kLd = HD + kTilePad;
     const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
@@ -110,7 +94,7 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                           int n, int heads, float scale, Strides sq, Strides sk, Strides sv,
                           Strides so) {
-    constexpr int kLd = HD + kPad;
+    constexpr int kLd = HD + kTilePad;
     constexpr int kKS = HD / 16;   // k-steps over head_dim
     constexpr int kNT = HD / 8;    // n-tiles over head_dim
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -126,7 +110,7 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
     const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
     const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
 
-    load_rows_bf16<HD>(sQ, q + b * sq.b + h * sq.h, sq.n, q0, n);
+    load_tile_bf16<HD, kBQ, kMmaThreads>(sQ, q + b * sq.b + h * sq.h, sq.n, q0, n);
     __syncthreads();
     uint32_t qa[kKS][4];
     {
@@ -146,7 +130,7 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
     for (int tile = 0; tile < ntiles; ++tile) {
         const int k0 = tile * kBK;
         __syncthreads();  // readers of the previous tile are done
-        load_rows_bf16<HD>(sK, kb, sk.n, k0, n);
+        load_tile_bf16<HD, kBK, kMmaThreads>(sK, kb, sk.n, k0, n);
         __syncthreads();
         float s[kBK / 8][4];
         score_tile_mma<HD>(qa, sK, scale, k0, n, s);
@@ -172,8 +156,8 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
     for (int tile = 0; tile < ntiles; ++tile) {
         const int k0 = tile * kBK;
         __syncthreads();
-        load_rows_bf16<HD>(sK, kb, sk.n, k0, n);
-        load_rows_bf16<HD>(sV, vb, sv.n, k0, n);
+        load_tile_bf16<HD, kBK, kMmaThreads>(sK, kb, sk.n, k0, n);
+        load_tile_bf16<HD, kBK, kMmaThreads>(sV, vb, sv.n, k0, n);
         __syncthreads();
         float s[kBK / 8][4];
         score_tile_mma<HD>(qa, sK, scale, k0, n, s);
@@ -201,87 +185,38 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
         }
     }
 
-    __nv_bfloat16* ob = o + b * so.b + h * so.h;
-    const int row = q0 + warp * 16 + g;
-#pragma unroll
-    for (int jn = 0; jn < kNT; ++jn) {
-        const int col = jn * 8 + t * 2;
-        if (row < n)
-            *reinterpret_cast<uint32_t*>(ob + row * so.n + col) = pack_bf16(acc[jn][0], acc[jn][1]);
-        if (row + 8 < n)
-            *reinterpret_cast<uint32_t*>(ob + (row + 8) * so.n + col) =
-                pack_bf16(acc[jn][2], acc[jn][3]);
-    }
+    warp_store_bf16<HD>(o + b * so.b + h * so.h, so.n, acc, q0 + warp * 16, n);
 }
 
 // ------------------------------------------------------------------------
 // f32: plain FMA path
 // ------------------------------------------------------------------------
 
-constexpr int kTX = 16, kTY = 16;       // 256 threads
-constexpr int kThreads = kTX * kTY;
-constexpr int kRows = kBQ / kTY;        // query rows per thread
-constexpr int kCols = kBK / kTX;        // keys per thread
+constexpr int kRows = kBQ / kFmaSide;  // query rows per thread
+constexpr int kCols = kBK / kFmaSide;  // keys per thread
 constexpr int kLdP = kBK + 1;
-static_assert(kBQ == kBK, "load_tile stages kBK rows for the query tile too");
-
-// reduce over the 16 lanes that share a ty (a half warp)
-__device__ __forceinline__ float half_warp_max(float v) {
-    for (int off = kTX / 2; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    return v;
-}
-__device__ __forceinline__ float half_warp_sum(float v) {
-    for (int off = kTX / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    return v;
-}
-
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, Strides st, int row0, int n) {
-    constexpr int ld = HD + 1;
-    for (int idx = threadIdx.x; idx < kBK * HD; idx += kThreads) {
-        const int r = idx / HD, d = idx % HD;
-        const int row = row0 + r;
-        dst[r * ld + d] = row < n ? src[row * st.n + d] : 0.f;
-    }
-}
 
 // s[i][j] = scale * <q row ty+16i, k row tx+16j>, -inf for keys past n
 template <int HD>
 __device__ __forceinline__ void score_tile(const float* sQ, const float* sK, float scale,
                                            int k0, int n, float (&s)[kRows][kCols]) {
-    constexpr int ld = HD + 1;
-    const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-        float qv[kRows], kv[kCols];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) qv[i] = sQ[(ty + kTY * i) * ld + d];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) kv[j] = sK[(tx + kTX * j) * ld + d];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-            for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+    const int tx = threadIdx.x % kFmaSide;
+    fma_dot_f32<HD, kBQ, kBK>(sQ, sK, s);
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
-        const bool valid = k0 + tx + kTX * j < n;
+        const bool valid = k0 + tx + kFmaSide * j < n;
 #pragma unroll
         for (int i = 0; i < kRows; ++i) s[i][j] = valid ? s[i][j] * scale : neg_inf();
     }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFmaThreads)
 attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o, int n, int heads,
                          float scale, Strides sq, Strides sk, Strides sv, Strides so) {
     constexpr int ld = HD + 1;
-    constexpr int kOut = HD / kTX;  // output columns per thread
+    constexpr int kOut = HD / kFmaSide;  // output columns per thread
     extern __shared__ float smem[];
     float* sQ = smem;               // kBQ x ld
     float* sK = sQ + kBQ * ld;      // kBK x ld
@@ -291,13 +226,13 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     const int bh = blockIdx.x;
     const int b = bh / heads, h = bh % heads;
     const int q0 = blockIdx.y * kBQ;
-    const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
+    const int tx = threadIdx.x % kFmaSide, ty = threadIdx.x / kFmaSide;
     const float* qb = q + b * sq.b + h * sq.h;
     const float* kb = k + b * sk.b + h * sk.h;
     const float* vb = v + b * sv.b + h * sv.h;
     float* ob = o + b * so.b + h * so.h;
 
-    load_tile<HD>(sQ, qb, sq, q0, n);
+    load_tile_f32<HD, kBQ>(sQ, qb, sq.n, q0, n);
 
     // pass 1: row max and sum of exp(s - max), f32
     float m[kRows], l[kRows];
@@ -307,7 +242,7 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     for (int t = 0; t < ntiles; ++t) {
         const int k0 = t * kBK;
         __syncthreads();  // readers of the previous tile are done
-        load_tile<HD>(sK, kb, sk, k0, n);
+        load_tile_f32<HD, kBK>(sK, kb, sk.n, k0, n);
         __syncthreads();
         float s[kRows][kCols];
         score_tile<HD>(sQ, sK, scale, k0, n, s);
@@ -316,11 +251,11 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
             float tmax = s[i][0];
 #pragma unroll
             for (int j = 1; j < kCols; ++j) tmax = fmaxf(tmax, s[i][j]);
-            const float mnew = fmaxf(m[i], half_warp_max(tmax));
+            const float mnew = fmaxf(m[i], row16_max(tmax));
             float part = 0.f;
 #pragma unroll
             for (int j = 0; j < kCols; ++j) part += expf(s[i][j] - mnew);
-            l[i] = l[i] * expf(m[i] - mnew) + half_warp_sum(part);
+            l[i] = l[i] * expf(m[i] - mnew) + row16_sum(part);
             m[i] = mnew;
         }
     }
@@ -334,8 +269,8 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     for (int t = 0; t < ntiles; ++t) {
         const int k0 = t * kBK;
         __syncthreads();
-        load_tile<HD>(sK, kb, sk, k0, n);
-        load_tile<HD>(sV, vb, sv, k0, n);
+        load_tile_f32<HD, kBK>(sK, kb, sk.n, k0, n);
+        load_tile_f32<HD, kBK>(sV, vb, sv.n, k0, n);
         __syncthreads();
         float s[kRows][kCols];
         score_tile<HD>(sQ, sK, scale, k0, n, s);
@@ -343,30 +278,11 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
         for (int i = 0; i < kRows; ++i)
 #pragma unroll
             for (int j = 0; j < kCols; ++j)
-                sP[(ty + kTY * i) * kLdP + tx + kTX * j] = expf(s[i][j] - m[i]) / l[i];
+                sP[(ty + kFmaSide * i) * kLdP + tx + kFmaSide * j] = expf(s[i][j] - m[i]) / l[i];
         __syncthreads();
-#pragma unroll 4
-        for (int kk = 0; kk < kBK; ++kk) {
-            float vv[kOut];
-#pragma unroll
-            for (int c = 0; c < kOut; ++c) vv[c] = sV[kk * ld + tx + kTX * c];
-#pragma unroll
-            for (int i = 0; i < kRows; ++i) {
-                const float p = sP[(ty + kTY * i) * kLdP + kk];
-#pragma unroll
-                for (int c = 0; c < kOut; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-            }
-        }
+        fma_accumulate_f32<HD, kBK, kBQ>(acc, sP, kLdP, sV);
     }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-        const int row = q0 + ty + kTY * i;
-        if (row < n) {
-#pragma unroll
-            for (int c = 0; c < kOut; ++c) ob[row * so.n + tx + kTX * c] = acc[i][c];
-        }
-    }
+    fma_store_f32<HD, kBQ>(ob, so.n, acc, q0, n);
 }
 
 // ------------------------------------------------------------------------
@@ -379,7 +295,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
     const dim3 grid(batch * heads, (n + kBQ - 1) / kBQ);
     cudaError_t err;
     if constexpr (sizeof(T) == 2) {
-        const size_t smem = sizeof(__nv_bfloat16) * 3 * kBK * (HD + kPad);
+        const size_t smem = sizeof(__nv_bfloat16) * 3 * kBK * (HD + kTilePad);
         auto kernel = attention_fwd_bf16_kernel<HD>;
         err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    static_cast<int>(smem));
@@ -395,7 +311,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
         err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    static_cast<int>(smem));
         if (err != cudaSuccess) return static_cast<int>(err);
-        kernel<<<grid, kThreads, smem, stream>>>(
+        kernel<<<grid, kFmaThreads, smem, stream>>>(
             static_cast<const float*>(q), static_cast<const float*>(k),
             static_cast<const float*>(v), static_cast<float*>(o), n, heads, scale,
             sq, sk, sv, so);

@@ -29,7 +29,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("haar_swt2", "attention_fwd", "attention_bwd", "lifting_dwt")
+KERNELS = ("haar_swt2", "attention_fwd", "attention_bwd", "lifting_dwt", "flash_attention_fwd",
+           "flash_attention_bwd")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

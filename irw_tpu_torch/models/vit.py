@@ -1,28 +1,33 @@
 """DINOv2-style Vision Transformer (port of
-``irw_tpu/models/vit.py:43-60, 62-88, 320-391, 420-619, 636-675``).
+``irw_tpu/models/vit.py:43-60, 62-88, 268-296, 320-391, 420-619, 636-675``).
 
 Patch embed → [CLS | patches] + position embeddings → pre-norm blocks with
 LayerScale → final LayerNorm → the CLS token.  With ``bands=S`` every
 parameter carries a leading band axis and the forward maps (S, B, H, W, C) →
 (S, B, D) as one batched computation: ``multi_dino.BandedViT`` is that, with
-S = 4.  The JAX ``scan_blocks`` layout is only a way of storing parameters;
-the port keeps a Python loop over blocks and ``bridge`` unstacks the depth
-axis.
+S = 4.  The JAX ``scan_blocks`` and ``scan_group`` layouts are only ways of
+storing parameters: the port accepts both flags, keeps a Python loop over
+blocks, and ``bridge`` unstacks the depth axis.
 
 Compute policy (``dtype``): f32 parameters are cast to the compute dtype at
 use (vit.py:375-381, 491-494), so the residual stream stays in it;
-LayerNorm statistics are f32 and the result is cast back.  With
-``vmem_attn`` the attention core is ``ops.attention.vmem_attention_fn``
-(kernels K2 forward and K3 backward on the card); without it, or while
-attention dropout is active, flax's ``dot_product_attention`` semantics.
+LayerNorm statistics are f32 and the result is cast back.  The attention
+follows the Block's routing (vit.py:345-374): ``use_flash`` takes
+``FlashAttention`` (one fused q/k/v projection, ``ops.flash_attention``:
+kernels K6-fwd and K6-bwd on the card), and wins over ``vmem_attn``, whose
+core is ``ops.attention.vmem_attention_fn`` (kernels K2 forward and K3
+backward on the card); with neither, or while attention dropout is active
+on the MHA route, flax's ``dot_product_attention`` semantics.  The other
+Block variants (``fused_qkv``, ``split_cls``, ``ln_fused``: ROADMAP A16;
+``quant_int8``: A14) raise.
 
-Training: ``dropout`` drops attention probabilities and MLP outputs, with
-masks drawn from the ``generator`` passed to ``forward`` (flax's
+Training: ``dropout`` drops attention probabilities (not on the flash
+route, which has no attention dropout, as ``_flash_mha``) and MLP outputs,
+with masks drawn from the ``generator`` passed to ``forward`` (flax's
 ``dropout`` rng stream).  ``remat_blocks`` recomputes each block in the
 backward (``torch.utils.checkpoint``), the port of the scanned-block
 ``nn.remat`` with policy ``None`` or ``"nothing"``; the selective policies
-wait for ROADMAP A6-remainder.  ``scan_group`` is only a parameter layout,
-which ``bridge`` unstacks.
+wait for ROADMAP A6-remainder.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from irw_tpu_torch.models.layers import LayerNorm, Linear, Mlp, draw_seed, trunc_normal_
 from irw_tpu_torch.ops.attention import dot_product_attention, vmem_attention_fn
+from irw_tpu_torch.ops.flash_attention import flash_attention
 
 _REMAT_POLICIES = (None, "nothing")
 _LATER_REMAT_POLICIES = ("dots", "dots_no_batch", "dots_no_batch_gelu", "everything",
@@ -121,6 +127,30 @@ class Attention(nn.Module):
         return self.out(o.reshape(*pre, n, d))
 
 
+class FlashAttention(nn.Module):
+    """``_flash_mha`` (vit.py:268-296): one fused projection ``qkv`` (flax
+    ``DenseGeneral((3, H, hd))`` named ``attn_qkv``, its output read as
+    (…, N, 3, H, hd)), the flash attention core with scale 1/√hd (q, k, v
+    passed as strided views of the projection) and ``out`` (``attn_out``).
+    No attention dropout, in training too: ``_flash_mha`` has none."""
+
+    def __init__(self, dim: int, num_heads: int, bands: int | None = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = Linear(dim, 3 * dim, bands=bands, dtype=dtype)
+        self.out = Linear(dim, dim, bands=bands, dtype=dtype)
+        # a plain attribute, so a caller can hold the kernels against their
+        # plain versions on the same weights (chip_smoke.py does)
+        self.core = flash_attention
+
+    def forward(self, y, generator: torch.Generator | None = None):
+        *pre, n, d = y.shape
+        h = self.num_heads
+        q, k, v = self.qkv(y).reshape(*pre, n, 3, h, d // h).unbind(-3)
+        return self.out(self.core(q, k, v).reshape(*pre, n, d))
+
+
 def _per_band(param, x):
     """(D,) or (S, D) parameter → broadcastable against (…, N, D) / (S, …, N, D)."""
     if param.dim() == 1:
@@ -132,12 +162,15 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  layerscale_init: float = 1e-5, vmem_attn: bool = False,
                  exact_gelu: bool = False, bands: int | None = None,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 use_flash: bool = False):
         super().__init__()
         lead = () if bands is None else (bands,)
         self.dtype = dtype
         self.norm1 = DomainLayerNorm(dim, bands=bands, dtype=dtype)
-        self.attn = Attention(dim, num_heads, vmem_attn, bands, dtype, dropout)
+        # vit.py:345-374: use_flash is routed before vmem_attn
+        self.attn = (FlashAttention(dim, num_heads, bands, dtype) if use_flash
+                     else Attention(dim, num_heads, vmem_attn, bands, dtype, dropout))
         self.ls1 = nn.Parameter(torch.full((*lead, dim), layerscale_init))
         self.norm2 = DomainLayerNorm(dim, bands=bands, dtype=dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, exact_gelu, bands, dtype, dropout)
@@ -171,10 +204,18 @@ class VisionTransformer(nn.Module):
                  vmem_attn: bool = False, exact_gelu: bool = False,
                  dtype: torch.dtype | str = torch.float32, bands: int | None = None,
                  dropout: float = 0.0, remat_blocks: bool = False,
-                 remat_policy: str | None = None):
+                 remat_policy: str | None = None, use_flash: bool = False,
+                 scan_blocks: bool = False, scan_group: int = 1, fused_qkv: bool = False,
+                 split_cls: bool = False, ln_fused: bool = False, quant_int8: bool = False):
         super().__init__()
         if isinstance(dtype, str):  # 'bfloat16' / 'float32' from YAML configs
             dtype = getattr(torch, dtype)
+        del scan_blocks, scan_group  # parameter layouts only: bridge unstacks them
+        # Block variants not ported yet (vit.py:326-334) and their ROADMAP item
+        for flag, on, item in (("fused_qkv", fused_qkv, "A16"), ("split_cls", split_cls, "A16"),
+                               ("ln_fused", ln_fused, "A16"), ("quant_int8", quant_int8, "A14")):
+            if on:
+                raise NotImplementedError(f"ViT {flag}=True waits for ROADMAP {item}")
         if remat_policy in _LATER_REMAT_POLICIES:
             raise NotImplementedError(f"remat_policy {remat_policy!r} waits for ROADMAP "
                                       "A6-remainder; the port remats whole blocks "
@@ -193,7 +234,7 @@ class VisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(*lead, num_patches + 1, embed_dim))
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, layerscale_init, vmem_attn,
-                  exact_gelu, bands, dtype, dropout) for _ in range(depth))
+                  exact_gelu, bands, dtype, dropout, use_flash) for _ in range(depth))
         self.norm = DomainLayerNorm(embed_dim, bands=bands, dtype=dtype)
 
     def reset_parameters(self, generator=None):
@@ -246,7 +287,8 @@ VIT_DIMS = {
 
 def vit_config(name: str, **kw) -> dict:
     """Constructor kwargs for a named ViT variant (vit.py:650-671, without
-    ``scan_blocks``: the port always loops over blocks)."""
+    ``scan_blocks``, which the port accepts and ignores: it always loops over
+    blocks)."""
     if name in ("dinov2_vits14", "vit_small", "deit_small"):
         base = dict(embed_dim=384, depth=12, num_heads=6)
     elif name in ("dinov2_vitb14", "vit_base", "deit_base"):

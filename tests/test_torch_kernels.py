@@ -16,6 +16,13 @@ from irw_tpu_torch.ops.attention import (
     fused_attention,
     fused_attention_bwd,
 )
+from irw_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_fwd,
+    flash_attention_plain,
+    flash_attention_plain_bwd,
+)
 from irw_tpu_torch.ops.wavelets import (
     haar_swt2,
     haar_swt2_plain,
@@ -192,3 +199,81 @@ def test_lifting_kernel_refuses_what_it_does_not_take(card):
         lifting_multi_level(torch.zeros(1, 8192, 8, device=card))
     with pytest.raises(ValueError, match="divide"):
         lifting_multi_level(torch.zeros(1, 12, 8, device=card), levels=3)
+
+
+FLASH_CASES = [  # (shape, dtype): 1, 2 and 3 key blocks, every head_dim
+    ((3, 37, 2, 32), torch.float32),
+    ((2, 257, 6, 64), torch.bfloat16),
+    ((2, 200, 3, 128), torch.bfloat16),
+    ((2, 384, 2, 64), torch.float32),
+    ((2, 3, 65, 1, 64), torch.float32),
+    ((2, 256, 2, 64), torch.bfloat16),   # whole key blocks: no masked key
+    ((2, 130, 2, 128), torch.float32),
+]
+
+
+def _k6_tol(dtype, ref, bwd):
+    # of max|ref|: f32 the same math in another order; bf16 one ulp of a
+    # rounded p (forward) or p, ds (backward) moved, as K2 and K3
+    rel = 1e-5 if dtype == torch.float32 else (2 ** -6 if bwd else 2 ** -7)
+    return rel * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", FLASH_CASES)
+def test_flash_kernels_on_card(card, shape, dtype):
+    gen = torch.Generator(device=card).manual_seed(5)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=card).to(dtype) for _ in range(4))
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    o, l, m = flash_attention_fwd(q, k, v, save_residuals=True)
+    ro, rl, rm = flash_attention_plain(q, k, v, save_residuals=True)
+    grads = flash_attention_bwd(q, k, v, ro, do, rl, rm)
+    refs = flash_attention_plain_bwd(q, k, v, ro, do, rl, rm)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == (before[0] + 1,
+                                                                            before[1] + 1)
+    assert o.dtype == dtype and l.shape == m.shape == (*shape[:-3], shape[-2], shape[-3])
+    torch.testing.assert_close(o.float(), ro.float(), rtol=0, atol=_k6_tol(dtype, ro, False))
+    torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+    torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-6)
+    for out, ref in zip(grads, refs):
+        assert out.dtype == dtype and out.shape == q.shape
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=_k6_tol(dtype, ref, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_on_the_fused_projection(card, dtype):
+    """q, k, v as strided views of one (…, N, 3, H, hd) projection, as the
+    ViT's FlashAttention passes them: one launch of each kernel, and the
+    gradients those of the kernels called directly."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    qkv = torch.randn(2, 130, 3, 2, 64, generator=gen, device=card).to(dtype)
+    do = torch.randn(2, 130, 2, 64, generator=gen, device=card).to(dtype)
+    leaf = qkv.clone().requires_grad_()
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    out = flash_attention(*leaf.unbind(-3))
+    out.backward(do)
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == (before[0] + 1,
+                                                                            before[1] + 1)
+    q, k, v = qkv.unbind(-3)
+    assert not q.is_contiguous()
+    o, l, m = flash_attention_fwd(q, k, v, save_residuals=True)
+    torch.testing.assert_close(out, o, rtol=0, atol=0)
+    ref = torch.stack(flash_attention_bwd(q, k, v, o, do, l, m), dim=-3)
+    torch.testing.assert_close(leaf.grad, ref, rtol=0, atol=0)
+    with torch.no_grad():
+        torch.testing.assert_close(flash_attention(q, k, v), o, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_what_they_do_not_take(card):
+    q = torch.zeros(1, 8, 1, 48, device=card)
+    with torch.no_grad(), pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, q)
+    h = torch.zeros(1, 8, 1, 64, device=card, dtype=torch.float16)
+    with torch.no_grad(), pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention(h, h, h)
+    s = torch.zeros(1, 1, 8, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_bwd(q, q, q, q, q, s, s)

@@ -1,7 +1,8 @@
 """Rules of the port: it imports no JAX, its entry points run on the card
-unless told otherwise, and its wrappers never hide a missing kernel: on the
-CPU each runs its plain version and counts no launch, on a device that is
-neither CPU nor CUDA it raises."""
+unless told otherwise, its wrappers never hide a missing kernel (on the CPU
+each runs its plain version and counts no launch, on a device that is
+neither CPU nor CUDA it raises), and what is not ported names its ROADMAP
+item."""
 
 import json
 import os
@@ -18,11 +19,19 @@ import irw_tpu_torch
 from irw_tpu_torch.data import SyntheticVOCDataset
 from irw_tpu_torch.engine import compute_embeddings, evaluate
 from irw_tpu_torch.models import get_model
+from irw_tpu_torch.models.vit import make_vit
 from irw_tpu_torch.ops.attention import (
     attention_plain,
     attention_plain_bwd,
     fused_attention,
     fused_attention_bwd,
+)
+from irw_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_fwd,
+    flash_attention_plain,
+    flash_attention_plain_bwd,
 )
 from irw_tpu_torch.ops.wavelets import (
     haar_swt2,
@@ -49,7 +58,8 @@ def test_port_and_chip_smoke_import_no_jax():
             "irw_tpu_torch.losses.hashing"} <= set(modules)
     assert {"irw_tpu_torch.ops.wavelets.lifting", "irw_tpu_torch.ops.wavelets.lifting_families",
             "irw_tpu_torch.ops.wavelets.lifting_dwt", "irw_tpu_torch.models.resnet",
-            "irw_tpu_torch.models.attention_blocks", "irw_tpu_torch.models.wresnet"} <= set(modules)
+            "irw_tpu_torch.models.attention_blocks", "irw_tpu_torch.models.wresnet",
+            "irw_tpu_torch.ops.flash_attention"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r} + ['irw_tpu_torch', 'chip_smoke']:\n"
@@ -134,6 +144,25 @@ def test_cpu_tensors_take_the_plain_path_uncounted():
         fused_attention(q, k[:, :5], v)
 
 
+def test_cpu_tensors_take_the_flash_plain_path_uncounted():
+    rng = np.random.RandomState(1)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 140, 2, 32).astype(np.float32))
+                   for _ in range(4))
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    o, l, m = flash_attention_fwd(q, k, v, save_residuals=True)
+    ro, rl, rm = flash_attention_plain(q, k, v, save_residuals=True)
+    for a, b in ((o, ro), (l, rl), (m, rm)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(flash_attention_bwd(q, k, v, o, do, l, m),
+                    flash_attention_plain_bwd(q, k, v, o, do, l, m)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*leaves).sum().backward()
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == before
+    with torch.no_grad(), pytest.raises(ValueError):
+        flash_attention(q, k[:, :5], v)
+
+
 def test_other_devices_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="no kernel"):
         haar_swt2(torch.empty(2, 4, 4, device="meta"))
@@ -146,6 +175,13 @@ def test_other_devices_raise_instead_of_falling_back():
         fused_attention_bwd(q, q, q, q)
     with pytest.raises(ValueError, match="no kernel"):  # a CPU gradient for meta inputs
         fused_attention_bwd(q, q, q, torch.zeros(1, 4, 1, 32))
+    with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
+        flash_attention(q, q, q)
+    stats = torch.empty(1, 1, 4, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention_bwd(q, q, q, q, q, stats, stats)
+    with pytest.raises(ValueError, match="no kernel"):  # a CPU output gradient for meta inputs
+        flash_attention_bwd(q, q, q, q, torch.zeros(1, 4, 1, 32), stats, stats)
 
 
 class _CudaBf16:
@@ -179,6 +215,17 @@ def test_unported_models_and_heads_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="A10"):
         get_model("multidino_attention_hashing", device="cpu",
                   **dict(TINY, fusion_config={"type": "gated"}))
+    # the ViT Block variants of irw_tpu/models/vit.py:326-334; the scanned
+    # layouts are only parameter layouts, accepted and ignored
+    for flag, item in (("fused_qkv", "A16"), ("split_cls", "A16"), ("ln_fused", "A16"),
+                       ("quant_int8", "A14")):
+        with pytest.raises(NotImplementedError, match=item):
+            make_vit("test_tiny", **{flag: True})
+        with pytest.raises(NotImplementedError, match=item):
+            get_model("multidino_attention_hashing", device="cpu",
+                      **dict(TINY, vit_kwargs={"img_size": 16, flag: True}))
+    vit = make_vit("test_tiny", scan_blocks=True, scan_group=2, fused_qkv=False)
+    assert len(vit.blocks) == 2
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

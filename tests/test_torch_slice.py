@@ -37,8 +37,13 @@ def test_synthetic_voc_images_match():
 
 
 def test_slice_end_to_end_matches_jax():
+    check_slice_matches_jax({"depth": 2, "dtype": "float32", "vmem_attn": True})
+
+
+def check_slice_matches_jax(vit_kwargs):
+    """The small flagship with ``vit_kwargs`` on both packages: same
+    embeddings and labels, every metric to 1e-6."""
     cfg = flagship_yaml()
-    vit_kwargs = {"depth": 2, "dtype": "float32", "vmem_attn": True}
     kw = dict(cfg["kwargs"], vit_kwargs=vit_kwargs)
     jmodel = jax_get_model(cfg["name"], **kw)
     rngs = {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1),

@@ -75,10 +75,14 @@ def _batch(seed=0):
 
 @pytest.fixture(scope="module")
 def steps():
-    """Both packages from one state through STEPS steps: (JAX states, JAX
-    metrics, port metrics, port state, the port's first-step gradients)."""
+    return run_steps({"depth": 2, "dtype": "float32", "vmem_attn": True})
+
+
+def run_steps(vit_kwargs):
+    """Both packages from one state through STEPS steps of the small
+    flagship with ``vit_kwargs``: (JAX states, JAX metrics, port metrics,
+    port state, the port's parameters and gradients after each step)."""
     cfg = flagship_yaml()
-    vit_kwargs = {"depth": 2, "dtype": "float32", "vmem_attn": True}
     fusion = dict(cfg["kwargs"]["fusion_config"], dropout=0.0)
     kw = dict(cfg["kwargs"], vit_kwargs=vit_kwargs, fusion_config=fusion)
     opt_cfg, loss_cfg = _configs()
@@ -135,6 +139,10 @@ def jstate_variables(jstate):
 
 
 def test_step_metrics_match_jax(steps):
+    check_step_metrics(steps)
+
+
+def check_step_metrics(steps):
     _, jmetrics, metrics, state, _, _ = steps
     assert state.step == STEPS
     for i, (ours, ref) in enumerate(zip(metrics, jmetrics)):
@@ -159,6 +167,10 @@ def _deltas_agree(name, ours, ref, start, grads, lr, wd):
 
 @pytest.mark.parametrize("i", range(STEPS))
 def test_step_updates_match_jax(steps, i):
+    check_step_updates(steps, i)
+
+
+def check_step_updates(steps, i):
     """Step i from the same parameters: the updated parameters, the HashLoss
     proxies (the loss's own AdamW: lr 1e-4, weight decay 1e-4) and the
     HashHead running statistics."""
