@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases card,build,attention,train
     python3 chip_smoke.py --phases card,build,dwt,wcnn
     python3 chip_smoke.py --phases card,build,flash,flash_serve,flash_train
+    python3 chip_smoke.py --phases card,build,qkv,qkv_micro,variants
 
 Drives the port's serving path — uint8 images → DeviceTransform (/255, Haar
 SWT: kernel K1) → the flagship MultiDinoHashing (4 × DINOv2 ViT-S/14 at
@@ -17,7 +18,10 @@ K4) → RetrievalNet ``wcnn_attention_ce`` (4 × ResNet-50 at 112², CBAM
 subband gate, f32) → L2-normalised embeddings → cosine retrieval metrics —
 and the flagship with ``vit_kwargs={"use_flash": True}``, served and
 trained with every block's attention on the flash kernels K6-fwd and K6-bwd
-— and prints one line per phase:
+— and the attention-segment path — the micro-benchmarks that drive kernel K5
+(q/k/v projections fused into the attention), K2 and K3, and the flagship
+with the ViT Block variants ``fused_qkv``, ``split_cls`` and ``ln_fused`` —
+and prints one line per phase:
 
 1. card: name and power limit (nvidia-smi);
 2. build: the kernels from ``irw_tpu_torch/csrc``, one nvcc each, in parallel;
@@ -59,7 +63,22 @@ trained with every block's attention on the flash kernels K6-fwd and K6-bwd
    profiled;
 13. flash_train: the same model trains at batch 96 (launch counts per step,
    the kernel route against the plain route, trained img/s, peak memory),
-   one step profiled.
+   one step profiled;
+14. qkv: K5 against ``qkv_attention_plain`` at the micro-benchmark's default
+   (192, 257, 384) bf16 with 6 heads, at the flagship's served rows
+   (256, 257, 384), in f32, at head dims 32 (a scale that is no power of
+   two) and 128, at N = 37, at D = 96 (a ragged last chunk) and at D = 768
+   with 12 heads; timed beside its plain version, the production segment
+   (three ``F.linear`` + K2) and, as a two-call yardstick, one ``F.linear``
+   onto (D, 3D) followed by SDPA;
+15. qkv_micro: ``irw_tpu_torch.benchmarks.vmem_qkv_micro.run()`` and
+   ``vmem_attn_micro.run()`` at their full default widths: their JSON, their
+   maxdiffs against stated limits, and the launches of K5, K2 and K3;
+16. variants: the full-width flagship served with ``fused_qkv``, with
+   ``split_cls`` and with ``vmem_attn + ln_fused`` (codes against the default
+   route, img/s, launch counts: never K5), ``infer_vmem_ab``'s sweep of the
+   frozen flagship, and train steps at batch 96 with ``ln_fused`` on the
+   K2/K3 route against the same steps without it.
 
 Then a JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -80,7 +99,7 @@ import time
 import numpy as np
 
 PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train", "dwt",
-          "wcnn", "flash", "flash_serve", "flash_train")
+          "wcnn", "flash", "flash_serve", "flash_train", "qkv", "qkv_micro", "variants")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -166,6 +185,30 @@ K6_SERVE_SHAPE = K2_SHAPE
 K6_TRAIN_SHAPE = K3_SHAPE
 K6_FWD_TOL = K2_TOL
 FLASH = {"use_flash": True}
+# K5: benchmarks/vmem_qkv_micro.py's defaults.  Kernel and plain version round
+# q, k, v (after the f32 bias add), the normalised P and o alike; only the f32
+# accumulation order differs.  K2 gets q, k, v already rounded and stays
+# within one bf16 ulp of o (2^-7 for |o| < 2); here a one-ulp flip of a q, k
+# or v element is also carried through the scores into every P of its row, so
+# the bf16 limit is two ulps, of max(1, max|o|).  f32: the same math in
+# another order, through two chained products
+K5_SHAPE = (192, 257, 384)
+K5_HEADS = 6
+K5_TOL = {"bfloat16": 2 ** -6, "float32": 1e-5}
+# the micro-benchmarks' parity bars.  K5 against the production segment:
+# cuBLAS rounds q, k, v where K5 does, in another accumulation order, so K5's
+# own limit.  K2 and K3 against the stock attention, which rounds the scores
+# to bf16 before its softmax where the kernels keep them in f32: a few bf16
+# ulps of the largest output (unit-normal q, k, v give max|o| in [1, 2): an
+# ulp is 2^-7) and of the largest gradient ([2, 4): 2^-6).  The JAX package's
+# own run of the same micro gave 0.0117 and 0.0156 (BENCH_r05.json), the port
+# on an H100 0.0156 (two ulps) and 0.0234: the forward limit is three ulps,
+# the gradient limit two
+MICRO_FWD_TOL = 3 * 2 ** -7
+MICRO_GRAD_TOL = 2 ** -5
+VARIANT_BATCHES = 4      # timed served batches per Block variant
+LN_TRAIN_STEPS = 3       # the first from identical weights: its loss is compared
+LN_LOSS_TOL = 1e-3       # ln_fused against the plain LayerNorm, relative
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -206,18 +249,6 @@ def phase_card(state):
     print(smi[0], flush=True)  # name, power limit: as nvidia-smi gives them
     log("card", f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()} | "
                 f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-
-
-def log_unported_bounds():
-    """The least time the card could take for the TPU kernel not ported
-    yet, from the shapes its caller gives it (PERF.md's table): K5 at
-    benchmarks/vmem_qkv_micro.py's defaults."""
-    b, n, d, heads = 192, 257, 384, 6          # K5: x (b, n, d) → Q/K/V → attention
-    nbytes = 2 * (2 * b * n * d + 3 * d * d + 3 * d)
-    flops = 3 * 2 * b * n * d * d + 4 * b * heads * n * n * (d // heads)
-    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-    log("card", f"K5 fused_qkv_attention ({b}, {n}, {d}) bf16, {heads} heads: bound "
-                f"{b_ms:.4f} ms ({b_by}); not ported")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -445,18 +476,23 @@ def _check_cores(model, name: str):
         raise AssertionError(f"expected every block's attention core to be {name}, got {cores}")
 
 
-KERNEL_IDS = ("K1", "K2", "K3", "K4", "K6-fwd", "K6-bwd")
+KERNEL_IDS = ("K1", "K2", "K3", "K4", "K6-fwd", "K6-bwd", "K5")
 
 
 def _kernel_wrappers():
-    """The wrappers of K1-K6 (in ``KERNEL_IDS``' order), whose ``launches``
-    each path sets to 0 and reads."""
+    """The wrappers of every kernel (in ``KERNEL_IDS``' order), whose
+    ``launches`` each path sets to 0 and reads."""
     from irw_tpu_torch.ops.attention import fused_attention, fused_attention_bwd
     from irw_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from irw_tpu_torch.ops.qkv_attention import fused_qkv_attention
     from irw_tpu_torch.ops.wavelets import haar_swt2, lifting_multi_level
 
     return (haar_swt2, fused_attention, fused_attention_bwd, lifting_multi_level,
-            flash_attention_fwd, flash_attention_bwd)
+            flash_attention_fwd, flash_attention_bwd, fused_qkv_attention)
+
+
+def _launch_counts(kernels) -> dict:
+    return {fn.__name__: fn.launches for fn in kernels}
 
 
 def _check_launches(phase: str, per_run: list, expected: tuple, what: str):
@@ -515,7 +551,7 @@ def _serve_flagship(state, phase: str, model, expected: tuple, plain_core, held:
             per_batch.append(tuple(fn.launches - b for fn, b in zip(kernels, before)))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = {fn.__name__: fn.launches for fn in kernels}
+        counts = _launch_counts(kernels)
         state["launches"][phase] = counts
         peak = torch.cuda.max_memory_allocated() - held
         log(phase, f"launches over {SERVE_BATCHES} batches: {counts}")
@@ -561,7 +597,7 @@ def phase_serve(state):
     model = _flagship_model()
     _check_cores(model, "vmem_attention_fn")
     state["model"] = model
-    _serve_flagship(state, "serve", model, (1, 12, 0, 0, 0, 0), attention_plain, held)
+    _serve_flagship(state, "serve", model, (1, 12, 0, 0, 0, 0, 0), attention_plain, held)
 
 
 _KERNEL_GROUPS = (("K3 attention bwd", ("attention_bwd",)), ("K2 attention", ("attention_fwd",)),
@@ -707,7 +743,7 @@ def _train_flagship(state, phase: str, model, expected: tuple, plain_core, held:
     seconds = time.perf_counter() - t0
     step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
     mean_ms = seconds / TRAIN_STEPS * 1e3
-    counts = {fn.__name__: fn.launches for fn in kernels}
+    counts = _launch_counts(kernels)
     state["launches"][phase] = counts
     peak = torch.cuda.max_memory_allocated() - held
     log(phase, f"launches over {TRAIN_STEPS} steps: {counts}")
@@ -755,7 +791,7 @@ def phase_train(state):
     held = _release_earlier_phases(state)
     model = _flagship_model()
     _check_cores(model, "vmem_attention_fn")
-    _train_flagship(state, "train", model, (1, 24, 12, 0, 0, 0), attention_plain_autograd, held)
+    _train_flagship(state, "train", model, (1, 24, 12, 0, 0, 0, 0), attention_plain_autograd, held)
 
 
 def phase_retrieval(state):
@@ -966,11 +1002,11 @@ def phase_wcnn(state):
             per_batch.append(tuple(fn.launches - b for fn, b in zip(kernels, before)))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = {fn.__name__: fn.launches for fn in kernels}
+        counts = _launch_counts(kernels)
         state["launches"]["wcnn"] = counts
         peak = torch.cuda.max_memory_allocated()
         log("wcnn", f"launches over {WCNN_BATCHES} batches: {counts}")
-        _check_launches("wcnn", per_batch, (0, 0, 0, 1, 0, 0), "batch")
+        _check_launches("wcnn", per_batch, (0, 0, 0, 1, 0, 0, 0), "batch")
         log("wcnn", f"{WCNN_BATCHES * BATCH / seconds:.1f} img/s (batch {BATCH}, Normalize + "
                     f"haar DWT + 4 x ResNet-50 at 112² + CBAM gate) | peak memory "
                     f"{peak / 2 ** 30:.2f} GiB | {precision} | {state['card']}")
@@ -1188,7 +1224,7 @@ def phase_flash_serve(state):
     held = _release_earlier_phases(state)
     model = _flagship_model(FLASH)
     _check_cores(model, "flash_attention")
-    batch_ms = _serve_flagship(state, "flash_serve", model, (1, 0, 0, 0, 12, 0),
+    batch_ms = _serve_flagship(state, "flash_serve", model, (1, 0, 0, 0, 12, 0, 0),
                                flash_attention_plain_autograd, held)
     transform = DeviceTransform(SWT_OPS)
     images = SyntheticVOCDataset(num_train=BATCH, image_size=224, seed=2).images
@@ -1209,8 +1245,287 @@ def phase_flash_train(state):
     held = _release_earlier_phases(state)
     model = _flagship_model(FLASH)
     _check_cores(model, "flash_attention")
-    _train_flagship(state, "flash_train", model, (1, 0, 0, 0, 24, 12),
+    _train_flagship(state, "flash_train", model, (1, 0, 0, 0, 24, 12, 0),
                     flash_attention_plain_autograd, held)
+
+
+def _k5_inputs(b, n, d, heads_dim, dtype, seed):
+    """x unit normal, weights (d, heads_dim) / sqrt(d), biases * 0.01 (the
+    micro-benchmark's scales), drawn on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x = draw(b, n, d)
+    ws = [draw(d, heads_dim) / math.sqrt(d) for _ in range(3)]
+    bs = [draw(heads_dim) * 0.01 for _ in range(3)]
+    return tuple(t.to(dtype) for t in (x, *ws, *bs))
+
+
+def _k5_case(b, n, d, heads, hd, dtype, seed):
+    """K5 against ``qkv_attention_plain``; returns the inputs and the error."""
+    import torch
+
+    from irw_tpu_torch.ops.qkv_attention import fused_qkv_attention, qkv_attention_plain
+
+    args = _k5_inputs(b, n, d, heads * hd, dtype, seed)
+    with torch.no_grad():
+        out = fused_qkv_attention(*args, heads=heads)
+        ref = qkv_attention_plain(*args, heads=heads)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    peak = ref.float().abs().max().item()
+    tol = K5_TOL[str(dtype).removeprefix("torch.")] * max(1.0, peak)
+    log("qkv", f"K5 x ({b}, {n}, {d}) {dtype}, {heads} heads of {hd}: max|kernel - plain| = "
+               f"{err:.3e} (limit {tol:.3e}, max|o| {peak:.3f})")
+    if not (err <= tol and out.shape == ref.shape and torch.isfinite(out).all()):
+        raise AssertionError(f"K5 disagrees with its plain version at ({b}, {n}, {d}) {dtype}, "
+                             f"{heads} x {hd}: {err} > {tol}")
+    return args, err
+
+
+def phase_qkv(state):
+    """K5 against its plain version, then timed at the micro-benchmark's
+    default shape and at the flagship's served rows beside the plain version,
+    the production segment and the two-call library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from irw_tpu_torch.benchmarks.vmem_qkv_micro import ref_segment
+    from irw_tpu_torch.ops.qkv_attention import fused_qkv_attention, qkv_attention_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
+    bf16, f32 = torch.bfloat16, torch.float32
+    for b, n, d, heads, hd, dtype in [
+            (3, 37, 64, 2, 32, f32), (3, 37, 64, 2, 32, bf16),          # N = 37: one key tile
+            (8, 37, 384, 6, 64, bf16),
+            (8, 257, 192, 6, 32, bf16), (8, 257, 192, 6, 32, f32),      # hd = 32
+            (4, 257, 96, 3, 32, bf16), (4, 257, 96, 3, 32, f32),        # D = 96: a ragged chunk
+            (8, 257, 256, 2, 128, bf16), (4, 100, 256, 2, 128, f32),    # hd = 128
+            (2, 130, 128, 1, 128, bf16),
+            (8, 257, 768, 12, 64, bf16),                                # ViT-B width
+            (32, 257, 384, 6, 64, f32),
+            (256, 257, 384, 6, 64, bf16)]:                              # the flagship's served rows
+        args, _ = _k5_case(b, n, d, heads, hd, dtype, seed=20)
+    with torch.no_grad():
+        served_ms = time_ms(lambda: fused_qkv_attention(*args, heads=6))
+    log("qkv", f"K5 at the flagship's served rows (256, 257, 384) bf16: kernel {served_ms:.4f} ms "
+               f"| {state['card']}")
+
+    b, n, d = K5_SHAPE
+    heads, hd = K5_HEADS, d // K5_HEADS
+    args, err = _k5_case(b, n, d, heads, hd, bf16, seed=21)
+    x, wq, wk, wv, bq, bk, bv = args
+    # the yardstick's fused (3D, D) weight, made once outside the timed calls
+    w_qkv = torch.cat([wq, wk, wv], dim=1).t().contiguous()
+    b_qkv = torch.cat([bq, bk, bv])
+
+    def two_calls():
+        q, k, v = F.linear(x, w_qkv, b_qkv).reshape(b, n, 3, heads, hd).unbind(2)
+        return F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (q, k, v)))
+
+    with torch.no_grad():
+        lib_err = (two_calls().transpose(1, 2).reshape(b, n, d).float()
+                   - qkv_attention_plain(*args, heads=heads).float()).abs().max().item()
+        ms = time_ms(lambda: fused_qkv_attention(*args, heads=heads))
+        plain_ms = time_ms(lambda: qkv_attention_plain(*args, heads=heads), iters=5)
+        prod_ms = time_ms(lambda: ref_segment(*args, heads=heads, vmem=True))
+        lib_ms = time_ms(two_calls)
+    nbytes = 2 * (2 * b * n * d + 3 * d * d + 3 * d)
+    flops = 3 * 2 * b * n * d * d + 4 * b * heads * n * n * hd
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    log("qkv", f"library F.linear (D, 3D) + SDPA vs plain: {lib_err:.3e}")
+    log("qkv", f"K5 at {K5_SHAPE} bf16, {heads} heads: kernel {ms:.4f} ms | plain {plain_ms:.4f} "
+               f"ms | production segment (3 x F.linear + K2) {prod_ms:.4f} ms | two library "
+               f"calls (F.linear onto (D, 3D), then SDPA) {lib_ms:.4f} ms | bound {b_ms:.4f} ms "
+               f"({b_by}) | {state['card']}")
+    state["kernels"]["fused_qkv_attention"] = {
+        "name": "fused_qkv_attention", "route": "cuda",
+        "source": "irw_tpu_torch/csrc/qkv_attention.cu",
+        "replaces": "benchmarks/vmem_qkv_micro.py:82", "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "library_calls": 2, "prod_segment_ms": prod_ms,
+        "served_rows_ms": served_ms}
+
+
+def phase_qkv_micro(state):
+    """The two attention-segment micro-benchmarks at their full default
+    widths, through their ``run()`` entry points: K5's main path."""
+    from irw_tpu_torch.benchmarks import WARMUP, vmem_attn_micro, vmem_qkv_micro
+
+    kernels = _kernel_wrappers()
+    iters = 50
+    calls = WARMUP + iters + 1   # one comparison call, then a warmed-up timed window
+
+    for fn in kernels:
+        fn.launches = 0
+    res = vmem_qkv_micro.run(iters=iters)
+    counts = _launch_counts(kernels)
+    state["launches"]["qkv_micro"] = counts
+    print(json.dumps(res), flush=True)
+    log("qkv_micro", f"vmem_qkv_micro launches: {counts} | {state['card']}")
+    want = dict.fromkeys(counts, 0) | {"fused_qkv_attention": calls, "fused_attention": calls}
+    if counts != want:
+        raise AssertionError(f"vmem_qkv_micro: expected launches {want}, got {counts}")
+    if res["shape"] != [192, 257, 6, 64] or not res["fwd_maxdiff_vs_prod"] <= MICRO_FWD_TOL:
+        raise AssertionError(f"vmem_qkv_micro: K5 is {res['fwd_maxdiff_vs_prod']} from the "
+                             f"production segment (limit {MICRO_FWD_TOL}) at {res['shape']}")
+
+    for fn in kernels:
+        fn.launches = 0
+    res = vmem_attn_micro.run(iters=iters)
+    counts = _launch_counts(kernels)
+    state["launches"]["attn_micro"] = counts
+    print(json.dumps(res), flush=True)
+    log("qkv_micro", f"vmem_attn_micro launches: {counts} | {state['card']}")
+    # K2: the forward window and the forward-backward window, and one
+    # comparison call before each; K3: the forward-backward window and its call
+    want = dict.fromkeys(counts, 0) | {"fused_attention": 2 * calls, "fused_attention_bwd": calls}
+    if counts != want:
+        raise AssertionError(f"vmem_attn_micro: expected launches {want}, got {counts}")
+    if not (res["shape"] == [192, 257, 6, 64] and res["fwd_maxdiff"] <= MICRO_FWD_TOL
+            and res["grad_maxdiff"] <= MICRO_GRAD_TOL):
+        raise AssertionError(f"vmem_attn_micro: fwd_maxdiff {res['fwd_maxdiff']} (limit "
+                             f"{MICRO_FWD_TOL}), grad_maxdiff {res['grad_maxdiff']} (limit "
+                             f"{MICRO_GRAD_TOL})")
+
+
+def _serve_variant(state, label, model, batches, ref_logits, expected):
+    """VARIANT_BATCHES timed batches through ``model``; launches per batch
+    must equal ``expected``; with ``ref_logits`` the codes must agree with the
+    default route's wherever |logit| > LOGIT_MARGIN.  Returns the logits."""
+    import torch
+
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    transform = DeviceTransform(SWT_OPS)
+    kernels = _kernel_wrappers()
+    with torch.inference_mode():
+        model(transform(batches[0]))  # warm-up
+        torch.cuda.synchronize()
+        for fn in kernels:
+            fn.launches = 0
+        logits, per_batch = [], []
+        t0 = time.perf_counter()
+        for images in batches:
+            before = [fn.launches for fn in kernels]
+            logits.append(model.forward_logits(transform(images))[0])
+            per_batch.append(tuple(fn.launches - b for fn, b in zip(kernels, before)))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    _check_launches("variants", per_batch, expected, f"batch, {label}")
+    log("variants", f"{label}: {len(batches) * BATCH / seconds:.1f} img/s, "
+                    f"{seconds / len(batches) * 1e3:.1f} ms per batch (batch {BATCH}, bf16) | "
+                    f"{state['card']}")
+    for i, (ours, ref) in enumerate(zip(logits, ref_logits or [])):
+        if not (torch.isfinite(ours).all() and ours.shape == (BATCH, 64)):
+            raise AssertionError(f"{label}, batch {i}: logits not finite / wrong shape")
+        sure = ref.abs() > LOGIT_MARGIN
+        n_sure = int(sure.sum())
+        n_differ = int(((torch.sign(ours) != torch.sign(ref)) & sure).sum())
+        log("variants", f"{label}, batch {i}: max|logit - default route| = "
+                        f"{(ours - ref).abs().max().item():.3e}; codes differ at {n_differ} of the "
+                        f"{n_sure}/{sure.numel()} bits with |logit| > {LOGIT_MARGIN}")
+        if n_differ or 2 * n_sure < sure.numel():
+            raise AssertionError(f"{label}, batch {i}: codes disagree with the default route")
+    return logits
+
+
+def _ln_train_steps(state, vit_kwargs, batches):
+    """LN_TRAIN_STEPS steps of the flagship with ``vit_kwargs`` from seed 0;
+    returns each step's metrics, the mean ms of the steps after the first
+    and the path's own peak memory."""
+    import torch
+
+    from irw_tpu_torch.engine import build_train_step, init_train_state
+    from irw_tpu_torch.engine.train import _build_hyper
+    from irw_tpu_torch.losses import build_losses
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    held = _release_earlier_phases(state)
+    model = _flagship_model(vit_kwargs)
+    _check_cores(model, "vmem_attention_fn")
+    tstate = init_train_state(model, build_losses(HASH_LOSS), OPTIMIZER, HASH_LOSS, seed=0)
+    step = build_train_step(DeviceTransform(SWT_OPS), clip_grad=PROTOCOL["clip_grad"],
+                            proxy_map_metric="hamming")
+    kernels = _kernel_wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, per_step, t_after_first = [], [], None
+    for i in range(LN_TRAIN_STEPS):
+        for fn in kernels:
+            fn.launches = 0
+        hyper = _build_hyper(tstate.optimizer_entries, 1, tstate.step, PROTOCOL["warm_up"], None,
+                             PROTOCOL["ortho_scale"])
+        metrics.append({k: float(v) for k, v in step(tstate, batches[i % 2], hyper).items()})
+        per_step.append(tuple(fn.launches for fn in kernels))
+        if i == 0:
+            torch.cuda.synchronize()
+            t_after_first = time.perf_counter()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t_after_first) / (LN_TRAIN_STEPS - 1) * 1e3
+    peak = torch.cuda.max_memory_allocated() - held
+    what = "ln_fused" if vit_kwargs else "plain LayerNorm"
+    _check_launches("variants", per_step, (1, 24, 12, 0, 0, 0, 0), f"train step, {what}")
+    for i, m in enumerate(metrics):
+        log("variants", f"train, {what}, step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in m.items()))
+        if not all(math.isfinite(m[k]) for k in TRAIN_METRICS):
+            raise AssertionError(f"train, {what}, step {i}: non-finite metrics {m}")
+    log("variants", f"train, {what}: {step_ms:.1f} ms per step after the first (batch "
+                    f"{TRAIN_BATCH}, K2/K3 route, block remat) | the path's own peak memory "
+                    f"{peak / 2 ** 30:.2f} GiB | {state['card']}")
+    return metrics, peak
+
+
+def phase_variants(state):
+    """The ViT Block variants at full width: served against the default
+    route, the frozen flagship's A/B sweep, and training with ``ln_fused``."""
+    from irw_tpu_torch.benchmarks import infer_vmem_ab
+    from irw_tpu_torch.data import SyntheticVOCDataset
+
+    _release_earlier_phases(state)
+    ds = SyntheticVOCDataset(num_train=BATCH * VARIANT_BATCHES, image_size=224, seed=6)
+    batches = [ds.images[i * BATCH:(i + 1) * BATCH] for i in range(VARIANT_BATCHES)]
+    model = _flagship_model()
+    _check_cores(model, "vmem_attention_fn")
+    weights = model.state_dict()
+    ref = _serve_variant(state, "default route (vmem_attn)", model, batches, None,
+                         (1, 12, 0, 0, 0, 0, 0))
+    # fused_qkv and split_cls are routed before the MHA route, so the factory's
+    # vmem_attn does not reach a kernel there; none of them launches K5
+    for label, flags, expected in (
+            ("fused_qkv", {"fused_qkv": True}, (1, 0, 0, 0, 0, 0, 0)),
+            ("split_cls", {"split_cls": True}, (1, 0, 0, 0, 0, 0, 0)),
+            ("vmem_attn + ln_fused", {"ln_fused": True}, (1, 12, 0, 0, 0, 0, 0))):
+        del model
+        model = _flagship_model(flags)
+        model.load_state_dict(weights)  # the same parameter tree for every variant
+        _serve_variant(state, label, model, batches, ref, expected)
+    del model, weights, ref
+
+    _release_earlier_phases(state)
+    for res in infer_vmem_ab.run(batches=(48, 64, 96)):
+        print(json.dumps(res), flush=True)
+        if not (res["ips"] > 0 and res["mfu"] is not None and 0 < res["mfu"] < 1):
+            raise AssertionError(f"infer_vmem_ab gave {res}")
+
+    tds = SyntheticVOCDataset(num_train=TRAIN_BATCH * 2, image_size=224, seed=3)
+    tbatches = [{"image": tds.images[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+                 "label": tds.labels[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]} for i in range(2)]
+    plain, plain_peak = _ln_train_steps(state, None, tbatches)
+    fused, fused_peak = _ln_train_steps(state, {"ln_fused": True}, tbatches)
+    rels = [abs(f["total_loss"] - p["total_loss"]) / abs(p["total_loss"])
+            for f, p in zip(fused, plain)]
+    log("variants", "train, ln_fused against the plain LayerNorm: total_loss relative "
+                    + ", ".join(f"step {i} {r:.2e}" for i, r in enumerate(rels))
+                    + f" (limit {LN_LOSS_TOL} at step 0, from identical weights); peak memory "
+                      f"{fused_peak / 2 ** 30:.2f} against {plain_peak / 2 ** 30:.2f} GiB")
+    if not rels[0] <= LN_LOSS_TOL:
+        raise AssertionError(f"ln_fused moves the first step's loss by {rels[0]}")
+    _release_earlier_phases(state)
 
 
 def main(argv=None) -> int:
@@ -1237,11 +1552,11 @@ def main(argv=None) -> int:
 
     state = {"kernels": {}, "card": None, "launches": {}}
     phase_card(state)
-    log_unported_bounds()
     runners = {"build": phase_build, "swt": phase_swt, "attention": phase_attention,
                "serve": phase_serve, "profile": phase_profile, "retrieval": phase_retrieval,
                "train": phase_train, "dwt": phase_dwt, "wcnn": phase_wcnn, "flash": phase_flash,
-               "flash_serve": phase_flash_serve, "flash_train": phase_flash_train}
+               "flash_serve": phase_flash_serve, "flash_train": phase_flash_train,
+               "qkv": phase_qkv, "qkv_micro": phase_qkv_micro, "variants": phase_variants}
     for name in phases:
         if name != "card":
             t0 = time.perf_counter()
@@ -1250,10 +1565,11 @@ def main(argv=None) -> int:
 
     # launches: the count over the run of the path that runs the kernel (the
     # train phases' timed steps for K1-K3 and K6, the wcnn phase's batches for
-    # K4); per train step and per served batch of each path beside it
+    # K4, the qkv micro-benchmark's run for K5); per train step and per served
+    # batch of each path beside it
     runs = state["launches"]
     main_paths = {"lifting_multi_level": "wcnn", "flash_attention_fwd": "flash_train",
-                  "flash_attention_bwd": "flash_train"}
+                  "flash_attention_bwd": "flash_train", "fused_qkv_attention": "qkv_micro"}
     trained = {"flagship": ("train", TRAIN_STEPS), "flash": ("flash_train", TRAIN_STEPS)}
     served = {"flagship": ("serve", SERVE_BATCHES), "wcnn": ("wcnn", WCNN_BATCHES),
               "flash": ("flash_serve", SERVE_BATCHES)}

@@ -1,5 +1,6 @@
 // Device primitives shared by the attention kernels (attention_fwd.cu, K2,
-// attention_bwd.cu, K3, and flash_attention_{fwd,bwd}.cu, K6): the bf16
+// attention_bwd.cu, K3, flash_attention_{fwd,bwd}.cu, K6, and
+// qkv_attention.cu, K5): the bf16
 // tensor-core product mma.sync m16n8k16 with its fragment loads, the quad
 // reductions over the four lanes that hold one row of an m16n8 accumulator
 // fragment, and K6's tile helpers for both paths.
@@ -97,6 +98,37 @@ __device__ __forceinline__ void warp_dot_bf16(const __nv_bfloat16* sA, const __n
             const __nv_bfloat16* br = sB + (j * 8 + g) * kLd + ks * 16 + t * 2;
             mma_bf16(d[j], a, ld32(br), ld32(br + 8));
         }
+    }
+}
+
+// this warp's 16 x COLS score tile against the COLS key rows at sK, from Q's
+// A fragments qa: s[j] is the m16n8 fragment of keys k0 + 8 j .. 8 j + 7 (rows
+// g and g + 8 of the warp's slice, columns 2 t, 2 t + 1), the f32 product
+// times scale, -inf for keys at or past n
+template <int HD, int COLS>
+__device__ __forceinline__ void score_tile_bf16(const uint32_t (&qa)[HD / 16][4],
+                                                const __nv_bfloat16* sK, float scale,
+                                                int k0, int n, float (&s)[COLS / 8][4]) {
+    constexpr int kLd = HD + kTilePad;
+    const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < COLS / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+#pragma unroll
+        for (int j = 0; j < COLS / 8; ++j) {
+            const __nv_bfloat16* kr = sK + (j * 8 + g) * kLd + ks * 16 + t * 2;
+            mma_bf16(s[j], qa[ks], ld32(kr), ld32(kr + 8));
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < COLS / 8; ++j) {
+        const int key = k0 + j * 8 + t * 2;
+        const bool v0 = key < n, v1 = key + 1 < n;
+        s[j][0] = v0 ? s[j][0] * scale : neg_inf();
+        s[j][1] = v1 ? s[j][1] * scale : neg_inf();
+        s[j][2] = v0 ? s[j][2] * scale : neg_inf();
+        s[j][3] = v1 ? s[j][3] * scale : neg_inf();
     }
 }
 

@@ -57,35 +57,6 @@ constexpr int kBK = 64;                 // keys per tile
 constexpr int kWarps = 4;                       // 16 query rows each
 constexpr int kMmaThreads = 32 * kWarps;
 
-// this warp's 16 x 64 score tile: s[j] is the m16n8 fragment of keys
-// k0 + 8 j .. 8 j + 7; rows g and g + 8 of the warp's slice, columns 2 t, 2 t + 1
-template <int HD>
-__device__ __forceinline__ void score_tile_mma(const uint32_t (&qa)[HD / 16][4],
-                                               const __nv_bfloat16* sK, float scale,
-                                               int k0, int n, float (&s)[kBK / 8][4]) {
-    constexpr int kLd = HD + kTilePad;
-    const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-#pragma unroll
-        for (int j = 0; j < kBK / 8; ++j) {
-            const __nv_bfloat16* kr = sK + (j * 8 + g) * kLd + ks * 16 + t * 2;
-            mma_bf16(s[j], qa[ks], ld32(kr), ld32(kr + 8));
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-        const int key = k0 + j * 8 + t * 2;
-        const bool v0 = key < n, v1 = key + 1 < n;
-        s[j][0] = v0 ? s[j][0] * scale : neg_inf();
-        s[j][1] = v1 ? s[j][1] * scale : neg_inf();
-        s[j][2] = v0 ? s[j][2] * scale : neg_inf();
-        s[j][3] = v1 ? s[j][3] * scale : neg_inf();
-    }
-}
-
 // at most 128 registers a thread for hd <= 64, so four blocks share an SM
 // (133 uncapped left room for three; measured faster on the H100, PERF.md)
 template <int HD>
@@ -133,7 +104,7 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
         load_tile_bf16<HD, kBK, kMmaThreads>(sK, kb, sk.n, k0, n);
         __syncthreads();
         float s[kBK / 8][4];
-        score_tile_mma<HD>(qa, sK, scale, k0, n, s);
+        score_tile_bf16<HD, kBK>(qa, sK, scale, k0, n, s);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
             float tmax = neg_inf();
@@ -160,7 +131,7 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
         load_tile_bf16<HD, kBK, kMmaThreads>(sV, vb, sv.n, k0, n);
         __syncthreads();
         float s[kBK / 8][4];
-        score_tile_mma<HD>(qa, sK, scale, k0, n, s);
+        score_tile_bf16<HD, kBK>(qa, sK, scale, k0, n, s);
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk) {
             uint32_t pa[4];

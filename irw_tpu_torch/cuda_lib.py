@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNELS = ("haar_swt2", "attention_fwd", "attention_bwd", "lifting_dwt", "flash_attention_fwd",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "qkv_attention")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -27,6 +27,23 @@ def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
     return x / torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True) + eps)
 
 
+def linear(x, weight, bias, dtype: torch.dtype):
+    """x·weightᵀ + bias in ``dtype``: weight (out, in), or (S, out, in) with x
+    (S, …, in) as one batched matmul over the band axis."""
+    w = weight.to(dtype)
+    b = None if bias is None else bias.to(dtype)
+    x = x.to(dtype)
+    if w.dim() == 2:
+        return F.linear(x, w, b)
+    s, *mid, d = x.shape
+    y = torch.bmm(x.reshape(s, -1, d), w.transpose(1, 2))
+    if b is not None:
+        # a separate add: baddbmm would first copy the broadcast bias into
+        # the whole output, which measured slower on the H100 (PERF.md)
+        y = y + b[:, None, :]
+    return y.reshape(s, *mid, w.shape[1])
+
+
 class Linear(nn.Module):
     """flax ``Dense`` with weights in torch's (out, in) layout, optionally
     one per band.  Init: variance scaling 1/fan_in, truncated normal (flax's
@@ -36,7 +53,6 @@ class Linear(nn.Module):
                  bands: int | None = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         lead = () if bands is None else (bands,)
-        self.bands = bands
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(*lead, out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(*lead, out_features)) if bias else None
@@ -49,18 +65,7 @@ class Linear(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        w = self.weight.to(self.dtype)
-        b = None if self.bias is None else self.bias.to(self.dtype)
-        x = x.to(self.dtype)
-        if self.bands is None:
-            return F.linear(x, w, b)
-        s, *mid, d = x.shape
-        y = torch.bmm(x.reshape(s, -1, d), w.transpose(1, 2))
-        if b is not None:
-            # a separate add: baddbmm would first copy the broadcast bias into
-            # the whole output, which measured slower on the H100 (PERF.md)
-            y = y + b[:, None, :]
-        return y.reshape(s, *mid, w.shape[1])
+        return linear(x, self.weight, self.bias, self.dtype)
 
 
 class LayerNorm(nn.Module):

@@ -1,5 +1,6 @@
 """DINOv2-style Vision Transformer (port of
-``irw_tpu/models/vit.py:43-60, 62-88, 268-296, 320-391, 420-619, 636-675``).
+``irw_tpu/models/vit.py:43-60, 62-88, 115-153, 204-296, 320-391, 420-619,
+636-675``).
 
 Patch embed → [CLS | patches] + position embeddings → pre-norm blocks with
 LayerScale → final LayerNorm → the CLS token.  With ``bands=S`` every
@@ -12,14 +13,18 @@ blocks, and ``bridge`` unstacks the depth axis.
 Compute policy (``dtype``): f32 parameters are cast to the compute dtype at
 use (vit.py:375-381, 491-494), so the residual stream stays in it;
 LayerNorm statistics are f32 and the result is cast back.  The attention
-follows the Block's routing (vit.py:345-374): ``use_flash`` takes
-``FlashAttention`` (one fused q/k/v projection, ``ops.flash_attention``:
-kernels K6-fwd and K6-bwd on the card), and wins over ``vmem_attn``, whose
-core is ``ops.attention.vmem_attention_fn`` (kernels K2 forward and K3
-backward on the card); with neither, or while attention dropout is active
-on the MHA route, flax's ``dot_product_attention`` semantics.  The other
-Block variants (``fused_qkv``, ``split_cls``, ``ln_fused``: ROADMAP A16;
-``quant_int8``: A14) raise.
+follows the Block's routing (vit.py:345-374), in this order: ``use_flash``
+takes ``FlashAttention`` (one fused q/k/v projection, ``ops.flash_attention``:
+kernels K6-fwd and K6-bwd on the card); ``split_cls`` takes ``SplitCLSMHA``
+(the CLS token split off, a two-block softmax); ``fused_qkv`` takes
+``FusedMHA`` (one q/k/v matmul); else ``Attention``, whose core with
+``vmem_attn`` is ``ops.attention.vmem_attention_fn`` (kernels K2 forward and
+K3 backward on the card) and otherwise, or while attention dropout is active,
+flax's ``dot_product_attention`` semantics.  All but ``FlashAttention`` keep
+the MHA parameters ``query``/``key``/``value``/``out``.  ``ln_fused`` swaps
+every LayerNorm (``norm1``, ``norm2``, the final ``norm``) for
+``ops.fused_ln.FusedLayerNorm``, same parameters.  ``quant_int8`` (ROADMAP
+A14) raises.
 
 Training: ``dropout`` drops attention probabilities (not on the flash
 route, which has no attention dropout, as ``_flash_mha``) and MLP outputs,
@@ -40,9 +45,18 @@ from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
-from irw_tpu_torch.models.layers import LayerNorm, Linear, Mlp, draw_seed, trunc_normal_
+from irw_tpu_torch.models.layers import (
+    LayerNorm,
+    Linear,
+    Mlp,
+    apply_dropout,
+    draw_seed,
+    linear,
+    trunc_normal_,
+)
 from irw_tpu_torch.ops.attention import dot_product_attention, vmem_attention_fn
 from irw_tpu_torch.ops.flash_attention import flash_attention
+from irw_tpu_torch.ops.fused_ln import FusedLayerNorm
 
 _REMAT_POLICIES = (None, "nothing")
 _LATER_REMAT_POLICIES = ("dots", "dots_no_batch", "dots_no_batch_gelu", "everything",
@@ -87,17 +101,28 @@ class PatchEmbed(nn.Module):
         return (y + b[:, None, :]).reshape(*pre, hp * wp, wmat.shape[1])
 
 
-class DomainLayerNorm(LayerNorm):
-    """``vit.py:62-88`` on its single-domain path, which is a LayerNorm.
-    Per-domain parameters (``num_domains > 1``) wait for ROADMAP A10."""
-
-    def __init__(self, dim: int, num_domains: int = 1, **kw):
-        if num_domains > 1:
-            raise NotImplementedError("DomainLayerNorm with num_domains > 1 waits for ROADMAP A10")
-        super().__init__(dim, **kw)
+def domain_layer_norm(dim: int, fused: bool = False, **kw) -> nn.Module:
+    """``DomainLayerNorm`` (vit.py:62-88) on its single-domain path, which is
+    a LayerNorm: flax's, or with ``fused`` the one whose backward recomputes
+    its statistics (vit.py:72-79), same parameters.  Per-domain parameters
+    wait for ROADMAP A10."""
+    return (FusedLayerNorm if fused else LayerNorm)(dim, **kw)
 
 
-class Attention(nn.Module):
+class _MHA(nn.Module):
+    """The parameters of flax ``MultiHeadDotProductAttention``: the q/k/v/out
+    projections, shared by every attention route but the flash one."""
+
+    def __init__(self, dim: int, num_heads: int, bands: int | None = None,
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dropout = dropout
+        self.query, self.key, self.value, self.out = (
+            Linear(dim, dim, bands=bands, dtype=dtype) for _ in range(4))
+
+
+class Attention(_MHA):
     """flax ``MultiHeadDotProductAttention`` self-attention: q/k/v/out
     projections around an attention core on (…, N, H, hd).  Active dropout
     takes ``dot_product_attention`` (vmem_attention.py:338-343)."""
@@ -105,11 +130,7 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, vmem_attn: bool = False,
                  bands: int | None = None, dtype: torch.dtype = torch.float32,
                  dropout: float = 0.0):
-        super().__init__()
-        self.num_heads = num_heads
-        self.dropout = dropout
-        self.query, self.key, self.value, self.out = (
-            Linear(dim, dim, bands=bands, dtype=dtype) for _ in range(4))
+        super().__init__(dim, num_heads, bands, dtype, dropout)
         # a plain attribute, so a caller can hold the kernel against its plain
         # version on the same weights (chip_smoke.py does)
         self.core = vmem_attention_fn if vmem_attn else dot_product_attention
@@ -151,6 +172,71 @@ class FlashAttention(nn.Module):
         return self.out(self.core(q, k, v).reshape(*pre, n, d))
 
 
+def _div_sqrt(q, hd: int):
+    """q / √hd with the divisor rounded to q's dtype first, as JAX's weak
+    typing of ``q / math.sqrt(hd)`` does.  The divisor is a tensor on q's
+    device: PyTorch's CUDA division by a host scalar multiplies by the
+    reciprocal."""
+    return q / torch.full((), math.sqrt(hd), dtype=q.dtype, device=q.device)
+
+
+class FusedMHA(_MHA):
+    """``FusedMHA`` (vit.py:115-153): self-attention with ONE q/k/v matmul
+    over the MHA parameters.  The three (out, in) weights are concatenated
+    on the output axis into (3·D, D) at every call and the result is read as
+    (…, N, 3, H, hd); q / √hd, scores and softmax in the compute dtype,
+    dropout over the whole probability tensor (not broadcast), P·V, ``out``."""
+
+    def forward(self, y, generator: torch.Generator | None = None):
+        *pre, n, d = y.shape
+        h = self.num_heads
+        projs = (self.query, self.key, self.value)
+        qkv = linear(y, torch.cat([p.weight for p in projs], dim=-2),
+                     torch.cat([p.bias for p in projs], dim=-1), self.query.dtype)
+        q, k, v = qkv.reshape(*pre, n, 3, h, d // h).unbind(-3)
+        scores = torch.einsum("...qhd,...khd->...hqk", _div_sqrt(q, d // h), k)
+        weights = apply_dropout(torch.softmax(scores, dim=-1), self.dropout, self.training,
+                                generator)
+        ctx = torch.einsum("...hqk,...khd->...qhd", weights, v)
+        return self.out(ctx.reshape(*pre, n, d))
+
+
+def _softmax_blocks(s_core, s_extra):
+    """softmax over concat([s_extra, s_core], -1) without forming the
+    concat (vit.py:236-245); returns (w_extra, w_core)."""
+    m = torch.maximum(s_core.amax(dim=-1, keepdim=True), s_extra.amax(dim=-1, keepdim=True))
+    e_core, e_extra = torch.exp(s_core - m), torch.exp(s_extra - m)
+    denom = e_core.sum(dim=-1, keepdim=True) + e_extra.sum(dim=-1, keepdim=True)
+    return e_extra / denom, e_core / denom
+
+
+class SplitCLSMHA(_MHA):
+    """``SplitCLSMHA`` (vit.py:204-265): self-attention over N = 1 + P tokens
+    with the CLS token split off, so that the core is a (P, P) block: patch
+    rows and the CLS row each take a two-block softmax over [CLS | patches],
+    the rank-1 CLS column and row folded back in.  MHA parameters; q / √hd
+    and every product in the compute dtype; dropout on the four probability
+    pieces separately, in the order patch·patch, patch·CLS, CLS·patch,
+    CLS·CLS."""
+
+    def forward(self, y, generator: torch.Generator | None = None):
+        *pre, n, d = y.shape
+        h = self.num_heads
+        q, k, v = (proj(y).reshape(*pre, n, h, d // h).transpose(-3, -2)   # (…, H, N, hd)
+                   for proj in (self.query, self.key, self.value))
+        q = _div_sqrt(q, d // h)
+        (qc, qp), (kc, kp), (vc, vp) = ((t[..., :1, :], t[..., 1:, :]) for t in (q, k, v))
+        # patch rows, then the CLS row: scores against [CLS | patches]
+        w_pc, w_pp = _softmax_blocks(qp @ kp.transpose(-2, -1), qp @ kc.transpose(-2, -1))
+        w_cc, w_cp = _softmax_blocks(qc @ kp.transpose(-2, -1), qc @ kc.transpose(-2, -1))
+        w_pp, w_pc, w_cp, w_cc = (apply_dropout(w, self.dropout, self.training, generator)
+                                  for w in (w_pp, w_pc, w_cp, w_cc))
+        out_p = w_pp @ vp + w_pc * vc
+        out_c = w_cp @ vp + w_cc * vc
+        ctx = torch.cat([out_c, out_p], dim=-2).transpose(-3, -2)           # (…, N, H, hd)
+        return self.out(ctx.reshape(*pre, n, d))
+
+
 def _per_band(param, x):
     """(D,) or (S, D) parameter → broadcastable against (…, N, D) / (S, …, N, D)."""
     if param.dim() == 1:
@@ -163,16 +249,23 @@ class Block(nn.Module):
                  layerscale_init: float = 1e-5, vmem_attn: bool = False,
                  exact_gelu: bool = False, bands: int | None = None,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
-                 use_flash: bool = False):
+                 use_flash: bool = False, split_cls: bool = False, fused_qkv: bool = False,
+                 ln_fused: bool = False):
         super().__init__()
         lead = () if bands is None else (bands,)
         self.dtype = dtype
-        self.norm1 = DomainLayerNorm(dim, bands=bands, dtype=dtype)
-        # vit.py:345-374: use_flash is routed before vmem_attn
-        self.attn = (FlashAttention(dim, num_heads, bands, dtype) if use_flash
-                     else Attention(dim, num_heads, vmem_attn, bands, dtype, dropout))
+        self.norm1 = domain_layer_norm(dim, fused=ln_fused, bands=bands, dtype=dtype)
+        # vit.py:345-374: use_flash, then split_cls, then fused_qkv, then the
+        # MHA route with or without vmem_attn
+        if use_flash:
+            self.attn = FlashAttention(dim, num_heads, bands, dtype)
+        elif split_cls or fused_qkv:
+            self.attn = (SplitCLSMHA if split_cls else FusedMHA)(
+                dim, num_heads, bands, dtype, dropout)
+        else:
+            self.attn = Attention(dim, num_heads, vmem_attn, bands, dtype, dropout)
         self.ls1 = nn.Parameter(torch.full((*lead, dim), layerscale_init))
-        self.norm2 = DomainLayerNorm(dim, bands=bands, dtype=dtype)
+        self.norm2 = domain_layer_norm(dim, fused=ln_fused, bands=bands, dtype=dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, exact_gelu, bands, dtype, dropout)
         self.ls2 = nn.Parameter(torch.full((*lead, dim), layerscale_init))
 
@@ -211,11 +304,8 @@ class VisionTransformer(nn.Module):
         if isinstance(dtype, str):  # 'bfloat16' / 'float32' from YAML configs
             dtype = getattr(torch, dtype)
         del scan_blocks, scan_group  # parameter layouts only: bridge unstacks them
-        # Block variants not ported yet (vit.py:326-334) and their ROADMAP item
-        for flag, on, item in (("fused_qkv", fused_qkv, "A16"), ("split_cls", split_cls, "A16"),
-                               ("ln_fused", ln_fused, "A16"), ("quant_int8", quant_int8, "A14")):
-            if on:
-                raise NotImplementedError(f"ViT {flag}=True waits for ROADMAP {item}")
+        if quant_int8:  # the Block variant not ported yet (vit.py:333)
+            raise NotImplementedError("ViT quant_int8=True waits for ROADMAP A14")
         if remat_policy in _LATER_REMAT_POLICIES:
             raise NotImplementedError(f"remat_policy {remat_policy!r} waits for ROADMAP "
                                       "A6-remainder; the port remats whole blocks "
@@ -234,8 +324,9 @@ class VisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(*lead, num_patches + 1, embed_dim))
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, layerscale_init, vmem_attn,
-                  exact_gelu, bands, dtype, dropout, use_flash) for _ in range(depth))
-        self.norm = DomainLayerNorm(embed_dim, bands=bands, dtype=dtype)
+                  exact_gelu, bands, dtype, dropout, use_flash, split_cls, fused_qkv, ln_fused)
+            for _ in range(depth))
+        self.norm = domain_layer_norm(embed_dim, fused=ln_fused, bands=bands, dtype=dtype)
 
     def reset_parameters(self, generator=None):
         self.patch_embed.reset_parameters(generator)
@@ -244,7 +335,7 @@ class VisionTransformer(nn.Module):
         for m in self.modules():
             if isinstance(m, Linear):
                 m.reset_parameters(generator)
-            elif isinstance(m, LayerNorm):
+            elif isinstance(m, (LayerNorm, FusedLayerNorm)):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
         for blk in self.blocks:

@@ -23,6 +23,7 @@ from irw_tpu_torch.ops.flash_attention import (
     flash_attention_plain,
     flash_attention_plain_bwd,
 )
+from irw_tpu_torch.ops.qkv_attention import fused_qkv_attention, qkv_attention_plain
 from irw_tpu_torch.ops.wavelets import (
     haar_swt2,
     haar_swt2_plain,
@@ -277,3 +278,70 @@ def test_flash_kernels_refuse_what_they_do_not_take(card):
     s = torch.zeros(1, 1, 8, device=card)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_bwd(q, q, q, q, q, s, s)
+
+
+def _k5_inputs(card, b, n, d, out, dtype, seed=7):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(b, n, d, generator=gen, device=card)
+    ws = [torch.randn(d, out, generator=gen, device=card) / d ** 0.5 for _ in range(3)]
+    bs = [torch.randn(out, generator=gen, device=card) * 0.1 for _ in range(3)]
+    return [t.to(dtype) for t in (x, *ws, *bs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,heads,hd,dtype", [
+    (3, 37, 64, 2, 32, torch.float32),       # one key tile, a scale that is no power of two
+    (3, 37, 64, 2, 32, torch.bfloat16),
+    (4, 257, 96, 3, 32, torch.bfloat16),     # D = 96: a ragged last chunk of x and W
+    (4, 257, 96, 3, 32, torch.float32),
+    (2, 257, 384, 6, 64, torch.bfloat16),    # the micro-benchmark's widths
+    (2, 257, 384, 6, 64, torch.float32),
+    (2, 130, 128, 1, 128, torch.bfloat16),
+    (2, 100, 128, 1, 128, torch.float32),
+    (2, 64, 192, 4, 64, torch.bfloat16),     # whole key tiles: no masked key; heads * hd != D
+])
+def test_qkv_attention_kernel_on_card(card, b, n, d, heads, hd, dtype):
+    """K5 against its plain version: f32 the same math in another order;
+    bf16 two ulps of max(1, max|o|), as chip_smoke.py states."""
+    args = _k5_inputs(card, b, n, d, heads * hd, dtype)
+    before = fused_qkv_attention.launches
+    out = fused_qkv_attention(*args, heads=heads)
+    torch.cuda.synchronize()
+    assert fused_qkv_attention.launches == before + 1
+    ref = qkv_attention_plain(*args, heads=heads)
+    assert out.dtype == dtype and out.shape == ref.shape == (b, n, heads * hd)
+    peak = max(1.0, ref.float().abs().max().item())
+    tol = (1e-5 if dtype == torch.float32 else 2 ** -6) * peak
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_qkv_attention_kernel_reads_views(card):
+    """Non-contiguous x and weight slices are copied before the launch."""
+    args = _k5_inputs(card, 2, 40, 128, 128, torch.bfloat16)
+    wide = _k5_inputs(card, 2, 40, 128, 256, torch.bfloat16)
+    views = [args[0].transpose(0, 1).contiguous().transpose(0, 1),
+             *(w[:, 64:192] for w in wide[1:4]), *(b[64:192] for b in wide[4:])]
+    assert not views[0].is_contiguous() and not views[1].is_contiguous()
+    out = fused_qkv_attention(*views, heads=2)
+    torch.testing.assert_close(out.float(), qkv_attention_plain(*views, heads=2).float(),
+                               rtol=0, atol=2 ** -6)
+
+
+@pytest.mark.cuda
+def test_qkv_attention_kernel_refuses_what_it_does_not_take(card):
+    def args(n, d, out, dtype):
+        return _k5_inputs(card, 1, n, d, out, dtype)
+
+    before = fused_qkv_attention.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        fused_qkv_attention(*args(8, 48, 48, torch.float32), heads=1)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_qkv_attention(*args(8, 64, 64, torch.float16), heads=1)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_qkv_attention(*args(8, 12, 64, torch.bfloat16), heads=1)
+    with pytest.raises(ValueError, match="shared memory"):   # f32 K and V of 257 rows at hd = 128
+        fused_qkv_attention(*args(257, 128, 128, torch.float32), heads=1)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        fused_qkv_attention(*(t.requires_grad_() for t in args(8, 64, 64, torch.float32)), heads=1)
+    assert fused_qkv_attention.launches == before

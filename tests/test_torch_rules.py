@@ -33,6 +33,7 @@ from irw_tpu_torch.ops.flash_attention import (
     flash_attention_plain,
     flash_attention_plain_bwd,
 )
+from irw_tpu_torch.ops.qkv_attention import fused_qkv_attention, qkv_attention_plain
 from irw_tpu_torch.ops.wavelets import (
     haar_swt2,
     haar_swt2_plain,
@@ -60,6 +61,10 @@ def test_port_and_chip_smoke_import_no_jax():
             "irw_tpu_torch.ops.wavelets.lifting_dwt", "irw_tpu_torch.models.resnet",
             "irw_tpu_torch.models.attention_blocks", "irw_tpu_torch.models.wresnet",
             "irw_tpu_torch.ops.flash_attention"} <= set(modules)
+    assert {"irw_tpu_torch.ops.qkv_attention", "irw_tpu_torch.ops.fused_ln",
+            "irw_tpu_torch.utils.flops", "irw_tpu_torch.benchmarks",
+            "irw_tpu_torch.benchmarks.vmem_qkv_micro", "irw_tpu_torch.benchmarks.vmem_attn_micro",
+            "irw_tpu_torch.benchmarks.infer_vmem_ab"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r} + ['irw_tpu_torch', 'chip_smoke']:\n"
@@ -163,6 +168,21 @@ def test_cpu_tensors_take_the_flash_plain_path_uncounted():
         flash_attention(q, k[:, :5], v)
 
 
+def test_cpu_tensors_take_the_qkv_plain_path_uncounted():
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randn(2, 9, 64).astype(np.float32))
+    ws = [torch.from_numpy((rng.randn(64, 64) / 8).astype(np.float32)) for _ in range(3)]
+    bs = [torch.from_numpy((rng.randn(64) * 0.1).astype(np.float32)) for _ in range(3)]
+    before = (fused_qkv_attention.launches, fused_attention.launches)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [t.to(dtype) for t in (x, *ws, *bs)]
+        torch.testing.assert_close(fused_qkv_attention(*args, heads=2),
+                                   qkv_attention_plain(*args, heads=2), rtol=0, atol=0)
+    assert (fused_qkv_attention.launches, fused_attention.launches) == before
+    with pytest.raises(NotImplementedError, match="no backward"):
+        fused_qkv_attention(x.clone().requires_grad_(), *ws, *bs, heads=2)
+
+
 def test_other_devices_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="no kernel"):
         haar_swt2(torch.empty(2, 4, 4, device="meta"))
@@ -182,6 +202,11 @@ def test_other_devices_raise_instead_of_falling_back():
         flash_attention_bwd(q, q, q, q, q, stats, stats)
     with pytest.raises(ValueError, match="no kernel"):  # a CPU output gradient for meta inputs
         flash_attention_bwd(q, q, q, q, torch.zeros(1, 4, 1, 32), stats, stats)
+    x, w, b = (torch.empty(s, device="meta") for s in ((1, 4, 64), (64, 64), (64,)))
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_qkv_attention(x, w, w, w, b, b, b, heads=2)
+    with pytest.raises(ValueError, match="no kernel"):  # CPU weights for a meta x
+        fused_qkv_attention(x, *(torch.zeros(64, 64),) * 3, *(torch.zeros(64),) * 3, heads=2)
 
 
 class _CudaBf16:
@@ -215,17 +240,32 @@ def test_unported_models_and_heads_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="A10"):
         get_model("multidino_attention_hashing", device="cpu",
                   **dict(TINY, fusion_config={"type": "gated"}))
-    # the ViT Block variants of irw_tpu/models/vit.py:326-334; the scanned
-    # layouts are only parameter layouts, accepted and ignored
-    for flag, item in (("fused_qkv", "A16"), ("split_cls", "A16"), ("ln_fused", "A16"),
-                       ("quant_int8", "A14")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_vit("test_tiny", **{flag: True})
-        with pytest.raises(NotImplementedError, match=item):
-            get_model("multidino_attention_hashing", device="cpu",
-                      **dict(TINY, vit_kwargs={"img_size": 16, flag: True}))
+    # the one ViT Block variant of irw_tpu/models/vit.py:326-334 still to
+    # port; the scanned layouts are only parameter layouts, accepted and ignored
+    with pytest.raises(NotImplementedError, match="A14"):
+        make_vit("test_tiny", quant_int8=True)
+    with pytest.raises(NotImplementedError, match="A14"):
+        get_model("multidino_attention_hashing", device="cpu",
+                  **dict(TINY, vit_kwargs={"img_size": 16, "quant_int8": True}))
     vit = make_vit("test_tiny", scan_blocks=True, scan_group=2, fused_qkv=False)
     assert len(vit.blocks) == 2
+
+
+@pytest.mark.parametrize("flag", ["fused_qkv", "split_cls", "ln_fused"])
+def test_block_variants_build_and_run_on_the_cpu(flag):
+    """The ported Block variants (irw_tpu/models/vit.py:326-334): a bare ViT
+    and the banded model build with each and give finite outputs."""
+    gen = torch.Generator().manual_seed(0)
+    vit = make_vit("test_tiny", img_size=16, **{flag: True})
+    vit.reset_parameters(gen)
+    with torch.no_grad():
+        cls = vit(torch.rand(2, 16, 16, 3, generator=gen))
+    assert cls.shape == (2, 64) and torch.isfinite(cls).all()
+    model = get_model("multidino_attention_hashing", device="cpu",
+                      **dict(TINY, vit_kwargs={"img_size": 16, flag: True}))
+    with torch.no_grad():
+        codes, _ = model(torch.rand(3, 4, 16, 16, 3, generator=gen))
+    assert codes.shape == (3, 64) and set(codes.unique().tolist()) <= {-1.0, 1.0}
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
