@@ -26,26 +26,32 @@ and prints one line per phase:
 1. card: name and power limit (nvidia-smi);
 2. build: the kernels from ``irw_tpu_torch/csrc``, one nvcc each, in parallel;
 3. swt: K1 against ``haar_swt2_plain`` at (192, 224, 224) f32, timed;
-4. attention: K2 against ``attention_plain`` at (256, 257, 6, 64) bf16, K3
-   against ``attention_plain_bwd`` at (384, 257, 6, 64) bf16, both also at
-   ragged, f32 and other head-dim shapes; timed beside SDPA;
+4. attention: K2 against ``attention_plain`` and K3 against
+   ``attention_plain_bwd`` from N = 1 to 577 (the ViT at 336²), head dims
+   32, 64 and 128, bf16 and f32, strided views: both the plane and the
+   tiled path of each; K3 fed K2's saved row statistics against the
+   standalone K3, bit for bit; K2 timed at (192 | 256 | 384, 257, 6, 64) and
+   K3 at (384, 257, 6, 64) bf16, beside SDPA and their bounds;
 5. serve: full-width flagship with seeded random weights (LayerScale set to
-   1 so attention reaches the codes), launch counts per batch, codes held
-   against the same model on the plain versions, img/s;
+   1 so attention reaches the codes), 3 warm-up batches, then img/s over 20
+   batches in one synchronised window, launch counts per batch, codes held
+   against the same model on the plain versions;
 6. profile: one served batch under torch.profiler, device time by kernel
    group and the device's idle share;
 7. retrieval: ``evaluate`` on a few hundred images, GPU metrics against the
    CPU port, and bench.py's VOC anchor (map 0.3865 at k = 5717);
 8. train: the full-width flagship trains at batch 96 (HashLoss,
-   ``configs/optimizer/basic.yaml``'s AdamW at epoch 1): launch counts per
-   step, trained img/s over the synchronised window of 5 steps (each
-   step's time beside it), the path's own peak memory and finite metrics;
+   ``configs/optimizer/basic.yaml``'s AdamW at epoch 1): 3 warm-up steps,
+   then trained img/s over one synchronised window of 20 steps (each step's
+   time between CUDA events beside it), launch counts per step, the path's
+   own peak memory and finite metrics;
    one step on the kernel route held against the plain route (loss, and
    the gradient of each top-level module); one step profiled;
 9. dwt: K4 against ``lifting_multi_level_plain`` for haar at levels 1-3 at
    the served shape (192, 224, 224), cdf97 at (192, 448, 448), bior48 and
    daub4 at level 2, and a ragged batch of non-square planes; timed beside
-   the ``conv2d`` that computes haar level 1;
+   the ``conv2d`` that computes haar level 1, and cdf97 beside one
+   ``conv2d`` of the 9 x 9 analysis filters at stride 2;
 10. wcnn: the full-width WCNN-attention model serves batches of 64: launch
    counts per batch, embeddings held against the same model with K4's
    plain version, img/s, peak memory, one batch profiled; then ``evaluate``
@@ -147,7 +153,13 @@ DWT_OPS = [("Normalize", {"mean": [0.485, 0.456, 0.406], "std": [0.229, 0.224, 0
                                 "ll_only": False})]
 
 BATCH = 64
-SERVE_BATCHES = 6      # timed on the host clock: more batches, less noise
+# the serve and train windows: warm-up calls, then timed ones over one
+# synchronised window on the host clock (more calls, less noise); the served
+# batches cycle through SERVE_DISTINCT images sets, each held against the
+# plain route
+WARMUP_CALLS = 3
+SERVE_BATCHES = 20
+SERVE_DISTINCT = 4
 K1_SHAPE = (3 * BATCH, 224, 224)
 K2_SHAPE = (4 * BATCH, 257, 6, 64)
 K1_TOL = 1e-5
@@ -160,7 +172,10 @@ K3_SHAPE = (4 * TRAIN_BATCH, 257, 6, 64)
 # accumulation order differs, which can move a ds element by one bf16 ulp
 K3_TOL_BF16 = 2 ** -6    # of max|ref|, per output
 K3_TOL_F32 = 1e-5
-TRAIN_STEPS = 5
+# K2's row statistics against the plain f32 softmax's: the same f32 math over
+# scores summed in another order (m absolute, l relative)
+STATS_TOL = 1e-4
+TRAIN_STEPS = 20
 TRAIN_METRICS = ("total_loss", "grad_norm", "batch_map", "loss_0_HashLoss", "ortho_raw")
 # the same step with every block's attention on the plain versions: the two
 # routes round P and ds alike, so the loss and the gradients differ only by
@@ -331,38 +346,62 @@ def phase_swt(state):
         "library_ms": lib_ms}
 
 
-def _attention_case(shape, dtype, seed):
+def _attention_case(shape, dtype, seed, variants=None, strided=False):
+    """K2 against ``attention_plain`` on unit-normal q, k, v (with
+    ``strided`` the views of one (…, N, 3, H, hd) projection); the kernel
+    variant it ran is added to ``variants``."""
     import torch
 
-    from irw_tpu_torch.ops.attention import attention_plain, fused_attention
+    from irw_tpu_torch.ops.attention import attention_plain, fused_attention, kernel_variants
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    q, k, v = _qkv(shape, dtype, gen, strided)
     with torch.no_grad():
         out = fused_attention(q, k, v)
         ref = attention_plain(q, k, v)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     tol = K2_TOL[str(dtype).removeprefix("torch.")]
-    log("attention", f"K2 {tuple(shape)} {dtype}: max|kernel - plain| = {err:.3e} "
-                     f"(limit {tol:.3e}, max|o| {ref.float().abs().max().item():.3f})")
-    if not err <= tol:
+    variant = kernel_variants(shape[-3], shape[-1], dtype)["fwd"]
+    if variants is not None:
+        variants.add(variant)
+    log("attention", f"K2 {tuple(shape)} {dtype}{' strided' if strided else ''} ({variant}): "
+                     f"max|kernel - plain| = {err:.3e} (limit {tol:.3e}, max|o| "
+                     f"{ref.float().abs().max().item():.3f})")
+    if not (err <= tol and torch.isfinite(out).all()):
         raise AssertionError(f"K2 disagrees with its plain version at {shape} {dtype}: {err}")
     return (q, k, v), err
 
 
-def _attention_bwd_case(shape, dtype, seed):
-    """K3 against ``attention_plain_bwd`` on unit-normal q, k, v, g; the
-    largest error over dq, dk, dv relative to each output's limit."""
+def _attention_bwd_case(shape, dtype, seed, variants=None):
+    """K3 against ``attention_plain_bwd`` on unit-normal q, k, v, g; then the
+    route autograd takes (K2's saved statistics, read by K3) against the
+    standalone K3, which computes them itself: the same bits, and K2's
+    statistics against the plain ones.  Returns the inputs and the largest
+    error over dq, dk, dv relative to each output's limit."""
     import torch
 
-    from irw_tpu_torch.ops.attention import attention_plain_bwd, fused_attention_bwd
+    from irw_tpu_torch.ops.attention import (
+        _forward,
+        attention_plain,
+        attention_plain_bwd,
+        fused_attention_bwd,
+        kernel_variants,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
     outs = fused_attention_bwd(q, k, v, g)
     refs = attention_plain_bwd(q, k, v, g)
+    scale = 1.0 / math.sqrt(shape[-1])
+    with torch.no_grad():
+        _, stats = _forward(q, k, v, scale, with_stats=True)
+        _, ref_stats = attention_plain(q, k, v, with_stats=True)
+    saved = fused_attention_bwd(q, k, v, g, stats=stats)
     torch.cuda.synchronize()
+    variant = kernel_variants(shape[-3], shape[-1], dtype)["bwd"]
+    if variants is not None:
+        variants.add(variant)
     worst, report = 0.0, []
     for name, out, ref in zip(("dq", "dk", "dv"), outs, refs):
         err = (out.float() - ref.float()).abs().max().item()
@@ -373,8 +412,27 @@ def _attention_bwd_case(shape, dtype, seed):
             raise AssertionError(f"K3 {name} disagrees with its plain version at {shape} "
                                  f"{dtype}: {err} > {tol}")
         worst = max(worst, err)
-    log("attention", f"K3 {tuple(shape)} {dtype}: max|kernel - plain| " + ", ".join(report))
+    same = all(torch.equal(a, b) for a, b in zip(saved, outs))
+    m_err = (stats[0] - ref_stats[0]).abs().max().item()
+    l_err = ((stats[1] - ref_stats[1]).abs() / ref_stats[1]).max().item()
+    log("attention", f"K3 {tuple(shape)} {dtype} ({variant}): max|kernel - plain| "
+                     + ", ".join(report) + f"; with K2's saved statistics: "
+                     f"{'the same bits' if same else 'DIFFERENT bits'}; K2's m {m_err:.2e}, "
+                     f"l {l_err:.2e} relative from the plain statistics (limit {STATS_TOL})")
+    if not (same and m_err <= STATS_TOL and l_err <= STATS_TOL):
+        raise AssertionError(f"K3 at {shape} {dtype}: the saved-statistics route differs from "
+                             f"the standalone K3 ({same}) or K2's statistics from the plain "
+                             f"ones (m {m_err}, l {l_err})")
     return (q, k, v, g), worst
+
+
+def _attention_bound(shape, tensors: int, products: int, stats: bool):
+    """The bf16 bound of attention at ``shape``: ``tensors`` (B, N, H, hd)
+    tensors read or written once, the f32 row statistics with ``stats``,
+    and ``products`` (B H N² hd)-sized products of two flops a term."""
+    b, n, h, hd = shape
+    nbytes = tensors * b * n * h * hd * 2 + (2 * b * h * n * 4 if stats else 0)
+    return bound_ms(nbytes, 2 * products * b * h * n * n * hd, "bfloat16")
 
 
 def phase_attention(state):
@@ -382,6 +440,7 @@ def phase_attention(state):
     import torch.nn.functional as F
 
     from irw_tpu_torch.ops.attention import (
+        _forward,
         attention_plain,
         attention_plain_bwd,
         fused_attention,
@@ -389,20 +448,38 @@ def phase_attention(state):
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
-    for shape, dtype in [((3, 50, 2, 64), torch.bfloat16), ((3, 50, 2, 64), torch.float32),
-                         ((2, 70, 3, 32), torch.float32), ((2, 130, 1, 128), torch.bfloat16),
-                         ((64, 257, 6, 64), torch.float32)]:
-        _attention_case(shape, dtype, seed=2)
-    (q, k, v), err = _attention_case(K2_SHAPE, torch.bfloat16, seed=1)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # SDPA's (B, H, N, hd)
+    bf16, f32 = torch.bfloat16, torch.float32
+    fwd_variants, bwd_variants = set(), set()
+    # N = 1, 50, 64, 65, 257 and 577 (the ViT at 336²), hd 32, 64 and 128: the
+    # plane path, and the tiled one past its shared memory (hd 128 at N = 577)
+    for shape, dtype in [((3, 50, 2, 64), bf16), ((3, 50, 2, 64), f32), ((2, 70, 3, 32), f32),
+                         ((2, 130, 1, 128), bf16), ((64, 257, 6, 64), f32), ((5, 1, 2, 64), bf16),
+                         ((4, 64, 2, 32), bf16), ((4, 65, 2, 64), bf16), ((8, 257, 6, 128), bf16),
+                         ((8, 577, 6, 64), bf16), ((4, 577, 2, 128), bf16), ((2, 577, 2, 32), f32)]:
+        _attention_case(shape, dtype, seed=2, variants=fwd_variants)
+    _attention_case((16, 257, 6, 64), bf16, seed=3, variants=fwd_variants, strided=True)
+    (q, k, v), err = _attention_case(K2_SHAPE, bf16, seed=1, variants=fwd_variants)
+    if fwd_variants != {"plane", "tiled"}:
+        raise AssertionError(f"K2's cases ran {fwd_variants}, not both paths")
     with torch.no_grad():
-        ms = time_ms(lambda: fused_attention(q, k, v))
         plain_ms = time_ms(lambda: attention_plain(q, k, v))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    b, n, h, hd = K2_SHAPE
-    nbytes = 4 * b * n * h * hd * 2
-    flops = 4 * b * h * n * n * hd
-    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    # the served shapes (batches of 48 and 64, bands 4) and the training one
+    k2_ms = {}
+    for rows in (192, 256, 384):
+        shape = (rows, 257, 6, 64)
+        gen = torch.Generator(device="cuda").manual_seed(rows)
+        qs, ks, vs = _qkv(shape, bf16, gen, False)
+        qt, kt, vt = (t.transpose(1, 2) for t in (qs, ks, vs))   # SDPA's (B, H, N, hd)
+        with torch.no_grad():
+            ms = time_ms(lambda: fused_attention(qs, ks, vs))
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            stats_ms = time_ms(lambda: _forward(qs, ks, vs, 0.125, with_stats=True))
+        b_ms, b_by = _attention_bound(shape, 4, 2, False)
+        k2_ms[rows] = (ms, lib_ms, b_ms, b_by)
+        log("attention", f"K2 at {shape} bf16: kernel {ms:.4f} ms | with row statistics "
+                         f"{stats_ms:.4f} ms | SDPA {lib_ms:.4f} ms | bound {b_ms:.4f} ms "
+                         f"({b_by}) | {state['card']}")
+    ms, lib_ms, b_ms, b_by = k2_ms[K2_SHAPE[0]]
     log("attention", f"K2 at the serve shape {K2_SHAPE}: kernel {ms:.4f} ms | plain "
                      f"{plain_ms:.4f} ms | SDPA {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}) "
                      f"| {state['card']}")
@@ -411,19 +488,25 @@ def phase_attention(state):
         "source": "irw_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "irw_tpu/ops/vmem_attention.py:207", "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms}
+        "library_ms": lib_ms, "ms_by_rows": {r: t[0] for r, t in k2_ms.items()},
+        "library_ms_by_rows": {r: t[1] for r, t in k2_ms.items()}}
 
-    # K3, and K2 at the training shape
-    for shape, dtype in [((3, 50, 2, 64), torch.bfloat16), ((3, 50, 2, 64), torch.float32),
-                         ((2, 70, 3, 32), torch.float32), ((2, 70, 3, 32), torch.bfloat16),
-                         ((2, 130, 1, 128), torch.bfloat16), ((2, 130, 1, 128), torch.float32),
-                         ((2, 3, 65, 1, 64), torch.float32), ((64, 257, 6, 64), torch.float32)]:
-        _attention_bwd_case(shape, dtype, seed=3)
-    (q, k, v, g), err = _attention_bwd_case(K3_SHAPE, torch.bfloat16, seed=4)
+    # K3: N = 1 to 577, hd 32 to 128, both paths, each with the saved-statistics route
+    for shape, dtype in [((3, 50, 2, 64), bf16), ((3, 50, 2, 64), f32), ((2, 70, 3, 32), f32),
+                         ((2, 70, 3, 32), bf16), ((2, 130, 1, 128), bf16), ((2, 130, 1, 128), f32),
+                         ((2, 3, 65, 1, 64), f32), ((64, 257, 6, 64), f32), ((5, 1, 2, 64), bf16),
+                         ((4, 64, 2, 64), bf16), ((4, 65, 2, 32), bf16), ((4, 272, 2, 64), bf16),
+                         ((4, 273, 2, 64), bf16), ((8, 257, 6, 128), bf16),
+                         ((8, 577, 6, 64), bf16), ((2, 577, 2, 128), bf16)]:
+        _attention_bwd_case(shape, dtype, seed=3, variants=bwd_variants)
+    (q, k, v, g), err = _attention_bwd_case(K3_SHAPE, bf16, seed=4, variants=bwd_variants)
+    if bwd_variants != {"plane", "tiled"}:
+        raise AssertionError(f"K3's cases ran {bwd_variants}, not both paths")
     qt, kt, vt, gt = (t.transpose(1, 2) for t in (q, k, v, g))
     with torch.no_grad():
-        fwd_train_ms = time_ms(lambda: fused_attention(q, k, v))
+        _, stats = _forward(q, k, v, 0.125, with_stats=True)
     ms = time_ms(lambda: fused_attention_bwd(q, k, v, g))
+    saved_ms = time_ms(lambda: fused_attention_bwd(q, k, v, g, stats=stats))
     plain_ms = time_ms(lambda: attention_plain_bwd(q, k, v, g), iters=5)
     qr, kr, vr = (t.detach().requires_grad_() for t in (qt, kt, vt))
 
@@ -434,21 +517,20 @@ def phase_attention(state):
     with torch.no_grad():
         sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr))
     lib_ms = time_ms(sdpa_fwd_bwd) - sdpa_fwd_ms
-    b, n, h, hd = K3_SHAPE
-    nbytes = 7 * b * n * h * hd * 2
-    flops = 10 * b * h * n * n * hd
-    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-    log("attention", f"K2 at the training shape {K3_SHAPE}: kernel {fwd_train_ms:.4f} ms | "
+    b_ms, b_by = _attention_bound(K3_SHAPE, 7, 5, False)
+    saved_b_ms, saved_b_by = _attention_bound(K3_SHAPE, 7, 5, True)
+    log("attention", f"K3 at {K3_SHAPE}: kernel {ms:.4f} ms standalone (statistics computed), "
+                     f"{saved_ms:.4f} ms with K2's saved statistics (bound {saved_b_ms:.4f} ms, "
+                     f"{saved_b_by}) | plain {plain_ms:.4f} ms | SDPA backward {lib_ms:.4f} ms "
+                     f"(fwd+bwd minus fwd {sdpa_fwd_ms:.4f}) | bound {b_ms:.4f} ms ({b_by}) | "
                      f"{state['card']}")
-    log("attention", f"K3 at {K3_SHAPE}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-                     f"SDPA backward {lib_ms:.4f} ms (fwd+bwd minus fwd {sdpa_fwd_ms:.4f}) | "
-                     f"bound {b_ms:.4f} ms ({b_by}) | {state['card']}")
+    # the kernels line: the call the training path makes, with K2's statistics
     state["kernels"]["fused_attention_bwd"] = {
         "name": "fused_attention_bwd", "route": "cuda",
         "source": "irw_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "irw_tpu/ops/vmem_attention.py:227", "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms}
+        "ms": saved_ms, "plain_ms": plain_ms, "bound_ms": saved_b_ms, "bound_by": saved_b_by,
+        "library_ms": lib_ms, "standalone_ms": ms, "standalone_bound_ms": b_ms}
 
 
 def _flagship_model(vit_kwargs=None):
@@ -517,10 +599,11 @@ def _release_earlier_phases(state) -> int:
 
 
 def _serve_flagship(state, phase: str, model, expected: tuple, plain_core, held: int):
-    """SERVE_BATCHES timed batches of BATCH through the flagship ``model``:
-    the launches of every kernel per batch must equal ``expected``; then the
-    codes are held against the same weights with every block's attention
-    core set to ``plain_core`` and K1's plain version, on the card.  Peak
+    """WARMUP_CALLS batches, then SERVE_BATCHES timed ones of BATCH (cycling
+    SERVE_DISTINCT image sets) through the flagship ``model``: the launches
+    of every kernel per batch must equal ``expected``; then the codes of
+    each image set are held against the same weights with every block's
+    attention core set to ``plain_core`` and K1's plain version, on the card.  Peak
     memory is counted above the ``held`` bytes allocated before the model
     was built."""
     import torch
@@ -531,23 +614,26 @@ def _serve_flagship(state, phase: str, model, expected: tuple, plain_core, held:
 
     vit = model.backbone.vit
     transform = DeviceTransform(SWT_OPS)
-    ds = SyntheticVOCDataset(num_train=BATCH * (SERVE_BATCHES + 1), image_size=224, seed=0)
-    batches = [ds.images[i * BATCH:(i + 1) * BATCH] for i in range(SERVE_BATCHES + 1)]
+    ds = SyntheticVOCDataset(num_train=BATCH * SERVE_DISTINCT, image_size=224, seed=0)
+    distinct = [ds.images[i * BATCH:(i + 1) * BATCH] for i in range(SERVE_DISTINCT)]
 
     kernels = _kernel_wrappers()
     with torch.inference_mode():
-        model(transform(batches[0]))  # warm-up: cuBLAS handles, allocator
+        for i in range(WARMUP_CALLS):  # cuBLAS handles, allocator
+            model(transform(distinct[i % SERVE_DISTINCT]))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for fn in kernels:
             fn.launches = 0
         outs, per_batch = [], []
         t0 = time.perf_counter()
-        for images in batches[1:]:
+        for i in range(SERVE_BATCHES):
+            images = distinct[i % SERVE_DISTINCT]
             before = [fn.launches for fn in kernels]
             bands = transform(images)
             logits, aux = model.forward_logits(bands)
-            outs.append((images, logits, torch.sign(logits)))
+            if i < SERVE_DISTINCT:
+                outs.append((images, logits, torch.sign(logits)))
             per_batch.append(tuple(fn.launches - b for fn, b in zip(kernels, before)))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -697,9 +783,9 @@ def _route_step(tstate, step, batch, hyper, snapshot, core=None):
 
 
 def _train_flagship(state, phase: str, model, expected: tuple, plain_core, held: int):
-    """The flagship ``model`` trains: TRAIN_STEPS AdamW steps at batch 96,
-    trained img/s over the whole window to a synchronize (each step's time
-    between CUDA events beside it), whose launches of every kernel per step
+    """The flagship ``model`` trains: WARMUP_CALLS steps, then TRAIN_STEPS
+    AdamW steps at batch 96, trained img/s over the whole window to a
+    synchronize (each step's time between CUDA events beside it), whose launches of every kernel per step
     must equal ``expected``; peak memory above the ``held`` bytes allocated
     before the model was built; the kernel route held against the same step
     with every block's attention core set to ``plain_core``; one step
@@ -724,7 +810,8 @@ def _train_flagship(state, phase: str, model, expected: tuple, plain_core, held:
         return _build_hyper(tstate.optimizer_entries, 1, tstate.step, PROTOCOL["warm_up"], None,
                             PROTOCOL["ortho_scale"])
 
-    step(tstate, batches[0], hyper())  # warm-up: cuBLAS handles, allocator, build
+    for i in range(WARMUP_CALLS):  # cuBLAS handles, allocator, build
+        step(tstate, batches[i % 2], hyper())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = _kernel_wrappers()
@@ -908,14 +995,36 @@ def phase_dwt(state):
                                  ("coif12", 2, (5, 72, 200)), ("rev_bior_spline_39", 1, (3, 20, 12))]:
         _k4_case(basis, levels, shape, seed=5, time_it=shape[0] == 3 * BATCH)
 
-    # cdf97 level 1 at cub_dwt_cdf97.yaml's 448² (no single library call computes it)
+    # cdf97 level 1 at cub_dwt_cdf97.yaml's 448²
     x, err = _k4_case("cdf97", 1, K4_CDF97_SHAPE, seed=6)
     ms = time_ms(lambda: lifting_multi_level(x, 1, "cdf97"))
     plain_ms = time_ms(lambda: lifting_multi_level_plain(x, 1, "cdf97"), iters=5)
     n, h, w = K4_CDF97_SHAPE
     b_ms, b_by = bound_ms(4 * n * h * w * 2, _lifting_flops(n, h, w, 1, "cdf97"), "float32")
+    # yardstick of cost: one conv2d with the four 9 x 9 CDF 9/7 analysis filters
+    # (outer products of the 9-tap low-pass and the zero-padded 7-tap high-pass)
+    # at stride 2, TF32 off; its boundary handling and band scaling are the
+    # filter bank's, not the lifting's, so it is timed and not compared
+    lo = torch.tensor([0.026748757411, -0.016864118443, -0.078223266529, 0.266864118443,
+                       0.602949018236, 0.266864118443, -0.078223266529, -0.016864118443,
+                       0.026748757411])
+    hi = torch.tensor([0.0, 0.091271763114, -0.057543526229, -0.591271763114, 1.115087052457,
+                       -0.591271763114, -0.057543526229, 0.091271763114, 0.0])
+    filt97 = torch.stack([torch.outer(a, b) for a, b in ((lo, lo), (hi, lo), (lo, hi), (hi, hi))])
+    filt97 = filt97[:, None].cuda()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        x4 = x[:, None]
+        with torch.no_grad():
+            lib97_ms = time_ms(lambda: F.conv2d(x4, filt97, stride=2, padding=4))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    cdf97 = {"cdf97_ms": ms, "cdf97_plain_ms": plain_ms, "cdf97_bound_ms": b_ms,
+             "cdf97_library_ms": lib97_ms}
     log("dwt", f"K4 cdf97 l=1 at {K4_CDF97_SHAPE}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-               f"library — | bound {b_ms:.4f} ms ({b_by}) | {state['card']}")
+               f"conv2d (9 x 9 analysis filters, stride 2) {lib97_ms:.4f} ms | bound "
+               f"{b_ms:.4f} ms ({b_by}) | {state['card']}")
 
     # the served case, haar level 1 at (192, 224, 224)
     x, err = _k4_case("haar", 1, K4_SHAPE, seed=7)
@@ -947,7 +1056,7 @@ def phase_dwt(state):
         "source": "irw_tpu_torch/csrc/lifting_dwt.cu",
         "replaces": "irw_tpu/ops/wavelets/pallas_dwt.py:208", "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms}
+        "library_ms": lib_ms, **cdf97}
 
 
 _WCNN_GROUPS = (("K4 lifting", ("lift_h_kernel", "lift_w_kernel")),

@@ -1,7 +1,10 @@
 // Fused multi-head attention forward for short sequences:
 //   o = softmax(q k^T * scale) v   per (batch, head),
 // q, k, v, o in the public layout (B, N, H, hd), read and written through
-// element strides (the last axis contiguous), bf16 or f32.
+// element strides (the last axis contiguous), bf16 or f32.  When autograd
+// will need them, the row statistics (max m and sum l of exp(s - m)) are
+// written to an f32 (2, B * H, N) tensor, so the backward (K3) need not
+// recompute them.
 //
 // Replaces: irw_tpu/ops/vmem_attention.py, fused_attention -> _fwd_call
 // (kernel body _fwd_kernel).  Same rounding as the TPU kernel: scores and
@@ -11,37 +14,59 @@
 // Bound on the H100 at the flagship (B = 4 bands * 64 = 256, N = 257, H = 6,
 // hd = 64, bf16): memory.  q, k, v read and o written are 4 * 50.5 MB =
 // 202 MB, about 60 us at 3.35 TB/s; the 4 B H N^2 hd = 26 GFLOP of the two
-// products take about 26 us at the 989 TFLOP/s bf16 tensor-core peak.
+// products take about 26 us at the 989 TFLOP/s bf16 tensor-core peak.  The
+// kernel runs three products (q k^T twice, see below): 39 GFLOP.
 //
-// Design, shared by both paths:
-// - one thread block per (batch * head, 64-row query tile): at N = 257 that
-//   is 5 tiles, the last holding one row.  The (N, N) scores never reach
-//   device memory, as on the TPU, where one grid step held the whole key axis
-//   in VMEM.  A Hopper block has 227 KB of shared memory, not VMEM's
-//   megabytes, so the key axis is walked in tiles of 64 keys, the ragged tail
-//   masked to -inf.
-// - TWO passes over the key tiles.  Pass 1 computes each row's max and sum
-//   in f32 (online, rescaling the sum when the max grows).  Pass 2 recomputes
-//   the scores, forms the normalised P = exp(s - max) / sum, rounds it to the
-//   input dtype and accumulates P.V in f32.  A one-pass online softmax would
-//   round the unnormalised exponentials instead, which the TPU kernel never
-//   does; at N = 257 the extra q k^T costs little.
+// Both paths keep TWO passes over the scores.  Pass 1 computes each row's
+// max and sum in f32, online over 64-key chunks.  Pass 2 recomputes the
+// scores, forms the normalised P = exp(s - max) / sum, rounds it to the
+// input dtype and accumulates P.V in f32.  A one-pass online softmax would
+// round the unnormalised exponentials instead, which the TPU kernel never
+// does.  On the bf16 paths exp is the special-function unit's 2^x
+// (ex2.approx, about two f32 ulps) and the quotient is exp(s - max) times
+// 1 / sum, the reciprocal rounded once per row: both within a few f32 ulps
+// of libm's expf and a true division before P is rounded to bf16, where
+// those cost about eight and ten dependent instructions per score (the
+// limits of chip_smoke.py and the tests are unchanged).  The f32 path keeps
+// expf.
 //
-// bf16 (the flagship): tensor cores through mma.sync m16n8k16 (bf16 in, f32
-// accumulate).  4 warps, each owning 16 query rows.  Q, K and V tiles sit in
-// shared memory as bf16 with rows padded by 16 bytes so the fragment loads
-// do not conflict on banks; Q's fragments stay in registers for the whole
-// block.  The f32 score fragments of q k^T are laid out exactly as the A
-// operand of the P.V product wants them, so the normalised P is rounded to
-// bf16 and fed from registers (V's fragments come through ldmatrix.trans).
+// bf16, plane path (the flagship; whenever K and V of one (batch, head)
+// plane fit in shared memory: 2 * ceil16(N) * hd * 2 bytes <= 227 KB, i.e.
+// N <= 896 at hd 64, N <= 448 at hd 128): one thread block per plane.  The
+// block copies the plane's K and V into shared memory once, with cp.async
+// in two groups, so V's copy overlaps the first pass-1 products.  Warps then
+// walk the plane's 16-row query tiles (ceil16(N) / 16 of them, 17 at
+// N = 257, spread over 6 warps in 3 rounds), Q's A fragments loaded from
+// device memory straight into registers; a warp whose rows lie past N does
+// no work, so the ragged 257th row costs one 16-row tile, not a 64-row
+// block, and each plane's K and V cross device memory once, not once per
+// 64-query block.  Neither pass has a barrier: both read only the resident
+// K and V.  Products are mma.sync m16n8k16 (bf16 in, f32 accumulate); the
+// f32 score fragments are laid out as the A operand of P.V, so the
+// normalised P is rounded and fed from registers.  What bounds it is
+// latency: each score passes a dependent chain of products, exp and
+// multiply, so the design buys warps.  K and V sit unpadded, their 16-byte
+// chunks XOR-swizzled by row (attention_plane.cuh: fragment loads without
+// bank conflicts at 69.6 KB a plane instead of 78.3 at N = 257), so three
+// blocks of 6 warps share an SM at hd <= 64 (at most 96 registers a
+// thread; pass 2 walks 32-key chunks to stay inside them).  Fragments
+// come through ldmatrix (attention_plane.cuh).  Measured at the flagship's
+// served shape: 0.22 ms against the 0.06 ms bound and SDPA's 0.17 (NVIDIA
+// H100 80GB HBM3 at 700 W; PERF.md).
 //
-// f32: plain FMAs, 256 threads, each owning a 4 x 4 block of the 64 x 64
-// score tile (rows ty + 16 i, keys tx + 16 j) and 4 x hd/16 outputs; rows of
-// the f32 tiles padded by one float.
+// bf16, tiled path (planes that do not fit): one block of 4 warps per
+// (batch * head, 64-row query tile), K and V walked in 64-key tiles through
+// shared memory with synchronous loads; the same pass-1 update, so it saves
+// the same statistics.
 //
-// Not yet: wgmma, TMA, cp.async double buffering, a single pass.
+// f32: the tiled scheme with plain FMAs, 256 threads, each owning a 4 x 4
+// block of the 64 x 64 score tile (rows ty + 16 i, keys tx + 16 j) and
+// 4 x hd/16 outputs; rows of the f32 tiles padded by one float.
+//
+// Not yet: wgmma, 32-row warp tiles (registers), one pass over the scores
+// held in registers at N <= 272.
 
-#include "attention_common.cuh"
+#include "attention_plane.cuh"
 
 namespace {
 
@@ -51,8 +76,58 @@ constexpr int kBQ = 64;                 // query rows per block
 constexpr int kBK = 64;                 // keys per tile
 
 // ------------------------------------------------------------------------
-// bf16: mma.sync tensor-core path
+// bf16, tiled path: mma.sync, one block per (plane, 64-row query tile)
 // ------------------------------------------------------------------------
+
+// rows row0 + g and row0 + g + 8 of a warp's m, l into the (2, planes, n)
+// statistics tensor, from the lanes with t = 0
+__device__ __forceinline__ void write_stats(float* stats, int bh, int planes, int n, int row0,
+                                            const float (&m)[2], const float (&l)[2]) {
+    const int lane = threadIdx.x % 32, g = lane >> 2;
+    if ((lane & 3) != 0) return;
+    const long long plane = static_cast<long long>(planes) * n;
+    float* st = stats + static_cast<long long>(bh) * n;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = row0 + g + 8 * r;
+        if (row < n) {
+            st[row] = m[r];
+            st[plane + row] = l[r];
+        }
+    }
+}
+
+// acc (16 x HD) += bf16(P) . V for the 16 keys kk * 16 .. + 15 of a score
+// chunk s: P = exp(s - m) / l (rl = 1 / l), rounded to bf16, fed from
+// registers; V rows at sV (padded, chunk-relative) through ldmatrix.trans
+template <int HD, int COLS>
+__device__ __forceinline__ void pv_step(float (&acc)[HD / 8][4], const float (&s)[COLS / 8][4],
+                                        const float (&m)[2], const float (&rl)[2],
+                                        const __nv_bfloat16* sV, int kk) {
+    constexpr int kLd = HD + kTilePad;
+    const int lane = threadIdx.x % 32;
+    uint32_t pa[4];
+    const float ml2[2] = {__fmul_rn(m[0], kLog2e), __fmul_rn(m[1], kLog2e)};
+    pa[0] = pack_bf16(prob_score(s[2 * kk][0], ml2[0], rl[0]),
+                      prob_score(s[2 * kk][1], ml2[0], rl[0]));
+    pa[1] = pack_bf16(prob_score(s[2 * kk][2], ml2[1], rl[1]),
+                      prob_score(s[2 * kk][3], ml2[1], rl[1]));
+    pa[2] = pack_bf16(prob_score(s[2 * kk + 1][0], ml2[0], rl[0]),
+                      prob_score(s[2 * kk + 1][1], ml2[0], rl[0]));
+    pa[3] = pack_bf16(prob_score(s[2 * kk + 1][2], ml2[1], rl[1]),
+                      prob_score(s[2 * kk + 1][3], ml2[1], rl[1]));
+    // V rows kk*16 .. +15: lanes 0-7 / 8-15 address the two 8-key halves
+    // of head-dim tile jn, lanes 16-31 the same for tile jn + 1
+    const int mat = lane >> 3;
+    const __nv_bfloat16* vr = sV + (kk * 16 + (lane & 7) + (mat & 1) * 8) * kLd + (mat >> 1) * 8;
+#pragma unroll
+    for (int jn = 0; jn < HD / 8; jn += 2) {
+        uint32_t vfrag[4];
+        ldmatrix_x4_trans(vfrag, vr + jn * 8);
+        mma_bf16(acc[jn], pa, vfrag[0], vfrag[1]);
+        mma_bf16(acc[jn + 1], pa, vfrag[2], vfrag[3]);
+    }
+}
 
 constexpr int kWarps = 4;                       // 16 query rows each
 constexpr int kMmaThreads = 32 * kWarps;
@@ -63,8 +138,8 @@ template <int HD>
 __global__ void __launch_bounds__(kMmaThreads, HD <= 64 ? 4 : 2)
 attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                          int n, int heads, float scale, Strides sq, Strides sk, Strides sv,
-                          Strides so) {
+                          float* __restrict__ stats, int n, int heads, float scale, Strides sq,
+                          Strides sk, Strides sv, Strides so) {
     constexpr int kLd = HD + kTilePad;
     constexpr int kKS = HD / 16;   // k-steps over head_dim
     constexpr int kNT = HD / 8;    // n-tiles over head_dim
@@ -105,20 +180,10 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
         __syncthreads();
         float s[kBK / 8][4];
         score_tile_bf16<HD, kBK>(qa, sK, scale, k0, n, s);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            float tmax = neg_inf();
-#pragma unroll
-            for (int j = 0; j < kBK / 8; ++j) tmax = fmaxf(tmax, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-            const float mnew = fmaxf(m[r], quad_max(tmax));
-            float part = 0.f;
-#pragma unroll
-            for (int j = 0; j < kBK / 8; ++j)
-                part += expf(s[j][2 * r] - mnew) + expf(s[j][2 * r + 1] - mnew);
-            l[r] = l[r] * expf(m[r] - mnew) + quad_sum(part);
-            m[r] = mnew;
-        }
+        online_stats<kBK>(m, l, s);
     }
+    if (stats) write_stats(stats, bh, gridDim.x, n, q0 + warp * 16, m, l);
+    const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
 
     // pass 2: P = exp(s - max) / sum rounded to bf16, P.V accumulated in f32
     float acc[kNT][4];
@@ -133,30 +198,98 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
         float s[kBK / 8][4];
         score_tile_bf16<HD, kBK>(qa, sK, scale, k0, n, s);
 #pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk) {
-            uint32_t pa[4];
-            pa[0] = pack_bf16(expf(s[2 * kk][0] - m[0]) / l[0], expf(s[2 * kk][1] - m[0]) / l[0]);
-            pa[1] = pack_bf16(expf(s[2 * kk][2] - m[1]) / l[1], expf(s[2 * kk][3] - m[1]) / l[1]);
-            pa[2] = pack_bf16(expf(s[2 * kk + 1][0] - m[0]) / l[0],
-                              expf(s[2 * kk + 1][1] - m[0]) / l[0]);
-            pa[3] = pack_bf16(expf(s[2 * kk + 1][2] - m[1]) / l[1],
-                              expf(s[2 * kk + 1][3] - m[1]) / l[1]);
-            // V rows kk*16 .. +15: lanes 0-7 / 8-15 address the two 8-key halves
-            // of head-dim tile jn, lanes 16-31 the same for tile jn + 1
-            const int mat = lane >> 3;
-            const __nv_bfloat16* vr = sV + (kk * 16 + (lane & 7) + (mat & 1) * 8) * kLd
-                                      + (mat >> 1) * 8;
-#pragma unroll
-            for (int jn = 0; jn < kNT; jn += 2) {
-                uint32_t vfrag[4];
-                ldmatrix_x4_trans(vfrag, vr + jn * 8);
-                mma_bf16(acc[jn], pa, vfrag[0], vfrag[1]);
-                mma_bf16(acc[jn + 1], pa, vfrag[2], vfrag[3]);
-            }
-        }
+        for (int kk = 0; kk < kBK / 16; ++kk) pv_step<HD, kBK>(acc, s, m, rl, sV, kk);
     }
 
     warp_store_bf16<HD>(o + b * so.b + h * so.h, so.n, acc, q0 + warp * 16, n);
+}
+
+// ------------------------------------------------------------------------
+// bf16, plane path: one block per (batch * head) plane, K and V resident
+// ------------------------------------------------------------------------
+
+constexpr int kPlaneMaxWarps = 6;
+
+// warps of a plane block: the fewest rounds of at most kPlaneMaxWarps warps
+// over the plane's 16-row query tiles, then as few warps as those rounds need
+__host__ __device__ constexpr int plane_warps(int tiles) {
+    return (tiles + (tiles + kPlaneMaxWarps - 1) / kPlaneMaxWarps - 1)
+           / ((tiles + kPlaneMaxWarps - 1) / kPlaneMaxWarps);
+}
+
+// three blocks an SM at hd <= 64 (18 warps: at most 96 registers a thread)
+template <int HD>
+__global__ void __launch_bounds__(32 * kPlaneMaxWarps, HD <= 64 ? 3 : 1)
+attention_fwd_plane_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                                float* __restrict__ stats, int n, int heads, float scale,
+                                Strides sq, Strides sk, Strides sv, Strides so) {
+    constexpr int kKS = HD / 16, kNT = HD / 8;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int nk = round_up(n, 16);
+    __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // nk x HD, swizzled
+    __nv_bfloat16* sV = sK + nk * HD;                                   // nk x HD, swizzled
+
+    const int bh = blockIdx.x, b = bh / heads, h = bh % heads;
+    const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
+    const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
+    load_rows_async_swz<HD>(sK, k + b * sk.b + h * sk.h, sk.n, nk, n);
+    cp_async_commit();
+    load_rows_async_swz<HD>(sV, v + b * sv.b + h * sv.h, sv.n, nk, n);
+    cp_async_commit();
+
+    const int tiles = nk / 16;
+    uint32_t qa[kKS][4];
+    float m[2], l[2];
+    // pass 1 of one query tile: the row statistics over the resident K, in
+    // the 64-key chunks every kernel uses for them
+    auto pass1 = [&](int tile) {
+        load_a_global<HD>(qa, qb, sq.n, tile * 16, n);
+        m[0] = m[1] = neg_inf();
+        l[0] = l[1] = 0.f;
+        for_key_chunks<64>(n, [&](auto cols, int k0) {
+            constexpr int C = decltype(cols)::value;
+            float s[C / 8][4];
+            dot_tile_swz<HD, C>(qa, sK + k0 * HD, s);
+            scale_mask<C>(s, scale, k0, n);
+            online_stats<C>(m, l, s);
+        });
+        if (stats) write_stats(stats, bh, gridDim.x, n, tile * 16, m, l);
+    };
+    // pass 2: P rounded to bf16, P.V accumulated in f32, o written; 32-key
+    // chunks keep the live scores to 16 registers
+    auto pass2 = [&](int tile) {
+        const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+        const float ml2[2] = {__fmul_rn(m[0], kLog2e), __fmul_rn(m[1], kLog2e)};
+        const float sl2 = __fmul_rn(scale, kLog2e);
+        float acc[kNT][4];
+#pragma unroll
+        for (int jn = 0; jn < kNT; ++jn) acc[jn][0] = acc[jn][1] = acc[jn][2] = acc[jn][3] = 0.f;
+        for_key_chunks<32>(n, [&](auto cols, int k0) {
+            constexpr int C = decltype(cols)::value;
+            float d[C / 8][4];
+            dot_tile_swz<HD, C>(qa, sK + k0 * HD, d);
+            mask_dots<C>(d, k0, n);
+#pragma unroll
+            for (int kk = 0; kk < C / 16; ++kk)
+                pv_step_swz<HD, C>(acc, d, sl2, ml2, rl, sV + k0 * HD, kk);
+        });
+        warp_store_bf16<HD>(o + b * so.b + h * so.h, so.n, acc, tile * 16, n);
+    };
+
+    // every warp has a first tile (plane_warps <= tiles): its pass 1 runs
+    // while V is still being copied
+    cp_async_wait<1>();
+    __syncthreads();
+    pass1(warp);
+    cp_async_wait<0>();
+    __syncthreads();
+    pass2(warp);
+    for (int tile = warp + nwarps; tile < tiles; tile += nwarps) {
+        pass1(tile);
+        pass2(tile);
+    }
 }
 
 // ------------------------------------------------------------------------
@@ -184,8 +317,9 @@ __device__ __forceinline__ void score_tile(const float* sQ, const float* sK, flo
 template <int HD>
 __global__ void __launch_bounds__(kFmaThreads)
 attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o, int n, int heads,
-                         float scale, Strides sq, Strides sk, Strides sv, Strides so) {
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ stats, int n, int heads, float scale, Strides sq,
+                         Strides sk, Strides sv, Strides so) {
     constexpr int ld = HD + 1;
     constexpr int kOut = HD / kFmaSide;  // output columns per thread
     extern __shared__ float smem[];
@@ -218,16 +352,21 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
         float s[kRows][kCols];
         score_tile<HD>(sQ, sK, scale, k0, n, s);
 #pragma unroll
+        for (int i = 0; i < kRows; ++i) online_stats_f32<kCols>(m[i], l[i], s[i]);
+    }
+    float rl[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) rl[i] = __frcp_rn(l[i]);
+    if (stats && tx == 0) {
+        const long long plane = static_cast<long long>(gridDim.x) * n;
+        float* st = stats + static_cast<long long>(bh) * n;
+#pragma unroll
         for (int i = 0; i < kRows; ++i) {
-            float tmax = s[i][0];
-#pragma unroll
-            for (int j = 1; j < kCols; ++j) tmax = fmaxf(tmax, s[i][j]);
-            const float mnew = fmaxf(m[i], row16_max(tmax));
-            float part = 0.f;
-#pragma unroll
-            for (int j = 0; j < kCols; ++j) part += expf(s[i][j] - mnew);
-            l[i] = l[i] * expf(m[i] - mnew) + row16_sum(part);
-            m[i] = mnew;
+            const int row = q0 + ty + kFmaSide * i;
+            if (row < n) {
+                st[row] = m[i];
+                st[plane + row] = l[i];
+            }
         }
     }
 
@@ -249,7 +388,7 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
         for (int i = 0; i < kRows; ++i)
 #pragma unroll
             for (int j = 0; j < kCols; ++j)
-                sP[(ty + kFmaSide * i) * kLdP + tx + kFmaSide * j] = expf(s[i][j] - m[i]) / l[i];
+                sP[(ty + kFmaSide * i) * kLdP + tx + kFmaSide * j] = prob(s[i][j], m[i], rl[i]);
         __syncthreads();
         fma_accumulate_f32<HD, kBK, kBQ>(acc, sP, kLdP, sV);
     }
@@ -260,44 +399,66 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 // launch
 // ------------------------------------------------------------------------
 
+constexpr size_t kMaxSmem = 232448;  // bytes of shared memory a block may use
+
+size_t plane_smem(int n, int hd) { return sizeof(__nv_bfloat16) * 2 * round_up(n, 16) * hd; }
+
+// 1: the plane path, 0: the tiled path
+int variant(int dtype, int n, int hd) { return dtype == 1 && plane_smem(n, hd) <= kMaxSmem; }
+
+struct Launch {
+    const void *q, *k, *v;
+    void* o;
+    float* stats;
+    int batch, n, heads;
+    float scale;
+    Strides sq, sk, sv, so;
+};
+
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int batch, int n, int heads,
-           float scale, Strides sq, Strides sk, Strides sv, Strides so, cudaStream_t stream) {
-    const dim3 grid(batch * heads, (n + kBQ - 1) / kBQ);
-    cudaError_t err;
+int launch(const Launch& a, cudaStream_t stream) {
+    const T* q = static_cast<const T*>(a.q);
+    const T* k = static_cast<const T*>(a.k);
+    const T* v = static_cast<const T*>(a.v);
+    T* o = static_cast<T*>(a.o);
+    size_t smem;
+    int threads;
+    dim3 grid;
+    void (*kernel)(const T*, const T*, const T*, T*, float*, int, int, float, Strides, Strides,
+                   Strides, Strides);
     if constexpr (sizeof(T) == 2) {
-        const size_t smem = sizeof(__nv_bfloat16) * 3 * kBK * (HD + kTilePad);
-        auto kernel = attention_fwd_bf16_kernel<HD>;
-        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-        kernel<<<grid, kMmaThreads, smem, stream>>>(
-            static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-            static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), n, heads,
-            scale, sq, sk, sv, so);
+        if (variant(1, a.n, HD)) {
+            kernel = attention_fwd_plane_bf16_kernel<HD>;
+            smem = plane_smem(a.n, HD);
+            threads = 32 * plane_warps(round_up(a.n, 16) / 16);
+            grid = dim3(a.batch * a.heads);
+        } else {
+            kernel = attention_fwd_bf16_kernel<HD>;
+            smem = sizeof(__nv_bfloat16) * 3 * kBK * (HD + kTilePad);
+            threads = kMmaThreads;
+            grid = dim3(a.batch * a.heads, (a.n + kBQ - 1) / kBQ);
+        }
     } else {
         constexpr int ld = HD + 1;
-        const size_t smem = sizeof(float) * (kBQ * ld + 2 * kBK * ld + kBQ * kLdP);
-        auto kernel = attention_fwd_f32_kernel<HD>;
-        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-        kernel<<<grid, kFmaThreads, smem, stream>>>(
-            static_cast<const float*>(q), static_cast<const float*>(k),
-            static_cast<const float*>(v), static_cast<float*>(o), n, heads, scale,
-            sq, sk, sv, so);
+        kernel = attention_fwd_f32_kernel<HD>;
+        smem = sizeof(float) * (kBQ * ld + 2 * kBK * ld + kBQ * kLdP);
+        threads = kFmaThreads;
+        grid = dim3(a.batch * a.heads, (a.n + kBQ - 1) / kBQ);
     }
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, threads, smem, stream>>>(q, k, v, o, a.stats, a.n, a.heads, a.scale, a.sq, a.sk,
+                                            a.sv, a.so);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, int batch,
-                int n, int heads, float scale, Strides sq, Strides sk, Strides sv,
-                Strides so, cudaStream_t stream) {
+int dispatch_hd(int hd, const Launch& a, cudaStream_t stream) {
     switch (hd) {
-        case 32: return launch<T, 32>(q, k, v, o, batch, n, heads, scale, sq, sk, sv, so, stream);
-        case 64: return launch<T, 64>(q, k, v, o, batch, n, heads, scale, sq, sk, sv, so, stream);
-        case 128: return launch<T, 128>(q, k, v, o, batch, n, heads, scale, sq, sk, sv, so, stream);
+        case 32: return launch<T, 32>(a, stream);
+        case 64: return launch<T, 64>(a, stream);
+        case 128: return launch<T, 128>(a, stream);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -307,8 +468,10 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, in
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, (batch, token,
 // head) for each of q, k, v, o; the head_dim axis must be contiguous.  For
 // bf16 every row start must be 16-byte aligned (strides multiples of 8).
+// ``stats``: null, or an f32 (2, batch * heads, n) tensor that receives each
+// row's max m and sum l of exp(s - m).  One kernel runs on ``stream``.
 extern "C" int irw_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                 int dtype, int batch, int n, int heads, int hd,
+                                 void* stats, int dtype, int batch, int n, int heads, int hd,
                                  float scale,
                                  long long qsb, long long qsn, long long qsh,
                                  long long ksb, long long ksn, long long ksh,
@@ -316,14 +479,18 @@ extern "C" int irw_attention_fwd(const void* q, const void* k, const void* v, vo
                                  long long osb, long long osn, long long osh,
                                  void* stream) {
     if (batch <= 0 || n <= 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    const Strides sq{qsb, qsn, qsh}, sk{ksb, ksn, ksh}, sv{vsb, vsn, vsh}, so{osb, osn, osh};
+    const Launch a{q, k, v, o, static_cast<float*>(stats), batch, n, heads, scale,
+                   Strides{qsb, qsn, qsh}, Strides{ksb, ksn, ksh}, Strides{vsb, vsn, vsh},
+                   Strides{osb, osn, osh}};
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 0)
-        return dispatch_hd<float>(hd, q, k, v, o, batch, n, heads, scale, sq, sk, sv, so, st);
-    if (dtype == 1)
-        return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, batch, n, heads, scale, sq, sk, sv, so, st);
+    if (dtype == 0) return dispatch_hd<float>(hd, a, st);
+    if (dtype == 1) return dispatch_hd<__nv_bfloat16>(hd, a, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// which kernel irw_attention_fwd runs for (dtype, n, hd): 1 the plane path,
+// 0 the tiled path
+extern "C" int irw_attention_fwd_variant(int dtype, int n, int hd) { return variant(dtype, n, hd); }
 
 extern "C" const char* irw_cuda_error_string(int status) {
     return cudaGetErrorString(static_cast<cudaError_t>(status));

@@ -86,6 +86,11 @@ def evaluate(model, datasets, device_transform=None, batch_size: int = 256, top_
     if isinstance(datasets, dict):
         if set(datasets) != {"query", "gallery"}:
             raise NotImplementedError("distractor and landmark protocols wait for ROADMAP A12")
+        if getattr(datasets["query"], "gnd", None) is not None:
+            # the JAX package scores such a query set with landmark_evaluation
+            # (irw_tpu/engine/evaluate.py:257-261), not the metric suite
+            raise NotImplementedError("a query set with gnd (the revisited Oxford/Paris "
+                                      "landmark protocol) waits for ROADMAP A12")
         q_emb, q_labels = compute_embeddings(model, datasets["query"], device_transform,
                                              batch_size, device)
         if datasets["gallery"] is datasets["query"]:

@@ -7,7 +7,9 @@ The reference's presets name torch classes with their own kwargs dialect
 ``attention`` + ``attention_type`` pairs); the adapters accept it verbatim,
 so ``configs/model/multidino_attention_hashing_ortho.yaml``'s and
 ``configs/model/wcnn_attention_ce.yaml``'s ``kwargs`` build their models.
-Keys a module does not declare are dropped, as the JAX factory does.
+Keys the JAX module does not declare are dropped, as the JAX factory drops
+them; a key the JAX module takes and the port's does not raises, naming the
+ROADMAP item that will port it.
 """
 
 from __future__ import annotations
@@ -20,9 +22,38 @@ from irw_tpu_torch.models import wresnet
 from irw_tpu_torch.models.multi_dino import MultiDinoHashing
 
 
-def _filter_kwargs(ctor, kw: dict) -> dict:
+# the fields of each JAX module the factory builds (flax's ``parent`` and
+# ``name`` included): the JAX factory passes these and drops every other key
+# (irw_tpu/models/factory.py:30-52); tests/test_torch_factory.py holds each
+# set to irw_tpu's modules
+JAX_FIELDS = {
+    "MultiDinoHashing": frozenset({"backbone", "fusion_config", "nbits", "use_bn", "num_bands",
+                                   "frozen_backbone", "tanh_train", "vit_kwargs", "parent",
+                                   "name"}),
+    "WCNN": frozenset({"num_classes", "backbone", "ce", "frozen_bn", "dtype", "parent", "name"}),
+    "WCNNAttention": frozenset({"num_classes", "attention", "ce", "backbone", "frozen_bn", "dtype",
+                                "parent", "name"}),
+}
+
+
+def _filter_kwargs(ctor, kw: dict, renames: dict | None = None) -> dict:
+    """The keys of ``kw`` (after ``renames``) that ``ctor`` takes.  A key it
+    does not take is dropped where the JAX factory drops it too; one the JAX
+    module takes raises, rather than build another model without a word."""
     accepted = set(inspect.signature(ctor).parameters)
-    return {k: v for k, v in kw.items() if k in accepted}
+    jax_fields = JAX_FIELDS[ctor.__name__]
+    renames = renames or {}
+    out, missing = {}, []
+    for k, v in kw.items():
+        k2 = renames.get(k, k)
+        if k2 in accepted:
+            out[k2] = v
+        elif k2 in jax_fields:
+            missing.append(k2)
+    if missing:
+        raise NotImplementedError(f"{ctor.__name__}: the JAX model takes {sorted(missing)}, "
+                                  "which the port does not take yet (ROADMAP A10)")
+    return out
 
 
 def pop_common(kw: dict, device: torch.device) -> dict:
@@ -30,7 +61,9 @@ def pop_common(kw: dict, device: torch.device) -> dict:
 
     - ``with_autocast`` → the bf16 compute policy;
     - ``binary_config.nbits`` → ``nbits``;
-    - ``backbones_config[0]`` → ``backbone`` and ``frozen_backbone``;
+    - ``backbones_config[0]``, or a single ``backbone_config``, →
+      ``backbone`` and ``frozen_backbone``; its ``use_dsln`` (domain-specific
+      LayerNorm) raises until ROADMAP A10 ports DSLN;
     - unfrozen backbones → block remat with policy ``"nothing"``
       (factory.py:86-88) and ``vmem_attn`` on the card (factory.py:106 reads
       "on TPU"; here it means kernels K2 and K3 on a CUDA device).
@@ -46,6 +79,13 @@ def pop_common(kw: dict, device: torch.device) -> dict:
         first = dict(bcfgs[0])
         kw.setdefault("backbone", first.get("name", "dinov2_vits14"))
         kw.setdefault("frozen_backbone", bool(first.get("frozen", False)))
+    bcfg = kw.pop("backbone_config", None)
+    if bcfg:
+        kw.setdefault("backbone", bcfg.get("name", "dinov2_vits14"))
+        kw.setdefault("frozen_backbone", bool(bcfg.get("frozen", False)))
+        if bcfg.get("use_dsln"):
+            raise NotImplementedError("backbone_config.use_dsln: the domain-specific LayerNorm "
+                                      "(DSLN) waits for ROADMAP A10")
     vit_kw = dict(kw.get("vit_kwargs") or {})
     if autocast:
         vit_kw.setdefault("dtype", "bfloat16")
@@ -58,9 +98,24 @@ def pop_common(kw: dict, device: torch.device) -> dict:
     return kw
 
 
-def build_multidino_hashing(device: torch.device, **kw) -> MultiDinoHashing:
-    """The ``MultiDinoHashing`` entry of ``reference_model_entries``."""
-    return MultiDinoHashing(**_filter_kwargs(MultiDinoHashing, pop_common(kw, device)))
+def multidino_adapter(**fixed):
+    """The class adapter of ``reference_model_entries`` for
+    ``MultiDinoHashing`` (factory.py:112-122): the shared dialect, then
+    ``fixed`` (``MultiDinoHashingTF``: ``tanh_train=True``), a list
+    ``branches`` as a tuple, ``dino_backbone`` read as ``backbone``."""
+
+    def build(device: torch.device, **kw) -> MultiDinoHashing:
+        kw = pop_common(kw, device)
+        kw.update(fixed)
+        if isinstance(kw.get("branches"), list):
+            kw["branches"] = tuple(kw["branches"])
+        return MultiDinoHashing(**_filter_kwargs(MultiDinoHashing, kw,
+                                                 {"dino_backbone": "backbone"}))
+
+    return build
+
+
+build_multidino_hashing = multidino_adapter()
 
 
 def _attention_kw(kw: dict) -> dict:
@@ -102,4 +157,16 @@ def build_retrieval_net(device: torch.device, backbone_name: str, embed_dim: int
     cls, attention, ce = _WCNN_ROUTES[backbone_name]
     if attention:
         kw = _attention_kw(kw)
-    return cls(**dict(_filter_kwargs(cls, pop_common(kw, device)), ce=ce))
+    kw = pop_common(kw, device)
+    kw.setdefault("num_bands", _subband_count(kw.get("decom_level", 1), kw.get("coarse_only", True)))
+    return cls(**dict(_filter_kwargs(cls, kw), ce=ce))
+
+
+def _subband_count(levels, coarse_only=True) -> int:
+    """Bands of ``CustomTransform``'s stack (transforms/pipeline.py): the
+    coarsest level's [LL, LH, HL, HH], or with ``coarse_only`` False and
+    more than one level every level's details around one LL, 3·levels + 1.
+    The JAX modules read the count from their input; the port builds that
+    many branches."""
+    levels = int(levels)
+    return 4 if coarse_only or levels == 1 else 3 * levels + 1

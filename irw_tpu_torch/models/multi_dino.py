@@ -39,7 +39,9 @@ class MultiDinoHashing(nn.Module):
 
     ``forward(x, rngs)`` returns ``(codes, aux)`` in eval mode (±1 codes) and
     ``(logits, aux)`` in training mode (``binarize(train=True,
-    "identity")``); ``forward_logits`` returns the logits in either mode.
+    "identity")``), or ``tanh(logits)`` with ``tanh_train`` (the
+    ``MultiDinoHashingTF`` continuation variant, multi_dino.py:151);
+    ``forward_logits`` returns the logits in either mode.
     ``rngs`` maps flax's rng streams ``"dropout"`` and ``"band_drop"`` to
     ``torch.Generator``s.  ``frozen_backbone`` (the JAX default) runs the
     backbone in eval mode under ``no_grad`` and names it in
@@ -49,10 +51,12 @@ class MultiDinoHashing(nn.Module):
 
     def __init__(self, backbone: str = "dinov2_vits14", fusion_config: dict | None = None,
                  nbits: int = 64, use_bn: bool = True, num_bands: int = 4,
-                 frozen_backbone: bool = True, vit_kwargs: dict | None = None):
+                 frozen_backbone: bool = True, tanh_train: bool = False,
+                 vit_kwargs: dict | None = None):
         super().__init__()
         dim = VIT_DIMS[backbone]
         self.frozen_backbone = frozen_backbone
+        self.tanh_train = tanh_train
         self.backbone = BandedViT(backbone, num_bands, vit_kwargs)
         self.head = get_fusion_head(fusion_config or {"output_dim": dim}, dim, num_bands)
         self.hash_head = HashHead(self.head.embed_dim, nbits, use_bn)
@@ -81,4 +85,4 @@ class MultiDinoHashing(nn.Module):
 
     def forward(self, x, rngs: dict | None = None):
         logits, aux = self.forward_logits(x, rngs)
-        return binarize(logits, train=self.training), aux
+        return binarize(logits, self.training, "tanh" if self.tanh_train else "identity"), aux

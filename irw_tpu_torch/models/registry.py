@@ -14,7 +14,11 @@ import torch
 
 from irw_tpu_torch.device import resolve_device
 from irw_tpu_torch.models import wresnet
-from irw_tpu_torch.models.factory import build_multidino_hashing, build_retrieval_net
+from irw_tpu_torch.models.factory import (
+    build_multidino_hashing,
+    build_retrieval_net,
+    multidino_adapter,
+)
 from irw_tpu_torch.models.multi_dino import MultiDinoHashing
 
 
@@ -25,6 +29,7 @@ def _direct(cls, **fixed):
 MODEL_REGISTRY = {
     # reference-preset class names, reference kwargs dialect (factory.py)
     "MultiDinoHashing": build_multidino_hashing,
+    "MultiDinoHashingTF": multidino_adapter(tanh_train=True),
     "RetrievalNet": build_retrieval_net,
     "retrieval_net": build_retrieval_net,
     # native names (registry.py:56-63, 74-75)

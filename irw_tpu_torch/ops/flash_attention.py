@@ -198,12 +198,16 @@ def _check_inputs(what: str, *ts) -> bool:
         raise ValueError(f"{what}: mixed dtypes {[t.dtype for t in ts]}")
     if all(t.device.type == "cpu" for t in ts):
         return True
+    surface = ("float32 or bfloat16 tensors of one (..., N, H, hd) shape on one CUDA device, "
+               f"head_dim in {_HEAD_DIMS}")
     if q.device.type != "cuda" or any(t.device != q.device for t in ts):
-        raise ValueError(f"{what}: no kernel for devices {[str(t.device) for t in ts]}")
+        raise ValueError(f"{what}: no kernel for devices {[str(t.device) for t in ts]}; the "
+                         f"kernel takes {surface}")
     if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{what} kernel takes float32 or bfloat16, got {q.dtype}")
+        raise ValueError(f"{what}: no kernel for {q.dtype}; the kernel takes {surface}")
     if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"{what} kernel takes head_dim in {_HEAD_DIMS}, got {q.shape[-1]}")
+        raise ValueError(f"{what}: no kernel for head_dim {q.shape[-1]}; the kernel takes "
+                         f"{surface}")
     return False
 
 

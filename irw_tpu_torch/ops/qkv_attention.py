@@ -69,14 +69,17 @@ def _check_inputs(x, weights, biases, heads: int) -> bool:
             "under torch.no_grad() or on tensors that need no gradient")
     if all(t.device.type == "cpu" for t in tensors):
         return True
+    surface = ("float32 or bfloat16 tensors on one CUDA device, head_dim in "
+               f"{_HEAD_DIMS}, bf16 D a multiple of 8")
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError("fused_qkv_attention: no kernel for devices "
-                         f"{[str(t.device) for t in tensors]}")
+                         f"{[str(t.device) for t in tensors]}; the kernel takes {surface}")
     if x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"fused_qkv_attention kernel takes float32 or bfloat16, got {x.dtype}")
+        raise ValueError(f"fused_qkv_attention: no kernel for {x.dtype}; the kernel takes "
+                         f"{surface}")
     if out // heads not in _HEAD_DIMS:
-        raise ValueError(f"fused_qkv_attention kernel takes head_dim in {_HEAD_DIMS}, "
-                         f"got {out // heads}")
+        raise ValueError(f"fused_qkv_attention: no kernel for head_dim {out // heads}; the "
+                         f"kernel takes {surface}")
     if x.dtype == torch.bfloat16 and d % 8:
         raise ValueError("fused_qkv_attention kernel reads bf16 rows in 16-byte pieces: D must "
                          f"be a multiple of 8, got {d}")

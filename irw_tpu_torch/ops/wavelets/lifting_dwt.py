@@ -107,7 +107,8 @@ def lifting_multi_level(x: torch.Tensor, levels: int = 1, basis: str = "haar") -
     if x.device.type == "cpu":
         return lifting_multi_level_plain(x, levels, basis)
     if x.device.type != "cuda":
-        raise ValueError(f"lifting_multi_level: no kernel for device {x.device}")
+        raise ValueError(f"lifting_multi_level: no kernel for device {x.device}; the kernel "
+                         "takes float32 (N, H, W) planes on a CUDA device")
     if x.dtype != torch.float32:
         raise NotImplementedError(f"lifting_multi_level: kernel K4 takes float32; {x.dtype} "
                                   "on the card waits for ROADMAP B4-remainder")

@@ -55,7 +55,8 @@ def haar_swt2(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return haar_swt2_plain(x)
     if x.device.type != "cuda":
-        raise ValueError(f"haar_swt2: no kernel for device {x.device}")
+        raise ValueError(f"haar_swt2: no kernel for device {x.device}; the kernel takes "
+                         "floating (N, H, W) planes on a CUDA device")
     in_dtype = x.dtype
     xf = x.float().contiguous()
     n, h, w = xf.shape

@@ -169,3 +169,44 @@ def test_autograd_on_cpu_is_the_plain_backward(dtype):
         for leaf, r in zip(leaves, ref):
             torch.testing.assert_close(leaf.grad, r, rtol=0, atol=0)
     assert (fused_attention.launches, fused_attention_bwd.launches) == before
+
+
+@pytest.mark.parametrize("shape,dtype", [((2, 50, 2, 32), torch.float32),
+                                         ((3, 17, 3, 16), torch.float32),
+                                         ((2, 33, 2, 32), torch.bfloat16)])
+def test_saved_statistics_and_the_backward_fed_them_match_pallas(shape, dtype):
+    """When a gradient will be taken, ``_Attention`` saves the row max m and
+    sum l of exp(s − m) beside q, k, v (2, B·H, N) and the backward reads
+    them.  m and l against the softmax of irw_tpu's ``_bwd_kernel`` (f32
+    scores of the same inputs), the gradients against its Pallas backward
+    in interpret mode."""
+    q, k, v = _qkv(shape, seed=13)
+    g = _qkv(shape, seed=14)[0]
+    tq, tk, tv, tg = (torch.from_numpy(t).to(dtype) for t in (q, k, v, g))
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = fused_attention(*leaves)
+    *_, stats = out.grad_fn.saved_tensors
+    b, n, h, hd = shape
+    assert stats.shape == (2, b * h, n) and stats.dtype == torch.float32
+
+    # _bwd_kernel's scores and softmax statistics, in jnp, on the same values
+    jq, jk = (jnp.asarray(t.float().numpy()) for t in (tq, tk))
+    s = jnp.einsum("bqhd,bkhd->bhqk", jq, jk, preferred_element_type=jnp.float32) / math.sqrt(hd)
+    m_ref = jnp.max(s, axis=-1)
+    l_ref = jnp.sum(jnp.exp(s - m_ref[..., None]), axis=-1)
+    np.testing.assert_allclose(stats[0].numpy(), np.asarray(m_ref).reshape(b * h, n), atol=F32_TOL,
+                               rtol=F32_TOL)
+    np.testing.assert_allclose(stats[1].numpy(), np.asarray(l_ref).reshape(b * h, n), atol=0,
+                               rtol=F32_TOL)
+
+    out.backward(tg)
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    refs = _jax_vjp(*(t.float().numpy() for t in (tq, tk, tv, tg)), jdtype)
+    for leaf, ref, fed in zip(leaves, refs,
+                              attention_plain_bwd(tq, tk, tv, tg, 1 / math.sqrt(hd), stats)):
+        torch.testing.assert_close(leaf.grad, fed, rtol=0, atol=0)
+        tol = F32_TOL if dtype == torch.float32 else 2 ** -6 * np.abs(ref).max()
+        np.testing.assert_allclose(leaf.grad.float().numpy(), ref, atol=tol,
+                                   rtol=F32_TOL if dtype == torch.float32 else 0)
+    with torch.no_grad():  # inference keeps no graph, so nothing is saved
+        assert fused_attention(*leaves).grad_fn is None

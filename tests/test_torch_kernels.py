@@ -11,10 +11,12 @@ import torch
 
 from irw_tpu_torch import cuda_lib
 from irw_tpu_torch.ops.attention import (
+    _forward,
     attention_plain,
     attention_plain_bwd,
     fused_attention,
     fused_attention_bwd,
+    kernel_variants,
 )
 from irw_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -169,6 +171,88 @@ def test_attention_bwd_kernel_refuses_what_it_does_not_take(card):
     h = torch.zeros(1, 8, 1, 64, device=card, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fused_attention_bwd(h, h, h, h)
+
+
+# K2 and K3 over their whole surface: head dims 32, 64, 128; N from one row
+# to the ViT's 577 at 336²; both dtypes; q, k, v (and g) the strided views of
+# one (B, N, 3 or 4, H, hd) projection.  bf16 at hd <= 64 and N <= 272 takes
+# both plane paths, hd 128 and N = 577 the tiled ones (kernel_variants)
+SURFACE = [(n, hd, dtype) for hd in (32, 64, 128) for n in (1, 50, 64, 65, 257, 577)
+           for dtype in (torch.bfloat16, torch.float32)]
+
+
+def _views(card, seed, b, n, h, hd, dtype, count):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    fused = torch.randn(b, n, count, h, hd, generator=gen, device=card).to(dtype)
+    return fused.unbind(2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hd,dtype", SURFACE)
+def test_attention_kernels_over_the_surface(card, n, hd, dtype):
+    q, k, v, g = _views(card, n + hd, 2, n, 3, hd, dtype, 4)
+    assert not q.is_contiguous()
+    before = (fused_attention.launches, fused_attention_bwd.launches)
+    with torch.no_grad():
+        out = fused_attention(q, k, v)
+    grads = fused_attention_bwd(q, k, v, g)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, fused_attention_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    torch.testing.assert_close(out.float(), attention_plain(q, k, v).float(), rtol=0,
+                               atol=1e-5 if dtype == torch.float32 else 2 ** -7)
+    for got, ref in zip(grads, attention_plain_bwd(q, k, v, g)):
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=_k3_tol(dtype, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hd,dtype", SURFACE)
+def test_saved_statistics_route_is_the_standalone_backward(card, n, hd, dtype):
+    """K2's row statistics fed to K3 give the standalone K3's gradients bit
+    for bit (both form m and l by the same update over the same key
+    chunks), and they hold the plain softmax's to 1e-4."""
+    q, k, v, g = _views(card, 2 * n + hd, 3, n, 2, hd, dtype, 4)
+    with torch.no_grad():
+        _, stats = _forward(q, k, v, hd ** -0.5, with_stats=True)
+        _, ref = attention_plain(q, k, v, with_stats=True)
+    before = fused_attention_bwd.launches
+    saved = fused_attention_bwd(q, k, v, g, stats=stats)
+    alone = fused_attention_bwd(q, k, v, g)
+    assert fused_attention_bwd.launches == before + 2
+    for a, b in zip(saved, alone):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(stats[0], ref[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(stats[1], ref[1], rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_pick_both_paths(card):
+    bf16 = torch.bfloat16
+    assert kernel_variants(257, 64, bf16) == {"fwd": "plane", "bwd": "plane"}
+    assert kernel_variants(272, 32, bf16) == {"fwd": "plane", "bwd": "plane"}
+    assert kernel_variants(273, 64, bf16) == {"fwd": "plane", "bwd": "tiled"}
+    assert kernel_variants(257, 128, bf16) == {"fwd": "plane", "bwd": "tiled"}
+    assert kernel_variants(577, 128, bf16) == {"fwd": "tiled", "bwd": "tiled"}
+    assert kernel_variants(257, 64, torch.float32) == {"fwd": "tiled", "bwd": "tiled"}
+
+
+@pytest.mark.cuda
+def test_autograd_saves_statistics_only_for_a_gradient(card):
+    """One K2 and one K3 launch per forward-backward; the forward saves the
+    statistics only when a gradient will be taken."""
+    q, k, v, g = _views(card, 9, 2, 257, 6, 64, torch.bfloat16, 4)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = (fused_attention.launches, fused_attention_bwd.launches)
+    out = fused_attention(*leaves)
+    assert len(out.grad_fn.saved_tensors) == 4  # q, k, v and (2, B·H, N) statistics
+    out.backward(g)
+    with torch.no_grad():
+        fused_attention(q, k, v)
+    assert (fused_attention.launches, fused_attention_bwd.launches) == (before[0] + 2,
+                                                                        before[1] + 1)
+    for leaf, ref in zip(leaves, fused_attention_bwd(q, k, v, g)):
+        torch.testing.assert_close(leaf.grad, ref, rtol=0, atol=0)
 
 
 @pytest.mark.cuda

@@ -209,6 +209,27 @@ def test_other_devices_raise_instead_of_falling_back():
         fused_qkv_attention(x, *(torch.zeros(64, 64),) * 3, *(torch.zeros(64),) * 3, heads=2)
 
 
+@pytest.mark.parametrize("call", ["fused_attention", "fused_attention_bwd", "flash_attention",
+                                  "fused_qkv_attention", "haar_swt2", "lifting_multi_level"])
+def test_refusals_name_the_supported_surface(call):
+    """A wrapper that refuses a tensor says what its kernel takes (ROADMAP
+    C6): the dtypes and, for attention, the head dims."""
+    q = torch.empty(1, 4, 1, 32, device="meta")
+    x, w, b = (torch.empty(s, device="meta") for s in ((1, 4, 64), (64, 64), (64,)))
+    calls = {
+        "fused_attention": lambda: fused_attention(q, q, q),
+        "fused_attention_bwd": lambda: fused_attention_bwd(q, q, q, q),
+        "flash_attention": lambda: flash_attention(q, q, q),
+        "fused_qkv_attention": lambda: fused_qkv_attention(x, w, w, w, b, b, b, heads=2),
+        "haar_swt2": lambda: haar_swt2(torch.empty(2, 4, 4, device="meta")),
+        "lifting_multi_level": lambda: lifting_multi_level(torch.empty(2, 4, 4, device="meta")),
+    }
+    wanted = {"haar_swt2": "floating", "lifting_multi_level": "float32"}.get(
+        call, r"float32 or bfloat16.*head_dim in \(32, 64, 128\)")
+    with torch.no_grad(), pytest.raises(ValueError, match=f"no kernel.*the kernel takes .*{wanted}"):
+        calls[call]()
+
+
 class _CudaBf16:
     """Stands in for a bf16 tensor on the card, which this machine cannot
     make: what ``lifting_multi_level`` reads before it would launch."""

@@ -16,6 +16,8 @@ package's own f32 logits lie 1.2e-3 from the same model run in f64 (the
 port's 3.2e-4), so its training logits are held to 1e-3 · max(1, max|logit|).
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -115,3 +117,19 @@ def test_wcnn_attention_resnet50_matches_jax():
     assert isinstance(pair[2], WCNNAttention) and pair[2].backbone.out_dim == 2048
     check_eval(*pair)
     check_train_logits(*pair, tol=1e-3)
+
+
+def test_wcnn_attention_all_subs_yaml_matches_jax():
+    """configs/model/wcnn_attention_all_subs.yaml: two levels with
+    ``coarse_only: false`` give CustomTransform's 7-band stack; the JAX
+    module reads the band count from its input, the port derives it from
+    ``decom_level`` / ``coarse_only`` (resnet18 branches here)."""
+    import yaml
+
+    path = Path(__file__).resolve().parents[1] / "configs/model/wcnn_attention_all_subs.yaml"
+    cfg = yaml.safe_load(path.read_text())
+    kw = dict(cfg["kwargs"], decom_level=2, backbone="resnet18", num_classes=4)
+    assert kw["coarse_only"] is False and cfg["name"] == "RetrievalNet"
+    jmodel, variables, model, x = build_pair(cfg["name"], 7, seed=4, size=16, **kw)
+    assert isinstance(model, WCNNAttention) and len(model.backbone.branches) == 7
+    check_eval(jmodel, variables, model, x)
