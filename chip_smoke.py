@@ -56,14 +56,16 @@ and prints one line per phase:
    counts per batch, embeddings held against the same model with K4's
    plain version, img/s, peak memory, one batch profiled; then ``evaluate``
    (cosine) on a CUB-test-sized synthetic set (5794 images, 100 classes);
-11. flash: K6-fwd against ``flash_attention_plain`` at the served shape
-   (256, 257, 6, 64) bf16 on the strided views of a fused projection, as
-   the path gives them, at f32, head dims 32 and 128, N = 37 (one key
-   block) and N = 384 (no masked key); K6-bwd against
-   ``flash_attention_plain_bwd`` at the training shape (384, 257, 6, 64) in
-   bf16 on the fused views with the kernel forward's o, l, m, as the path
-   gives them, in f32 and at other shapes; both timed on the path's layout
-   beside SDPA;
+11. flash: K6-fwd (o, l, m) and K6-bwd against ``flash_attention_plain``
+   and ``flash_attention_plain_bwd`` over the kernels' surface (N from 1 to
+   577 through the one-step boundary 128/129, head dims 32, 64 and 128,
+   bf16 and f32, the strided views of one fused projection, the backward
+   fed the kernel forward's o, l, m), logging the path each took and
+   requiring both the plane and the tiled path of each; then at the served
+   shape (256, 257, 6, 64) and the training shape (384, 257, 6, 64) bf16
+   on the fused views, as the path gives them, and at larger f32 shapes;
+   K6-fwd timed at the served shape and, with l and m, at the training
+   shape, K6-bwd at the training shape, each beside SDPA at that shape;
 12. flash_serve: the full-width flagship with ``use_flash`` serves batches
    of 64 (launch counts, codes against the plain route, img/s), one batch
    profiled;
@@ -199,6 +201,13 @@ CUB_TEST = 5794          # CUB-200-2011's test split (100 classes)
 K6_SERVE_SHAPE = K2_SHAPE
 K6_TRAIN_SHAPE = K3_SHAPE
 K6_FWD_TOL = K2_TOL
+# the saved statistics against the plain forward's: l relative, m absolute
+# (plus 1e-5 of |m|: the same f32 scores summed in another order)
+K6_STATS_TOL = 1e-5
+K6_M_TOL = 1e-6
+# K6 over its surface (B = 2, H = 3): one row to the ViT's 577 at 336²;
+# 128 and 129 are the one-step boundary and a last block with one valid key
+K6_SURFACE_N = (1, 37, 64, 65, 127, 128, 129, 256, 257, 577)
 FLASH = {"use_flash": True}
 # K5: benchmarks/vmem_qkv_micro.py's defaults.  Kernel and plain version round
 # q, k, v (after the f32 bias add), the normalised P and o alike; only the f32
@@ -1184,7 +1193,11 @@ def _flash_fwd_case(shape, dtype, seed, fused=False, residuals=False):
     (``_qkv``); returns (q, k, v), the error."""
     import torch
 
-    from irw_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_plain
+    from irw_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_attention_plain,
+        flash_kernel_variants,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = _qkv(shape, dtype, gen, fused)
@@ -1196,11 +1209,12 @@ def _flash_fwd_case(shape, dtype, seed, fused=False, residuals=False):
         stats = max(((l - rl).abs() / rl).max().item(), ((m - rm).abs().max().item()))
     err = (out.float() - ref.float()).abs().max().item()
     tol = K6_FWD_TOL[str(dtype).removeprefix("torch.")]
-    what = f"K6-fwd {tuple(shape)} {dtype}" + (" fused views" if fused else "")
+    variant = flash_kernel_variants(shape[-3], shape[-1], dtype)["fwd"]
+    what = f"K6-fwd {tuple(shape)} {dtype}" + (" fused views" if fused else "") + f" ({variant})"
     log("flash", f"{what}: max|kernel - plain| = {err:.3e} (limit {tol:.3e}, max|o| "
                  f"{ref.float().abs().max().item():.3f})"
-                 + (f"; l, m {stats:.3e} (limit 1e-5)" if residuals else ""))
-    if not (err <= tol and torch.isfinite(out).all() and (not residuals or stats <= 1e-5)):
+                 + (f"; l, m {stats:.3e} (limit {K6_STATS_TOL})" if residuals else ""))
+    if not (err <= tol and torch.isfinite(out).all() and (not residuals or stats <= K6_STATS_TOL)):
         raise AssertionError(f"{what} disagrees with its plain version: {err}")
     return (q, k, v), err
 
@@ -1218,6 +1232,7 @@ def _flash_bwd_case(shape, dtype, seed, path_layout=False):
         flash_attention_fwd,
         flash_attention_plain,
         flash_attention_plain_bwd,
+        flash_kernel_variants,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1239,8 +1254,60 @@ def _flash_bwd_case(shape, dtype, seed, path_layout=False):
                                  f"{dtype}: {err} > {tol}")
         worst = max(worst, err)
     what = " fused views, kernel o, l, m" if path_layout else ""
-    log("flash", f"K6-bwd {tuple(shape)} {dtype}{what}: max|kernel - plain| " + ", ".join(report))
+    variant = flash_kernel_variants(shape[-3], shape[-1], dtype)["bwd"]
+    log("flash", f"K6-bwd {tuple(shape)} {dtype}{what} ({variant}): max|kernel - plain| "
+                 + ", ".join(report))
     return (q, k, v, o, do, l, m), worst
+
+
+def _flash_surface_case(n, hd, dtype, paths):
+    """K6-fwd (o, l, m) and K6-bwd against their plain versions at (2, n,
+    3, hd) on the views of one fused (2, n, 4, 3, hd) projection, the
+    backward fed the kernel forward's o, l, m; one launch of each wrapper;
+    the paths taken are added to ``paths``."""
+    import torch
+
+    from irw_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+        flash_attention_plain,
+        flash_attention_plain_bwd,
+        flash_kernel_variants,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(n * 1000 + hd)
+    q, k, v, do = torch.randn((2, n, 4, 3, hd), generator=gen, device="cuda").to(dtype).unbind(2)
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    o, l, m = flash_attention_fwd(q, k, v, save_residuals=True)
+    grads = flash_attention_bwd(q, k, v, o, do, l, m)
+    launched = (flash_attention_fwd.launches - before[0], flash_attention_bwd.launches - before[1])
+    ro, rl, rm = flash_attention_plain(q, k, v, save_residuals=True)
+    refs = flash_attention_plain_bwd(q, k, v, o, do, l, m)
+    torch.cuda.synchronize()
+    key = str(dtype).removeprefix("torch.")
+    o_err = (o.float() - ro.float()).abs().max().item()
+    l_err = ((l - rl).abs() / rl).max().item()
+    m_err = ((m - rm).abs() - K6_STATS_TOL * rm.abs()).max().item()
+    ok = (launched == (1, 1) and o_err <= K6_FWD_TOL[key] and l_err <= K6_STATS_TOL
+          and m_err <= K6_M_TOL and bool(torch.isfinite(o).all()))
+    report = []
+    for name, out, ref in zip(("dq", "dk", "dv"), grads, refs):
+        err = (out.float() - ref.float()).abs().max().item()
+        # bf16: 2^-6 of max|plain|, but no less than the f32 limit: at N = 1, p = 1
+        # and dp = di, so dq and dk vanish and both sides hold f32 residue only
+        tol = max(K3_TOL_F32, 0.0 if dtype == torch.float32
+                  else K3_TOL_BF16 * ref.float().abs().max().item())
+        report.append(f"{name} {err:.2e}/{tol:.2e}")
+        ok = ok and err <= tol and bool(torch.isfinite(out).all())
+    variant = flash_kernel_variants(n, hd, dtype)
+    paths["fwd"].add(variant["fwd"])
+    paths["bwd"].add(variant["bwd"])
+    log("flash", f"surface N={n} hd={hd} {key} (fwd {variant['fwd']}, bwd {variant['bwd']}): "
+                 f"o {o_err:.2e}/{K6_FWD_TOL[key]:.1e}, l {l_err:.1e}, m {m_err:.1e} past "
+                 f"{K6_STATS_TOL}|m|; " + ", ".join(report) + f"; launches {launched}")
+    if not ok:
+        raise AssertionError(f"K6 at N={n} hd={hd} {key} disagrees with its plain versions or "
+                             f"launched {launched}")
 
 
 def phase_flash(state):
@@ -1255,10 +1322,18 @@ def phase_flash(state):
         flash_attention_fwd,
         flash_attention_plain,
         flash_attention_plain_bwd,
+        flash_kernel_variants,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     bf16, f32 = torch.bfloat16, torch.float32
+    paths = {"fwd": set(), "bwd": set()}
+    for hd in (32, 64, 128):
+        for n in K6_SURFACE_N:
+            for dtype in (bf16, f32):
+                _flash_surface_case(n, hd, dtype, paths)
+    if paths != {"fwd": {"plane", "tiled"}, "bwd": {"plane", "tiled"}}:
+        raise AssertionError(f"K6's surface ran {paths}, not both paths of each kernel")
     for shape, dtype in [((64, 257, 6, 64), f32), ((8, 257, 6, 32), f32), ((8, 257, 2, 128), f32),
                          ((8, 257, 2, 128), bf16), ((8, 37, 6, 64), bf16), ((8, 37, 6, 32), f32),
                          ((8, 384, 6, 64), bf16), ((8, 384, 6, 64), f32),
@@ -1288,8 +1363,10 @@ def phase_flash(state):
                          (K6_TRAIN_SHAPE, f32)]:
         _flash_bwd_case(shape, dtype, seed=13)
     (q, k, v, o, do, l, m), err = _flash_bwd_case(K6_TRAIN_SHAPE, bf16, seed=14, path_layout=True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     with torch.no_grad():
         fwd_train_ms = time_ms(lambda: flash_attention_fwd(q, k, v, save_residuals=True))
+        lib_train_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
     ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, do, l, m))
     plain_ms = time_ms(lambda: flash_attention_plain_bwd(q, k, v, o, do, l, m), iters=3)
     qr, kr, vr = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -1303,15 +1380,22 @@ def phase_flash(state):
         sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr))
     lib_ms = time_ms(sdpa_fwd_bwd) - sdpa_fwd_ms
     b, n, h, hd = K6_TRAIN_SHAPE
-    # read q, k, v, do and l, m, di; write dq, dk, dv; five products
-    nbytes = 7 * b * n * h * hd * 2 + 3 * b * h * n * 4
+    # read q, k, v and write o, l, m; two products
+    train_b_ms, _ = bound_ms(4 * b * n * h * hd * 2 + 2 * b * h * n * 4, 4 * b * h * n * n * hd,
+                             "bfloat16")
+    # read q, k, v, o, do and l, m; write dq, dk, dv; five products
+    nbytes = 8 * b * n * h * hd * 2 + 2 * b * h * n * 4
     b_ms, b_by = bound_ms(nbytes, 10 * b * h * n * n * hd, "bfloat16")
-    log("flash", f"K6-fwd with l, m at the training shape {K6_TRAIN_SHAPE}, fused views: "
-                 f"kernel {fwd_train_ms:.4f} ms | {state['card']}")
-    log("flash", f"K6-bwd at {K6_TRAIN_SHAPE}, fused views (di, then the dK/dV and dQ "
-                 f"kernels): kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | SDPA backward "
+    variant = flash_kernel_variants(n, hd, bf16)
+    log("flash", f"K6-fwd with l, m at the training shape {K6_TRAIN_SHAPE}, fused views "
+                 f"({variant['fwd']}): kernel {fwd_train_ms:.4f} ms | SDPA {lib_train_ms:.4f} ms | "
+                 f"bound {train_b_ms:.4f} ms | {state['card']}")
+    log("flash", f"K6-bwd at {K6_TRAIN_SHAPE}, fused views ({variant['bwd']}, di included): "
+                 f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | SDPA backward "
                  f"{lib_ms:.4f} ms (fwd+bwd minus fwd {sdpa_fwd_ms:.4f}) | bound {b_ms:.4f} ms "
                  f"({b_by}) | {state['card']}")
+    state["kernels"]["flash_attention_fwd"].update(
+        train_ms=fwd_train_ms, train_library_ms=lib_train_ms, train_bound_ms=train_b_ms)
     state["kernels"]["flash_attention_bwd"] = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "irw_tpu_torch/csrc/flash_attention_bwd.cu",

@@ -15,14 +15,16 @@ the library does across segments, and rows past N are never stored.
 
 ``flash_attention`` is a ``torch.autograd.Function``: for CUDA tensors its
 forward launches kernel K6-fwd (``csrc/flash_attention_fwd.cu``) and its
-backward K6-bwd (``csrc/flash_attention_bwd.cu``: a dK/dV kernel per key
-tile, a dQ kernel per query tile); it raises rather than fall back.  For
-CPU tensors they run ``flash_attention_plain`` and
+backward K6-bwd (``csrc/flash_attention_bwd.cu``); it raises rather than
+fall back.  For CPU tensors they run ``flash_attention_plain`` and
 ``flash_attention_plain_bwd``.  Like the library's VJP, the forward saves
-q, k, v, o and the row statistics l and m; ``di = rowsum(o · do)`` is a
-torch op outside the kernels, as in JAX (:273-275).  The public layout is
+q, k, v, o and the row statistics l and m; the backward kernels form
+``di = rowsum(o · do)`` (:273-275) themselves from o.  The public layout is
 ``(…, N, H, hd)``: the kernels read q, k and v through their strides, so
 the three views of a fused ``(…, N, 3, H, hd)`` projection need no copy.
+``flash_kernel_variants`` says which kernels run on the card for a shape:
+bf16 planes that fit in shared memory take the plane paths (one thread
+block per (batch, head) plane), the rest the tiled paths.
 """
 
 from __future__ import annotations
@@ -165,12 +167,14 @@ _FWD_SIGNATURES = {
     "irw_flash_attention_fwd": (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12 + [ctypes.c_void_p],
         ctypes.c_int),
+    "irw_flash_attention_fwd_variant": ([ctypes.c_int] * 3, ctypes.c_int),
 }
 _BWD_SIGNATURES = {
     "irw_flash_attention_bwd": (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 21
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 24
         + [ctypes.c_void_p],
         ctypes.c_int),
+    "irw_flash_attention_bwd_variant": ([ctypes.c_int] * 3, ctypes.c_int),
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -245,23 +249,23 @@ def flash_attention_bwd(q, k, v, o, do, l, m):
     """(dq, dk, dv) of ``flash_attention`` for the output gradient ``do``,
     from the forward's o, l and m.
 
-    CPU tensors: ``flash_attention_plain_bwd``.  CUDA tensors: di =
-    rowsum(o · do) as a torch op, then kernel K6-bwd (a dK/dV kernel per key
-    tile and a dQ kernel per query tile, no atomics; f32 or bf16, hd ∈ {32,
-    64, 128}), counted once per call in ``flash_attention_bwd.launches``; it
-    raises for anything else."""
+    CPU tensors: ``flash_attention_plain_bwd``.  CUDA tensors: kernel
+    K6-bwd, di = rowsum(o · do) included (f32 or bf16, hd ∈ {32, 64, 128};
+    one kernel on the plane path, two on the tiled path, no atomics),
+    counted once per call in ``flash_attention_bwd.launches``; it raises
+    for anything else."""
     if _check_inputs("flash_attention_bwd", q, k, v, o, do):
         return flash_attention_plain_bwd(q, k, v, o, do, l, m)
     *lead, n, h, hd = q.shape
     b = math.prod(lead)
     if l.device != q.device or m.device != q.device:
         raise ValueError("flash_attention_bwd: l and m must lie on q's device")
-    di = (o.float() * do.float()).sum(dim=-1).reshape(b, n, h).transpose(1, 2).contiguous()
     lm = [t.reshape(b, h, n).float().contiguous() for t in (l, m)]
-    q3, k3, v3, do3 = (_kernel_layout(t.reshape(b, n, h, hd)) for t in (q, k, v, do))
+    q3, k3, v3, o3, do3 = (_kernel_layout(t.reshape(b, n, h, hd)) for t in (q, k, v, o, do))
     grads = [torch.empty((b, n, h, hd), dtype=q.dtype, device=q.device) for _ in range(3)]
+    di = torch.empty((b, h, n), dtype=torch.float32, device=q.device)  # the tiled path's
     lib = cuda_lib.load("flash_attention_bwd", _BWD_SIGNATURES)
-    tensors = (q3, k3, v3, do3, *grads)
+    tensors = (q3, k3, v3, o3, do3, *grads)
     strides = [s for t in tensors for s in t.stride()[:3]]
     status = lib.irw_flash_attention_bwd(
         *(t.data_ptr() for t in tensors), lm[0].data_ptr(), lm[1].data_ptr(), di.data_ptr(),
@@ -274,11 +278,25 @@ def flash_attention_bwd(q, k, v, o, do, l, m):
 flash_attention_bwd.launches = 0
 
 
+def flash_kernel_variants(n: int, hd: int, dtype=torch.bfloat16) -> dict:
+    """Which kernel K6-fwd and K6-bwd run for sequence length ``n``, head
+    dim ``hd`` and ``dtype`` on the card: ``{"fwd": "plane" | "tiled",
+    "bwd": …}``.  The plane paths hold a whole (batch, head) plane in shared
+    memory (bf16: the forward while K and V fit, N ≤ 860 at hd 64, the
+    backward at hd ≤ 64 and N ≤ 272); builds the libraries."""
+    code = _DTYPE_CODES[dtype]
+    names = ("tiled", "plane")
+    fwd = cuda_lib.load("flash_attention_fwd", _FWD_SIGNATURES)
+    bwd = cuda_lib.load("flash_attention_bwd", _BWD_SIGNATURES)
+    return {"fwd": names[fwd.irw_flash_attention_fwd_variant(code, n, hd)],
+            "bwd": names[bwd.irw_flash_attention_bwd_variant(code, n, hd)]}
+
+
 class _FlashAttention(torch.autograd.Function):
     """The library's custom VJP (flash_attention.py:234-318): the forward
     keeps o, l and m when a gradient is needed and saves q, k, v, o, l, m;
-    the backward runs the dK/dV and dQ kernels from them.  ``plain`` picks
-    the plain versions on any device in place of the kernel wrappers."""
+    the backward runs K6-bwd from them.  ``plain`` picks the plain versions
+    on any device in place of the kernel wrappers."""
 
     @staticmethod
     def forward(ctx, q, k, v, plain):

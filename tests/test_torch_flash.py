@@ -98,6 +98,65 @@ def test_plain_matches_library_kernel(n, hd, dtype):
         _close(ours, ref, bwd_rel)
 
 
+def _library_residuals_and_vjp(q, k, v, do, jdtype):
+    """The library forward's own residuals and its VJP rule fed them, in
+    interpret mode, on inputs padded and segment-masked as ``_jax_flash``
+    builds them: ``_flash_attention_impl`` with ``save_residuals`` at the
+    default 128 × 128 blocks, then ``_flash_attention_bwd``.  Returns o
+    (B, N, H, hd), l and m (B, H, N), and (dq, dk, dv) (B, N, H, hd), the
+    rows below N, f32."""
+    b, n, _, hd = q.shape
+    pad = (-n) % 128
+
+    def prep(t):
+        return jnp.pad(jnp.swapaxes(jnp.asarray(t).astype(jdtype), 1, 2),
+                       ((0, 0), (0, 0), (0, pad), (0, 0)))
+
+    seg = jnp.concatenate([jnp.ones((b, n), jnp.int32), jnp.full((b, pad), 2, jnp.int32)], axis=1)
+    ids = SegmentIds(q=seg, kv=seg) if pad else None
+    scale = 1.0 / hd ** 0.5
+
+    def run(qp, kp, vp, dop):
+        o, l, m = jax_flash._flash_attention_impl(qp, kp, vp, None, ids, True, False, scale,
+                                                  1, 128, 128, 128, False)
+        blocks = jax_flash.BlockSizes.get_default(*qp.shape, hd)
+        grads = jax_flash._flash_attention_bwd(False, False, scale, blocks, False,
+                                               (qp, kp, vp, None, ids, o, l, m), dop)[:3]
+        return o, l, m, grads
+
+    with pltpu.force_tpu_interpret_mode():
+        o, l, m, grads = jax.jit(run)(*(prep(t) for t in (q, k, v, do)))
+
+    def unpad(t):
+        return np.array(jnp.swapaxes(t[:, :, :n], 1, 2), np.float32)
+
+    return (unpad(o), np.array(l[..., :n], np.float32), np.array(m[..., :n], np.float32),
+            [unpad(t) for t in grads])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("n,hd", [(37, 32), (128, 64), (129, 32), (257, 64)])
+def test_plain_residuals_are_the_library_kernels(n, hd, dtype):
+    """What the backward reads: the plain forward's l and m against the
+    library's own residuals (l 1e-5 relative, m 1e-6 absolute: unit-normal
+    inputs keep |m| below 8, where an f32 ulp is under 1e-6), and the plain
+    backward fed those residuals against the library's VJP at the limits
+    above.  N = 128 is the one-step kernel's last size, 129 a last block
+    with one valid key."""
+    tdtype, jdtype = DTYPES[dtype]
+    q, k, v, do = (t / 2 for t in _inputs((2, n, 2, hd), tdtype, seed=2 * n + hd))
+    o_lib, l_lib, m_lib, grads_ref = _library_residuals_and_vjp(
+        *(t.float().numpy() for t in (q, k, v, do)), jdtype)
+    _, l, m = flash_attention_plain(q, k, v, save_residuals=True)
+    np.testing.assert_allclose(l.numpy(), l_lib, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(m.numpy(), m_lib, rtol=0, atol=1e-6)
+    bwd_rel = F32_TOL if dtype == "float32" else 2 ** -6
+    grads = flash_attention_plain_bwd(q, k, v, torch.from_numpy(o_lib).to(tdtype), do,
+                                      torch.from_numpy(l_lib), torch.from_numpy(m_lib))
+    for ours, ref in zip(grads, grads_ref):
+        _close(ours, ref, bwd_rel)
+
+
 def test_wrappers_and_autograd_on_cpu_are_the_plain_versions():
     """On the CPU ``flash_attention`` (the kernel route) and the plain route
     give the plain forward and backward exactly, on strided views of one

@@ -24,6 +24,7 @@ from irw_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_plain,
     flash_attention_plain_bwd,
+    flash_kernel_variants,
 )
 from irw_tpu_torch.ops.qkv_attention import fused_qkv_attention, qkv_attention_plain
 from irw_tpu_torch.ops.wavelets import (
@@ -362,6 +363,76 @@ def test_flash_kernels_refuse_what_they_do_not_take(card):
     s = torch.zeros(1, 1, 8, device=card)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_bwd(q, q, q, q, q, s, s)
+
+
+# K6 over its surface: N from one row to the ViT's 577 at 336², through the
+# one-step boundary (128, 129: a last block with one valid key) and whole
+# key blocks (256); head dims 32, 64, 128; both dtypes; q, k, v, do the
+# strided views of one (B, N, 4, H, hd) projection.  bf16 takes the plane
+# forward up to N = 860 at hd 64 (400 at hd 128) and the plane backward at
+# hd <= 64, N <= 272; the rest the tiled kernels (flash_kernel_variants)
+FLASH_SURFACE = [(n, hd, dtype) for hd in (32, 64, 128)
+                 for n in (1, 37, 64, 65, 127, 128, 129, 256, 257, 577)
+                 for dtype in (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hd,dtype", FLASH_SURFACE)
+def test_flash_kernels_over_the_surface(card, n, hd, dtype):
+    """K6-fwd's o, l, m and K6-bwd (fed the kernel forward's o, l, m)
+    against the plain versions, one launch per wrapper call.  A gradient
+    that vanishes in exact arithmetic (N = 1: p = 1 and dp = di) holds only
+    f32 residue on both sides: the f32 limit, 1e-5, is its floor."""
+    q, k, v, do = _views(card, 3 * n + hd, 2, n, 3, hd, dtype, 4)
+    assert not q.is_contiguous()
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    o, l, m = flash_attention_fwd(q, k, v, save_residuals=True)
+    assert flash_attention_fwd.launches == before[0] + 1
+    grads = flash_attention_bwd(q, k, v, o, do, l, m)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before[1] + 1
+    ro, rl, rm = flash_attention_plain(q, k, v, save_residuals=True)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=0, atol=_k6_tol(dtype, ro, False))
+    torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+    torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-6)
+    for got, ref in zip(grads, flash_attention_plain_bwd(q, k, v, o, do, l, m)):
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=max(_k6_tol(dtype, ref, True), 1e-5))
+
+
+@pytest.mark.cuda
+def test_flash_kernels_pick_both_paths(card):
+    bf16 = torch.bfloat16
+    assert flash_kernel_variants(257, 64, bf16) == {"fwd": "plane", "bwd": "plane"}
+    assert flash_kernel_variants(272, 32, bf16) == {"fwd": "plane", "bwd": "plane"}
+    assert flash_kernel_variants(273, 64, bf16) == {"fwd": "plane", "bwd": "tiled"}
+    assert flash_kernel_variants(257, 128, bf16) == {"fwd": "plane", "bwd": "tiled"}
+    assert flash_kernel_variants(577, 64, bf16) == {"fwd": "plane", "bwd": "tiled"}
+    assert flash_kernel_variants(577, 128, bf16) == {"fwd": "tiled", "bwd": "tiled"}
+    assert flash_kernel_variants(257, 64, torch.float32) == {"fwd": "tiled", "bwd": "tiled"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hd,dtype", [(257, 64, torch.bfloat16), (577, 64, torch.bfloat16),
+                                        (577, 128, torch.bfloat16), (257, 64, torch.float32)])
+def test_flash_autograd_route_is_the_wrappers_on_every_path(card, n, hd, dtype):
+    """Autograd on the fused projection's views equals K6-fwd and K6-bwd
+    called directly, bit for bit, on the plane and the tiled paths."""
+    gen = torch.Generator(device=card).manual_seed(n + hd)
+    qkv = torch.randn(2, n, 3, 2, hd, generator=gen, device=card).to(dtype)
+    do = torch.randn(2, n, 2, hd, generator=gen, device=card).to(dtype)
+    leaf = qkv.clone().requires_grad_()
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    out = flash_attention(*leaf.unbind(-3))
+    out.backward(do)
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == (before[0] + 1,
+                                                                            before[1] + 1)
+    q, k, v = qkv.unbind(-3)
+    o, l, m = flash_attention_fwd(q, k, v, save_residuals=True)
+    torch.testing.assert_close(out, o, rtol=0, atol=0)
+    ref = torch.stack(flash_attention_bwd(q, k, v, o, do, l, m), dim=-3)
+    torch.testing.assert_close(leaf.grad, ref, rtol=0, atol=0)
 
 
 def _k5_inputs(card, b, n, d, out, dtype, seed=7):
