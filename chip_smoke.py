@@ -72,13 +72,18 @@ and prints one line per phase:
 13. flash_train: the same model trains at batch 96 (launch counts per step,
    the kernel route against the plain route, trained img/s, peak memory),
    one step profiled;
-14. qkv: K5 against ``qkv_attention_plain`` at the micro-benchmark's default
-   (192, 257, 384) bf16 with 6 heads, at the flagship's served rows
-   (256, 257, 384), in f32, at head dims 32 (a scale that is no power of
-   two) and 128, at N = 37, at D = 96 (a ragged last chunk) and at D = 768
-   with 12 heads; timed beside its plain version, the production segment
-   (three ``F.linear`` + K2) and, as a two-call yardstick, one ``F.linear``
-   onto (D, 3D) followed by SDPA;
+14. qkv: K5's kernels with their registers and spills from the build; K5
+   against ``qkv_attention_plain`` over its surface (N = 1 to 289, one past
+   the bf16 plane path's 288, head dims 32, 64 and 128, D = 64 to 768 with
+   a ragged 96, bf16, and f32 at N = 37 and 257), logging the path each case
+   took and requiring the one ``qkv_kernel_variants`` names; then at the
+   micro-benchmark's default (192, 257, 384) bf16 with 6 heads, at the
+   flagship's served rows (256, 257, 384), in f32, at head dims 32 (a scale
+   that is no power of two) and 128, at N = 37, at D = 96 (a ragged last
+   chunk) and at D = 768 with 12 heads; timed at both bf16 shapes beside
+   the production segment (three ``F.linear`` + K2), the two-call yardstick
+   (one ``F.linear`` onto (D, 3D), then SDPA) and the bound, and at the
+   default shape beside its plain version;
 15. qkv_micro: ``irw_tpu_torch.benchmarks.vmem_qkv_micro.run()`` and
    ``vmem_attn_micro.run()`` at their full default widths: their JSON, their
    maxdiffs against stated limits, and the launches of K5, K2 and K3;
@@ -218,6 +223,11 @@ FLASH = {"use_flash": True}
 # another order, through two chained products
 K5_SHAPE = (192, 257, 384)
 K5_HEADS = 6
+# K5's surface: N from one row to one past the bf16 plane path's N <= 288,
+# through 64/65 and 128; D from one 64-column chunk to ViT-B's 768, with a
+# ragged 96
+K5_SURFACE_N = (1, 16, 37, 64, 65, 128, 257, 288, 289)
+K5_SURFACE_D = (64, 96, 384, 768)
 K5_TOL = {"bfloat16": 2 ** -6, "float32": 1e-5}
 # the micro-benchmarks' parity bars.  K5 against the production segment:
 # cuBLAS rounds q, k, v where K5 does, in another accumulation order, so K5's
@@ -296,6 +306,7 @@ def phase_build(state):
     t0 = time.perf_counter()
     report = cuda_lib.build(cuda_lib.KERNELS)
     wall = time.perf_counter() - t0
+    state["ptxas"] = {name: rep["ptxas"] for name, rep in report.items()}
     for name, rep in report.items():
         # ptxas names each entry function, then its registers and spills
         usage, entry = [], "?"
@@ -1458,40 +1469,111 @@ def _k5_inputs(b, n, d, heads_dim, dtype, seed):
     return tuple(t.to(dtype) for t in (x, *ws, *bs))
 
 
-def _k5_case(b, n, d, heads, hd, dtype, seed):
-    """K5 against ``qkv_attention_plain``; returns the inputs and the error."""
+def _k5_case(b, n, d, heads, hd, dtype, seed, quiet=False):
+    """K5 against ``qkv_attention_plain``, one launch on the path
+    ``qkv_kernel_variants`` names; returns the inputs, the error and the
+    path."""
     import torch
 
-    from irw_tpu_torch.ops.qkv_attention import fused_qkv_attention, qkv_attention_plain
+    from irw_tpu_torch.ops.qkv_attention import (
+        fused_qkv_attention,
+        qkv_attention_plain,
+        qkv_kernel_variants,
+    )
 
     args = _k5_inputs(b, n, d, heads * hd, dtype, seed)
+    before = fused_qkv_attention.launches
     with torch.no_grad():
         out = fused_qkv_attention(*args, heads=heads)
         ref = qkv_attention_plain(*args, heads=heads)
     torch.cuda.synchronize()
+    path = fused_qkv_attention.last_path
     err = (out.float() - ref.float()).abs().max().item()
     peak = ref.float().abs().max().item()
     tol = K5_TOL[str(dtype).removeprefix("torch.")] * max(1.0, peak)
-    log("qkv", f"K5 x ({b}, {n}, {d}) {dtype}, {heads} heads of {hd}: max|kernel - plain| = "
-               f"{err:.3e} (limit {tol:.3e}, max|o| {peak:.3f})")
+    if not quiet:
+        log("qkv", f"K5 x ({b}, {n}, {d}) {dtype}, {heads} heads of {hd}, {path} path: "
+                   f"max|kernel - plain| = {err:.3e} (limit {tol:.3e}, max|o| {peak:.3f})")
     if not (err <= tol and out.shape == ref.shape and torch.isfinite(out).all()):
         raise AssertionError(f"K5 disagrees with its plain version at ({b}, {n}, {d}) {dtype}, "
                              f"{heads} x {hd}: {err} > {tol}")
-    return args, err
+    if fused_qkv_attention.launches != before + 1 or path != qkv_kernel_variants(n, d, hd,
+                                                                                 dtype)["fwd"]:
+        raise AssertionError(f"K5 at ({b}, {n}, {d}) {dtype}, hd {hd}: "
+                             f"{fused_qkv_attention.launches - before} launches on the {path} "
+                             "path, not one on the path qkv_kernel_variants names")
+    return args, err, path
+
+
+def _k5_ptxas(state):
+    """K5's kernels with their registers and spills, from this run's build."""
+    log_text = state.get("ptxas", {}).get("qkv_attention")
+    if log_text is None:
+        log("qkv", "K5 registers: not built in this run")
+        return
+    entry, usage = "?", {}
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            entry = _kernel_name(ln.split("'")[1] if "'" in ln else ln.strip())
+        elif "spill stores" in ln or "Used" in ln:
+            usage.setdefault(entry, []).append(ln.split(":", 1)[-1].strip())
+    for entry, lines in usage.items():
+        log("qkv", f"K5 build: {entry}: " + "; ".join(lines))
+
+
+def _k5_work(b, n, d, heads):
+    """K5's bytes (x read and o written once, the three (d, d) weights and
+    biases read once, bf16) and operations (the three projections, then
+    q k^T and P.V per head) for x (b, n, d) with ``heads`` heads of d /
+    heads."""
+    nbytes = 2 * (2 * b * n * d + 3 * d * d + 3 * d)
+    flops = 3 * 2 * b * n * d * d + 4 * b * heads * n * n * (d // heads)
+    return nbytes, flops
+
+
+def _two_library_calls(args, heads):
+    """The two-call yardstick over K5's inputs: one ``F.linear`` onto the
+    fused (3D, D) weight (made here, outside the timed calls), then SDPA;
+    returns the call, whose output is (B, heads, N, hd)."""
+    import torch
+    import torch.nn.functional as F
+
+    x, wq, wk, wv, bq, bk, bv = args
+    b, n, _ = x.shape
+    hd = wq.shape[-1] // heads
+    w_qkv = torch.cat([wq, wk, wv], dim=1).t().contiguous()
+    b_qkv = torch.cat([bq, bk, bv])
+
+    def two_calls():
+        q, k, v = F.linear(x, w_qkv, b_qkv).reshape(b, n, 3, heads, hd).unbind(2)
+        return F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (q, k, v)))
+    return two_calls
 
 
 def phase_qkv(state):
-    """K5 against its plain version, then timed at the micro-benchmark's
-    default shape and at the flagship's served rows beside the plain version,
-    the production segment and the two-call library yardstick."""
+    """K5's registers and spills from the build; K5 against its plain version
+    over its surface, logging the path each case took, and at the shapes of
+    earlier runs; then timed at the micro-benchmark's default shape and at
+    the flagship's served rows beside the plain version, the production
+    segment, the two-call library yardstick and the bound."""
     import torch
-    import torch.nn.functional as F
 
     from irw_tpu_torch.benchmarks.vmem_qkv_micro import ref_segment
     from irw_tpu_torch.ops.qkv_attention import fused_qkv_attention, qkv_attention_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     bf16, f32 = torch.bfloat16, torch.float32
+    _k5_ptxas(state)
+    # the surface (B = 2, 2 heads): N from one row to one past the plane
+    # envelope, head dims 32 and 64 (plane) and 128 (tiled), D 64 to 768
+    for dtype, ns, hds in [(bf16, K5_SURFACE_N, (32, 64, 128)), (f32, (37, 257), (32, 64))]:
+        for n in ns:
+            cases = []
+            for hd in hds:
+                for d in K5_SURFACE_D:
+                    _, err, path = _k5_case(2, n, d, 2, hd, dtype, seed=n + hd + d, quiet=True)
+                    cases.append(f"hd {hd} D {d} {path} {err:.1e}")
+            log("qkv", f"K5 surface {dtype} N = {n}: " + ", ".join(cases))
     for b, n, d, heads, hd, dtype in [
             (3, 37, 64, 2, 32, f32), (3, 37, 64, 2, 32, bf16),          # N = 37: one key tile
             (8, 37, 384, 6, 64, bf16),
@@ -1502,24 +1584,21 @@ def phase_qkv(state):
             (8, 257, 768, 12, 64, bf16),                                # ViT-B width
             (32, 257, 384, 6, 64, f32),
             (256, 257, 384, 6, 64, bf16)]:                              # the flagship's served rows
-        args, _ = _k5_case(b, n, d, heads, hd, dtype, seed=20)
+        args, _, _ = _k5_case(b, n, d, heads, hd, dtype, seed=20)
+    served_calls = _two_library_calls(args, 6)
     with torch.no_grad():
         served_ms = time_ms(lambda: fused_qkv_attention(*args, heads=6))
+        served_prod_ms = time_ms(lambda: ref_segment(*args, heads=6, vmem=True))
+        served_lib_ms = time_ms(served_calls)
+    served_bound, _ = bound_ms(*_k5_work(256, 257, 384, 6), "bfloat16")
     log("qkv", f"K5 at the flagship's served rows (256, 257, 384) bf16: kernel {served_ms:.4f} ms "
-               f"| {state['card']}")
+               f"| production segment {served_prod_ms:.4f} ms | two library calls "
+               f"{served_lib_ms:.4f} ms | bound {served_bound:.4f} ms | {state['card']}")
 
     b, n, d = K5_SHAPE
     heads, hd = K5_HEADS, d // K5_HEADS
-    args, err = _k5_case(b, n, d, heads, hd, bf16, seed=21)
-    x, wq, wk, wv, bq, bk, bv = args
-    # the yardstick's fused (3D, D) weight, made once outside the timed calls
-    w_qkv = torch.cat([wq, wk, wv], dim=1).t().contiguous()
-    b_qkv = torch.cat([bq, bk, bv])
-
-    def two_calls():
-        q, k, v = F.linear(x, w_qkv, b_qkv).reshape(b, n, 3, heads, hd).unbind(2)
-        return F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (q, k, v)))
-
+    args, err, _ = _k5_case(b, n, d, heads, hd, bf16, seed=21)
+    two_calls = _two_library_calls(args, heads)
     with torch.no_grad():
         lib_err = (two_calls().transpose(1, 2).reshape(b, n, d).float()
                    - qkv_attention_plain(*args, heads=heads).float()).abs().max().item()
@@ -1527,9 +1606,7 @@ def phase_qkv(state):
         plain_ms = time_ms(lambda: qkv_attention_plain(*args, heads=heads), iters=5)
         prod_ms = time_ms(lambda: ref_segment(*args, heads=heads, vmem=True))
         lib_ms = time_ms(two_calls)
-    nbytes = 2 * (2 * b * n * d + 3 * d * d + 3 * d)
-    flops = 3 * 2 * b * n * d * d + 4 * b * heads * n * n * hd
-    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    b_ms, b_by = bound_ms(*_k5_work(b, n, d, heads), "bfloat16")
     log("qkv", f"library F.linear (D, 3D) + SDPA vs plain: {lib_err:.3e}")
     log("qkv", f"K5 at {K5_SHAPE} bf16, {heads} heads: kernel {ms:.4f} ms | plain {plain_ms:.4f} "
                f"ms | production segment (3 x F.linear + K2) {prod_ms:.4f} ms | two library "
@@ -1541,7 +1618,8 @@ def phase_qkv(state):
         "replaces": "benchmarks/vmem_qkv_micro.py:82", "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms, "library_calls": 2, "prod_segment_ms": prod_ms,
-        "served_rows_ms": served_ms}
+        "served_rows_ms": served_ms, "served_rows_library_ms": served_lib_ms,
+        "served_rows_prod_segment_ms": served_prod_ms, "served_rows_bound_ms": served_bound}
 
 
 def phase_qkv_micro(state):

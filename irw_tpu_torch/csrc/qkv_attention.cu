@@ -16,39 +16,65 @@
 // take 64 us at the 989 TFLOP/s bf16 tensor-core peak; x read and o written
 // once are 76 MB, 23 us at 3.35 TB/s.
 //
-// Design, shared by both paths:
-// - one thread block per (sequence, head).  The TPU kernel held a block of
-//   sequences with all heads' Q, K, V in VMEM; a Hopper block has 227 KB of
-//   shared memory, so a block owns one head of one sequence: its K and V
-//   (N x hd each) stay resident in shared memory for the whole block, and Q
-//   is made one row tile at a time, just before it is used.  The price: x is
-//   read once per head and pass (2 H times in all), from L2 after the first.
-// - D is a run-time size: x and one head's slice of a weight are walked in
-//   chunks of kDC columns / rows through shared memory (zero-filled past D).
-// - phase 1: K and V for every row tile (both from one x chunk), bias added,
-//   rounded, stored to shared memory.  Rows at or past N hold the bias only;
-//   their scores are masked to -inf, so their probabilities are exactly 0.
-// - phase 2, per row tile: Q = x Wq + bq, then the two-pass softmax of
-//   attention_fwd.cu over the resident key tiles of 64 (pass 1: row max and
-//   sum, online; pass 2: P = exp(s - max) / sum rounded, P.V accumulated),
-//   rows at or past N never stored.
+// Every path runs one thread block per (sequence, head).  The TPU kernel held
+// a block of sequences with all heads' Q, K, V in VMEM; a Hopper block has
+// 227 KB of shared memory, so a block owns one head of one sequence and keeps
+// its K and V (N x hd each) resident in shared memory.  Each head streams
+// its sequence's x once per pass of its path, from L2 after the first head.
 //
-// bf16: tensor cores through mma.sync m16n8k16.  8 warps, 16 rows each, 128
-// rows per tile.  The f32 accumulator fragments of x Wq are laid out as the A
-// operand of q k^T wants them, so Q goes from the projection to the score
-// product in registers (bias added, rounded to bf16) and needs no shared
-// memory; W chunks feed the projection through ldmatrix.trans like V feeds
-// P.V.  The attention passes read only the resident K and V: no barrier in
-// them, and warps whose 16 rows lie past N skip them.
+// bf16, plane path (hd 32 or 64, N <= 288; qkv_kernel_variants): one warp
+// per 16-row tile of the sequence (17 warps at N = 257, so the ragged 257th
+// row costs one tile, not a 128-row tile), one block an SM.  The
+// projection walks x in 64-column chunks: each chunk of x (all rows, two
+// boxes, 128-byte swizzle) and the matching 64 rows of this head's
+// [Wk | Wv | Wq] slice (boxes of 32 columns, 64-byte swizzle) arrive by TMA
+// in a ring of three stages, issued by one thread and counted on one
+// mbarrier a stage; rows past N, columns past D and W rows past D arrive as
+// zeros.  One barrier per chunk frees the stage the next copy overwrites.
+// Fragments come through ldmatrix (.trans for W); the swizzles are those of
+// attention_plane.cuh's swz.  A warp's accumulator holds 96 columns (48
+// registers: at 17-18 warps a thread gets 96), so the 3 hd columns take
+// 3 hd / 96 passes over x: one at hd 32, two at hd 64.  Each pass ends with
+// the bias added in f32 and one rounding to bf16: K and V into unpadded,
+// XOR-swizzled planes, Q, whose columns come last, straight into the warp's
+// A fragments for q k^T.  Then, with no barrier, K2's plane body over the
+// resident planes: pass 1 the online row max and sum over 64-key chunks
+// (online_stats), pass 2 recomputes the dot products over 32-key chunks and
+// forms p = 2^(d scale log2 e - m log2 e) * (1 / l) (ex2.approx, one FMA,
+// a per-row reciprocal), rounds it to bf16 and accumulates P.V.  The last
+// key chunk is cut to the 16-key multiple that holds N (for_key_chunks).
+// Measured on the H100 (PERF.md, tools/k5_variants.py): at (192, 257, 384)
+// the projection takes about 0.14 of 0.31 ms.  With every thread issuing
+// cp.async copies (16 bytes each, about 3000 a chunk) copies and products
+// did not overlap (0.22 ms); the TMA ring removed that.  Shared-memory
+// bandwidth is not the bound (two tiles a warp, sharing each W fragment,
+// did not pay); one pass at hd 64 (96 accumulator registers) spills; two
+// blocks an SM (9 warps, row rounds) lost more in the projection than the
+// overlap with another block's attention won.
+//
+// bf16, tiled path (hd 128, N > 288): tensor cores through mma.sync
+// m16n8k16.  8 warps, 16 rows each, 128 rows per tile.  Phase 1: K and V for
+// every row tile (both from one x chunk of 32 columns), bias added, rounded,
+// stored to padded shared memory, K and V padded to 64 keys; rows at or past
+// N hold the bias only and their scores are masked to -inf.  Phase 2, per
+// row tile: Q = x Wq + bq from a second pass over x, the f32 accumulator
+// fragments packed as the A operand of q k^T, then the two-pass softmax over
+// the resident key tiles of 64 (P = exp(s - max) / sum rounded, P.V
+// accumulated).  The attention passes have no barrier; warps whose 16 rows
+// lie past N skip them.
 //
 // f32: plain FMAs, 256 threads as 16 x 16, 64-row tiles; Q and P tiles go
 // through shared memory.  K and V resident in f32 bound N (see
 // irw_qkv_attention_smem_bytes; the wrapper raises past the limit).
 //
-// Not yet: wgmma, TMA, cp.async double buffering of the chunks, x shared
-// between the heads of a sequence (a cluster), a single softmax pass.
+// Not yet: wgmma, TMA, x shared between the heads of a sequence (a cluster:
+// the L2 traffic of the projection is mostly x), hd 128 on the plane path.
 
-#include "attention_common.cuh"
+#include <cuda.h>
+
+#include <utility>
+
+#include "attention_plane.cuh"
 
 namespace {
 
@@ -57,10 +83,8 @@ using namespace irw;
 constexpr int kBK = 64;                  // keys per score tile; K/V rows padded to it
 constexpr size_t kMaxSmem = 232448;      // bytes a block may opt into on sm_90
 
-__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
-
 // ------------------------------------------------------------------------
-// bf16: mma.sync tensor-core path
+// bf16, tiled path: mma.sync, 128-row tiles, x read twice
 // ------------------------------------------------------------------------
 
 constexpr int kWarps = 8;                // 16 rows of x each
@@ -291,6 +315,319 @@ qkv_attention_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat
 }
 
 // ------------------------------------------------------------------------
+// bf16, plane path: one warp per 16-row tile; x read once per column part;
+// K and V resident and swizzled; K2's plane body
+// ------------------------------------------------------------------------
+
+constexpr int kPartCols = 96;            // columns of [Wk | Wv | Wq] one pass over x accumulates
+constexpr int kPlaneMaxWarps = 18;       // one per 16-row tile: N <= 288
+constexpr int kXC = 64;                  // columns of x / rows of W per chunk (128 bytes of x)
+constexpr int kWC = 32;                  // columns of a W box (64 bytes)
+constexpr int kStages = 3;               // chunks in the TMA ring
+
+// the head's 3 hd projected columns in the order [K | V | Q] (Q last: its
+// A fragments are built at the end of the last pass), kParts passes of
+// kPartCols, each part kPartCols / kWC boxes of W
+template <int HD>
+struct Part {
+    static_assert(3 * HD % kPartCols == 0 && kPartCols % kWC == 0 && HD % kWC == 0,
+                  "whole parts of whole boxes");
+    static constexpr int kParts = 3 * HD / kPartCols;
+    static constexpr int kNT = kPartCols / 8;   // n-tiles of a warp's accumulator
+    static constexpr int kBoxes = kPartCols / kWC;
+};
+
+// the rows a plane block projects (whole 16-row tiles) and its warps
+__host__ __device__ constexpr int plane_rows(int n) { return round_up(n, 16); }
+__host__ __device__ constexpr int plane_warps(int n) { return plane_rows(n) / 16; }
+
+// bytes of one stage: the x chunk (rows x kXC, 128-byte swizzle), then the
+// W chunk (kPartCols / kWC boxes of kXC rows x kWC, 64-byte swizzle); a
+// multiple of 1024, so every stage keeps the swizzles' alignment
+__host__ __device__ constexpr size_t plane_stage_bytes(int n) {
+    return sizeof(__nv_bfloat16) * (static_cast<size_t>(plane_rows(n)) * kXC + kXC * kPartCols);
+}
+
+// the stages (first: 1024-byte aligned), the K and V planes, one mbarrier a
+// stage, and the slack that aligns the base
+__host__ __device__ constexpr size_t plane_smem_bytes(int n, int hd) {
+    return 1024 + kStages * plane_stage_bytes(n)
+           + sizeof(__nv_bfloat16) * 2 * static_cast<size_t>(plane_rows(n)) * hd + 8 * kStages;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// until the mbarrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred done;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+        "@!done bra WAIT;\n"
+        "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// one TMA box into shared memory, completion counted on the mbarrier bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap& map, int c0, int c1,
+                                            uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3}], [%4];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(bar)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap& map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3, %4}], [%5];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+        : "memory");
+}
+
+// acc (16 x kPartCols) += X . W for this warp's 16 rows at row0 of a staged
+// x chunk and the staged W boxes: A fragments through ldmatrix, B through
+// ldmatrix.trans
+template <int HD>
+__device__ __forceinline__ void plane_project(float (&acc)[Part<HD>::kNT][4],
+                                              const __nv_bfloat16* sX, const __nv_bfloat16* sW,
+                                              int row0) {
+    using P = Part<HD>;
+    const int lane = threadIdx.x % 32, mat = lane >> 3;
+#pragma unroll
+    for (int ks = 0; ks < kXC / 16; ++ks) {
+        uint32_t a[4];
+        ldmatrix_x4(a, sX + swz<kXC>(row0 + ldm_a_row(), ks * 16 + ldm_a_col()));
+        // W rows ks*16 .. +15: lanes 0-7 / 8-15 address the two 8-row halves
+        // of column tile jn, lanes 16-31 the same for tile jn + 1
+        const int row = ks * 16 + (lane & 7) + (mat & 1) * 8;
+#pragma unroll
+        for (int jn = 0; jn < P::kNT; jn += 2) {
+            uint32_t bf[4];
+            ldmatrix_x4_trans(bf, sW + (jn * 8 / kWC) * (kXC * kWC)
+                                      + swz<kWC>(row, (jn * 8) % kWC + (mat >> 1) * 8));
+            mma_bf16(acc[jn], a, bf[0], bf[1]);
+            mma_bf16(acc[jn + 1], a, bf[2], bf[3]);
+        }
+    }
+}
+
+// a part's accumulator plus bias (f32), rounded once to bf16: K's and V's
+// columns into rows row0 + g, row0 + g + 8 of the swizzled planes, Q's into
+// the tile's A fragments qa (pack_a_bf16's layout)
+template <int HD, int PART>
+__device__ __forceinline__ void plane_epilogue(const float (&acc)[Part<HD>::kNT][4],
+                                               uint32_t (&qa)[HD / 16][4], __nv_bfloat16* sK,
+                                               __nv_bfloat16* sV, const __nv_bfloat16* bq,
+                                               const __nv_bfloat16* bk, const __nv_bfloat16* bv,
+                                               int row0) {
+    const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < Part<HD>::kNT; ++j) {
+        const int fc = PART * kPartCols + j * 8, which = fc / HD, c = fc % HD + 2 * t;
+        const __nv_bfloat16* bias = which == 0 ? bk : which == 1 ? bv : bq;
+        const float b0 = __bfloat162float(bias[c]), b1 = __bfloat162float(bias[c + 1]);
+        const uint32_t lo = pack_bf16(acc[j][0] + b0, acc[j][1] + b1);
+        const uint32_t hi = pack_bf16(acc[j][2] + b0, acc[j][3] + b1);
+        if (which == 2) {
+            const int ks = (fc % HD) / 16, odd = ((fc % HD) / 8) & 1;
+            qa[ks][2 * odd] = lo;
+            qa[ks][2 * odd + 1] = hi;
+        } else {
+            __nv_bfloat16* dst = which == 0 ? sK : sV;
+            *reinterpret_cast<uint32_t*>(dst + swz<HD>(row0 + g, c)) = lo;
+            *reinterpret_cast<uint32_t*>(dst + swz<HD>(row0 + g + 8, c)) = hi;
+        }
+    }
+}
+
+// f(Cols<0>{}), ..., f(Cols<N - 1>{}): a loop whose index is a constant
+template <typename F, int... I>
+__device__ __forceinline__ void static_for_impl(F&& f, std::integer_sequence<int, I...>) {
+    (f(Cols<I>{}), ...);
+}
+template <int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+    static_for_impl(f, std::make_integer_sequence<int, N>{});
+}
+
+// the tensor maps of one launch: x as (D, N, B), each weight as (H hd, D)
+struct PlaneMaps {
+    CUtensorMap x, wk, wv, wq;
+};
+
+// one block an SM (its shared memory); at 17-18 warps ptxas gives a thread
+// 96 registers (a sub-partition holds 5 warps)
+template <int HD>
+__global__ void __launch_bounds__(32 * kPlaneMaxWarps, 1)
+qkv_attention_plane_bf16_kernel(const __grid_constant__ PlaneMaps maps,
+                                const __nv_bfloat16* __restrict__ bq,
+                                const __nv_bfloat16* __restrict__ bk,
+                                const __nv_bfloat16* __restrict__ bv,
+                                __nv_bfloat16* __restrict__ o, int n, int d, int heads,
+                                float scale) {
+    using P = Part<HD>;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int rows = plane_rows(n);
+    const size_t stage = plane_stage_bytes(n);
+    unsigned char* base = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+    __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(base + kStages * stage);   // rows x HD
+    __nv_bfloat16* sV = sK + rows * HD;                                              // rows x HD
+    const uint32_t bars = smem_u32(sV + rows * HD);   // kStages mbarriers, 8 bytes each
+
+    const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+    const int row0 = (threadIdx.x / 32) * 16;   // this warp's tile
+    const int ldw = heads * HD, col0 = h * HD;
+    const int nc = (d + kXC - 1) / kXC, steps = P::kParts * nc;   // (part, chunk) steps
+
+    auto stage_x = [&](int s) {
+        return reinterpret_cast<const __nv_bfloat16*>(base + (s % kStages) * stage);
+    };
+    // step s into its stage, issued by one thread: x's rows in two boxes
+    // (rows past N and columns past D arrive as zeros), then the part's W
+    // boxes (rows past D zeros)
+    auto load = [&](int s) {
+        const uint32_t dst = smem_u32(stage_x(s)), bar = bars + 8 * (s % kStages);
+        const int d0 = (s % nc) * kXC, part = s / nc;
+        mbar_expect_tx(bar, static_cast<uint32_t>(stage));
+        tma_load_3d(dst, maps.x, d0, 0, b, bar);
+        tma_load_3d(dst + rows / 2 * kXC * 2, maps.x, d0, rows / 2, b, bar);
+#pragma unroll
+        for (int i = 0; i < P::kBoxes; ++i) {
+            const int fc = part * kPartCols + i * kWC, which = fc / HD;
+            const CUtensorMap& map = which == 0 ? maps.wk : which == 1 ? maps.wv : maps.wq;
+            tma_load_2d(dst + (rows * kXC + i * kXC * kWC) * 2, map, col0 + fc % HD, d0, bar);
+        }
+    };
+    if (threadIdx.x == 0) {
+        for (int i = 0; i < kStages; ++i) mbar_init(bars + 8 * i, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        for (int s = 0; s < kStages - 1 && s < steps; ++s) load(s);
+    }
+
+    uint32_t qa[HD / 16][4];
+    static_for<P::kParts>([&](auto part) {
+        constexpr int PART = decltype(part)::value;
+        float acc[P::kNT][4];
+#pragma unroll
+        for (int j = 0; j < P::kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+        for (int c = 0; c < nc; ++c) {
+            const int s = PART * nc + c;
+            __syncthreads();   // every warp is done with step s - 1's stage (and the barriers are set up)
+            if (threadIdx.x == 0 && s + kStages - 1 < steps) load(s + kStages - 1);
+            mbar_wait(bars + 8 * (s % kStages), (s / kStages) & 1);   // step s has landed
+            const __nv_bfloat16* sX = stage_x(s);
+            plane_project<HD>(acc, sX, sX + rows * kXC, row0);
+        }
+        plane_epilogue<HD, PART>(acc, qa, sK, sV, bq + col0, bk + col0, bv + col0, row0);
+    });
+    __syncthreads();   // K and V of every row are resident
+
+    // pass 1: the row statistics over the resident K in 64-key chunks
+    float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
+    for_key_chunks<64>(n, [&](auto cols, int k0) {
+        constexpr int C = decltype(cols)::value;
+        float sc[C / 8][4];
+        dot_tile_swz<HD, C>(qa, sK + k0 * HD, sc);
+        scale_mask<C>(sc, scale, k0, n);
+        online_stats<C>(m, l, sc);
+    });
+    // pass 2: P rounded to bf16, P.V accumulated in f32, o written; 32-key
+    // chunks keep the live dot products to 16 registers
+    const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+    const float ml2[2] = {__fmul_rn(m[0], kLog2e), __fmul_rn(m[1], kLog2e)};
+    const float sl2 = __fmul_rn(scale, kLog2e);
+    float acc[HD / 8][4];
+#pragma unroll
+    for (int jn = 0; jn < HD / 8; ++jn) acc[jn][0] = acc[jn][1] = acc[jn][2] = acc[jn][3] = 0.f;
+    for_key_chunks<32>(n, [&](auto cols, int k0) {
+        constexpr int C = decltype(cols)::value;
+        float dd[C / 8][4];
+        dot_tile_swz<HD, C>(qa, sK + k0 * HD, dd);
+        mask_dots<C>(dd, k0, n);
+#pragma unroll
+        for (int kk = 0; kk < C / 16; ++kk)
+            pv_step_swz<HD, C>(acc, dd, sl2, ml2, rl, sV + k0 * HD, kk);
+    });
+    warp_store_bf16<HD>(o + static_cast<long long>(b) * n * ldw + col0, ldw, acc, row0, n);
+}
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the CUDA runtime
+// (the library is not linked against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+    static EncodeTiled fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        const cudaError_t err =
+            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+                   ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+    }();
+    return fn;
+}
+
+// a bf16 tensor map of `rank` dims (innermost first; strides in bytes of the
+// outer dims), boxes of `box`, out-of-bounds elements read as zeros
+bool encode_bf16(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                 const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+    const EncodeTiled fn = encode_tiled();
+    const cuuint32_t unit[3] = {1, 1, 1};
+    return fn && fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+                    strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
+                     == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_plane(const void* x, const void* wq, const void* wk, const void* wv, const void* bq,
+                 const void* bk, const void* bv, void* o, int batch, int n, int d, int heads,
+                 float scale, cudaStream_t stream) {
+    using B = __nv_bfloat16;
+    const int rows = plane_rows(n);
+    PlaneMaps maps;
+    const cuuint64_t xdims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
+                                 static_cast<cuuint64_t>(batch)};
+    const cuuint64_t xstrides[2] = {sizeof(B) * static_cast<cuuint64_t>(d),
+                                    sizeof(B) * static_cast<cuuint64_t>(d) * n};
+    const cuuint32_t xbox[3] = {kXC, static_cast<cuuint32_t>(rows / 2), 1};
+    const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(heads) * HD, static_cast<cuuint64_t>(d)};
+    const cuuint64_t wstrides[1] = {sizeof(B) * static_cast<cuuint64_t>(heads) * HD};
+    const cuuint32_t wbox[2] = {kWC, kXC};
+    if (!encode_bf16(&maps.x, x, 3, xdims, xstrides, xbox, CU_TENSOR_MAP_SWIZZLE_128B)
+        || !encode_bf16(&maps.wk, wk, 2, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_64B)
+        || !encode_bf16(&maps.wv, wv, 2, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_64B)
+        || !encode_bf16(&maps.wq, wq, 2, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_64B))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = plane_smem_bytes(n, HD);
+    auto kernel = qkv_attention_plane_bf16_kernel<HD>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<batch * heads, 32 * plane_warps(n), smem, stream>>>(
+        maps, static_cast<const B*>(bq), static_cast<const B*>(bk), static_cast<const B*>(bv),
+        static_cast<B*>(o), n, d, heads, scale);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------------------
 // f32: plain FMA path
 // ------------------------------------------------------------------------
 
@@ -455,6 +792,17 @@ qkv_attention_f32_kernel(const float* __restrict__ x, const float* __restrict__ 
 // launch
 // ------------------------------------------------------------------------
 
+// 1: the plane path, 0: the tiled path (bf16, and the f32 kernel)
+int variant(int dtype, int n, int hd) {
+    return dtype == 1 && (hd == 32 || hd == 64) && n <= 16 * kPlaneMaxWarps
+           && plane_smem_bytes(n, hd) <= kMaxSmem;
+}
+
+size_t smem_bytes(int dtype, int n, int hd) {
+    if (dtype != 1) return smem_bytes_f32(n, hd);
+    return variant(dtype, n, hd) ? plane_smem_bytes(n, hd) : smem_bytes_bf16(n, hd);
+}
+
 template <typename T, int HD>
 int launch(const void* x, const void* wq, const void* wk, const void* wv, const void* bq,
            const void* bk, const void* bv, void* o, int batch, int n, int d, int heads,
@@ -462,13 +810,18 @@ int launch(const void* x, const void* wq, const void* wk, const void* wv, const 
     const dim3 grid(batch * heads);
     cudaError_t err;
     if constexpr (sizeof(T) == 2) {
-        const size_t smem = smem_bytes_bf16(n, HD);
+        const size_t smem = smem_bytes(1, n, HD);
         if (smem > kMaxSmem || d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+        if constexpr (HD <= 64) {
+            if (variant(1, n, HD))
+                return launch_plane<HD>(x, wq, wk, wv, bq, bk, bv, o, batch, n, d, heads, scale,
+                                        stream);
+        }
+        using B = __nv_bfloat16;
         auto kernel = qkv_attention_bf16_kernel<HD>;
         err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    static_cast<int>(smem));
         if (err != cudaSuccess) return static_cast<int>(err);
-        using B = __nv_bfloat16;
         kernel<<<grid, kMmaThreads, smem, stream>>>(
             static_cast<const B*>(x), static_cast<const B*>(wq), static_cast<const B*>(wk),
             static_cast<const B*>(wv), static_cast<const B*>(bq), static_cast<const B*>(bk),
@@ -523,8 +876,12 @@ extern "C" int irw_qkv_attention(const void* x, const void* wq, const void* wk, 
 // the dynamic shared memory one block needs (K and V of all n rows resident);
 // the launch is refused above irw_qkv_attention_max_smem()
 extern "C" long long irw_qkv_attention_smem_bytes(int dtype, int n, int hd) {
-    return static_cast<long long>(dtype == 1 ? smem_bytes_bf16(n, hd) : smem_bytes_f32(n, hd));
+    return static_cast<long long>(smem_bytes(dtype, n, hd));
 }
+
+// which kernel irw_qkv_attention runs for (dtype, n, hd): 1 the plane path,
+// 0 the tiled path (bf16) or the f32 kernel
+extern "C" int irw_qkv_attention_variant(int dtype, int n, int hd) { return variant(dtype, n, hd); }
 
 extern "C" long long irw_qkv_attention_max_smem() { return static_cast<long long>(kMaxSmem); }
 

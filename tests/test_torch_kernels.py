@@ -26,7 +26,11 @@ from irw_tpu_torch.ops.flash_attention import (
     flash_attention_plain_bwd,
     flash_kernel_variants,
 )
-from irw_tpu_torch.ops.qkv_attention import fused_qkv_attention, qkv_attention_plain
+from irw_tpu_torch.ops.qkv_attention import (
+    fused_qkv_attention,
+    qkv_attention_plain,
+    qkv_kernel_variants,
+)
 from irw_tpu_torch.ops.wavelets import (
     haar_swt2,
     haar_swt2_plain,
@@ -481,6 +485,61 @@ def test_qkv_attention_kernel_reads_views(card):
     out = fused_qkv_attention(*views, heads=2)
     torch.testing.assert_close(out.float(), qkv_attention_plain(*views, heads=2).float(),
                                rtol=0, atol=2 ** -6)
+
+
+# K5 over its surface (B = 2, 2 heads): N from one row to one past the
+# plane envelope (288), head dims 32 and 64 (the plane path up to N = 288)
+# and 128 (the tiled path), D from one chunk to ViT-B's 768 with a ragged
+# 96; bf16, and f32 at a few (qkv_kernel_variants)
+K5_SURFACE = ([(n, hd, d, torch.bfloat16) for n in (1, 16, 37, 64, 65, 128, 257, 288, 289)
+               for hd in (32, 64, 128) for d in (64, 96, 384, 768)]
+              + [(37, 32, 96, torch.float32), (257, 64, 384, torch.float32),
+                 (65, 128, 64, torch.float32), (289, 32, 768, torch.float32)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hd,d,dtype", K5_SURFACE)
+def test_qkv_attention_kernel_over_the_surface(card, n, hd, d, dtype):
+    """K5 against its plain version at chip_smoke.py's K5_TOL, one launch a
+    call, on the path qkv_kernel_variants names."""
+    args = _k5_inputs(card, 2, n, d, 2 * hd, dtype, seed=n + hd + d)
+    before = fused_qkv_attention.launches
+    out = fused_qkv_attention(*args, heads=2)
+    torch.cuda.synchronize()
+    assert fused_qkv_attention.launches == before + 1
+    assert fused_qkv_attention.last_path == qkv_kernel_variants(n, d, hd, dtype)["fwd"]
+    ref = qkv_attention_plain(*args, heads=2)
+    assert out.dtype == dtype and out.shape == ref.shape == (2, n, 2 * hd)
+    tol = (1e-5 if dtype == torch.float32 else 2 ** -6) * max(1.0, ref.float().abs().max().item())
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_qkv_attention_kernel_picks_both_paths(card):
+    bf16 = torch.bfloat16
+    for (n, d, hd, dtype), path in [((257, 384, 64, bf16), "plane"), ((289, 384, 64, bf16), "tiled"),
+                                    ((257, 384, 64, torch.float32), "tiled")]:
+        assert qkv_kernel_variants(n, d, hd, dtype) == {"fwd": path}
+        fused_qkv_attention(*_k5_inputs(card, 1, n, d, 6 * hd, dtype), heads=6)
+        assert fused_qkv_attention.last_path == path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [257, 289])   # the plane and the tiled path
+def test_qkv_attention_kernel_views_of_one_weight(card, n):
+    """Column views of one (D, 3·H·hd) weight and of one (3·H·hd,) bias give
+    the same bits as contiguous copies of them."""
+    gen = torch.Generator(device=card).manual_seed(n)
+    d, out = 384, 384
+    x = torch.randn(2, n, d, generator=gen, device=card).to(torch.bfloat16)
+    w = (torch.randn(d, 3 * out, generator=gen, device=card) / d ** 0.5).to(torch.bfloat16)
+    bias = (torch.randn(3 * out, generator=gen, device=card) * 0.1).to(torch.bfloat16)
+    views = [w[:, i * out:(i + 1) * out] for i in range(3)] + [bias[i * out:(i + 1) * out]
+                                                              for i in range(3)]
+    assert not views[0].is_contiguous()
+    got = fused_qkv_attention(x, *views, heads=6)
+    ref = fused_qkv_attention(x, *(t.contiguous() for t in views), heads=6)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
 @pytest.mark.cuda

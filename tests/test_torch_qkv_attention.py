@@ -20,6 +20,7 @@ one key dominates, by that fraction: 2^-5 of max|o|.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -28,7 +29,14 @@ import pytest
 import torch
 
 from irw_tpu_torch.benchmarks import vmem_attn_micro, vmem_qkv_micro
-from irw_tpu_torch.ops.qkv_attention import fused_qkv_attention, qkv_attention_plain
+from irw_tpu_torch import cuda_lib
+from irw_tpu_torch.ops.qkv_attention import (
+    PLANE_HEAD_DIMS,
+    PLANE_MAX_N,
+    fused_qkv_attention,
+    qkv_attention_plain,
+    qkv_kernel_variants,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 F32_TOL = 1e-5
@@ -186,3 +194,39 @@ def test_micros_raise_without_a_card(monkeypatch):
     for run in (vmem_qkv_micro.run, vmem_attn_micro.run):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run()
+
+
+# K5's paths on the card: the bf16 plane path at hd 32 and 64 up to N = 288,
+# the tiled path past it, at hd 128 and for f32; D never moves the edge
+@pytest.mark.parametrize("n,d,hd,dtype,path", [
+    (257, 384, 64, torch.bfloat16, "plane"),
+    (1, 64, 32, torch.bfloat16, "plane"),
+    (288, 768, 64, torch.bfloat16, "plane"),
+    (288, 96, 32, torch.bfloat16, "plane"),
+    (289, 384, 64, torch.bfloat16, "tiled"),
+    (289, 64, 32, torch.bfloat16, "tiled"),
+    (257, 256, 128, torch.bfloat16, "tiled"),
+    (257, 384, 64, torch.float32, "tiled"),
+    (37, 48, 32, torch.float32, "tiled"),      # f32 takes any D
+])
+def test_qkv_kernel_variants_name_the_path(n, d, hd, dtype, path):
+    assert qkv_kernel_variants(n, d, hd, dtype) == {"fwd": path}
+
+
+def test_qkv_kernel_variants_refuse_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        qkv_kernel_variants(257, 384, 64, torch.float16)
+    with pytest.raises(ValueError, match="head_dim"):
+        qkv_kernel_variants(257, 384, 48, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        qkv_kernel_variants(257, 12, 64, torch.bfloat16)
+
+
+def test_qkv_kernel_variants_follow_the_kernel_source():
+    """The envelope in Python is the one ``irw_qkv_attention_variant``
+    applies: one warp per 16-row tile up to kPlaneMaxWarps, hd 32 and 64."""
+    src = (cuda_lib.CSRC / "qkv_attention.cu").read_text()
+    warps = int(re.search(r"constexpr int kPlaneMaxWarps = (\d+);", src).group(1))
+    assert PLANE_MAX_N == 16 * warps
+    rule = re.search(r"return dtype == 1 && \(hd == (\d+) \|\| hd == (\d+)\)", src)
+    assert tuple(int(g) for g in rule.groups()) == PLANE_HEAD_DIMS
