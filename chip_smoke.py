@@ -49,9 +49,14 @@ and prints one line per phase:
    the gradient of each top-level module); one step profiled;
 9. dwt: K4 against ``lifting_multi_level_plain`` for haar at levels 1-3 at
    the served shape (192, 224, 224), cdf97 at (192, 448, 448), bior48 and
-   daub4 at level 2, and a ragged batch of non-square planes; timed beside
-   the ``conv2d`` that computes haar level 1, and cdf97 beside one
-   ``conv2d`` of the 9 x 9 analysis filters at stride 2;
+   daub4 at level 2, and a ragged batch of non-square planes, logging the
+   path each case took (register or tile: one launch) and requiring the one
+   ``lifting_kernel_variants`` names; cdf97 at level 5 on (192, 256, 256),
+   which must take the two-pass path (two kernels a level); timed over CUDA
+   events, with L2 flushed before each call, as device time and as the
+   host's issue time, beside the ``conv2d`` that computes haar level 1, and
+   cdf97 beside one ``conv2d`` of the 9 x 9 analysis filters at stride 2
+   (both also as device time);
 10. wcnn: the full-width WCNN-attention model serves batches of 64: launch
    counts per batch, embeddings held against the same model with K4's
    plain version, img/s, peak memory, one batch profiled; then ``evaluate``
@@ -268,6 +273,71 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_ms_cold(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of ``fn`` with L2 flushed before each call: a 64 MB scratch
+    write (more than the H100's 50 MB L2), then the call between its own
+    CUDA events."""
+    import torch
+
+    scratch = torch.empty(16 * 2 ** 20, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    for start, end in events:
+        scratch.fill_(1.0)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: each call between its own CUDA
+    events, queued behind a sleep kernel of about 1 ms, so the host has
+    issued the whole call before the card reaches it and the events time the
+    card alone (what the host spends issuing the call is hidden)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def host_ms(fn, calls: int = 20) -> float:
+    """Host time to issue one call of ``fn``, the card kept busy ahead of it:
+    it bounds ``time_ms`` from below where it exceeds the device time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def k4_times(fn) -> dict:
+    """K4's timings of one case: over CUDA events (``ms``), with L2 flushed
+    (``cold_ms``), device time (``device_ms``) and the host's issue time
+    (``host_ms``)."""
+    return {"ms": time_ms(fn), "cold_ms": time_ms_cold(fn), "device_ms": device_ms(fn),
+            "host_ms": host_ms(fn)}
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -286,17 +356,18 @@ def phase_card(state):
 
 
 def _kernel_name(mangled: str) -> str:
-    """``name<HD>`` of a mangled kernel template instance: walk the nested
-    name's length-prefixed parts to the one ending in ``kernel``, then read
-    its int template argument."""
+    """``name<HD>`` (``name<L, C>``) of a mangled kernel template instance:
+    walk the nested name's length-prefixed parts to the one ending in
+    ``kernel``, then read its int template arguments."""
     pos = 3 if mangled.startswith("_ZN") else 2
     while (m := re.match(r"\d+", mangled[pos:])):
         start = pos + m.end()
         pos = start + int(m.group())
         ident = mangled[start:pos]
         if ident.endswith("kernel"):
-            arg = re.match(r"ILi(\d+)E", mangled[pos:])
-            return ident + (f"<{arg.group(1)}>" if arg else "")
+            args = re.match(r"I((?:Li\d+E)+)E", mangled[pos:])
+            return ident + (f"<{', '.join(re.findall(r'Li(\d+)E', args.group(1)))}>"
+                            if args else "")
     return mangled
 
 
@@ -973,34 +1044,44 @@ def _lifting_flops(n: int, h: int, w: int, levels: int, basis: str) -> float:
     return flops
 
 
-def _k4_case(basis, levels, shape, seed, time_it=False):
-    """K4 against ``lifting_multi_level_plain`` on uniform [0, 1) planes;
-    returns (x, max error, max|plain|)."""
+def _k4_case(basis, levels, shape, seed, time_it=False, path_wanted=("register", "tile")):
+    """K4 against ``lifting_multi_level_plain`` on uniform [-1, 1) planes, on
+    the path ``lifting_kernel_variants`` names, which must be one of
+    ``path_wanted``; returns (x, max error, path, ``k4_times`` and the bound
+    when timed)."""
     import torch
 
     from irw_tpu_torch.ops.wavelets import lifting_multi_level, lifting_multi_level_plain
+    from irw_tpu_torch.ops.wavelets.lifting_dwt import lifting_kernel_variants
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.rand(shape, generator=gen, device="cuda") * 2.0 - 1.0
     out = lifting_multi_level(x, levels, basis)
     ref = lifting_multi_level_plain(x, levels, basis)
     torch.cuda.synchronize()
+    path = lifting_multi_level.last_path
     err = (out - ref).abs().max().item()
     peak = ref.abs().max().item()
     tol = K4_TOL["haar" if basis == "haar" else "other"] * max(1.0, peak)
     n, h, w = shape
-    msg = (f"K4 {basis} l={levels} {tuple(shape)} f32: max|kernel - plain| = {err:.3e} "
-           f"(limit {tol:.3e})")
+    msg = (f"K4 {basis} l={levels} {tuple(shape)} f32, {path} path: max|kernel - plain| = "
+           f"{err:.3e} (limit {tol:.3e})")
+    times = None
     if time_it:
-        ms = time_ms(lambda: lifting_multi_level(x, levels, basis))
+        times = k4_times(lambda: lifting_multi_level(x, levels, basis))
         nbytes = 4 * (n * h * w + n * 4 * (h >> levels) * (w >> levels))
-        b_ms, b_by = bound_ms(nbytes, _lifting_flops(n, h, w, levels, basis), "float32")
-        msg += f" | kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+        times["bound_ms"], b_by = bound_ms(nbytes, _lifting_flops(n, h, w, levels, basis),
+                                           "float32")
+        msg += (f" | kernel {times['ms']:.4f} ms, L2 flushed {times['cold_ms']:.4f} ms, device "
+                f"{times['device_ms']:.4f} ms, host {times['host_ms']:.4f} ms, bound "
+                f"{times['bound_ms']:.4f} ms ({b_by})")
     log("dwt", msg)
     if not (err <= tol and out.shape == ref.shape and torch.isfinite(out).all()):
         raise AssertionError(f"K4 disagrees with its plain version: {basis} l={levels} "
                              f"{shape}: {err} > {tol}")
-    return x, err
+    if path != lifting_kernel_variants(h, w, levels, basis)["path"] or path not in path_wanted:
+        raise AssertionError(f"K4 took the {path} path for {basis} l={levels} {shape}")
+    return x, err, path, times
 
 
 def phase_dwt(state):
@@ -1009,15 +1090,22 @@ def phase_dwt(state):
 
     from irw_tpu_torch.ops.wavelets import lifting_multi_level, lifting_multi_level_plain
 
+    levels_ms = {}
     for basis, levels, shape in [("haar", 2, K4_SHAPE), ("haar", 3, K4_SHAPE),
                                  ("cdf97", 2, K4_CDF97_SHAPE), ("bior48", 2, K4_SHAPE),
                                  ("daub4", 2, K4_SHAPE), ("haar", 2, (5, 72, 200)),
                                  ("coif12", 2, (5, 72, 200)), ("rev_bior_spline_39", 1, (3, 20, 12))]:
-        _k4_case(basis, levels, shape, seed=5, time_it=shape[0] == 3 * BATCH)
+        _, _, path, times = _k4_case(basis, levels, shape, seed=5, time_it=shape[0] == 3 * BATCH)
+        if times:
+            levels_ms[f"{basis} l={levels} {shape}"] = dict(times, path=path)
+    # the parent's two kernels a level, kept for halos no tile holds
+    _, _, path, times = _k4_case("cdf97", 5, (3 * BATCH, 256, 256), seed=5, time_it=True,
+                                 path_wanted=("two_pass",))
+    levels_ms[f"cdf97 l=5 {(3 * BATCH, 256, 256)}"] = dict(times, path=path)
 
     # cdf97 level 1 at cub_dwt_cdf97.yaml's 448²
-    x, err = _k4_case("cdf97", 1, K4_CDF97_SHAPE, seed=6)
-    ms = time_ms(lambda: lifting_multi_level(x, 1, "cdf97"))
+    x, err, cdf97_path, _ = _k4_case("cdf97", 1, K4_CDF97_SHAPE, seed=6)
+    t97 = k4_times(lambda: lifting_multi_level(x, 1, "cdf97"))
     plain_ms = time_ms(lambda: lifting_multi_level_plain(x, 1, "cdf97"), iters=5)
     n, h, w = K4_CDF97_SHAPE
     b_ms, b_by = bound_ms(4 * n * h * w * 2, _lifting_flops(n, h, w, 1, "cdf97"), "float32")
@@ -1038,16 +1126,20 @@ def phase_dwt(state):
         x4 = x[:, None]
         with torch.no_grad():
             lib97_ms = time_ms(lambda: F.conv2d(x4, filt97, stride=2, padding=4))
+            lib97_device_ms = device_ms(lambda: F.conv2d(x4, filt97, stride=2, padding=4))
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    cdf97 = {"cdf97_ms": ms, "cdf97_plain_ms": plain_ms, "cdf97_bound_ms": b_ms,
-             "cdf97_library_ms": lib97_ms}
-    log("dwt", f"K4 cdf97 l=1 at {K4_CDF97_SHAPE}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-               f"conv2d (9 x 9 analysis filters, stride 2) {lib97_ms:.4f} ms | bound "
+    cdf97 = {"cdf97_path": cdf97_path, **{f"cdf97_{k}": v for k, v in t97.items()},
+             "cdf97_plain_ms": plain_ms, "cdf97_bound_ms": b_ms, "cdf97_library_ms": lib97_ms,
+             "cdf97_library_device_ms": lib97_device_ms}
+    log("dwt", f"K4 cdf97 l=1 at {K4_CDF97_SHAPE}, {cdf97_path} path: kernel {t97['ms']:.4f} ms "
+               f"| L2 flushed {t97['cold_ms']:.4f} ms | device {t97['device_ms']:.4f} ms | host "
+               f"{t97['host_ms']:.4f} ms | plain {plain_ms:.4f} ms | conv2d (9 x 9 analysis "
+               f"filters, stride 2) {lib97_ms:.4f} ms, device {lib97_device_ms:.4f} ms | bound "
                f"{b_ms:.4f} ms ({b_by}) | {state['card']}")
 
     # the served case, haar level 1 at (192, 224, 224)
-    x, err = _k4_case("haar", 1, K4_SHAPE, seed=7)
+    x, err, path, _ = _k4_case("haar", 1, K4_SHAPE, seed=7)
     # yardstick: conv2d, stride 2, with the four 2x2 haar · v6 filters computes
     # the same bands up to rounding; TF32 off so it is the same f32 math
     r = 1.0 / math.sqrt(2.0)
@@ -1062,24 +1154,29 @@ def phase_dwt(state):
             lib_err = (F.conv2d(x4, filt, stride=2) - lifting_multi_level_plain(x)).abs().max()
             log("dwt", f"library conv2d(stride 2, haar·v6 filters) vs plain: {lib_err.item():.3e}")
             lib_ms = time_ms(lambda: F.conv2d(x4, filt, stride=2))
+            lib_device_ms = device_ms(lambda: F.conv2d(x4, filt, stride=2))
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    ms = time_ms(lambda: lifting_multi_level(x))
+    t1 = k4_times(lambda: lifting_multi_level(x))
     plain_ms = time_ms(lambda: lifting_multi_level_plain(x))
     n, h, w = K4_SHAPE
     b_ms, b_by = bound_ms(4 * n * h * w * 2, _lifting_flops(n, h, w, 1, "haar"), "float32")
-    log("dwt", f"K4 haar l=1 at the served shape {K4_SHAPE}: kernel {ms:.4f} ms | plain "
-               f"{plain_ms:.4f} ms | conv2d {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | "
-               f"{state['card']}")
+    log("dwt", f"K4 haar l=1 at the served shape {K4_SHAPE}, {path} path: kernel "
+               f"{t1['ms']:.4f} ms | L2 flushed {t1['cold_ms']:.4f} ms | device "
+               f"{t1['device_ms']:.4f} ms | host {t1['host_ms']:.4f} ms | plain {plain_ms:.4f} "
+               f"ms | conv2d {lib_ms:.4f} ms, device {lib_device_ms:.4f} ms | bound {b_ms:.4f} "
+               f"ms ({b_by}) | {state['card']}")
     state["kernels"]["lifting_multi_level"] = {
         "name": "lifting_multi_level", "route": "cuda",
         "source": "irw_tpu_torch/csrc/lifting_dwt.cu",
         "replaces": "irw_tpu/ops/wavelets/pallas_dwt.py:208", "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms, **cdf97}
+        "ms": t1["ms"], "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "library_device_ms": lib_device_ms, "path": path,
+        **{k: v for k, v in t1.items() if k != "ms"}, **cdf97, "levels_ms": levels_ms}
 
 
-_WCNN_GROUPS = (("K4 lifting", ("lift_h_kernel", "lift_w_kernel")),
+_WCNN_GROUPS = (("K4 lifting", ("lift_reg_kernel", "lift_tile_kernel", "lift_h_kernel",
+                                 "lift_w_kernel")),
                 ("BatchNorm/ReLU elementwise", ("bn_fw", "batch_norm", "batchnorm", "elementwise",
                                                 "vectorized")),
                 ("cuDNN convs", ("conv", "xmma", "implicit", "cudnn", "fprop", "winograd",

@@ -14,26 +14,76 @@
 // TPU).  Every product, sum and quotient is rounded on its own
 // (__fmul_rn / __fadd_rn / __fdiv_rn: nvcc contracts nothing into an FMA),
 // in the order the plain PyTorch version computes them, so the two agree
-// bit for bit.
+// bit for bit on every path.
 //
 // Bound on the H100: memory.  A level does a few flops per element; the
 // input is read once and the output written once: at the served shape
 // (N = 3 * 64 = 192 planes of 224 x 224, haar, one level) 38.5 MB + 38.5 MB,
 // about 23 us at 3.35 TB/s.
 //
-// Design (simple first): two kernels per level.  The H pass gives a block
-// one plane's strip of 32 columns, the whole height in shared memory
-// (H x 32 x 4 bytes: 28 KiB at 224, 56 KiB at 448), loaded coalesced and
-// split into even and odd rows as it lands; the lifting steps run in place
-// with a barrier between steps, and the scaled s and d halves go to a
-// workspace.  The W pass gives a block 8 rows of that workspace, split into
-// even and odd columns in shared memory, lifts them, scales, and writes the
-// four subbands (the last level) or LL alone into a second workspace (an
-// earlier level, which also lifts only the rows LL needs).  The TPU kernel
-// held whole planes in VMEM and transposed them; here the workspace between
-// the passes costs one extra write and read of the plane, mostly in L2.
+// Three paths; irw_lifting_dwt_variant picks one from the shape and the step
+// table (lifting_kernel_variants in the wrapper applies the same rule).  The
+// first two take one launch for all levels and no device workspace.
+//
+// 1. register: tables whose every tap has shift 0 (haar), levels 1-3.  No
+//    neighbour is read, so each 2^l x 2^l input patch maps to its four
+//    outputs alone.  A thread owns C coarsest columns of one coarsest row
+//    (C = 2 at level 1 when W % 4 == 0, else 1), loads its 2^l rows with
+//    16-byte loads contiguous across the warp (8-byte ones at level 1 when
+//    W % 4 == 2, where odd rows do not start on 16 bytes), lifts every level
+//    in registers and writes each band with one float2 (C = 2) or one float.
+//    No shared memory, no barrier.
+// 2. tile: every other table whose steps each read a range of shifts within
+//    +-4 (every basis the wrapper knows), all levels, while a tile fits
+//    shared memory and beats the two-pass kernels (tile_pays: at most 2
+//    levels, or a region at most twice the tile's own input) or they
+//    cannot run.  A block owns a tile of the coarsest level's four bands
+//    of one plane (64 x 64 pairs at most, evened out over the plane); one
+//    block a tile, since a persistent grid walking the tiles measured 7 %
+//    slower.  The region the tile depends on is 2^l times the tile plus a
+//    halo each side, from the reach the wrapper reckons (kernel_reach: the
+//    cone of LL alone below the last level); none along an axis one tile
+//    spans, where past the plane every level reads 0.  Per level, two phases: H,
+//    where a thread lifts one column over a run of 8 pair rows (16 in the
+//    wide-halo kernel) plus the halo either side, entirely in registers (no
+//    barrier between steps), and writes the scaled s and d into B, even
+//    columns first; then W, where a thread lifts one row of B over a run of
+//    pair columns the same way and writes the four bands to the output with
+//    float4 stores (last level) or the scaled LL into A as the next level's
+//    input.  Level 1 reads the plane straight into those registers (a warp
+//    reads 32 consecutive floats a row; a run's halo rows are the next
+//    run's and come from L1): a copy of the region into shared memory first
+//    (16-byte cp.async, or TMA with its out-of-bounds zeros) measured 1.4 to
+//    2.3 x slower: with B beside it a block takes twice the shared memory,
+//    so half the blocks fit an SM, and a block's copy does not overlap its
+//    own arithmetic.  A step's taps are one compile-time register offset each (a jump
+//    to the first shift, then a compare a tap), and both phases run one
+//    loop body, so the lifting code is in the kernel once: the kernel with a
+//    copy per phase and per parity ran at half the speed, its instructions
+//    no longer held by the instruction cache.  Zero padding is per level
+//    and per step: a cell whose level index lies outside that level's plane
+//    reads as 0 and is never updated, as the plain version's zero-padded
+//    shifts read it.  Runs past the level's buffer read 0; the halo holds
+//    the cone of the outputs, so those cells feed only the halo.  A run
+//    holds the lift's reach either side whatever the tile's halo: the
+//    kernel is picked by the reach.  No
+//    workspace goes through device memory.
+// 3. two_pass: what the tile path cannot hold in shared memory (a halo too
+//    wide at deep levels or wide taps) or would take longer over (a wide
+//    halo at 3 levels or more), the first design.  Two kernels per
+//    level.  The H pass gives a block one plane's strip of 32 columns, the
+//    whole height in shared memory (H x 32 x 4 bytes: 28 KiB at 224, 56 KiB
+//    at 448), loaded coalesced and split into even and odd rows as it lands;
+//    the lifting steps run in place with a barrier between steps, and the
+//    scaled s and d halves go to a workspace.  The W pass gives a block 8
+//    rows of that workspace, split into even and odd columns in shared
+//    memory, lifts them, scales, and writes the four subbands (the last
+//    level) or LL alone into a second workspace (an earlier level, which
+//    also lifts only the rows LL needs).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -45,19 +95,48 @@ constexpr int kRowsW = 8;       // rows per block of the W pass
 constexpr int kThreadsW = 256;
 constexpr int kMaxShared = 232448;
 constexpr int kDefaultShared = 48 * 1024;
+constexpr int kRegMaxLevels = 3;        // register path: levels 1 .. 3
+constexpr int kRegThreads = 256;
+constexpr int kTileThreads = 256;
+constexpr int kTileRun = 8;             // pairs a thread's run yields
+constexpr int kMaxShift = 4;            // tile path: |shift| of every tap at most
+constexpr int kTileMaxHalo = 5;         // and its halo, in pairs of a level, at most
+constexpr int kTileMaxLevels = 8;
+constexpr int kTileMaxPairs = 64;       // a tile's side, in coarsest pairs, at most
+constexpr int kTileMaxShared = 115712;  // 113 KiB a block: two blocks an SM at least
+constexpr int kTileAnyHaloLevels = 2;   // levels at which any halo pays; deeper,
+constexpr int kTileMaxGrowth = 2;       // the region at most this x the tile's input
 
 struct Step {
     int target;                 // 0: even, 1: odd
     int pair;                   // 1: c * (src[i + a] + src[i + b])
     int ntaps;
+    int lo, hi;                 // smallest and largest shift
     int shift[kMaxTaps];
     float coeff[kMaxTaps];
+    // the tile path's view: the coefficient of shift n at cn[n + kMaxShift]
+    // (a pair step's is coeff[0])
+    float cn[2 * kMaxShift + 1];
 };
 
 struct Family {
     int nsteps;
     float k;
     Step step[kMaxSteps];
+};
+
+// The tile path's geometry.  Halos are in pairs of a level, [0] along H and
+// [1] along W, then [0] for an inner level (LL alone is needed) and [1] for
+// the last (all four bands); 0 along an axis one tile spans.
+struct TilePlan {
+    int levels;
+    int tr, tc;                 // coarsest pairs a tile owns: rows, columns
+    int tiles_r, tiles_c;       // tiles a plane
+    int before[2][2], after[2][2];  // halo pairs before and after a tile's own
+    int reach;                  // pairs a level's lift reads either side: a run's halo
+    int pr[kTileMaxLevels];     // pairs held at each level: rows
+    int pc[kTileMaxLevels];     //   and columns
+    int a_floats;               // floats before B: level 2's input (A), if any
 };
 
 // The new value of target element i of a half-length sequence of m elements
@@ -165,6 +244,413 @@ lift_w_kernel(const float* __restrict__ src, float* __restrict__ dst, int n, int
     }
 }
 
+// A shift-0 step on one (even, odd) pair: target plus its update from src.
+__device__ __forceinline__ float lift0(const Step& s, float target, float src) {
+    if (s.pair) return __fadd_rn(target, __fmul_rn(s.coeff[0], __fadd_rn(src, src)));
+    float acc = __fmul_rn(s.coeff[0], src);
+    for (int t = 1; t < s.ntaps; ++t) acc = __fadd_rn(acc, __fmul_rn(s.coeff[t], src));
+    return __fadd_rn(target, acc);
+}
+
+// One level of the register path on the top-left R x CW corner of v: lift
+// along H and scale; lift along W every row (last level) or the s rows
+// alone (inner level: LL is all the next needs), then, inner, leave the
+// scaled LL in the top-left (R/2) x (CW/2) corner.
+template <int PH, int PW, int R, int CW, bool LAST>
+__device__ __forceinline__ void reg_level(float (&v)[PH][PW], const Family& fam) {
+    for (int s = 0; s < fam.nsteps; ++s) {
+        const Step& st = fam.step[s];
+        if (st.target) {
+#pragma unroll
+            for (int r = 0; r < R; r += 2)
+#pragma unroll
+                for (int c = 0; c < CW; ++c) v[r + 1][c] = lift0(st, v[r + 1][c], v[r][c]);
+        } else {
+#pragma unroll
+            for (int r = 0; r < R; r += 2)
+#pragma unroll
+                for (int c = 0; c < CW; ++c) v[r][c] = lift0(st, v[r][c], v[r + 1][c]);
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < R; r += 2)
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+            v[r][c] = __fmul_rn(v[r][c], fam.k);
+            v[r + 1][c] = __fdiv_rn(v[r + 1][c], fam.k);
+        }
+    constexpr int kRowStep = LAST ? 1 : 2;
+    for (int s = 0; s < fam.nsteps; ++s) {
+        const Step& st = fam.step[s];
+        if (st.target) {
+#pragma unroll
+            for (int r = 0; r < R; r += kRowStep)
+#pragma unroll
+                for (int c = 0; c < CW; c += 2) v[r][c + 1] = lift0(st, v[r][c + 1], v[r][c]);
+        } else {
+#pragma unroll
+            for (int r = 0; r < R; r += kRowStep)
+#pragma unroll
+                for (int c = 0; c < CW; c += 2) v[r][c] = lift0(st, v[r][c], v[r][c + 1]);
+        }
+    }
+    if constexpr (!LAST) {
+#pragma unroll
+        for (int r = 0; r < R / 2; ++r)
+#pragma unroll
+            for (int c = 0; c < CW / 2; ++c)
+                v[r][c] = __fmul_rn(__fmul_rn(v[2 * r][2 * c], fam.k), 0.5f);
+    }
+}
+
+template <int PH, int PW, int LVL, int L>
+__device__ __forceinline__ void reg_levels(float (&v)[PH][PW], const Family& fam) {
+    reg_level<PH, PW, (PH >> LVL), (PW >> LVL), LVL == L - 1>(v, fam);
+    if constexpr (LVL + 1 < L) reg_levels<PH, PW, LVL + 1, L>(v, fam);
+}
+
+// Register path: L levels, C coarsest columns a thread.  Grid (coarsest
+// rows x column groups / kRegThreads, planes), planes walked past 65535.
+template <int L, int C>
+__global__ void __launch_bounds__(kRegThreads)
+lift_reg_kernel(const float* __restrict__ x, float* __restrict__ out, int n, int h, int w,
+                const __grid_constant__ Family fam) {
+    constexpr int PH = 1 << L, PW = C << L;     // the input patch a thread reads
+    const int hc = h >> L, wc = w >> L, groups = wc / C;
+    const int e = blockIdx.x * kRegThreads + threadIdx.x;
+    if (e >= hc * groups) return;
+    const int i = e / groups, g = e - i * groups;
+    const size_t hw = static_cast<size_t>(h) * w, band = static_cast<size_t>(hc) * wc;
+    for (int p = blockIdx.y; p < n; p += gridDim.y) {
+        const float* src = x + p * hw + static_cast<size_t>(i) * PH * w + g * PW;
+        float v[PH][PW];
+#pragma unroll
+        for (int r = 0; r < PH; ++r) {
+            if constexpr (PW % 4 == 0) {
+#pragma unroll
+                for (int c = 0; c < PW; c += 4) {
+                    const float4 t =
+                        *reinterpret_cast<const float4*>(src + static_cast<size_t>(r) * w + c);
+                    v[r][c] = t.x;
+                    v[r][c + 1] = t.y;
+                    v[r][c + 2] = t.z;
+                    v[r][c + 3] = t.w;
+                }
+            } else {
+                const float2 t = *reinterpret_cast<const float2*>(src + static_cast<size_t>(r) * w);
+                v[r][0] = t.x;
+                v[r][1] = t.y;
+            }
+        }
+        reg_levels<PH, PW, 0, L>(v, fam);
+        // the last level's W scale, then v6: [LL, LH, HL, HH]
+        float b[4][C];
+#pragma unroll
+        for (int q = 0; q < C; ++q) {
+            b[0][q] = __fmul_rn(__fmul_rn(v[0][2 * q], fam.k), 0.5f);
+            b[1][q] = __fmul_rn(__fmul_rn(v[1][2 * q], fam.k), 1.0f);
+            b[2][q] = __fmul_rn(__fdiv_rn(v[0][2 * q + 1], fam.k), 1.0f);
+            b[3][q] = __fmul_rn(__fdiv_rn(v[1][2 * q + 1], fam.k), 1.41421356237309504880f);
+        }
+        float* o = out + p * 4 * band + static_cast<size_t>(i) * wc + g * C;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            if constexpr (C == 2)
+                *reinterpret_cast<float2*>(o + k * band) = make_float2(b[k][0], b[k][1]);
+            else
+                o[k * band] = b[k][0];
+        }
+    }
+}
+
+__host__ __device__ constexpr int clamp_index(int i, int n) {
+    return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
+// The taps of shift N of a step on a run in registers: acc[i] = (or +=) the
+// term from src[i + N] (c * src for a taps step, src alone for a pair step,
+// whose sum is scaled after).  Elements whose source lies past the run are
+// left alone (0 on the first tap): the run's halo holds the outputs' cone,
+// so they feed only the halo's own pairs.
+template <int N, int NP, bool PAIR, bool FIRST>
+__device__ __forceinline__ void tap(float (&acc)[NP], const float (&src)[NP], float c) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+        if (i + N < 0 || i + N >= NP) {
+            if (FIRST) acc[i] = 0.f;
+            continue;
+        }
+        const float v = src[clamp_index(i + N, NP)];
+        const float term = PAIR ? v : __fmul_rn(c, v);
+        acc[i] = FIRST ? term : __fadd_rn(acc[i], term);
+    }
+}
+
+// acc = the update of every element of the run: the taps of shifts lo..hi,
+// in that order (the tile path takes only a step whose shifts are such a
+// range, in the table's order but for two taps, whose sum is the same
+// either way).  Each shift is a compile-time register offset: one jump to
+// lo's case, then one compare a further tap.
+template <int NP, bool PAIR>
+__device__ __forceinline__ void taps(const Step& st, float (&acc)[NP], const float (&src)[NP]) {
+    const int hi = st.hi;
+    const float* cn = st.cn;
+    switch (st.lo) {
+        case -4: tap<-4, NP, PAIR, true>(acc, src, cn[0]); if (hi > -4) goto add_m3; goto done;
+        case -3: tap<-3, NP, PAIR, true>(acc, src, cn[1]); if (hi > -3) goto add_m2; goto done;
+        case -2: tap<-2, NP, PAIR, true>(acc, src, cn[2]); if (hi > -2) goto add_m1; goto done;
+        case -1: tap<-1, NP, PAIR, true>(acc, src, cn[3]); if (hi > -1) goto add_0; goto done;
+        case 0: tap<0, NP, PAIR, true>(acc, src, cn[4]); if (hi > 0) goto add_p1; goto done;
+        case 1: tap<1, NP, PAIR, true>(acc, src, cn[5]); if (hi > 1) goto add_p2; goto done;
+        case 2: tap<2, NP, PAIR, true>(acc, src, cn[6]); if (hi > 2) goto add_p3; goto done;
+        case 3: tap<3, NP, PAIR, true>(acc, src, cn[7]); if (hi > 3) goto add_p4; goto done;
+        default: tap<4, NP, PAIR, true>(acc, src, cn[8]); goto done;
+    }
+add_m3:
+    tap<-3, NP, PAIR, false>(acc, src, cn[1]);
+    if (hi == -3) goto done;
+add_m2:
+    tap<-2, NP, PAIR, false>(acc, src, cn[2]);
+    if (hi == -2) goto done;
+add_m1:
+    tap<-1, NP, PAIR, false>(acc, src, cn[3]);
+    if (hi == -1) goto done;
+add_0:
+    tap<0, NP, PAIR, false>(acc, src, cn[4]);
+    if (hi == 0) goto done;
+add_p1:
+    tap<1, NP, PAIR, false>(acc, src, cn[5]);
+    if (hi == 1) goto done;
+add_p2:
+    tap<2, NP, PAIR, false>(acc, src, cn[6]);
+    if (hi == 2) goto done;
+add_p3:
+    tap<3, NP, PAIR, false>(acc, src, cn[7]);
+    if (hi == 3) goto done;
+add_p4:
+    tap<4, NP, PAIR, false>(acc, src, cn[8]);
+done:
+    if (PAIR) {
+#pragma unroll
+        for (int i = 0; i < NP; ++i) acc[i] = __fmul_rn(st.coeff[0], acc[i]);
+    }
+}
+
+// One lifting step on a run of NP pairs held in registers: tgt[i] plus its
+// update for each i set in `valid` (the pairs inside the level's plane).
+template <int NP>
+__device__ __forceinline__ void run_step(const Step& st, float (&tgt)[NP], const float (&src)[NP],
+                                         unsigned valid) {
+    float acc[NP];
+    if (st.pair)
+        taps<NP, true>(st, acc, src);
+    else
+        taps<NP, false>(st, acc, src);
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+        if (valid >> i & 1u) tgt[i] = __fadd_rn(tgt[i], acc[i]);
+}
+
+template <int NP>
+__device__ __forceinline__ void lift_run(const Family& fam, float (&e)[NP], float (&o)[NP],
+                                         unsigned valid) {
+    for (int s = 0; s < fam.nsteps; ++s) {
+        const Step& st = fam.step[s];
+        if (st.target)
+            run_step(st, o, e, valid);
+        else
+            run_step(st, e, o, valid);
+    }
+}
+
+// bits i of [0, NP) whose pair g0 + i lies in [0, m)
+__device__ __forceinline__ unsigned plane_bits(int g0, int m, int np) {
+    const int lo = max(0, -g0), hi = min(np, m - g0);
+    return hi <= lo ? 0u : ((hi >= 32 ? ~0u : (1u << hi) - 1u) & ~((1u << lo) - 1u));
+}
+
+// Plane p of tile t and the first pair its level-1 region holds (br, bc)
+__device__ __forceinline__ void tile_origin(const TilePlan& pl, int t, int* p, int* br, int* bc) {
+    const int per_plane = pl.tiles_r * pl.tiles_c;
+    *p = t / per_plane;
+    const int rem = t - *p * per_plane;
+    const int ti = rem / pl.tiles_c, tj = rem - ti * pl.tiles_c;
+    *br = ti * pl.tr - pl.before[0][1];
+    *bc = tj * pl.tc - pl.before[1][1];
+    for (int j = pl.levels - 2; j >= 0; --j) {
+        *br = 2 * *br - pl.before[0][0];
+        *bc = 2 * *bc - pl.before[1][0];
+    }
+}
+
+// Tile path: kTileThreads threads; dynamic shared memory from tile_plan.
+// HALO: the pairs a run holds on each side of its R (at least every halo of
+// the plan).
+//
+// Per level, two phases and two barriers.  H: a thread owns one column of
+// the level's input and a run of R pair rows the W lift needs; it reads the
+// run with HALO pairs either side (level 1 from the plane, a warp's reads a
+// row of 32 consecutive floats; later levels from A), lifts every step in
+// registers, scales, and writes s (and, at the last level, d) into B, even
+// columns first.  W: a thread owns one row of B and a run of R pair
+// columns; it reads them with their halo, lifts, scales, and writes the
+// four bands (last level) or the scaled LL into A, the next level's input.
+// A and B rows have an odd stride, so the W phase's threads, one a row, hit
+// distinct banks.  Both phases run one loop body, so the lifting code, the
+// bulk of the kernel, is there once.
+template <int HALO, int R, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kTileThreads, MIN_BLOCKS)
+lift_tile_kernel(const float* __restrict__ x, float* __restrict__ out, int h, int w,
+                 const __grid_constant__ Family fam, const __grid_constant__ TilePlan pl) {
+    constexpr int NP = R + 2 * HALO;
+    extern __shared__ __align__(16) float tile_sm[];
+    float* const A = tile_sm;                   // levels 2 and up: the level's input
+    float* const B = tile_sm + pl.a_floats;
+    const int L = pl.levels;
+    const int hc = h >> L, wc = w >> L;
+    const size_t band = static_cast<size_t>(hc) * wc;
+    const bool vec_out = wc % 4 == 0 && pl.tc % 4 == 0;
+    int p, br, bc;
+    tile_origin(pl, blockIdx.x, &p, &br, &bc);
+    const float* plane = x + static_cast<size_t>(p) * h * w;
+    int sa = 0;                                 // A's row stride, in floats
+    for (int j = 0; j < L; ++j) {
+        const int last = j == L - 1;
+        const int P = pl.pr[j], Q = pl.pc[j];              // pairs held: rows, columns
+        const int mr = (h >> j) / 2, mc = (w >> j) / 2;    // pairs in this level's plane
+        const int top = pl.before[0][last], left = pl.before[1][last];  // the tile's first pairs
+        const int nr = last ? pl.tr : 2 * pl.pr[j + 1];    // pair rows needed, from `top`
+        const int ncol = last ? pl.tc : 2 * pl.pc[j + 1];  // pair columns needed, from `left`
+        const int brows = last ? 2 * nr : nr;              // B: s and d rows, or s alone
+        const int sb = 2 * Q + 1;
+        const int sa_next = last ? 0 : 2 * pl.pc[j + 1] + 1;
+#pragma unroll 1
+        for (int wphase = 0; wphase < 2; ++wphase) {
+            // H: items (run k, column c); W: items (run k, row r)
+            const int lanes = wphase ? brows : 2 * Q;
+            const int items = lanes * (((wphase ? ncol : nr) + R - 1) / R);
+            for (int e = threadIdx.x; e < items; e += kTileThreads) {
+                // H: a warp's lanes on neighbouring columns (its loads are a row
+                // of the plane); W at one level: a row's runs on neighbouring
+                // lanes (its stores are rows of a band: 12 % faster at cdf97's
+                // 448², a few % slower below a first level)
+                const int runs = items / lanes;
+                const bool by_row = wphase && L == 1;
+                const int k = by_row ? e % runs : e / lanes;
+                const int c = by_row ? e / runs : e - k * lanes;
+                float ev[NP], od[NP];
+                unsigned valid;
+                if (!wphase) {
+                    const int r0 = top + k * R - HALO;     // local pair row of run index 0
+                    const bool cin =
+                        static_cast<unsigned>(2 * bc + c) < static_cast<unsigned>(2 * mc);
+                    const unsigned rows_in = plane_bits(br + r0, mr, NP);
+                    if (j == 0) {
+                        const ptrdiff_t col =
+                            static_cast<ptrdiff_t>(2 * (br + r0)) * w + 2 * bc + c;
+#pragma unroll
+                        for (int i = 0; i < NP; ++i) {
+                            const bool in = cin && (rows_in >> i & 1u);
+                            ev[i] = in ? __ldg(plane + col + static_cast<ptrdiff_t>(2 * i) * w)
+                                       : 0.f;
+                            od[i] = in ? __ldg(plane + col +
+                                               static_cast<ptrdiff_t>(2 * i + 1) * w)
+                                       : 0.f;
+                        }
+                    } else {
+#pragma unroll
+                        for (int i = 0; i < NP; ++i) {
+                            const bool in =
+                                static_cast<unsigned>(r0 + i) < static_cast<unsigned>(P);
+                            ev[i] = in ? A[(2 * (r0 + i)) * sa + c] : 0.f;
+                            od[i] = in ? A[(2 * (r0 + i) + 1) * sa + c] : 0.f;
+                        }
+                    }
+                    valid = cin ? rows_in : 0u;
+                } else {
+                    const int q0 = left + k * R - HALO;    // local pair column of index 0
+                    const bool rin = static_cast<unsigned>(br + top + (last ? c >> 1 : c)) <
+                                     static_cast<unsigned>(mr);
+                    const float* brow = B + c * sb;
+#pragma unroll
+                    for (int i = 0; i < NP; ++i) {
+                        const bool in = static_cast<unsigned>(q0 + i) < static_cast<unsigned>(Q);
+                        ev[i] = in ? brow[q0 + i] : 0.f;
+                        od[i] = in ? brow[Q + q0 + i] : 0.f;
+                    }
+                    valid = rin ? plane_bits(bc + q0, mc, NP) : 0u;
+                }
+                lift_run(fam, ev, od, valid);
+                if (!wphase) {
+                    // s * k (and d / k) into B, the column's even or odd half
+                    const bool cin = valid != 0u;
+                    float* col = B + (c & 1) * Q + (c >> 1);
+#pragma unroll
+                    for (int i = HALO; i < HALO + R; ++i) {
+                        const int row = k * R + i - HALO;
+                        if (row < nr) {
+                            const float s = cin ? __fmul_rn(ev[i], fam.k) : 0.f;
+                            if (last) {
+                                col[(2 * row) * sb] = s;
+                                col[(2 * row + 1) * sb] = cin ? __fdiv_rn(od[i], fam.k) : 0.f;
+                            } else {
+                                col[row * sb] = s;
+                            }
+                        }
+                    }
+                } else if (last) {
+                    // W scale, then v6: row c of the tile's [LL, HL] or [LH, HH]
+                    const int gi = br + top + (c >> 1), par = c & 1;
+                    const int gq0 = bc + left + k * R;     // first output column
+                    if (valid == 0u || gi >= hc) continue;
+                    float lo[R], hi[R];
+#pragma unroll
+                    for (int i = 0; i < R; ++i) {
+                        lo[i] = __fmul_rn(__fmul_rn(ev[HALO + i], fam.k), par ? 1.0f : 0.5f);
+                        hi[i] = __fmul_rn(__fdiv_rn(od[HALO + i], fam.k),
+                                          par ? 1.41421356237309504880f : 1.0f);
+                    }
+                    float* o_lo = out + (static_cast<size_t>(p) * 4 + par) * band +
+                                  static_cast<size_t>(gi) * wc + gq0;
+                    float* o_hi = o_lo + 2 * band;
+                    const int nq = min(R, min(ncol - k * R, wc - gq0));
+                    if (vec_out && nq == R) {
+#pragma unroll
+                        for (int i = 0; i < R; i += 4) {
+                            *reinterpret_cast<float4*>(o_lo + i) =
+                                make_float4(lo[i], lo[i + 1], lo[i + 2], lo[i + 3]);
+                            *reinterpret_cast<float4*>(o_hi + i) =
+                                make_float4(hi[i], hi[i + 1], hi[i + 2], hi[i + 3]);
+                        }
+                    } else {
+#pragma unroll
+                        for (int i = 0; i < R; ++i)
+                            if (i < nq) {
+                                o_lo[i] = lo[i];
+                                o_hi[i] = hi[i];
+                            }
+                    }
+                } else {
+                    // the scaled LL into A, the next level's input; 0 outside the plane
+                    float* arow = A + c * sa_next + k * R;
+#pragma unroll
+                    for (int i = 0; i < R; ++i)
+                        if (k * R + i < ncol)
+                            arow[i] = valid >> (HALO + i) & 1u
+                                          ? __fmul_rn(__fmul_rn(ev[HALO + i], fam.k), 0.5f)
+                                          : 0.f;
+                }
+            }
+            __syncthreads();
+        }
+        if (!last) {
+            br = (br + top) / 2;
+            bc = (bc + left) / 2;
+            sa = sa_next;
+        }
+    }
+}
+
 template <typename Kernel>
 int set_shared(Kernel kernel, int bytes) {
     if (bytes <= kDefaultShared) return 0;
@@ -172,28 +658,125 @@ int set_shared(Kernel kernel, int bytes) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-}  // namespace
+// pairs each level's buffer holds along one axis for t coarsest pairs a
+// tile, with `last` pairs of halo at the last level and `inner` below it
+void axis_pairs(int levels, int t, int inner, int last, int* p) {
+    p[levels - 1] = t + last;
+    for (int j = levels - 2; j >= 0; --j) p[j] = 2 * p[j + 1] + inner;
+}
 
-// x (n, h, w), out (n, 4, h >> levels, w >> levels); lift_ws (n, h, w);
-// ll_ws (n, h / 2, w / 2), unused (may be null) when levels == 1.
-// meta: nsteps rows of (target, pair, ntaps, shift[kMaxTaps]); coeffs:
-// nsteps rows of kMaxTaps.  One call = every kernel of every level, on
-// `stream`; returns the first CUDA error (0 if none).
-extern "C" int irw_lifting_dwt_f32(const void* x, void* out, void* lift_ws, void* ll_ws,
-                                   int n, int h, int w, int levels, int nsteps,
-                                   const int* meta, const float* coeffs, float k,
-                                   void* stream) {
-    if (n <= 0 || levels < 1 || levels > 30 || h % (1 << levels) || w % (1 << levels) ||
-        nsteps < 1 || nsteps > kMaxSteps || (levels > 1 && ll_ws == nullptr) ||
-        static_cast<long long>(h) * kStrip * 4 > kMaxShared ||
-        static_cast<long long>(w) * kRowsW * 4 > kMaxShared)
-        return static_cast<int>(cudaErrorInvalidValue);
-    Family fam{};
-    fam.nsteps = nsteps;
-    fam.k = k;
+// The tile path's plan for an (h, w) plane, or -1 if no tile of at least 2
+// coarsest pairs a side fits kTileMaxShared; else its shared-memory bytes.
+// reach: samples of one level's input the lift reads before and after a
+// pair, with all four bands {left, right} then with LL alone.  Shared
+// memory: A, level 2's input (2 pr[1] rows of 2 pc[1] + 1 floats; later
+// levels' smaller inputs reuse it; none at one level), then B, the rows the
+// W lift needs (row stride 2 pc + 1).  The tile side is the largest of 64,
+// 32, 16, 8, 4, 2 that fits, evened out over the plane's tiles.  Along an
+// axis one tile spans, the tile holds the plane and no halo: past it every
+// level reads 0, as the plain version's zero padding does.
+int tile_plan(int h, int w, int levels, const int* reach, TilePlan* pl) {
+    if (levels > kTileMaxLevels) return -1;
+    *pl = TilePlan{};
+    pl->levels = levels;
+    int before[2], after[2];
+    for (int k = 0; k < 2; ++k) {           // [0] inner level, [1] last
+        const int* r = reach + (k ? 0 : 2);
+        before[k] = (r[0] + 1) / 2;
+        after[k] = (r[1] + 1) / 2;
+        if (before[k] > kTileMaxHalo || after[k] > kTileMaxHalo) return -1;
+        pl->reach = before[k] > pl->reach ? before[k] : pl->reach;
+        pl->reach = after[k] > pl->reach ? after[k] : pl->reach;
+    }
+    const int hc = h >> levels, wc = w >> levels;
+    const int hc1 = hc > 1 ? hc : 1, wc1 = wc > 1 ? wc : 1;
+    for (int t = kTileMaxPairs; t >= 2; t /= 2) {
+        pl->tiles_r = (hc1 + t - 1) / t;
+        pl->tiles_c = (wc1 + t - 1) / t;
+        pl->tr = (hc1 + pl->tiles_r - 1) / pl->tiles_r;
+        pl->tc = (wc1 + pl->tiles_c - 1) / pl->tiles_c;
+        for (int a = 0; a < 2; ++a) {
+            const bool spans = (a ? pl->tiles_c : pl->tiles_r) == 1;
+            for (int k = 0; k < 2; ++k) {
+                pl->before[a][k] = spans ? 0 : before[k];
+                pl->after[a][k] = spans ? 0 : after[k];
+            }
+        }
+        axis_pairs(levels, pl->tr, pl->before[0][0] + pl->after[0][0],
+                   pl->before[0][1] + pl->after[0][1], pl->pr);
+        axis_pairs(levels, pl->tc, pl->before[1][0] + pl->after[1][0],
+                   pl->before[1][1] + pl->after[1][1], pl->pc);
+        const long long a = levels == 1 ? 0LL : 2LL * pl->pr[1] * (2 * pl->pc[1] + 1);
+        const long long b = (levels == 1 ? 2LL * pl->tr : 2LL * pl->pr[1]) * (2 * pl->pc[0] + 1);
+        if ((a + b) * 4 <= kTileMaxShared) {
+            pl->tiles_c = (wc1 + pl->tc - 1) / pl->tc;
+            pl->a_floats = static_cast<int>(a);
+            return static_cast<int>((a + b) * 4);
+        }
+    }
+    return -1;
+}
+
+// Whether the tile path beats the two-pass kernels at this plan.  Up to
+// kTileAnyHaloLevels levels it did at every shape measured; deeper, the
+// halo compounds level by level (cdf97 at 3 levels reads a region 2.25 x
+// the tile's input, and ran 1.08-1.28 x the two-pass time), so the tile
+// path takes a plan whose level-1 region is at most kTileMaxGrowth x the
+// tile's own input (haar: 1; daub4 at 3 levels: 1.43, 0.50 x).
+bool tile_pays(const TilePlan& pl) {
+    if (pl.levels <= kTileAnyHaloLevels) return true;
+    const long long own = (static_cast<long long>(pl.tr) << pl.levels) *
+                          (static_cast<long long>(pl.tc) << pl.levels);
+    return 4LL * pl.pr[0] * pl.pc[0] <= kTileMaxGrowth * own;
+}
+
+bool shift_zero(const Family& fam) {
+    for (int s = 0; s < fam.nsteps; ++s)
+        if (fam.step[s].lo != 0 || fam.step[s].hi != 0) return false;
+    return true;
+}
+
+// The tile path sums a step's taps in order of their shift: it takes a
+// table whose steps each have the shifts of a range in [-kMaxShift,
+// kMaxShift], each once and, for three taps or more, in that order (the sum
+// of two does not depend on it).
+bool tile_takes(const Family& fam) {
+    for (int s = 0; s < fam.nsteps; ++s) {
+        const Step& st = fam.step[s];
+        if (st.lo < -kMaxShift || st.hi > kMaxShift || st.hi - st.lo + 1 != st.ntaps)
+            return false;
+        for (int t = 1; t < st.ntaps; ++t) {
+            for (int u = 0; u < t; ++u)
+                if (st.shift[u] == st.shift[t]) return false;
+            if (st.ntaps > 2 && st.shift[t] < st.shift[t - 1]) return false;
+        }
+    }
+    return true;
+}
+
+// 2 register, 1 tile, 0 two_pass, -1 none
+int variant(int h, int w, int levels, const Family& fam, const int* reach, TilePlan* pl,
+            int* bytes) {
+    if (shift_zero(fam) && levels <= kRegMaxLevels) return 2;
+    const bool two_pass = static_cast<long long>(h) * kStrip * 4 <= kMaxShared &&
+                          static_cast<long long>(w) * kRowsW * 4 <= kMaxShared;
+    if (tile_takes(fam) && (*bytes = tile_plan(h, w, levels, reach, pl)) >= 0 &&
+        (tile_pays(*pl) || !two_pass))
+        return 1;
+    if (two_pass) return 0;
+    return -1;
+}
+
+// meta: nsteps rows of (target, pair, ntaps, shift[kMaxTaps]); coeffs (may
+// be null): nsteps rows of kMaxTaps.  Returns 0, or cudaErrorInvalidValue.
+int read_family(int nsteps, const int* meta, const float* coeffs, float k, Family* fam) {
+    if (nsteps < 1 || nsteps > kMaxSteps) return static_cast<int>(cudaErrorInvalidValue);
+    *fam = Family{};
+    fam->nsteps = nsteps;
+    fam->k = k;
     for (int s = 0; s < nsteps; ++s) {
         const int* row = meta + s * (3 + kMaxTaps);
-        Step& st = fam.step[s];
+        Step& st = fam->step[s];
         st.target = row[0];
         st.pair = row[1];
         st.ntaps = row[2];
@@ -201,22 +784,71 @@ extern "C" int irw_lifting_dwt_f32(const void* x, void* out, void* lift_ws, void
             return static_cast<int>(cudaErrorInvalidValue);
         for (int t = 0; t < kMaxTaps; ++t) {
             st.shift[t] = row[3 + t];
-            st.coeff[t] = coeffs[s * kMaxTaps + t];
+            st.coeff[t] = coeffs ? coeffs[s * kMaxTaps + t] : 0.f;
         }
+        st.lo = st.hi = st.shift[0];
+        for (int t = 1; t < st.ntaps; ++t) {
+            st.lo = st.shift[t] < st.lo ? st.shift[t] : st.lo;
+            st.hi = st.shift[t] > st.hi ? st.shift[t] : st.hi;
+        }
+        if (st.lo >= -kMaxShift && st.hi <= kMaxShift)
+            for (int t = 0; t < st.ntaps; ++t) st.cn[st.shift[t] + kMaxShift] = st.coeff[t];
     }
-    auto strm = static_cast<cudaStream_t>(stream);
+    return 0;
+}
+
+int launch_register(const float* x, float* out, int n, int h, int w, int levels,
+                    const Family& fam, cudaStream_t strm) {
+    const int c = levels == 1 && w % 4 == 0 ? 2 : 1;
+    const long long items = static_cast<long long>(h >> levels) * ((w >> levels) / c);
+    const dim3 grid(static_cast<unsigned>((items + kRegThreads - 1) / kRegThreads),
+                    n < 65535 ? n : 65535);
+    if (levels == 1 && c == 2)
+        lift_reg_kernel<1, 2><<<grid, kRegThreads, 0, strm>>>(x, out, n, h, w, fam);
+    else if (levels == 1)
+        lift_reg_kernel<1, 1><<<grid, kRegThreads, 0, strm>>>(x, out, n, h, w, fam);
+    else if (levels == 2)
+        lift_reg_kernel<2, 1><<<grid, kRegThreads, 0, strm>>>(x, out, n, h, w, fam);
+    else
+        lift_reg_kernel<3, 1><<<grid, kRegThreads, 0, strm>>>(x, out, n, h, w, fam);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Kernel>
+int launch_tile(Kernel kernel, const float* x, float* out, int n, int h, int w,
+                const Family& fam, const TilePlan& pl, int bytes, cudaStream_t strm) {
+    // tile indices are ints: 2^31 tiles of 16 outputs or more (the least a
+    // tile holds) would not fit the card's memory
+    const long long tiles = static_cast<long long>(n) * pl.tiles_r * pl.tiles_c;
+    if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+    const int status = set_shared(kernel, bytes);
+    if (status) return status;
+    kernel<<<static_cast<unsigned>(tiles), kTileThreads, bytes, strm>>>(x, out, h, w, fam, pl);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// the tile kernel whose runs hold the lift's reach (the plan's halos may be
+// narrower: none along an axis one tile spans)
+int launch_tile(const float* x, float* out, int n, int h, int w, const Family& fam,
+                const TilePlan& pl, int bytes, cudaStream_t strm) {
+    return pl.reach <= 2 ? launch_tile(lift_tile_kernel<2, kTileRun, 4>, x, out, n, h, w, fam,
+                                       pl, bytes, strm)
+                         : launch_tile(lift_tile_kernel<kTileMaxHalo, 2 * kTileRun, 2>, x, out, n,
+                                       h, w, fam, pl, bytes, strm);
+}
+
+int launch_two_pass(const float* x, float* out, float* lift_ws, float* ll_ws, int n, int h,
+                    int w, int levels, const Family& fam, cudaStream_t strm) {
     const int grid_n = n < 65535 ? n : 65535;
     for (int lvl = 0; lvl < levels; ++lvl) {
         const int hl = h >> lvl, wl = w >> lvl;
         const bool last = lvl == levels - 1;
-        const float* src = lvl == 0 ? static_cast<const float*>(x)
-                                    : static_cast<const float*>(ll_ws);
+        const float* src = lvl == 0 ? x : ll_ws;
         const int h_bytes = hl * kStrip * 4;
         int status = set_shared(lift_h_kernel, h_bytes);
         if (status) return status;
         lift_h_kernel<<<dim3((wl + kStrip - 1) / kStrip, grid_n), dim3(kStrip, kRowsY),
-                        h_bytes, strm>>>(src, static_cast<float*>(lift_ws), n, hl, wl, fam,
-                                         last ? 1 : 0);
+                        h_bytes, strm>>>(src, lift_ws, n, hl, wl, fam, last ? 1 : 0);
         status = static_cast<int>(cudaGetLastError());
         if (status) return status;
         const int rows = last ? hl : hl / 2;   // an earlier level needs LL only
@@ -224,13 +856,65 @@ extern "C" int irw_lifting_dwt_f32(const void* x, void* out, void* lift_ws, void
         status = set_shared(lift_w_kernel, w_bytes);
         if (status) return status;
         lift_w_kernel<<<dim3((rows + kRowsW - 1) / kRowsW, grid_n), kThreadsW, w_bytes,
-                        strm>>>(static_cast<const float*>(lift_ws),
-                                last ? static_cast<float*>(out) : static_cast<float*>(ll_ws),
-                                n, hl, wl, rows, fam, last ? 1 : 0);
+                        strm>>>(lift_ws, last ? out : ll_ws, n, hl, wl, rows, fam,
+                                last ? 1 : 0);
         status = static_cast<int>(cudaGetLastError());
         if (status) return status;
     }
     return 0;
+}
+
+}  // namespace
+
+// The path irw_lifting_dwt_f32 takes for an (h, w) plane at `levels` and the
+// step table (meta as there; reach as there): 2 register, 1 tile,
+// 0 two_pass, -1 none.
+extern "C" int irw_lifting_dwt_variant(int h, int w, int levels, int nsteps, const int* meta,
+                                       const int* reach) {
+    Family fam;
+    TilePlan pl;
+    int bytes = -1;
+    if (levels < 1 || levels > 30 || h % (1 << levels) || w % (1 << levels) ||
+        read_family(nsteps, meta, nullptr, 1.f, &fam))
+        return -1;
+    return variant(h, w, levels, fam, reach, &pl, &bytes);
+}
+
+// x (n, h, w), 16-byte aligned; out (n, 4, h >> levels, w >> levels).
+// lift_ws (n, h, w) and ll_ws (n, h / 2, w / 2) are read by the two_pass
+// path alone (ll_ws only when levels > 1) and may be null otherwise.
+// meta: nsteps rows of (target, pair, ntaps, shift[kMaxTaps]); coeffs:
+// nsteps rows of kMaxTaps; reach: samples of one level's input the lift
+// reads before and after a pair, {left, right} for all four bands, then
+// {left, right} for LL alone (lifting_dwt.py, kernel_reach).  One call = one
+// launch on the register and tile paths, two a level on the two_pass path,
+// on `stream`; returns the first CUDA error (0 if none).
+extern "C" int irw_lifting_dwt_f32(const void* x, void* out, void* lift_ws, void* ll_ws,
+                                   int n, int h, int w, int levels, int nsteps,
+                                   const int* meta, const float* coeffs, float k,
+                                   const int* reach, void* stream) {
+    Family fam;
+    TilePlan pl;
+    int bytes = -1;
+    if (n <= 0 || levels < 1 || levels > 30 || h % (1 << levels) || w % (1 << levels) ||
+        reinterpret_cast<uintptr_t>(x) % 16 || read_family(nsteps, meta, coeffs, k, &fam))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const auto* xf = static_cast<const float*>(x);
+    auto* of = static_cast<float*>(out);
+    auto strm = static_cast<cudaStream_t>(stream);
+    switch (variant(h, w, levels, fam, reach, &pl, &bytes)) {
+        case 2:
+            return launch_register(xf, of, n, h, w, levels, fam, strm);
+        case 1:
+            return launch_tile(xf, of, n, h, w, fam, pl, bytes, strm);
+        case 0:
+            if (lift_ws == nullptr || (levels > 1 && ll_ws == nullptr))
+                return static_cast<int>(cudaErrorInvalidValue);
+            return launch_two_pass(xf, of, static_cast<float*>(lift_ws),
+                                   static_cast<float*>(ll_ws), n, h, w, levels, fam, strm);
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 extern "C" const char* irw_cuda_error_string(int status) {

@@ -9,12 +9,16 @@ recurse on the scaled LL; return the last level's [LL, LH, HL, HH].
 for a CUDA f32 tensor and runs ``lifting_multi_level_plain`` (built from
 ``ops.wavelets.lifting``) for a CPU tensor; it never falls back from one to
 the other.  The kernel takes every basis as a table of lifting steps, so one
-kernel serves haar, cdf97 and the 13 families.
+kernel serves haar, cdf97 and the 13 families.  ``lifting_kernel_variants``
+names the path a shape takes on the card: ``register`` (haar, levels 1-3),
+``tile`` (every other basis, all levels in one launch, the halo from
+``kernel_reach``) or ``two_pass`` (what a tile cannot hold).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -36,6 +40,15 @@ MAX_TAPS = 9           # kRowsW and the shared memory a block may take
 STRIP = 32
 ROWS_W = 8
 MAX_SHARED_BYTES = 232448
+REG_MAX_LEVELS = 3     # kRegMaxLevels; kTileMaxLevels, kTileMaxPairs, kTileMaxShared,
+TILE_MAX_LEVELS = 8    # kMaxShift and kTileMaxHalo: the tile path's envelope
+TILE_MAX_PAIRS = 64
+TILE_MAX_SHARED_BYTES = 115712
+TILE_MAX_SHIFT = 4
+TILE_MAX_HALO = 5
+TILE_ANY_HALO_LEVELS = 2   # kTileAnyHaloLevels, kTileMaxGrowth: where the tile path pays
+TILE_MAX_GROWTH = 2
+PATHS = {2: "register", 1: "tile", 0: "two_pass"}   # irw_lifting_dwt_variant's codes
 
 
 def _check(x: torch.Tensor, levels: int, basis: str) -> None:
@@ -77,6 +90,157 @@ def kernel_steps(basis: str):
             for target, taps in steps], k
 
 
+@functools.lru_cache(maxsize=None)
+def _level_reach(basis: str, ll_only: bool) -> tuple[int, int]:
+    """Samples of one level's input that the lift reads before a pair
+    (2i, 2i + 1) and after it, for both of its outputs (s, d) or for s alone.
+
+    Walks the steps backwards with the interval of even[i + n] and odd[i + n]
+    each output needs: a step that updates one parity from the other at
+    shifts n needs the other over the target's interval widened by
+    [min n, max n]."""
+    steps, _ = kernel_steps(basis)
+    need = [(0, 0), None if ll_only else (0, 0)]      # even, odd: [lo, hi] of n
+    for target, _, shifts, _ in reversed(steps):
+        if need[target] is None:
+            continue
+        lo, hi = need[target][0] + min(shifts), need[target][1] + max(shifts)
+        have = need[1 - target]
+        need[1 - target] = (lo, hi) if have is None else (min(have[0], lo), max(have[1], hi))
+    samples = [2 * n + parity for parity, span in enumerate(need) if span for n in span]
+    return max(0, -min(samples)), max(0, max(samples) - 1)
+
+
+def kernel_reach(basis: str, levels: int) -> tuple[int, int]:
+    """(left, right): input samples before and after the 2ˡ × 2ˡ patch of a
+    coarsest output that its four bands depend on, along H and along W.
+
+    The last level reads its reach with all four bands, in samples of its
+    input, each 2ˡ⁻¹ input samples; every level below it feeds LL alone and
+    reads the (often shorter) reach of s, each of its samples 2ʲ⁻¹ input
+    samples at level j.  0 for haar.  The tile path's halo comes from the
+    same walk (``_reach_args``)."""
+    (al, ar), (il, ir) = _level_reach(basis, False), _level_reach(basis, True)
+    inner = 2 ** (levels - 1) - 1
+    return 2 ** (levels - 1) * al + inner * il, 2 ** (levels - 1) * ar + inner * ir
+
+
+@functools.lru_cache(maxsize=None)
+def _reach_args(basis: str):
+    """The kernel's reach argument: (left, right) with all four bands, then
+    with LL alone, in samples of one level's input."""
+    return (ctypes.c_int * 4)(*_level_reach(basis, False), *_level_reach(basis, True))
+
+
+def _axis_pairs(levels: int, t: int, inner: int, last: int) -> list[int]:
+    pairs = [t + last]
+    for _ in range(levels - 1):
+        pairs.insert(0, 2 * pairs[0] + inner)
+    return pairs
+
+
+def _tile_takes(basis: str) -> bool:
+    """csrc/lifting_dwt.cu ``tile_takes``: each step's shifts are a range
+    within ±``TILE_MAX_SHIFT``, each once and, for three taps or more, in
+    order (the order the tile path sums them in; two taps sum alike either
+    way)."""
+    steps, _ = kernel_steps(basis)
+    for _, _, shifts, _ in steps:
+        lo, hi = min(shifts), max(shifts)
+        if max(-lo, hi) > TILE_MAX_SHIFT or sorted(shifts) != list(range(lo, hi + 1)):
+            return False
+        if len(shifts) > 2 and list(shifts) != sorted(shifts):
+            return False
+    return True
+
+
+def _tile_plan(h: int, w: int, levels: int, basis: str):
+    """(rows, columns) of coarsest pairs a tile owns, its shared-memory
+    bytes and the pairs its level-1 region holds (rows, columns), or None
+    where no tile of 2 pairs a side fits: csrc/lifting_dwt.cu ``tile_plan``,
+    line for line."""
+    if levels > TILE_MAX_LEVELS:
+        return None
+    halo = []                                 # pairs before + after: inner, last level
+    for left, right in (_level_reach(basis, True), _level_reach(basis, False)):
+        before, after = (left + 1) // 2, (right + 1) // 2
+        if max(before, after) > TILE_MAX_HALO:
+            return None
+        halo.append(before + after)
+    hc, wc = max(h >> levels, 1), max(w >> levels, 1)
+    t = TILE_MAX_PAIRS
+    while t >= 2:
+        tr = -(-hc // -(-hc // t))            # the side evened out over the tiles
+        tc = -(-wc // -(-wc // t))
+        # no halo along an axis one tile spans
+        pr, pc = (_axis_pairs(levels, side, *(halo if side < n else (0, 0)))
+                  for side, n in ((tr, hc), (tc, wc)))
+        a = 0 if levels == 1 else 2 * pr[1] * (2 * pc[1] + 1)
+        b = (2 * tr if levels == 1 else 2 * pr[1]) * (2 * pc[0] + 1)
+        if 4 * (a + b) <= TILE_MAX_SHARED_BYTES:
+            return tr, tc, 4 * (a + b), pr[0], pc[0]
+        t //= 2
+    return None
+
+
+def _tile_pays(levels: int, plan) -> bool:
+    """csrc/lifting_dwt.cu ``tile_pays``: up to ``TILE_ANY_HALO_LEVELS``
+    levels, or while the level-1 region is at most ``TILE_MAX_GROWTH`` times
+    the tile's own input (deeper, a wide halo made the tile path slower
+    than the two-pass kernels)."""
+    tr, tc, _, pr0, pc0 = plan
+    return levels <= TILE_ANY_HALO_LEVELS or 4 * pr0 * pc0 <= TILE_MAX_GROWTH * (
+        (tr << levels) * (tc << levels))
+
+
+@functools.lru_cache(maxsize=1024)
+def _kernel_path(h: int, w: int, levels: int, basis: str) -> str:
+    """The path of ``lifting_kernel_variants``, once held against the one the
+    built kernel takes (``irw_lifting_dwt_variant``)."""
+    path = lifting_kernel_variants(h, w, levels, basis)["path"]
+    nsteps, meta, _, _ = _step_arrays(basis)
+    lib = cuda_lib.load("lifting_dwt", _SIGNATURES)
+    taken = PATHS.get(lib.irw_lifting_dwt_variant(h, w, levels, nsteps, meta, _reach_args(basis)))
+    if taken != path:
+        raise RuntimeError(f"lifting_multi_level: the kernel takes path {taken} for {basis} "
+                           f"l={levels} at {h} x {w}, lifting_kernel_variants names {path}")
+    return path
+
+
+def lifting_kernel_variants(h: int, w: int, levels: int, basis: str) -> dict:
+    """Which path K4 runs on the card for (N, ``h``, ``w``) planes:
+    ``{"path": "register" | "tile" | "two_pass"}``; raises where none takes
+    the shape.
+
+    ``register`` for a table whose every tap has shift 0 (haar) at levels
+    1-3; ``tile`` where a tile of at least 2 coarsest pairs a side, with its
+    halo, fits ``TILE_MAX_SHARED_BYTES`` (levels ≤ ``TILE_MAX_LEVELS``,
+    halos ≤ ``TILE_MAX_HALO`` pairs, a table ``_tile_takes``) and the tile
+    path pays (``_tile_pays``) or no two-pass strip fits;
+    else ``two_pass`` where a 32-column strip of the whole height and 8 rows
+    of the whole width fit a block's shared memory.  Plain Python; the C
+    side's ``irw_lifting_dwt_variant``, which picks the kernel, applies the
+    same rule."""
+    if basis not in BASES:
+        raise ValueError(f"unknown lifting basis {basis!r}; one of {list(BASES)}")
+    if levels < 1 or h % 2 ** levels or w % 2 ** levels:
+        raise ValueError(f"lifting_multi_level: H and W {(h, w)} must divide by 2**levels "
+                         f"(levels={levels})")
+    steps, _ = kernel_steps(basis)
+    if levels <= REG_MAX_LEVELS and all(n == 0 for _, _, shifts, _ in steps for n in shifts):
+        return {"path": "register"}
+    two_pass = max(h * STRIP, ROWS_W * w) * 4 <= MAX_SHARED_BYTES
+    plan = _tile_plan(h, w, levels, basis) if _tile_takes(basis) else None
+    if plan is not None and (_tile_pays(levels, plan) or not two_pass):
+        return {"path": "tile"}
+    if two_pass:
+        return {"path": "two_pass"}
+    raise ValueError(f"lifting_multi_level: a {h} x {w} plane at {levels} levels of {basis} "
+                     f"fits no K4 path: the tile's halo and a two-pass strip both exceed "
+                     f"the shared memory of a block ({MAX_SHARED_BYTES} bytes)")
+
+
+@functools.lru_cache(maxsize=None)
 def _step_arrays(basis: str):
     steps, k = kernel_steps(basis)
     meta, coeffs = [], []
@@ -91,8 +255,12 @@ _SIGNATURES = {
     "irw_lifting_dwt_f32": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                              ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                             ctypes.POINTER(ctypes.c_float), ctypes.c_float, ctypes.c_void_p],
+                             ctypes.POINTER(ctypes.c_float), ctypes.c_float,
+                             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
                             ctypes.c_int),
+    "irw_lifting_dwt_variant": ([ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)],
+                                ctypes.c_int),
 }
 
 
@@ -101,8 +269,11 @@ def lifting_multi_level(x: torch.Tensor, levels: int = 1, basis: str = "haar") -
 
     CPU tensor: the plain version, in x's dtype.  CUDA f32 tensor: kernel K4,
     counted in ``lifting_multi_level.launches`` (one per call, whatever the
-    number of levels).  Other dtypes on the card raise: nothing on the
-    served path gives one (``DeviceTransform`` is f32 from /255 on)."""
+    number of levels), on the path ``lifting_kernel_variants`` names (held
+    once a shape against the one the C side takes; kept in
+    ``lifting_multi_level.last_path``).  Other dtypes on the card raise:
+    nothing on the served path gives one (``DeviceTransform`` is f32 from
+    /255 on)."""
     _check(x, levels, basis)
     if x.device.type == "cpu":
         return lifting_multi_level_plain(x, levels, basis)
@@ -111,27 +282,33 @@ def lifting_multi_level(x: torch.Tensor, levels: int = 1, basis: str = "haar") -
                          "takes float32 (N, H, W) planes on a CUDA device")
     if x.dtype != torch.float32:
         raise NotImplementedError(f"lifting_multi_level: kernel K4 takes float32; {x.dtype} "
-                                  "on the card waits for ROADMAP B4-remainder")
+                                  "on the card waits for ROADMAP A9-remainder")
     n, h, w = x.shape
-    if max(h * STRIP, ROWS_W * w) * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"lifting_multi_level: a {h} x {w} plane does not fit K4's shared "
-                         f"memory ({MAX_SHARED_BYTES} bytes per block)")
+    path = _kernel_path(h, w, levels, basis)
     x = x.contiguous()
+    if x.data_ptr() % 16:           # the kernel's 16-byte loads
+        x = x.clone()
     out = torch.empty((n, 4, h >> levels, w >> levels), dtype=x.dtype, device=x.device)
-    if n == 0:
+    if out.numel() == 0:
         return out
-    lift_ws = torch.empty((n, h, w), dtype=x.dtype, device=x.device)
-    ll_ws = (torch.empty((n, h // 2, w // 2), dtype=x.dtype, device=x.device)
-             if levels > 1 else None)
+    lift_ws = ll_ws = None
+    if path == "two_pass":
+        lift_ws = torch.empty((n, h, w), dtype=x.dtype, device=x.device)
+        if levels > 1:
+            ll_ws = torch.empty((n, h // 2, w // 2), dtype=x.dtype, device=x.device)
     nsteps, meta, coeffs, k = _step_arrays(basis)
+    reach = _reach_args(basis)
     lib = cuda_lib.load("lifting_dwt", _SIGNATURES)
-    status = lib.irw_lifting_dwt_f32(x.data_ptr(), out.data_ptr(), lift_ws.data_ptr(),
+    status = lib.irw_lifting_dwt_f32(x.data_ptr(), out.data_ptr(),
+                                     None if lift_ws is None else lift_ws.data_ptr(),
                                      None if ll_ws is None else ll_ws.data_ptr(),
-                                     n, h, w, levels, nsteps, meta, coeffs, k,
+                                     n, h, w, levels, nsteps, meta, coeffs, k, reach,
                                      cuda_lib.stream_of(x))
     cuda_lib.check(status, "lifting_multi_level", lib)
     lifting_multi_level.launches += 1
+    lifting_multi_level.last_path = path
     return out
 
 
 lifting_multi_level.launches = 0
+lifting_multi_level.last_path = None

@@ -37,6 +37,8 @@ from irw_tpu_torch.ops.wavelets import (
     lifting_multi_level,
     lifting_multi_level_plain,
 )
+from irw_tpu_torch.ops.wavelets.lifting import BASES
+from irw_tpu_torch.ops.wavelets.lifting_dwt import lifting_kernel_variants
 
 
 @pytest.fixture()
@@ -260,25 +262,51 @@ def test_autograd_saves_statistics_only_for_a_gradient(card):
         torch.testing.assert_close(leaf.grad, ref, rtol=0, atol=0)
 
 
+# every basis at levels 1 and 2 and haar at 3, on planes whose tiles end
+# part-way through them, then the first shapes these tests held
+LIFT_SHAPES = [(3, 20, 12), (5, 72, 200), (2, 224, 224), (1, 448, 448)]
+LIFT_CASES = ([(b, lvl, s) for b in BASES for lvl in (1, 2) for s in LIFT_SHAPES]
+              + [("haar", 3, s) for s in [(3, 24, 16), *LIFT_SHAPES[1:]]]
+              + [("haar", 1, (6, 224, 224)), ("cdf97", 2, (3, 40, 24)), ("bior48", 2, (4, 64, 32)),
+                 ("coif12", 1, (1, 6, 2)), ("rev_bior_spline_39", 2, (7, 36, 100))]
+              # W % 4 == 2: 8-byte loads on the register and the tile path
+              + [("haar", 1, (3, 20, 6)), ("cdf97", 1, (3, 20, 6))])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("basis,levels,shape", [
-    ("haar", 1, (6, 224, 224)),
-    ("haar", 3, (5, 72, 200)),
-    ("cdf97", 1, (2, 448, 448)),
-    ("cdf97", 2, (3, 40, 24)),
-    ("bior48", 2, (4, 64, 32)),
-    ("coif12", 1, (1, 6, 2)),
-    ("rev_bior_spline_39", 2, (7, 36, 100)),
-])
+@pytest.mark.parametrize("basis,levels,shape", LIFT_CASES)
 def test_lifting_kernel_on_card(card, basis, levels, shape):
     """K4 rounds each product, sum and quotient as the plain version does:
-    the two agree bit for bit, well inside chip_smoke.py's limits."""
+    the two agree bit for bit on every path, well inside chip_smoke.py's
+    limits."""
     x = torch.randn(shape, generator=torch.Generator(device=card).manual_seed(0), device=card)
     before = lifting_multi_level.launches
     out = lifting_multi_level(x, levels, basis)
     torch.cuda.synchronize()
     assert lifting_multi_level.launches == before + 1
+    assert lifting_multi_level.last_path == lifting_kernel_variants(*shape[1:], levels, basis)["path"]
     torch.testing.assert_close(out, lifting_multi_level_plain(x, levels, basis), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_lifting_kernel_picks_every_path(card):
+    gen = torch.Generator(device=card).manual_seed(1)
+    for basis, levels, shape, path in [("haar", 1, (4, 224, 224), "register"),
+                                       ("haar", 2, (3, 36, 100), "register"),
+                                       ("cdf97", 1, (2, 448, 448), "tile"),
+                                       ("haar", 4, (2, 224, 224), "tile"),
+                                       ("daub4", 3, (2, 224, 224), "tile"),
+                                       ("cdf97", 3, (2, 448, 448), "two_pass"),
+                                       ("cdf97", 5, (2, 256, 256), "two_pass"),
+                                       ("cdf97", 5, (1, 8192, 64), "tile")]:
+        assert lifting_kernel_variants(*shape[1:], levels, basis) == {"path": path}
+        x = torch.randn(shape, generator=gen, device=card)
+        before = lifting_multi_level.launches
+        out = lifting_multi_level(x, levels, basis)
+        torch.cuda.synchronize()
+        assert (lifting_multi_level.launches, lifting_multi_level.last_path) == (before + 1, path)
+        torch.testing.assert_close(out, lifting_multi_level_plain(x, levels, basis),
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -286,7 +314,7 @@ def test_lifting_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(NotImplementedError, match="float32"):
         lifting_multi_level(torch.zeros(1, 8, 8, device=card, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="shared"):
-        lifting_multi_level(torch.zeros(1, 8192, 8, device=card))
+        lifting_multi_level(torch.zeros(1, 8192, 4096, device=card), levels=5, basis="cdf97")
     with pytest.raises(ValueError, match="divide"):
         lifting_multi_level(torch.zeros(1, 12, 8, device=card), levels=3)
 

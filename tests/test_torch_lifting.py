@@ -4,12 +4,17 @@
 ``irw_tpu.ops.wavelets.lifting`` for haar, cdf97 and every family and alias;
 ``lifting_multi_level_plain`` against ``lifting_multi_level_pallas`` in
 interpret mode, as tests/test_wavelets.py runs it.  Inputs are unit normal.
+Then K4's path rule and the reach its tile path loads (no card needed):
+``kernel_reach`` held by perturbing the plain version, ``lifting_kernel_variants``
+held to its cases and to the constants of csrc/lifting_dwt.cu.
 
 Tolerances, in f32, scaled by max(1, max|ref|) (bands reach about 5):
 1e-6 for haar and 1e-5 for the rest against the jnp lifting (XLA fuses the
 jitted chain and contracts some multiply-adds: up to two ulps apart), 1e-5
 for haar and 1e-4 for the rest against the Pallas kernel.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +26,14 @@ from irw_tpu.ops.wavelets.lifting_families import FAMILY_ALIASES, LIFTING_FAMILI
 from irw_tpu.ops.wavelets.pallas_dwt import lifting_multi_level_pallas
 from irw_tpu_torch.ops.wavelets import lifting
 from irw_tpu_torch.ops.wavelets import lifting_families as families
-from irw_tpu_torch.ops.wavelets.lifting_dwt import kernel_steps, lifting_multi_level_plain
+from irw_tpu_torch import cuda_lib
+from irw_tpu_torch.ops.wavelets import lifting_dwt
+from irw_tpu_torch.ops.wavelets.lifting_dwt import (
+    kernel_reach,
+    kernel_steps,
+    lifting_kernel_variants,
+    lifting_multi_level_plain,
+)
 
 BASES = ["haar", "cdf97", *LIFTING_FAMILIES, *FAMILY_ALIASES]
 
@@ -124,3 +136,118 @@ def test_kernel_tables_compute_the_lift(basis):
         halves[target] = halves[target] + upd
     s, d = lifting.lift_1d(x, basis, -1)
     assert torch.equal(halves[0] * k, s) and torch.equal(families.divide(halves[1], k), d)
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+@pytest.mark.parametrize("basis", lifting.BASES)
+def test_kernel_reach_is_exact(basis, levels):
+    """An interior 4 x 4 tile of coarsest outputs depends on the input rows
+    and columns [2ˡ·o0 − left, 2ˡ·o1 − 1 + right] and on nothing outside:
+    changing one sample just outside that span leaves the tile's four bands
+    bitwise equal; changing the sample at either end of it, along H or W,
+    changes them.  So the halo the tile path loads (from the same walk) is
+    enough, and no wider than it must be."""
+    size = 256
+    x = torch.from_numpy(np.random.RandomState(levels).randn(1, size, size).astype(np.float32))
+    left, right = kernel_reach(basis, levels)
+    scale = 2 ** levels
+    o0 = (size // scale) // 2 - 2
+    o1 = o0 + 4
+    first, end = scale * o0 - left, scale * o1 - 1 + right
+    assert 0 < first and end < size - 1          # the span lies inside the plane
+    tile = (slice(None), slice(None), slice(o0, o1), slice(o0, o1))
+    ref = lifting_multi_level_plain(x, levels, basis)[tile]
+    mid = scale * o0 + 1
+
+    def moved(row, col):
+        y = x.clone()
+        y[0, row, col] += 100.0
+        return lifting_multi_level_plain(y, levels, basis)[tile]
+
+    for row, col in [(first - 1, mid), (end + 1, mid), (mid, first - 1), (mid, end + 1)]:
+        assert torch.equal(moved(row, col), ref), (row, col)
+    for row, col in [(first, mid), (end, mid), (mid, first), (mid, end)]:
+        assert not torch.equal(moved(row, col), ref), (row, col)
+
+
+def test_kernel_reach_walks_the_steps():
+    # cdf97's 9/7 filters: s[i] reads x[2i − 4 .. 2i + 4]; two levels add the
+    # first level's reach twice over (2 · 4 + 4, 2 · 3 + 3)
+    assert kernel_reach("cdf97", 1) == (4, 3) and kernel_reach("cdf97", 2) == (12, 9)
+    assert kernel_reach("haar", 3) == (0, 0)
+    # rev_bior39's s reads one pair either side, its d nine samples: the
+    # inner level adds the short reach
+    assert kernel_reach("rev_bior39", 1) == (9, 9) and kernel_reach("rev_bior39", 2) == (19, 19)
+
+
+@pytest.mark.parametrize("basis,levels,hw,path", [
+    ("haar", 1, (224, 224), "register"),            # the WCNN route's served planes
+    ("haar", 1, (6, 2), "register"),                # W % 4 == 2: 8-byte loads
+    ("haar", 3, (224, 224), "register"),
+    ("haar", 4, (224, 224), "tile"),                # past the register path's levels
+    ("cdf97", 1, (448, 448), "tile"),               # cub_dwt_cdf97.yaml
+    ("daub4", 3, (224, 224), "tile"),              # a narrow halo: the region 1.43 x the tile
+    ("cdf97", 3, (448, 448), "two_pass"),          # 2.25 x: the halo costs more than it saves
+    ("bior39", 2, (224, 224), "tile"),              # the widest halo at level 2
+    ("coif12", 1, (8192, 8192), "tile"),            # any plane: tiles walk it
+    ("cdf97", 5, (256, 256), "two_pass"),           # the halo outgrows a tile
+    ("bior48", 2, (32, 32), "tile"),                # one tile spans the plane: no halo
+    ("cdf97", 5, (8192, 64), "tile"),               # no two-pass strip fits: the tile runs
+    ("bior39", 4, (224, 224), "two_pass"),
+    ("haar", 8, (256, 256), "two_pass"),
+])
+def test_lifting_kernel_variants_name_the_path(basis, levels, hw, path):
+    assert lifting_kernel_variants(*hw, levels, basis) == {"path": path}
+
+
+def test_lifting_kernel_variants_refuse_what_no_path_takes():
+    with pytest.raises(ValueError, match="shared memory"):
+        lifting_kernel_variants(8192, 4096, 5, "cdf97")
+    with pytest.raises(ValueError, match="unknown lifting basis"):
+        lifting_kernel_variants(224, 224, 1, "db2")
+    with pytest.raises(ValueError, match="divide"):
+        lifting_kernel_variants(12, 8, 3, "haar")
+
+
+# every shape the card tests, chip_smoke.py's dwt phase and the configs give K4
+CARD_SHAPES = [(20, 12), (72, 200), (224, 224), (448, 448)]
+SMOKE_CASES = [("haar", 1, (224, 224)), ("haar", 2, (224, 224)), ("haar", 3, (224, 224)),
+               ("cdf97", 1, (448, 448)), ("cdf97", 2, (448, 448)), ("bior48", 2, (224, 224)),
+               ("daub4", 2, (224, 224)), ("haar", 2, (72, 200)), ("coif12", 2, (72, 200)),
+               ("rev_bior_spline_39", 1, (20, 12)), ("cdf97", 2, (40, 24)),
+               ("bior48", 2, (64, 32)), ("coif12", 1, (6, 2)), ("rev_bior_spline_39", 2, (36, 100)),
+               ("haar", 3, (72, 200)), ("haar", 3, (24, 16))]
+
+
+def test_every_used_shape_takes_a_one_launch_path():
+    cases = [(b, lvl, hw) for b in lifting.BASES for lvl in (1, 2) for hw in CARD_SHAPES]
+    cases += [("haar", 3, hw) for hw in CARD_SHAPES if hw[0] % 8 == 0 and hw[1] % 8 == 0]
+    for basis, levels, hw in cases + SMOKE_CASES:
+        assert lifting_kernel_variants(*hw, levels, basis)["path"] in ("register", "tile"), \
+            (basis, levels, hw)
+    # at least two blocks an SM at cdf97's served 448² (228 KiB an SM, 1 KiB
+    # of it reserved per block)
+    _, _, nbytes, _, _ = lifting_dwt._tile_plan(448, 448, 1, "cdf97")
+    assert 2 * (nbytes + 1024) <= 228 * 1024
+
+
+def test_lifting_kernel_variants_follow_the_kernel_source():
+    """The envelope in Python is the one ``irw_lifting_dwt_variant`` applies."""
+    src = (cuda_lib.CSRC / "lifting_dwt.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kRegMaxLevels") == lifting_dwt.REG_MAX_LEVELS
+    assert const("kTileMaxLevels") == lifting_dwt.TILE_MAX_LEVELS
+    assert const("kTileMaxPairs") == lifting_dwt.TILE_MAX_PAIRS
+    assert const("kTileMaxShared") == lifting_dwt.TILE_MAX_SHARED_BYTES
+    assert const("kMaxShift") == lifting_dwt.TILE_MAX_SHIFT
+    assert const("kTileMaxHalo") == lifting_dwt.TILE_MAX_HALO
+    assert const("kTileAnyHaloLevels") == lifting_dwt.TILE_ANY_HALO_LEVELS
+    assert const("kTileMaxGrowth") == lifting_dwt.TILE_MAX_GROWTH
+    assert (const("kStrip"), const("kRowsW"), const("kMaxShared")) == (
+        lifting_dwt.STRIP, lifting_dwt.ROWS_W, lifting_dwt.MAX_SHARED_BYTES)
+    rule = re.findall(r"return (\d);", src[src.index("int variant("):])[:3]
+    assert [lifting_dwt.PATHS[int(c)] for c in rule] == ["register", "tile", "two_pass"]
+

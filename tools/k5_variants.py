@@ -26,94 +26,37 @@ nothing of JAX.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import math
-import re
-import shutil
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
+
+import cu_variants  # noqa: E402
 
 CONSTANTS = {"STAGES": "kStages"}
 # named edits of the source a variant may also take (PATCH=name): the text
 # replaced, then its replacement
 PATCHES = {
     # pass 2 over 64-key chunks
-    "pv64": ("    for_key_chunks<32>(n, [&](auto cols, int k0) {",
-             "    for_key_chunks<64>(n, [&](auto cols, int k0) {"),
+    "pv64": [("    for_key_chunks<32>(n, [&](auto cols, int k0) {",
+              "    for_key_chunks<64>(n, [&](auto cols, int k0) {")],
     # probes (wrong results, timed but not checked): the projection without
     # its copies after the first stages (and without waiting for them), and
     # without its products
-    "probe_noload": ("            if (threadIdx.x == 0 && s + kStages - 1 < steps) "
-                     "load(s + kStages - 1);\n"
-                     "            mbar_wait(bars + 8 * (s % kStages), (s / kStages) & 1);",
-                     "            if (s < kStages - 1) "
-                     "mbar_wait(bars + 8 * (s % kStages), (s / kStages) & 1);"),
-    "probe_noproject": ("            plane_project<HD>(acc, sX, sX + rows * kXC, row0);\n", ""),
+    "probe_noload": [("            if (threadIdx.x == 0 && s + kStages - 1 < steps) "
+                      "load(s + kStages - 1);\n"
+                      "            mbar_wait(bars + 8 * (s % kStages), (s / kStages) & 1);",
+                      "            if (s < kStages - 1) "
+                      "mbar_wait(bars + 8 * (s % kStages), (s / kStages) & 1);")],
+    "probe_noproject": [("            plane_project<HD>(acc, sX, sX + rows * kXC, row0);\n", "")],
 }
 SHAPES = [(192, 257, 384), (256, 257, 384), (192, 257, 64), (192, 257, 768)]
 HEADS, HD = 6, 64
-
-
-def _variant_source(spec: str, out_dir: Path) -> Path:
-    """A copy of csrc/ with the edits of ``spec`` made; returns the copied
-    qkv_attention.cu."""
-    from irw_tpu_torch import cuda_lib
-
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for src in cuda_lib.CSRC.glob("*.cu*"):
-        shutil.copy(src, out_dir / src.name)
-    path = out_dir / "qkv_attention.cu"
-    text = path.read_text()
-    for item in filter(None, spec.split(",")):
-        key, value = item.split("=")
-        if key == "PATCH":
-            old, new = PATCHES[value]
-            if text.count(old) != 1:
-                raise ValueError(f"patch {value} does not apply to qkv_attention.cu")
-            text = text.replace(old, new)
-            continue
-        name = CONSTANTS[key]
-        text, count = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};",
-                              text)
-        if count != 1:
-            raise ValueError(f"{name} not found once in qkv_attention.cu")
-    path.write_text(text)
-    return path
-
-
-def _build(specs: list[str]) -> dict[str, tuple[Path, str]]:
-    from irw_tpu_torch import cuda_lib
-
-    base = ROOT / "build" / "k5_variants"
-    procs = {}
-    for spec in specs:
-        tag = spec or "committed"
-        src = _variant_source(spec, base / re.sub(r"[^A-Za-z0-9]+", "_", tag))
-        lib = src.with_suffix(".so")
-        cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(lib), str(src)]
-        procs[tag] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True), lib)
-    built = {}
-    for tag, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {tag} does not build:\n{log}")
-        # the plane kernels' registers and spills (ptxas names each entry first)
-        usage, entry = [], ""
-        for ln in log.splitlines():
-            if "Compiling entry function" in ln:
-                entry = ln
-            elif "plane" in entry and ("Used" in ln or "spill" in ln):
-                usage.append(ln.split(":", 1)[-1].strip())
-        built[tag] = (lib, " | ".join(usage))
-    return built
 
 
 def _inputs(b, n, d, seed):
@@ -138,15 +81,9 @@ def main(argv=None) -> int:
         return 1
     specs = [""] + list(argv if argv is not None else sys.argv[1:])
     t0 = time.perf_counter()
-    built = _build(specs)
+    built = cu_variants.build("qkv_attention.cu", specs, CONSTANTS, PATCHES, entries="plane")
     print(f"built {len(built)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
-
-    calls = {}
-    for tag, (path, _) in built.items():
-        lib = ctypes.CDLL(str(path))
-        for fn, (argtypes, restype) in _SIGNATURES.items():
-            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
-        calls[tag] = lib
+    calls = {tag: cu_variants.load(path, _SIGNATURES) for tag, (path, _) in built.items()}
 
     cases = {shape: _inputs(*shape, seed=i) for i, shape in enumerate(SHAPES)}
     outs = {shape: torch.empty(shape[0], shape[1], HEADS * HD, dtype=torch.bfloat16,
@@ -177,32 +114,17 @@ def main(argv=None) -> int:
                 if not err <= tol and "probe_" not in tag:
                     raise AssertionError(f"variant {tag} at {shape}: {err} > {tol}")
 
-    times = {tag: {shape: [] for shape in SHAPES} for tag in calls}
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for _ in range(3):
-        for shape in SHAPES:
-            for tag, lib in calls.items():
-                call = launcher(lib, shape)
-                for _ in range(3):
-                    call()
-                start.record()
-                for _ in range(20):
-                    call()
-                end.record()
-                torch.cuda.synchronize()
-                times[tag][shape].append(start.elapsed_time(end) / 20)
-
+    times = cu_variants.time_in_turns(list(calls), SHAPES,
+                                      lambda tag, shape: launcher(calls[tag], shape))
     for tag in calls:
-        ms = {"x".join(map(str, shape)): statistics.median(times[tag][shape]) for shape in SHAPES}
+        ms = {"x".join(map(str, shape)): times[tag][shape] for shape in SHAPES}
         t64, t384, t768 = (ms[f"192x257x{d}"] for d in (64, 384, 768))
         per_col = (t768 - t64) / (768 - 64)   # ms per column of D at B = 192
         print(json.dumps({"variant": tag, "ms": ms, "max_abs_err": errors[tag],
                           "projection_ms_at_384": per_col * 384,
                           "rest_ms_at_384": t384 - per_col * 384,
                           "ptxas": built[tag][1]}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
-    print(smi)
+    print(cu_variants.card_line())
     return 0
 
 
