@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --phases card,build,attention,train
+    python3 chip_smoke.py --phases card,build,loop
     python3 chip_smoke.py --phases card,build,dwt,wcnn
     python3 chip_smoke.py --phases card,build,flash,flash_serve,flash_train
     python3 chip_smoke.py --phases card,build,qkv,qkv_micro,variants
@@ -47,7 +48,16 @@ and prints one line per phase:
    own peak memory and finite metrics;
    one step on the kernel route held against the plain route (loss, and
    the gradient of each top-level module); one step profiled;
-9. dwt: K4 against ``lifting_multi_level_plain`` for haar at levels 1-3 at
+9. loop: the flagship study's epoch loop (``engine.train``) at full width:
+   2 epochs of 4 steps at batch 96 with ``memory=voc``'s XBM on 480
+   synthetic VOC train images, a Hamming eval of 384 queries against them
+   at epoch 2, async rolling checkpoints every epoch and ``epoch_N`` at
+   each; launches per train step and per eval batch, each epoch's trained
+   img/s, the eval, save and load seconds, the checkpoint's bytes, the
+   peak memory, finite metrics, the XBM's slots; then a fresh state resumed
+   from ``epoch_1`` (restored bit for bit) trains epoch 2 again, held to
+   the uninterrupted run;
+10. dwt: K4 against ``lifting_multi_level_plain`` for haar at levels 1-3 at
    the served shape (192, 224, 224), cdf97 at (192, 448, 448), bior48 and
    daub4 at level 2, and a ragged batch of non-square planes, logging the
    path each case took (register or tile: one launch) and requiring the one
@@ -57,11 +67,11 @@ and prints one line per phase:
    host's issue time, beside the ``conv2d`` that computes haar level 1, and
    cdf97 beside one ``conv2d`` of the 9 x 9 analysis filters at stride 2
    (both also as device time);
-10. wcnn: the full-width WCNN-attention model serves batches of 64: launch
+11. wcnn: the full-width WCNN-attention model serves batches of 64: launch
    counts per batch, embeddings held against the same model with K4's
    plain version, img/s, peak memory, one batch profiled; then ``evaluate``
    (cosine) on a CUB-test-sized synthetic set (5794 images, 100 classes);
-11. flash: K6-fwd (o, l, m) and K6-bwd against ``flash_attention_plain``
+12. flash: K6-fwd (o, l, m) and K6-bwd against ``flash_attention_plain``
    and ``flash_attention_plain_bwd`` over the kernels' surface (N from 1 to
    577 through the one-step boundary 128/129, head dims 32, 64 and 128,
    bf16 and f32, the strided views of one fused projection, the backward
@@ -71,13 +81,13 @@ and prints one line per phase:
    on the fused views, as the path gives them, and at larger f32 shapes;
    K6-fwd timed at the served shape and, with l and m, at the training
    shape, K6-bwd at the training shape, each beside SDPA at that shape;
-12. flash_serve: the full-width flagship with ``use_flash`` serves batches
+13. flash_serve: the full-width flagship with ``use_flash`` serves batches
    of 64 (launch counts, codes against the plain route, img/s), one batch
    profiled;
-13. flash_train: the same model trains at batch 96 (launch counts per step,
+14. flash_train: the same model trains at batch 96 (launch counts per step,
    the kernel route against the plain route, trained img/s, peak memory),
    one step profiled;
-14. qkv: K5's kernels with their registers and spills from the build; K5
+15. qkv: K5's kernels with their registers and spills from the build; K5
    against ``qkv_attention_plain`` over its surface (N = 1 to 289, one past
    the bf16 plane path's 288, head dims 32, 64 and 128, D = 64 to 768 with
    a ragged 96, bf16, and f32 at N = 37 and 257), logging the path each case
@@ -89,10 +99,10 @@ and prints one line per phase:
    the production segment (three ``F.linear`` + K2), the two-call yardstick
    (one ``F.linear`` onto (D, 3D), then SDPA) and the bound, and at the
    default shape beside its plain version;
-15. qkv_micro: ``irw_tpu_torch.benchmarks.vmem_qkv_micro.run()`` and
+16. qkv_micro: ``irw_tpu_torch.benchmarks.vmem_qkv_micro.run()`` and
    ``vmem_attn_micro.run()`` at their full default widths: their JSON, their
    maxdiffs against stated limits, and the launches of K5, K2 and K3;
-16. variants: the full-width flagship served with ``fused_qkv``, with
+17. variants: the full-width flagship served with ``fused_qkv``, with
    ``split_cls`` and with ``vmem_attn + ln_fused`` (codes against the default
    route, img/s, launch counts: never K5), ``infer_vmem_ab``'s sweep of the
    frozen flagship, and train steps at batch 96 with ``ln_fused`` on the
@@ -116,8 +126,8 @@ import time
 
 import numpy as np
 
-PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train", "dwt",
-          "wcnn", "flash", "flash_serve", "flash_train", "qkv", "qkv_micro", "variants")
+PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train", "loop",
+          "dwt", "wcnn", "flash", "flash_serve", "flash_train", "qkv", "qkv_micro", "variants")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -147,6 +157,9 @@ OPTIMIZER = [{"name": "AdamW", "params": None,
                                      "kwargs": {"T_max": 50, "eta_min": 1.0e-07}},
               "scheduler_on_step": None, "scheduler_on_val": None}]
 PROTOCOL = {"clip_grad": None, "warm_up": 0, "ortho_scale": None}
+# configs/memory/voc.yaml; tests/test_torch_loop.py holds this dict to the file
+MEMORY = {"name": "XBM", "kwargs": {"size": 5717, "weight": 1.0, "activate_after": 1,
+                                    "unique": True}}
 # configs/transform/voc_swt.yaml's test split, device ops (Resize/CenterCrop
 # are host geometry; the synthetic images are made at 224 already)
 SWT_OPS = [("SWTTransform", {"level": 1, "wavelet": "haar"})]
@@ -195,6 +208,19 @@ TRAIN_METRICS = ("total_loss", "grad_norm", "batch_map", "loss_0_HashLoss", "ort
 ROUTE_LOSS_TOL = 1e-3
 ROUTE_COSINE = 0.999
 LOGIT_MARGIN = 0.05     # codes must agree wherever |logit| exceeds this
+# the loop phase: the study's protocol (studies/voc_lambda_protocol.yaml) cut
+# to 2 epochs of 4 steps on a reduced synthetic VOC (train == gallery, a
+# disjoint query set), eval at the last epoch, a rolling save every epoch
+LOOP_TRAIN, LOOP_QUERY = 480, 384
+LOOP_EPOCHS, LOOP_STEPS = 2, 4
+LOOP = {"experience": {
+    "max_iter": LOOP_EPOCHS, "step_per_epoch": LOOP_STEPS, "seed": 0, "num_workers": 8,
+    "train_eval_freq": -1, "test_eval_freq": 2, "eval_split": "test",
+    "principal_metric": "map_level0", "eval_bs": 1000,
+    "evaluation": {"top_k": LOOP_TRAIN, "distance_metric": "hamming"},
+    "checkpoint_freq": 1, "async_checkpoint": True, "save_model": 1,
+    "sub_batch": TRAIN_BATCH, **PROTOCOL}}
+LOOP_EVAL_BATCHES = 2   # the query set and the gallery, each one padded batch of eval_bs
 VOC_ANCHOR_MAP = 0.3865
 # K4 and its plain version round every product, sum and quotient alike; the
 # limits, of max(1, max|plain|), leave room for an FMA contraction
@@ -970,6 +996,232 @@ def phase_train(state):
     model = _flagship_model()
     _check_cores(model, "vmem_attention_fn")
     _train_flagship(state, "train", model, (1, 24, 12, 0, 0, 0, 0), attention_plain_autograd, held)
+
+
+class _UnitLaunches:
+    """The device transform the loop runs, wrapped: each call starts a unit
+    of work (a train step, or under inference mode an eval batch) and notes
+    every kernel's launch count, so a unit's launches are the counts at the
+    next call (or at the end) less its own."""
+
+    def __init__(self, transform, kernels):
+        self.transform, self.kernels, self.marks = transform, kernels, []
+
+    def __call__(self, images):
+        import torch
+
+        self.marks.append((torch.is_inference_mode_enabled(),
+                           [fn.launches for fn in self.kernels]))
+        return self.transform(images)
+
+    def units(self, evaluating: bool) -> list:
+        ends = [counts for _, counts in self.marks[1:]] + [[fn.launches for fn in self.kernels]]
+        return [tuple(e - s for e, s in zip(end, start))
+                for (inference, start), end in zip(self.marks, ends) if inference == evaluating]
+
+
+def _payload_differences(saved, restored, path="state") -> list:
+    """Every leaf of two checkpoint payloads that differs (tensors bit for
+    bit, with dtype and shape), as its path."""
+    import torch
+
+    if torch.is_tensor(saved):
+        same = (torch.is_tensor(restored) and saved.dtype == restored.dtype
+                and saved.shape == restored.shape and torch.equal(saved, restored))
+        return [] if same else [path]
+    if isinstance(saved, dict):
+        if not isinstance(restored, dict) or saved.keys() != restored.keys():
+            return [path]
+        return [d for k in saved for d in _payload_differences(saved[k], restored[k],
+                                                                f"{path}.{k}")]
+    if isinstance(saved, (list, tuple)):
+        if not isinstance(restored, (list, tuple)) or len(saved) != len(restored):
+            return [path]
+        return [d for i, (a, b) in enumerate(zip(saved, restored))
+                for d in _payload_differences(a, b, f"{path}[{i}]")]
+    return [] if saved == restored else [path]
+
+
+def _jsonl(path) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_loop(state):
+    """The flagship study's epoch loop at full width (``engine.train``):
+    LOOP_EPOCHS epochs of LOOP_STEPS steps at batch 96 with ``memory=voc``'s
+    XBM, one Hamming eval of LOOP_QUERY queries against the LOOP_TRAIN
+    train images at the last epoch, async rolling checkpoints every epoch
+    and ``epoch_N`` at each; then a fresh state resumed from ``epoch_1``
+    trains epoch 2 again and is held to the uninterrupted run."""
+    import logging
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from irw_tpu_torch.data import SyntheticVOCDataset
+    from irw_tpu_torch.engine import (get_memory, init_train_state, load_checkpoint,
+                                      restore_train_state, train)
+    from irw_tpu_torch.engine.checkpoint import train_state_payload
+    from irw_tpu_torch.losses import build_losses
+    from irw_tpu_torch.samplers import RandomSampler
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    held = _release_earlier_phases(state)
+    exp = LOOP["experience"]
+    t0 = time.perf_counter()
+    train_ds = SyntheticVOCDataset(num_train=LOOP_TRAIN, image_size=224)
+    query = SyntheticVOCDataset(mode="query", num_query=LOOP_QUERY, image_size=224)
+    splits = {"test": {"query": query, "gallery": train_ds}}
+    log("loop", f"{LOOP_TRAIN} train and {LOOP_QUERY} query images at 224² made in "
+                f"{time.perf_counter() - t0:.1f} s")
+
+    def fresh_state(seed):
+        model = _flagship_model()
+        _check_cores(model, "vmem_attention_fn")
+        memory = get_memory(MEMORY, 64, train_ds.labels.shape[1:])
+        return init_train_state(model, build_losses(HASH_LOSS), OPTIMIZER, HASH_LOSS,
+                                seed=seed, xbm=memory)
+
+    saves = []
+
+    class SaveLog(logging.Handler):
+        def emit(self, record):
+            if hasattr(record, "checkpoint"):
+                saves.append(record.checkpoint)
+
+    ckpt_logger = logging.getLogger("irw_tpu_torch.engine.checkpoint")
+    handler, level = SaveLog(), ckpt_logger.level
+    ckpt_logger.addHandler(handler)
+    ckpt_logger.setLevel(logging.INFO)
+    root = tempfile.mkdtemp(prefix="irw_loop_")
+    try:
+        full_dir, resumed_dir = os.path.join(root, "full"), os.path.join(root, "resumed")
+        tstate = fresh_state(0)
+        kernels = _kernel_wrappers()
+        transform = _UnitLaunches(DeviceTransform(SWT_OPS), kernels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        _, evals = train(tstate, train_ds, RandomSampler(train_ds, TRAIN_BATCH, seed=0), splits,
+                         None, transform, LOOP, full_dir)
+        run_seconds = time.perf_counter() - t0
+        counts = _launch_counts(kernels)
+        peak = torch.cuda.max_memory_allocated() - held
+        steps, batches = transform.units(False), transform.units(True)
+        state["launches"]["loop"] = {fn.__name__: sum(u[i] for u in steps)
+                                     for i, fn in enumerate(kernels)}
+        state["launches"]["loop_eval"] = {fn.__name__: sum(u[i] for u in batches)
+                                          for i, fn in enumerate(kernels)}
+        log("loop", f"launches over the run: {counts}")
+        if len(steps) != LOOP_EPOCHS * LOOP_STEPS or len(batches) != LOOP_EVAL_BATCHES:
+            raise AssertionError(f"loop: {len(steps)} train steps and {len(batches)} eval "
+                                 f"batches, expected {LOOP_EPOCHS * LOOP_STEPS} and "
+                                 f"{LOOP_EVAL_BATCHES}")
+        _check_launches("loop", steps, (1, 24, 12, 0, 0, 0, 0), "train step")
+        _check_launches("loop", batches, (1, 12, 0, 0, 0, 0, 0), "eval batch")
+
+        records = _jsonl(os.path.join(full_dir, "metrics.jsonl"))
+        epochs = [r for r in records if "train/total_loss" in r]
+        if [r["step"] for r in epochs] != list(range(1, LOOP_EPOCHS + 1)):
+            raise AssertionError(f"loop: epoch records {[r['step'] for r in epochs]}")
+        for r in epochs:
+            ips = LOOP_STEPS * TRAIN_BATCH / r["train/train_seconds"]
+            log("loop", f"epoch {r['step']}: {r['train/train_seconds']:.3f} s of training, "
+                        f"{ips:.1f} trained img/s ({LOOP_STEPS} steps of {TRAIN_BATCH}; host "
+                        f"{r['train/step_seconds']:.3f} s issuing steps, "
+                        f"{r['train/data_seconds']:.4f} s in the loader) | {state['card']}")
+            log("loop", f"epoch {r['step']} metrics: " + ", ".join(
+                f"{k.removeprefix('train/')} {v:.6g}" for k, v in r.items()
+                if k.startswith("train/") and not k.endswith("seconds")))
+            if not all(math.isfinite(v) for v in r.values()):
+                raise AssertionError(f"loop: non-finite epoch metrics {r}")
+        evaluated = [r for r in records if "test/map_level0" in r]
+        results = evals["test"]
+        if ([r["step"] for r in evaluated] != [LOOP_EPOCHS]
+                or not all(math.isfinite(v) for v in results.values())
+                or not 0.0 <= results["map_level0"] <= 1.0):
+            raise AssertionError(f"loop: eval records {evaluated}")
+        log("loop", f"eval at epoch {LOOP_EPOCHS}: {evaluated[0]['test/eval_seconds']:.3f} s "
+                    f"({LOOP_QUERY} queries against {LOOP_TRAIN}, eval_bs {exp['eval_bs']}, "
+                    f"top_k {exp['evaluation']['top_k']}); map_level0 "
+                    f"{results['map_level0']:.4f} | {state['card']}")
+        for s in saves:
+            log("loop", f"save at epoch {s['epoch']}: device → host copy "
+                        f"{s['copy_seconds']:.3f} s, background write up to its wait "
+                        f"{s['write_seconds']:.3f} s, {s['bytes']} bytes | {state['card']}")
+        if [s["epoch"] for s in saves] != list(range(1, LOOP_EPOCHS + 1)):
+            raise AssertionError(f"loop: saves at epochs {[s['epoch'] for s in saves]}")
+        log("loop", f"the run: {run_seconds:.1f} s; its own peak memory "
+                    f"{peak / 2 ** 30:.2f} GiB (above {held / 2 ** 30:.2f} GiB held before "
+                    f"its model) | {state['card']}")
+
+        # the memory holds one slot per distinct index inserted
+        sampler = RandomSampler(train_ds, TRAIN_BATCH, seed=0)
+        seen = {int(i) for epoch in range(1, LOOP_EPOCHS + 1)
+                for b in sampler.reshuffle(epoch).batches[:LOOP_STEPS] for i in b}
+        valid = int(tstate.xbm_state.valid.sum())
+        log("loop", f"XBM: {valid} valid slots of {tstate.xbm.size}, {len(seen)} distinct "
+                    "indices inserted")
+        if valid != len(seen):
+            raise AssertionError(f"loop: the XBM holds {valid} slots, {len(seen)} inserted")
+
+        # a fresh state (other loss and generator seeds) resumed from epoch 1
+        os.makedirs(os.path.join(resumed_dir, "weights"))
+        shutil.copyfile(os.path.join(full_dir, "weights", "epoch_1"),
+                        os.path.join(resumed_dir, "weights", "rolling"))
+        resumed = fresh_state(1)
+        t0 = time.perf_counter()
+        payload, meta = load_checkpoint(resumed_dir)
+        t_load = time.perf_counter() - t0
+        restore_train_state(resumed, payload)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0 - t_load
+        log("loop", f"resume from epoch {meta['epoch']}: load {t_load:.3f} s, restore onto "
+                    f"the card {t_restore:.3f} s | {state['card']}")
+        differ = _payload_differences(payload, train_state_payload(resumed))
+        if differ or meta["epoch"] != 1:
+            raise AssertionError(f"loop: the restored state differs from the saved one at "
+                                 f"{differ[:8]}")
+        log("loop", "restored state equals the saved one bit for bit (parameters, BatchNorm "
+                    "statistics, AdamW moments, loss parameters and optimizer, XBM, "
+                    "generators, step, epoch)")
+        del payload
+        _, resumed_evals = train(resumed, train_ds, RandomSampler(train_ds, TRAIN_BATCH, seed=0),
+                                 splits, None, DeviceTransform(SWT_OPS),
+                                 {"experience": dict(exp, save_model=None)}, resumed_dir)
+        ours = [r for r in _jsonl(os.path.join(resumed_dir, "metrics.jsonl"))
+                if "train/total_loss" in r]
+        ref = epochs[-1]
+        metric_names = [k for k in ref if k.startswith("train/") and not k.endswith("seconds")]
+        params = list(zip(tstate.model.parameters(), resumed.model.parameters()))
+        same = (all(torch.equal(a, b) for a, b in params)
+                and all(ours[0][k] == ref[k] for k in metric_names)
+                and resumed_evals == evals)
+        if same:
+            log("loop", f"resumed epoch {LOOP_EPOCHS} equals the uninterrupted one bit for bit "
+                        "(parameters, epoch metrics, eval metrics)")
+        else:
+            dmax = max((a.float() - b.float()).abs().max().item() for a, b in params)
+            flat = [torch.cat([p.float().flatten() for p in m.parameters()])
+                    for m in (tstate.model, resumed.model)]
+            cosine = float(torch.nn.functional.cosine_similarity(*flat, dim=0))
+            rel = abs(ours[0]["train/total_loss"] - ref["train/total_loss"]) / abs(
+                ref["train/total_loss"])
+            log("loop", f"resumed epoch {LOOP_EPOCHS} differs: max |Δ parameter| {dmax:.3e}, "
+                        f"parameter cosine {cosine:.9f} (limit {ROUTE_COSINE}), total_loss rel "
+                        f"{rel:.2e} (limit {ROUTE_LOSS_TOL})")
+            if not (rel <= ROUTE_LOSS_TOL and cosine >= ROUTE_COSINE):
+                raise AssertionError("loop: the resumed run disagrees with the uninterrupted one")
+    finally:
+        ckpt_logger.removeHandler(handler)
+        ckpt_logger.setLevel(level)
+        shutil.rmtree(root, ignore_errors=True)
+    _release_earlier_phases(state)
 
 
 def phase_retrieval(state):
@@ -1922,7 +2174,8 @@ def main(argv=None) -> int:
     phase_card(state)
     runners = {"build": phase_build, "swt": phase_swt, "attention": phase_attention,
                "serve": phase_serve, "profile": phase_profile, "retrieval": phase_retrieval,
-               "train": phase_train, "dwt": phase_dwt, "wcnn": phase_wcnn, "flash": phase_flash,
+               "train": phase_train, "loop": phase_loop, "dwt": phase_dwt, "wcnn": phase_wcnn,
+               "flash": phase_flash,
                "flash_serve": phase_flash_serve, "flash_train": phase_flash_train,
                "qkv": phase_qkv, "qkv_micro": phase_qkv_micro, "variants": phase_variants}
     for name in phases:
@@ -1938,9 +2191,11 @@ def main(argv=None) -> int:
     runs = state["launches"]
     main_paths = {"lifting_multi_level": "wcnn", "flash_attention_fwd": "flash_train",
                   "flash_attention_bwd": "flash_train", "fused_qkv_attention": "qkv_micro"}
-    trained = {"flagship": ("train", TRAIN_STEPS), "flash": ("flash_train", TRAIN_STEPS)}
+    trained = {"flagship": ("train", TRAIN_STEPS), "flash": ("flash_train", TRAIN_STEPS),
+               "loop": ("loop", LOOP_EPOCHS * LOOP_STEPS)}
     served = {"flagship": ("serve", SERVE_BATCHES), "wcnn": ("wcnn", WCNN_BATCHES),
-              "flash": ("flash_serve", SERVE_BATCHES)}
+              "flash": ("flash_serve", SERVE_BATCHES),
+              "loop_eval": ("loop_eval", LOOP_EVAL_BATCHES)}
 
     def per_run(paths, name):
         return {path: runs[key].get(name, 0) / n for path, (key, n) in paths.items() if key in runs}

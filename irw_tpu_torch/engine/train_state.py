@@ -4,9 +4,10 @@
 PyTorch keeps parameters, BatchNorm statistics and optimizer moments inside
 the modules and optimizers, so the state holds those objects rather than
 their arrays: the model, the network's optimizer entries, the losses with
-their own optimizers and schedule states, the step and epoch counters, and
-one ``torch.Generator`` per rng stream (``dropout``, ``band_drop``) in place
-of the JAX PRNG key.
+their own optimizers and schedule states, the XBM memory and its buffers,
+the step and epoch counters, the continuation α, and one
+``torch.Generator`` per rng stream (``dropout``, ``band_drop``) in place of
+the JAX PRNG key.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from torch import nn
 
 from irw_tpu_torch.engine.optimizers import build_loss_optimizers, build_optimizers
+from irw_tpu_torch.engine.xbm import XBM, XBMState
 
 
 @dataclass
@@ -27,8 +29,12 @@ class TrainState:
     loss_optimizers: dict  # loss idx → torch optimizer over that loss's parameters
     loss_states: dict  # loss idx → schedule state
     generators: dict  # rng stream → torch.Generator on the model's device
+    xbm: XBM | None = None
+    xbm_state: XBMState | None = None  # the memory's buffers on the model's device
     step: int = 0  # global batch counter
     epoch: int = 0
+    # continuation α for tanh(α·x) models (HashNet/DSCH); no ported model takes it
+    model_alpha: float = 1.0
 
 
 def init_train_state(model: nn.Module, losses, optimizer_config, loss_config=(),
@@ -37,10 +43,9 @@ def init_train_state(model: nn.Module, losses, optimizer_config, loss_config=(),
     ``get_model``): the losses' parameters drawn from ``seed`` and moved to
     the model's device, the network's optimizers from ``optimizer_config``
     (``configs/optimizer/*.yaml``), the losses' own optimizers from
-    ``loss_config`` (``configs/loss/*.yaml``), and the rng streams seeded
-    from ``seed``.  Returns the model in training mode."""
-    if xbm is not None:
-        raise NotImplementedError("the XBM memory waits for ROADMAP A11")
+    ``loss_config`` (``configs/loss/*.yaml``), the ``xbm`` memory's empty
+    buffers on the model's device, and the rng streams seeded from
+    ``seed``.  Returns the model in training mode."""
     device = next(model.parameters()).device
     gen = torch.Generator().manual_seed(seed)
     for loss, _ in losses:
@@ -55,4 +60,6 @@ def init_train_state(model: nn.Module, losses, optimizer_config, loss_config=(),
         loss_optimizers=build_loss_optimizers(loss_config, losses),
         loss_states={str(i): loss.init_state() for i, (loss, _) in enumerate(losses)},
         generators=generators,
+        xbm=xbm,
+        xbm_state=None if xbm is None else xbm.init(device),
     )

@@ -20,15 +20,24 @@ One ``step(state, batch, hyper)`` call:
   unclipped loss gradients, and the per-batch ``step_update`` schedules;
 - the batch proxy mAP.
 
+With an XBM memory, every step inserts the detached embeddings, the labels
+and ``batch["index"]`` into ``state.xbm_state`` before the losses
+(``irw_tpu/engine/train_step.py:338-347``).  Only score-based or ref-aware
+losses (``accepts_refs``) read the memory (:270-278); the port has neither
+yet, so with the memory on (``xbm_active``) such a loss raises naming
+ROADMAP A11b, and for the rest the memory term is inert, as the JAX step
+warns once.
+
 It returns the metrics as 0-dim tensors on the device, under the JAX step's
 names (``total_loss``, ``grad_norm``, ``batch_map``, ``loss_<i>_<Loss>``,
-``ortho_raw``, ``ortho_loss``).  The XBM memory (ROADMAP A11), micro-batching
-(``sub_batch`` below the batch) and adaptive loss weighting (A12), and a
-pipeline-parallel ``apply_fn`` (A13) raise ``NotImplementedError``.
+``ortho_raw``, ``ortho_loss``).  Micro-batching (``sub_batch`` below the
+batch) and adaptive loss weighting (ROADMAP A12), and a pipeline-parallel
+``apply_fn`` (A13) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Callable
 
 import numpy as np
@@ -37,6 +46,8 @@ import torch
 from irw_tpu_torch.engine.optimizers import set_group_lrs
 from irw_tpu_torch.losses.base import LossContext, LossKind
 from irw_tpu_torch.utils.label_matrix import create_label_matrix
+
+LOGGER = logging.getLogger(__name__)
 
 
 def batch_proxy_map(embeddings, labels, metric: str = "cosine"):
@@ -71,13 +82,14 @@ def _as_device(x, device) -> torch.Tensor:
 
 def build_train_step(device_transform: Callable | None = None, clip_grad: float | None = None,
                      proxy_map_metric: str = "cosine", xbm=None, sub_batch: int | None = None,
-                     adaptive_weights: bool = False, apply_fn: Callable | None = None):
+                     adaptive_weights: bool = False, apply_fn: Callable | None = None,
+                     xbm_active: bool = False):
     """Returns ``step(state, batch, hyper) -> metrics``.  ``batch``: ``image``
-    (B, H, W, 3) uint8 or float, numpy or tensor, and ``label``.  ``hyper``:
-    ``lrs`` (entry name → label → lr), ``active`` (entry name → bool) and
-    optionally ``ortho_scale`` — what ``engine.train._build_hyper`` makes."""
-    if xbm is not None:
-        raise NotImplementedError("the XBM memory waits for ROADMAP A11")
+    (B, H, W, 3) uint8 or float, numpy or tensor, ``label`` and, with a
+    unique ``xbm``, ``index``.  ``hyper``: ``lrs`` (entry name → label →
+    lr), ``active`` (entry name → bool) and optionally ``ortho_scale`` —
+    what ``engine.train._build_hyper`` makes.  ``xbm_active``: the memory
+    term is on (the loop turns it on at ``xbm.activate_after``)."""
     if adaptive_weights:
         raise NotImplementedError("adaptive loss weighting waits for ROADMAP A12")
     if apply_fn is not None:
@@ -105,9 +117,27 @@ def build_train_step(device_transform: Callable | None = None, clip_grad: float 
         parts["ortho_loss"] = ortho.detach()
         return total, parts, new_states
 
+    use_xbm = xbm is not None and xbm_active
+    warned = False
+
+    def check_memory_consumers(losses):
+        """The JAX step's memory-term rule (train_step.py:195-207, 270-278)."""
+        nonlocal warned
+        readers = [type(loss).__name__ for loss, _ in losses
+                   if loss.kind == LossKind.SCORES or getattr(loss, "accepts_refs", False)]
+        if readers:
+            raise NotImplementedError(f"the XBM memory term of {readers} waits for ROADMAP A11b")
+        if not warned:
+            warned = True
+            LOGGER.warning("XBM memory is configured but no loss consumes it "
+                           f"({[type(loss).__name__ for loss, _ in losses]} are neither "
+                           "score-based nor ref-aware) — the memory term is inert")
+
     def step(state, batch: dict, hyper: dict) -> dict:
         model = state.model
         device = next(model.parameters()).device
+        if use_xbm:
+            check_memory_consumers(state.losses)
         images = batch["image"]
         if device_transform is not None:
             x = device_transform(images)
@@ -116,6 +146,9 @@ def build_train_step(device_transform: Callable | None = None, clip_grad: float 
             if x.dtype == torch.uint8:
                 x = x.float() / 255.0
         labels = _as_device(batch["label"], device)
+        # copied before the forward: a copy from pageable memory waits for the stream
+        index = (_as_device(batch["index"], device)
+                 if xbm is not None and batch.get("index") is not None else None)
         if sub_batch is not None and sub_batch < x.shape[0]:
             raise NotImplementedError("micro-batching (sub_batch below the batch) waits for "
                                       "ROADMAP A12")
@@ -125,6 +158,8 @@ def build_train_step(device_transform: Callable | None = None, clip_grad: float 
         for p in params + [p for loss, _ in state.losses for p in loss.parameters()]:
             p.grad = None
         output, aux = model(x, state.generators)
+        if xbm is not None:  # inserted before the losses read it (train_step.py:338-347)
+            state.xbm_state = xbm.update(state.xbm_state, output.detach(), labels, index)
         total, parts, new_loss_states = compute_losses(output, aux, labels, state,
                                                        hyper.get("ortho_scale"))
         total.backward()

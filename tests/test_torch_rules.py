@@ -65,6 +65,10 @@ def test_port_and_chip_smoke_import_no_jax():
             "irw_tpu_torch.utils.flops", "irw_tpu_torch.benchmarks",
             "irw_tpu_torch.benchmarks.vmem_qkv_micro", "irw_tpu_torch.benchmarks.vmem_attn_micro",
             "irw_tpu_torch.benchmarks.infer_vmem_ab"} <= set(modules)
+    assert {"irw_tpu_torch.samplers", "irw_tpu_torch.samplers.samplers",
+            "irw_tpu_torch.data.loader", "irw_tpu_torch.engine.train",
+            "irw_tpu_torch.engine.checkpoint", "irw_tpu_torch.engine.xbm",
+            "irw_tpu_torch.utils.meters"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r} + ['irw_tpu_torch', 'chip_smoke']:\n"

@@ -36,10 +36,10 @@ from irw_tpu.losses import build_losses as jax_build_losses
 from irw_tpu.models import get_model as jax_get_model
 from irw_tpu.transforms.pipeline import DeviceTransform as JaxDeviceTransform
 from irw_tpu_torch.bridge import from_jax_variables, load_jax_loss_params, load_jax_variables
-from irw_tpu_torch.engine import build_train_step, init_train_state
+from irw_tpu_torch.engine import XBM, build_train_step, init_train_state
 from irw_tpu_torch.engine import optimizers
 from irw_tpu_torch.engine.train import _apply_loss_epoch_updates, _build_hyper
-from irw_tpu_torch.losses import build_losses, get_loss
+from irw_tpu_torch.losses import LossBase, build_losses, get_loss
 from irw_tpu_torch.models import get_model
 from irw_tpu_torch.models.vit import VisionTransformer
 from irw_tpu_torch.transforms import DeviceTransform
@@ -295,9 +295,28 @@ def test_frozen_backbone_is_left_out_and_untrained():
         torch.testing.assert_close(p, b, rtol=0, atol=0)
 
 
+class _RefAwareLoss(LossBase):
+    """An EMBEDDINGS loss that would read the XBM memory."""
+
+    accepts_refs = True
+
+    def forward(self, ctx, state=None):
+        return ctx.embeddings.square().mean(), state
+
+
 def test_unported_training_paths_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_train_step(xbm=object())
+    tiny = get_model("multidino_attention_hashing", device="cpu", backbone="test_tiny",
+                     fusion_config={"type": "cross_attention_advanced", "output_dim": 64,
+                                    "num_heads": 2}, vit_kwargs={"img_size": 16})
+    memory = XBM(size=8, embedding_dim=64, label_shape=(20,))
+    opt_cfg, loss_cfg = _configs()
+    tiny_state = init_train_state(tiny, build_losses(loss_cfg) + [(_RefAwareLoss(), 1.0)],
+                                  opt_cfg, loss_cfg, xbm=memory)
+    batch = {"image": np.zeros((4, 4, 16, 16, 3), np.float32), "label": _batch()["label"][:4],
+             "index": np.arange(4)}
+    with pytest.raises(NotImplementedError, match="A11b"):
+        build_train_step(xbm=memory, xbm_active=True)(
+            tiny_state, batch, _build_hyper(tiny_state.optimizer_entries, 1, 0, 0, None))
     with pytest.raises(NotImplementedError, match="A12"):
         build_train_step(adaptive_weights=True)
     with pytest.raises(NotImplementedError, match="A13"):
