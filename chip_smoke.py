@@ -4,6 +4,7 @@
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --phases card,build,attention,train
     python3 chip_smoke.py --phases card,build,loop
+    python3 chip_smoke.py --phases card,build,runner
     python3 chip_smoke.py --phases card,build,dwt,wcnn
     python3 chip_smoke.py --phases card,build,flash,flash_serve,flash_train
     python3 chip_smoke.py --phases card,build,qkv,qkv_micro,variants
@@ -57,7 +58,18 @@ and prints one line per phase:
    peak memory, finite metrics, the XBM's slots; then a fresh state resumed
    from ``epoch_1`` (restored bit for bit) trains epoch 2 again, held to
    the uninterrupted run;
-10. dwt: K4 against ``lifting_multi_level_plain`` for haar at levels 1-3 at
+10. runner: the flagship study from its config, as a user runs it:
+   ``studies/voc_lambda_protocol.yaml`` read with the port's YAML reader,
+   its ortho_weight 0.1 job through ``irw_tpu_torch.single_experiment_runner``
+   cut to 2 epochs of 960 synthetic 64² images (10 steps of 96) through the
+   host stage (Resize 256, RandomResizedCrop 224, ColorJitter, flip) and 384
+   queries, everything else the study's; the host stage alone timed first,
+   the host's core count and whether Pillow and PyYAML are installed; then
+   launches per train step and per eval batch, each epoch's trained img/s,
+   ``data_seconds`` and ``step_seconds``, the eval seconds, the peak memory,
+   finite metrics; a second call returns the finished run's best score
+   without a launch or a record;
+11. dwt: K4 against ``lifting_multi_level_plain`` for haar at levels 1-3 at
    the served shape (192, 224, 224), cdf97 at (192, 448, 448), bior48 and
    daub4 at level 2, and a ragged batch of non-square planes, logging the
    path each case took (register or tile: one launch) and requiring the one
@@ -67,11 +79,11 @@ and prints one line per phase:
    host's issue time, beside the ``conv2d`` that computes haar level 1, and
    cdf97 beside one ``conv2d`` of the 9 x 9 analysis filters at stride 2
    (both also as device time);
-11. wcnn: the full-width WCNN-attention model serves batches of 64: launch
+12. wcnn: the full-width WCNN-attention model serves batches of 64: launch
    counts per batch, embeddings held against the same model with K4's
    plain version, img/s, peak memory, one batch profiled; then ``evaluate``
    (cosine) on a CUB-test-sized synthetic set (5794 images, 100 classes);
-12. flash: K6-fwd (o, l, m) and K6-bwd against ``flash_attention_plain``
+13. flash: K6-fwd (o, l, m) and K6-bwd against ``flash_attention_plain``
    and ``flash_attention_plain_bwd`` over the kernels' surface (N from 1 to
    577 through the one-step boundary 128/129, head dims 32, 64 and 128,
    bf16 and f32, the strided views of one fused projection, the backward
@@ -81,13 +93,13 @@ and prints one line per phase:
    on the fused views, as the path gives them, and at larger f32 shapes;
    K6-fwd timed at the served shape and, with l and m, at the training
    shape, K6-bwd at the training shape, each beside SDPA at that shape;
-13. flash_serve: the full-width flagship with ``use_flash`` serves batches
+14. flash_serve: the full-width flagship with ``use_flash`` serves batches
    of 64 (launch counts, codes against the plain route, img/s), one batch
    profiled;
-14. flash_train: the same model trains at batch 96 (launch counts per step,
+15. flash_train: the same model trains at batch 96 (launch counts per step,
    the kernel route against the plain route, trained img/s, peak memory),
    one step profiled;
-15. qkv: K5's kernels with their registers and spills from the build; K5
+16. qkv: K5's kernels with their registers and spills from the build; K5
    against ``qkv_attention_plain`` over its surface (N = 1 to 289, one past
    the bf16 plane path's 288, head dims 32, 64 and 128, D = 64 to 768 with
    a ragged 96, bf16, and f32 at N = 37 and 257), logging the path each case
@@ -99,10 +111,10 @@ and prints one line per phase:
    the production segment (three ``F.linear`` + K2), the two-call yardstick
    (one ``F.linear`` onto (D, 3D), then SDPA) and the bound, and at the
    default shape beside its plain version;
-16. qkv_micro: ``irw_tpu_torch.benchmarks.vmem_qkv_micro.run()`` and
+17. qkv_micro: ``irw_tpu_torch.benchmarks.vmem_qkv_micro.run()`` and
    ``vmem_attn_micro.run()`` at their full default widths: their JSON, their
    maxdiffs against stated limits, and the launches of K5, K2 and K3;
-17. variants: the full-width flagship served with ``fused_qkv``, with
+18. variants: the full-width flagship served with ``fused_qkv``, with
    ``split_cls`` and with ``vmem_attn + ln_fused`` (codes against the default
    route, img/s, launch counts: never K5), ``infer_vmem_ab``'s sweep of the
    frozen flagship, and train steps at batch 96 with ``ln_fused`` on the
@@ -127,7 +139,7 @@ import time
 import numpy as np
 
 PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train", "loop",
-          "dwt", "wcnn", "flash", "flash_serve", "flash_train", "qkv", "qkv_micro", "variants")
+          "runner", "dwt", "wcnn", "flash", "flash_serve", "flash_train", "qkv", "qkv_micro", "variants")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -221,6 +233,22 @@ LOOP = {"experience": {
     "checkpoint_freq": 1, "async_checkpoint": True, "save_model": 1,
     "sub_batch": TRAIN_BATCH, **PROTOCOL}}
 LOOP_EVAL_BATCHES = 2   # the query set and the gallery, each one padded batch of eval_bs
+# the runner phase: studies/voc_lambda_protocol.yaml's job at ortho_weight 0.1
+# through the port's runner, cut to 2 epochs of 960 synthetic 64² images (10
+# steps of 96 each) and 384 queries; everything else is the study's
+RUNNER_PLAN = "studies/voc_lambda_protocol.yaml"
+RUNNER_JOB = "model.kwargs.fusion_config.ortho_weight=0.1"
+RUNNER_TRAIN, RUNNER_QUERY, RUNNER_EPOCHS = 960, 384, 2
+RUNNER_CUTS = [f"dataset.kwargs.num_train={RUNNER_TRAIN}",
+               f"dataset.kwargs.num_query={RUNNER_QUERY}",
+               f"experience.max_iter={RUNNER_EPOCHS}", "experience.train_eval_freq=2",
+               "experience.test_eval_freq=2", "experience.checkpoint_freq=1",
+               f"experience.evaluation.top_k={RUNNER_TRAIN}"]
+RUNNER_STEPS = RUNNER_TRAIN // TRAIN_BATCH
+# inference-mode forwards of one run: the memory's embedding-size probe, then
+# the eval's query set and gallery, each one padded batch of eval_bs 1000
+RUNNER_EVAL_UNITS = 3
+HOST_BATCHES = 4        # batches timed through the host stage alone (median)
 VOC_ANCHOR_MAP = 0.3865
 # K4 and its plain version round every product, sum and quotient alike; the
 # limits, of max(1, max|plain|), leave room for an FMA contraction
@@ -1224,6 +1252,160 @@ def phase_loop(state):
     _release_earlier_phases(state)
 
 
+def _host_stage_times(host, dataset, seed: int) -> dict:
+    """The host stage alone on batches of TRAIN_BATCH of ``dataset``: ms per
+    batch for the train and the eval ops with no loader threads (median of
+    HOST_BATCHES), and through ``EpochLoader`` with 8 threads (2 ·
+    HOST_BATCHES batches, the wall time over their count)."""
+    from irw_tpu_torch.data import EpochLoader
+
+    order = np.random.RandomState(seed).permutation(len(dataset))
+    batches = [order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH] for i in range(2 * HOST_BATCHES)]
+    out = {}
+    for train in (True, False):
+        times = []
+        for b, idx in enumerate(batches[:HOST_BATCHES]):
+            t0 = time.perf_counter()
+            images = host.batch([dataset.images[i] for i in idx], np.random.RandomState(b), train)
+            times.append((time.perf_counter() - t0) * 1e3)
+        if images.shape != (TRAIN_BATCH, 224, 224, 3) or images.dtype != np.uint8:
+            raise AssertionError(f"runner: the host stage gave {images.shape} {images.dtype}")
+        t0 = time.perf_counter()
+        n = sum(1 for _ in EpochLoader(dataset, batches, host, num_workers=8, train=train,
+                                       seed=seed))
+        out["train" if train else "eval"] = (statistics.median(times),
+                                             (time.perf_counter() - t0) / n * 1e3)
+    return out
+
+
+def phase_runner(state):
+    """The flagship study from its config through the port's runner
+    (``irw_tpu_torch.single_experiment_runner``): the plan read with the
+    port's YAML reader, its ortho_weight 0.1 job with RUNNER_CUTS, two
+    epochs at full width through the host stage; launches per train step
+    and per eval batch, the epochs' numbers, finite metrics; then the same
+    call again returns the finished run's best score and launches nothing."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from irw_tpu_torch import single_experiment_runner as runner
+    from irw_tpu_torch.config import compose
+    from irw_tpu_torch.data import get_dataset
+    from irw_tpu_torch.engine import load_checkpoint_meta
+    from irw_tpu_torch.getter import Getter
+    from irw_tpu_torch.studies.run_plan import expand_jobs, load_plan
+    from irw_tpu_torch.transforms import build_transforms
+
+    held = _release_earlier_phases(state)
+    log("runner", f"host: os.cpu_count() {os.cpu_count()}; Pillow installed: "
+                  f"{importlib.util.find_spec('PIL') is not None}, PyYAML installed: "
+                  f"{importlib.util.find_spec('yaml') is not None} (the port uses neither)")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    jobs = expand_jobs(load_plan(os.path.join(repo, RUNNER_PLAN)))
+    (name, job), = [(n, o) for n, o in jobs if RUNNER_JOB in o]
+    root = tempfile.mkdtemp(prefix="irw_runner_")
+    overrides = job + RUNNER_CUTS + [f"experience.log_dir={root}"]
+    log("runner", f"{len(jobs)} jobs in {RUNNER_PLAN}; running {name} with {RUNNER_CUTS}")
+
+    config = compose(runner.CONFIG_DIR, "default", overrides)
+    exp = config.experience
+    if (config.dataset.sampler.kwargs.batch_size, exp.eval_bs, exp.num_workers) != (
+            TRAIN_BATCH, 1000, 8) or config.dataset.kwargs.image_size != 64:
+        raise AssertionError(f"runner: the study's settings changed: {config.dataset}, {exp}")
+    host, _ = build_transforms(config.transform.train, device="cpu")
+    dataset = get_dataset(config.dataset.name, **config.dataset.kwargs)
+    for split, (alone, threaded) in _host_stage_times(host, dataset, 0).items():
+        log("runner", f"host stage ({split} ops, {TRAIN_BATCH} images of 64² → 224²): "
+                      f"{alone:.1f} ms a batch alone (median of {HOST_BATCHES}), {threaded:.1f} ms "
+                      f"a batch through EpochLoader with 8 threads | {state['card']}")
+    del dataset
+
+    kernels = _kernel_wrappers()
+    wrapped = []
+    get_transform = Getter.get_transform
+
+    def counting(self, transform_config, device=None):
+        (h, d), test = get_transform(self, transform_config, device)
+        wrapped.append(_UnitLaunches(d, kernels))
+        return (h, wrapped[-1]), test
+
+    Getter.get_transform = counting
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        if runner.main(overrides) != 0:
+            raise AssertionError("runner: main returned non-zero")
+        run_seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        counts = _launch_counts(kernels)
+        (transform,) = wrapped
+        steps, evals = transform.units(False), transform.units(True)
+        state["launches"]["runner"] = {fn.__name__: sum(u[i] for u in steps)
+                                       for i, fn in enumerate(kernels)}
+        state["launches"]["runner_eval"] = {fn.__name__: sum(u[i] for u in evals)
+                                            for i, fn in enumerate(kernels)}
+        log("runner", f"launches over the run: {counts}")
+        if len(steps) != RUNNER_EPOCHS * RUNNER_STEPS or len(evals) != RUNNER_EVAL_UNITS:
+            raise AssertionError(f"runner: {len(steps)} train steps and {len(evals)} "
+                                 f"inference batches, expected {RUNNER_EPOCHS * RUNNER_STEPS} "
+                                 f"and {RUNNER_EVAL_UNITS}")
+        _check_launches("runner", steps, (1, 24, 12, 0, 0, 0, 0), "train step")
+        _check_launches("runner", evals, (1, 12, 0, 0, 0, 0, 0),
+                        "eval batch (the first: the memory's embedding-size probe)")
+
+        log_dir = os.path.join(root, name)
+        records = _jsonl(os.path.join(log_dir, "metrics.jsonl"))
+        epochs = [r for r in records if "train/total_loss" in r]
+        if [r["step"] for r in epochs] != list(range(1, RUNNER_EPOCHS + 1)):
+            raise AssertionError(f"runner: epoch records {[r['step'] for r in epochs]}")
+        for r in epochs:
+            ips = RUNNER_STEPS * TRAIN_BATCH / r["train/train_seconds"]
+            log("runner", f"epoch {r['step']}: {r['train/train_seconds']:.3f} s, {ips:.1f} "
+                          f"trained img/s ({RUNNER_STEPS} steps of {TRAIN_BATCH}); data_seconds "
+                          f"{r['train/data_seconds']:.4f}, step_seconds "
+                          f"{r['train/step_seconds']:.4f} | {state['card']}")
+            if not all(math.isfinite(v) for v in r.values()):
+                raise AssertionError(f"runner: non-finite epoch metrics {r}")
+        evaluated = [r for r in records if "test/map_level0" in r]
+        if ([r["step"] for r in evaluated] != [RUNNER_EPOCHS]
+                or not all(math.isfinite(v) for v in evaluated[0].values())
+                or not 0.0 <= evaluated[0]["test/map_level0"] <= 1.0):
+            raise AssertionError(f"runner: eval records {evaluated}")
+        log("runner", f"eval at epoch {RUNNER_EPOCHS}: {evaluated[0]['test/eval_seconds']:.3f} s "
+                      f"({RUNNER_QUERY} queries against {RUNNER_TRAIN} through the host stage, "
+                      f"eval_bs {exp.eval_bs}); map_level0 {evaluated[0]['test/map_level0']:.4f}")
+        log("runner", f"the run: {run_seconds:.1f} s; its own peak memory "
+                      f"{peak / 2 ** 30:.2f} GiB (above {held / 2 ** 30:.2f} GiB held before) | "
+                      f"{state['card']}")
+        best = load_checkpoint_meta(log_dir)["best_score"]
+    finally:
+        Getter.get_transform = get_transform
+
+    try:
+        # the finished-run check: the same job again trains nothing
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        score = runner.run_one(overrides)
+        seconds = time.perf_counter() - t0
+        again = _launch_counts(kernels)
+        n_records = len(_jsonl(os.path.join(log_dir, "metrics.jsonl")))
+        log("runner", f"second call: best_score {score} in {seconds:.3f} s (the first run's "
+                      f"{best}), launches {again}, {n_records} records (before: {len(records)})")
+        if score != best or any(again.values()) or n_records != len(records):
+            raise AssertionError("runner: the finished-run check trained again")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _release_earlier_phases(state)
+
+
 def phase_retrieval(state):
     import torch
 
@@ -2174,7 +2356,8 @@ def main(argv=None) -> int:
     phase_card(state)
     runners = {"build": phase_build, "swt": phase_swt, "attention": phase_attention,
                "serve": phase_serve, "profile": phase_profile, "retrieval": phase_retrieval,
-               "train": phase_train, "loop": phase_loop, "dwt": phase_dwt, "wcnn": phase_wcnn,
+               "train": phase_train, "loop": phase_loop, "runner": phase_runner,
+               "dwt": phase_dwt, "wcnn": phase_wcnn,
                "flash": phase_flash,
                "flash_serve": phase_flash_serve, "flash_train": phase_flash_train,
                "qkv": phase_qkv, "qkv_micro": phase_qkv_micro, "variants": phase_variants}
@@ -2192,10 +2375,12 @@ def main(argv=None) -> int:
     main_paths = {"lifting_multi_level": "wcnn", "flash_attention_fwd": "flash_train",
                   "flash_attention_bwd": "flash_train", "fused_qkv_attention": "qkv_micro"}
     trained = {"flagship": ("train", TRAIN_STEPS), "flash": ("flash_train", TRAIN_STEPS),
-               "loop": ("loop", LOOP_EPOCHS * LOOP_STEPS)}
+               "loop": ("loop", LOOP_EPOCHS * LOOP_STEPS),
+               "runner": ("runner", RUNNER_EPOCHS * RUNNER_STEPS)}
     served = {"flagship": ("serve", SERVE_BATCHES), "wcnn": ("wcnn", WCNN_BATCHES),
               "flash": ("flash_serve", SERVE_BATCHES),
-              "loop_eval": ("loop_eval", LOOP_EVAL_BATCHES)}
+              "loop_eval": ("loop_eval", LOOP_EVAL_BATCHES),
+              "runner_eval": ("runner_eval", RUNNER_EVAL_UNITS)}
 
     def per_run(paths, name):
         return {path: runs[key].get(name, 0) / n for path, (key, n) in paths.items() if key in runs}

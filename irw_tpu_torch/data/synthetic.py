@@ -1,4 +1,4 @@
-"""Deterministic in-memory datasets (port of ``irw_tpu/data/synthetic.py``
+"""Deterministic in-memory datasets (port of ``irw_tpu/data/synthetic.py:16-201``
 and of the parts of ``irw_tpu/data/base.py:10-75`` the samplers read).
 
 The images are drawn with numpy exactly as the JAX package draws them, so
@@ -60,7 +60,9 @@ class SyntheticDataset(InMemoryDataset):
     ids, or (N, num_label_dims) float multi-label vectors."""
 
     def __init__(self, num_samples: int = 256, num_classes: int = 8, image_size: int = 64,
-                 multi_label: bool = False, num_label_dims: int = 20, seed: int = 0):
+                 multi_label: bool = False, num_label_dims: int = 20, seed: int = 0,
+                 mode: str = "train", **kw):
+        # every mode draws the same set, and other keys are ignored, as in JAX
         rng = np.random.RandomState(seed)
         if multi_label:
             labels = np.zeros((num_samples, num_label_dims), np.float32)
@@ -89,6 +91,21 @@ class SyntheticDataset(InMemoryDataset):
         self.images = images
 
 
+class SyntheticHashingDataset(SyntheticDataset):
+    """The query/gallery protocol over one class distribution: disjoint
+    seeded draws for train, query (= test, a quarter of ``num_samples``, at
+    least 8) and gallery (= database)."""
+
+    _MODE_SEEDS = {"train": 0, "query": 1, "test": 1, "gallery": 2, "database": 2}
+
+    def __init__(self, num_samples: int = 256, mode: str = "train", seed: int = 0, **kw):
+        sizes = {"train": num_samples, "query": max(num_samples // 4, 8)}
+        n = sizes.get("train" if mode == "train" else
+                      ("query" if mode in ("query", "test") else "gallery"), num_samples)
+        super().__init__(num_samples=n if mode in ("train", "query", "test") else num_samples,
+                         seed=seed * 10 + self._MODE_SEEDS.get(mode, 0), mode=mode, **kw)
+
+
 class SyntheticVOCDataset(SyntheticDataset):
     """VOC2012Hashing-shaped protocol: train == database == gallery
     (``num_train``, default 5717), query/val/test a disjoint draw
@@ -111,7 +128,7 @@ class SyntheticVOCDataset(SyntheticDataset):
         n = int(num_query) if is_query else int(num_train)
         sub_seed = seed * 10 + (1 if is_query else 0)
         if not hard:
-            super().__init__(num_samples=n, seed=sub_seed, **kw)
+            super().__init__(num_samples=n, seed=sub_seed, mode=mode, **kw)
             return
         num_classes = int(kw["num_classes"])
         rng = np.random.RandomState(sub_seed)

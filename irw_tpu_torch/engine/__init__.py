@@ -4,8 +4,10 @@ XBM memory on one device."""
 from irw_tpu_torch.engine.checkpoint import (
     finalize_checkpoints,
     load_checkpoint,
+    load_checkpoint_meta,
     maybe_resume,
     restore_train_state,
+    rotate_stale_metrics,
     save_checkpoint,
     wait_for_checkpoints,
 )
@@ -17,5 +19,6 @@ from irw_tpu_torch.engine.xbm import XBM, XBMState, get_memory
 
 __all__ = ["MetricsLogger", "TrainState", "XBM", "XBMState", "batch_proxy_map",
            "build_train_step", "compute_embeddings", "evaluate", "finalize_checkpoints",
-           "get_memory", "init_train_state", "load_checkpoint", "maybe_resume",
-           "restore_train_state", "save_checkpoint", "train", "wait_for_checkpoints"]
+           "get_memory", "init_train_state", "load_checkpoint", "load_checkpoint_meta",
+           "maybe_resume", "restore_train_state", "rotate_stale_metrics", "save_checkpoint",
+           "train", "wait_for_checkpoints"]

@@ -204,10 +204,9 @@ def save_checkpoint(log_dir: str, tstate, config: dict, epoch: int, score: float
         _write(payload, path, epoch_path, info, time.perf_counter())
 
 
-def load_checkpoint(log_dir: str, map_location=None):
-    """The rolling checkpoint as (state, meta), or None if there is none
-    (the ``maybe_resume`` probe).  ``map_location`` as ``torch.load``'s;
-    the tensors were saved from the host."""
+def _rolling_path(log_dir: str) -> str | None:
+    """The rolling checkpoint's path after adopting a written async save,
+    or None if there is none."""
     wait_for_checkpoints()  # never read a half-written async save
     base = _ckpt_dir(log_dir)
     _promote_rolling(base)  # adopt a written rolling.next
@@ -218,25 +217,49 @@ def load_checkpoint(log_dir: str, map_location=None):
         if not os.path.exists(old):
             return None
         os.rename(old, path)
+    return path
+
+
+def load_checkpoint(log_dir: str, map_location=None):
+    """The rolling checkpoint as (state, meta), or None if there is none
+    (the ``maybe_resume`` probe).  ``map_location`` as ``torch.load``'s;
+    the tensors were saved from the host."""
+    path = _rolling_path(log_dir)
+    if path is None:
+        return None
     payload = torch.load(path, map_location=map_location, weights_only=True)
     LOGGER.info(f"checkpoint restored from {path}")
     return payload["state"], payload["meta"]
 
 
+def load_checkpoint_meta(log_dir: str) -> dict | None:
+    """The rolling checkpoint's meta (config, epoch, score, best score), or
+    None: the file is mapped, not read, so the state's tensors stay on disk."""
+    path = _rolling_path(log_dir)
+    if path is None:
+        return None
+    return torch.load(path, map_location="cpu", weights_only=True, mmap=True)["meta"]
+
+
+def rotate_stale_metrics(log_dir: str) -> None:
+    """Move a ``metrics.jsonl`` that no checkpoint continues (a crashed
+    attempt before its first save, or a re-run under the same name) to
+    ``metrics.jsonl.stale``, so the logger does not append to it."""
+    stale = os.path.join(log_dir, "metrics.jsonl")
+    if os.path.exists(stale):
+        os.replace(stale, stale + ".stale")
+        LOGGER.info("rotated stale metrics.jsonl from a previous attempt")
+
+
 def maybe_resume(tstate, log_dir: str, map_location=None) -> dict | None:
     """Resume ``tstate`` from ``log_dir``'s rolling checkpoint and return its
-    meta; with none, rotate a stale ``metrics.jsonl`` (a crashed attempt
-    before its first save, or a re-run under the same name) to
-    ``metrics.jsonl.stale`` so the logger does not append to it, and return
-    None (``run.py:147-166``)."""
+    meta; with none, rotate a stale ``metrics.jsonl`` and return None
+    (``run.py:147-166``)."""
     restored = load_checkpoint(log_dir, map_location)
     if restored is not None:
         payload, meta = restored
         restore_train_state(tstate, payload)
         LOGGER.info(f"resumed from epoch {meta['epoch']}")
         return meta
-    stale = os.path.join(log_dir, "metrics.jsonl")
-    if os.path.exists(stale):
-        os.replace(stale, stale + ".stale")
-        LOGGER.info("rotated stale metrics.jsonl from a previous attempt")
+    rotate_stale_metrics(log_dir)
     return None

@@ -1,10 +1,10 @@
 """Retrieval evaluation on one device (port of
 ``irw_tpu/engine/evaluate.py:26-82, 85-150, 196-274``).
 
-``compute_embeddings`` runs the eval-mode forward over a dataset's image
-array in batches (a plain iterator in place of ``EpochLoader``; the host
-transform stage waits for ROADMAP A8), padding the tail batch to keep one
-shape.  ``evaluate`` ranks and scores the embeddings with
+``compute_embeddings`` runs the eval-mode forward over a dataset in
+batches, walking it in order through ``EpochLoader(train=False)`` (the host
+stage with its eval ops, or the stored images with ``host_transform=None``),
+padding the tail batch to keep one shape.  ``evaluate`` ranks and scores the embeddings with
 ``ops.metrics.compute_retrieval_metrics``.  The out-of-memory retry, the
 distractor and landmark protocols and the multi-device paths wait for
 ROADMAP A12/A13.
@@ -15,19 +15,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from irw_tpu_torch.data.loader import EpochLoader
 from irw_tpu_torch.device import resolve_device
 from irw_tpu_torch.ops.metrics import compute_retrieval_metrics
 
 
 def compute_embeddings(model, dataset, device_transform=None, batch_size: int = 256,
-                       device=None):
-    """Embed ``dataset.images`` with ``model`` in eval mode.  Returns
-    (embeddings on ``device``, labels as numpy)."""
+                       device=None, host_transform=None, num_workers: int = 8):
+    """Embed ``dataset`` with ``model`` in eval mode.  Returns (embeddings on
+    ``device``, labels as numpy)."""
     device = resolve_device(device)
+    order = np.arange(len(dataset))
+    batches = [order[i:i + batch_size] for i in range(0, len(order), batch_size)]
+    loader = EpochLoader(dataset, batches, host_transform, num_workers=num_workers, train=False)
     chunks = []
     with torch.inference_mode():
-        for start in range(0, len(dataset.images), batch_size):
-            images = dataset.images[start:start + batch_size]
+        for batch in loader:
+            images = batch["image"]
             n = images.shape[0]
             if n < batch_size:  # pad the tail to keep one batch shape (:72-74)
                 images = np.concatenate(
@@ -72,7 +76,8 @@ def _metric_suite(query_emb, query_labels, gallery_emb, gallery_labels, cfg, dev
 
 def evaluate(model, datasets, device_transform=None, batch_size: int = 256, top_k=None,
              distance_metric: str = "cosine", multi_label: bool | None = None,
-             query_chunk: int = 512, device=None) -> dict:
+             query_chunk: int = 512, device=None, host_transform=None,
+             num_workers: int = 8) -> dict:
     """Evaluate retrieval quality; returns a flat dict of metrics.
 
     ``datasets`` is one dataset (self-retrieval, drop-self) or
@@ -92,14 +97,15 @@ def evaluate(model, datasets, device_transform=None, batch_size: int = 256, top_
             raise NotImplementedError("a query set with gnd (the revisited Oxford/Paris "
                                       "landmark protocol) waits for ROADMAP A12")
         q_emb, q_labels = compute_embeddings(model, datasets["query"], device_transform,
-                                             batch_size, device)
+                                             batch_size, device, host_transform, num_workers)
         if datasets["gallery"] is datasets["query"]:
             g_emb, g_labels = q_emb, q_labels
         else:
-            g_emb, g_labels = compute_embeddings(model, datasets["gallery"],
-                                                 device_transform, batch_size, device)
+            g_emb, g_labels = compute_embeddings(model, datasets["gallery"], device_transform,
+                                                 batch_size, device, host_transform, num_workers)
         cfg["same_source"] = datasets["query"] is datasets["gallery"]
         return _metric_suite(q_emb, q_labels, g_emb, g_labels, cfg, device)
-    emb, labels = compute_embeddings(model, datasets, device_transform, batch_size, device)
+    emb, labels = compute_embeddings(model, datasets, device_transform, batch_size, device,
+                                     host_transform, num_workers)
     cfg["same_source"] = True
     return _metric_suite(emb, labels, emb, labels, cfg, device)

@@ -116,9 +116,12 @@ def train(state, train_dataset, sampler, eval_datasets: dict, host_transform, de
     The JAX signature, without the arguments the port's ``TrainState``
     carries (the model, losses, optimizer entries, the losses' optimizer
     and the XBM memory).  ``eval_datasets``: split name → dataset or
-    ``{"query", "gallery"}`` dict.  ``host_transform`` must be None (the
-    host stage waits for ROADMAP A8b).  ``eval_fn(state, datasets)``
-    replaces ``engine.evaluate``.  Returns (state, metrics by split)."""
+    ``{"query", "gallery"}`` dict.  ``host_transform`` (a
+    ``transforms.HostTransform``, or None for the stored images) makes the
+    training batches with its train ops and the eval's with its eval ops,
+    as the JAX loop passes its one host stage to both.
+    ``eval_fn(state, datasets)`` replaces ``engine.evaluate``.  Returns
+    (state, metrics by split)."""
     exp = dict(config.get("experience", config))
     _refuse_unported(exp, config, instrumentor)
     max_iter = exp.get("max_iter", 50)
@@ -165,7 +168,8 @@ def train(state, train_dataset, sampler, eval_datasets: dict, host_transform, de
 
     run_eval = eval_fn or (lambda current, datasets: evaluate(
         current.model, datasets, device_transform, batch_size=eval_bs, top_k=top_k,
-        distance_metric=distance_metric, device=device))
+        distance_metric=distance_metric, device=device, host_transform=host_transform,
+        num_workers=num_workers))
 
     logger = MetricsLogger(log_dir)
     best_score = -float("inf")

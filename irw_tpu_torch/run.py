@@ -1,0 +1,111 @@
+"""Construction root (port of ``run.py:28-214``): from a composed config to
+a trained, resumable run on one device.
+
+``run(config)`` builds the transforms, datasets, sampler, model, losses,
+optimizers and XBM memory through ``Getter``, initialises the train state,
+resumes it from the run's rolling checkpoint (``experience.resume`` or
+``maybe_resume``) or rotates a stale ``metrics.jsonl`` aside, and hands it
+to ``engine.train``.  ``device=None`` means the card.
+
+k-fold splits, ``dsch_train`` and ``hooks_configs.active`` wait for ROADMAP
+A12; models outside the port's registry (the default
+``model=single_band_tiny`` among them) for A10.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+
+import numpy as np
+import torch
+
+from irw_tpu_torch.config import Config
+from irw_tpu_torch.engine.checkpoint import maybe_resume, rotate_stale_metrics
+from irw_tpu_torch.engine.train import train as engine_train
+from irw_tpu_torch.engine.train_state import init_train_state
+from irw_tpu_torch.getter import Getter
+
+LOGGER = logging.getLogger(__name__)
+
+
+def log_dir_of(exp) -> str:
+    return os.path.join(os.path.expanduser(exp.get("log_dir", "experiments")),
+                        str(exp.get("experiment_name", "default")))
+
+
+def _refuse_unported(exp) -> None:
+    if (exp.get("kfold") or {}).get("use_kfold"):
+        raise NotImplementedError("experience.kfold (k-fold splits) waits for ROADMAP A12")
+    if exp.get("dsch_train"):
+        raise NotImplementedError("experience.dsch_train (the DSCH protocol) waits for "
+                                  "ROADMAP A12")
+    if (exp.get("hooks_configs") or {}).get("active"):
+        raise NotImplementedError("experience.hooks_configs.active (the fixed-batch "
+                                  "instrumentor) waits for ROADMAP A12")
+
+
+def run(config, device=None) -> dict:
+    """Train the run ``config`` describes; returns the last eval's metrics
+    by split."""
+    if not isinstance(config, Config):
+        config = Config(config)
+    exp = config.experience
+    _refuse_unported(exp)
+    log_dir = log_dir_of(exp)
+    os.makedirs(log_dir, exist_ok=True)
+    seed = int(exp.get("seed", 333))
+
+    getter = Getter()
+    (host_train, device_train), _ = getter.get_transform(config.get("transform", {}), device)
+    train_ds, eval_datasets = getter.get_dataset(config.dataset)
+
+    # dataset.num_classes: null → infer it from the built dataset and carry it
+    # into the losses' class counts
+    if config.dataset.get("num_classes") is None:
+        labels = train_ds.labels
+        inferred = int(labels.shape[1]) if labels.ndim > 1 else int(labels.max()) + 1
+        config.dataset["num_classes"] = inferred
+        for entry in config.get("loss") or []:
+            kwargs = entry.get("kwargs")
+            if kwargs and kwargs.get("num_classes") not in (None, inferred):
+                LOGGER.info(f"loss {entry.get('name')}: num_classes {kwargs['num_classes']} "
+                            f"-> {inferred} (inferred from dataset)")
+                kwargs["num_classes"] = inferred
+
+    sampler_cfg = config.dataset.get("sampler",
+                                     {"name": "RandomSampler", "kwargs": {"batch_size": 32}})
+    sampler = getter.get_sampler(train_ds, sampler_cfg)
+    sampler.seed = seed
+    sampler.reshuffle(0)
+
+    model = getter.get_model(config.model, device, seed)
+    loss_config = config.get("loss", [])
+    losses = getter.get_loss(loss_config)
+
+    xbm = None
+    memory_cfg = config.get("memory")
+    if memory_cfg:
+        # the memory's embedding size from one eval-mode forward of the first
+        # batch, its images from the train host stage
+        first = sampler.batches[0]
+        images = host_train.batch([train_ds.images[i] for i in first],
+                                  np.random.RandomState(seed), True)
+        with torch.inference_mode():
+            out = model(device_train(images))
+        emb = out[0] if isinstance(out, tuple) else out
+        label_shape = train_ds.labels.shape[1:] if train_ds.labels.ndim > 1 else ()
+        xbm = getter.get_memory(memory_cfg, int(emb.shape[-1]), label_shape)
+
+    optimizer_cfg = config.get("optimizer", [{"name": "AdamW", "params": None,
+                                              "kwargs": {"lr": 1e-4}}])
+    state = init_train_state(model, losses, optimizer_cfg, loss_config, seed=seed, xbm=xbm)
+    if exp.get("resume") or exp.get("maybe_resume"):
+        maybe_resume(state, log_dir)
+    else:
+        rotate_stale_metrics(log_dir)
+
+    # the JAX loop is given the train host stage for its evals too
+    _, metrics = engine_train(state, train_ds, sampler, eval_datasets, host_train, device_train,
+                              config.to_dict(), log_dir)
+    return metrics

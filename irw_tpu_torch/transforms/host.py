@@ -1,0 +1,330 @@
+"""The host transform stage (port of ``HostTransform.__call__``,
+``irw_tpu/transforms/pipeline.py:99-236``), PIL's arithmetic in numpy.
+
+Ops: ``Resize`` (bilinear, square for an int size), ``CenterCrop`` (a crop
+past the image's edge is zero-filled, as PIL's), ``RandomCrop``,
+``RandomResizedCrop`` (aspect ratio drawn log-uniformly), ``RandomHorizontalFlip``,
+``ColorJitter`` with ``hue`` 0 (brightness, contrast and saturation factors
+drawn in that order, applied in ``rng.permutation`` order) and ``FixSize``
+(bicubic, up to a multiple of 2^level).  The draws consume a
+``np.random.RandomState`` exactly as the JAX ``__call__`` does; the pixels
+equal PIL's bit for bit (``tests/test_torch_host_transforms.py``):
+
+- ``Image.resize`` with BILINEAR or BICUBIC on 8-bit RGB: per output
+  pixel the filter's taps over [center - support, center + support)
+  (support scaled by the reduction), normalised to 1 and rounded to 22-bit
+  fixed point; a horizontal pass, rounded and clipped to uint8, then a
+  vertical pass: ``(acc + 2^21) >> 22`` clipped to 0-255;
+- ``ImageEnhance`` Brightness, Contrast and Color as PIL's ``blend`` of a
+  degenerate image and the image, ``d + f·(x - d)`` in float32, clipped and
+  truncated: the degenerate image is 0, the mean of the L image rounded to
+  an int (Contrast), or the L image (Color), L being
+  ``(19595 r + 38470 g + 7471 b + 2^15) >> 16``.
+
+``plan`` draws one image's steps; ``apply`` runs them on an (H, W, 3)
+uint8 image, computing a resize followed by an in-bounds crop only over
+the crop.  ``HostTransform.batch`` draws every image's plan in
+turn, then runs the pixels.  ``MultiCrop``, ``ColorJitter`` with a hue,
+``RandomGrayscale`` and ``GaussianBlur`` wait for ROADMAP A8c.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Sequence
+
+import numpy as np
+
+BILINEAR, BICUBIC = 0, 1
+PRECISION_BITS = 22  # PIL's 8-bit resample: 32 - 8 - 2
+_LATER = ("MultiCrop", "RandomGrayscale", "GaussianBlur")
+_OPS = ("Resize", "CenterCrop", "RandomCrop", "RandomResizedCrop", "RandomHorizontalFlip",
+        "ColorJitter", "FixSize")
+
+
+def _bilinear(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+def _bicubic(x: float) -> float:
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+_FILTERS = {BILINEAR: (_bilinear, 1.0), BICUBIC: (_bicubic, 2.0)}
+
+
+@lru_cache(maxsize=4096)
+def resample_coeffs(in_size: int, out_size: int, filt: int, channels: int = 1):
+    """PIL's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for a resize
+    of the whole axis: per output index its taps' input indices and int32
+    weights, (out, T) each, T the most non-zero taps any output takes (the
+    rest weigh 0 at a valid index).  With ``channels`` > 1 the axis holds
+    that many interleaved channels: (out · channels, T)."""
+    fn, support = _FILTERS[filt]
+    scale = filterscale = float(in_size) / out_size
+    if filterscale < 1.0:
+        filterscale = 1.0
+    support = support * filterscale
+    ss = 1.0 / filterscale
+    rows = []
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        k = [fn((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        ww = 0.0
+        for w in k:
+            ww += w
+        if ww != 0.0:
+            k = [w / ww for w in k]
+        k = [int(-0.5 + w * (1 << PRECISION_BITS)) if w < 0
+             else int(0.5 + w * (1 << PRECISION_BITS)) for w in k]
+        rows.append([(xmin + x, w) for x, w in enumerate(k) if w != 0] or [(xmin, 0)])
+    taps = max(len(r) for r in rows)
+    index = np.empty((out_size, taps), np.intp)
+    weight = np.zeros((out_size, taps), np.int32)
+    for xx, r in enumerate(rows):
+        index[xx] = [x for x, _ in r] + [r[-1][0]] * (taps - len(r))
+        weight[xx, :len(r)] = [w for _, w in r]
+    if channels > 1:
+        index = (index[:, None, :] * channels + np.arange(channels)[None, :, None]).reshape(
+            out_size * channels, taps)
+        weight = np.repeat(weight, channels, axis=0)
+    return index, weight
+
+
+def _clip8(acc: np.ndarray) -> np.ndarray:
+    np.right_shift(acc, PRECISION_BITS, out=acc)
+    np.maximum(acc, 0, out=acc)
+    np.minimum(acc, 255, out=acc)
+    return acc.astype(np.uint8)
+
+
+def _pass(src: np.ndarray, index: np.ndarray, weight: np.ndarray, axis: int) -> np.ndarray:
+    """One resample pass of a 2-D uint8 array along ``axis`` (0: rows, 1:
+    columns) for the output indices ``index``/``weight``."""
+    weight = weight if axis == 1 else weight[:, :, None]
+    acc = np.multiply(np.take(src, index[:, 0], axis=axis), weight[:, 0], dtype=np.int32)
+    tmp = np.empty_like(acc)
+    for t in range(1, index.shape[1]):
+        np.multiply(np.take(src, index[:, t], axis=axis), weight[:, t], out=tmp)
+        acc += tmp
+    acc += 1 << (PRECISION_BITS - 1)
+    return _clip8(acc)
+
+
+def resize(img: np.ndarray, out_w: int, out_h: int, filt: int, window=None) -> np.ndarray:
+    """PIL's ``Image.resize((out_w, out_h), filt)`` of the (H, W, 3) uint8
+    ``img``, cropped to ``window`` = (left, top, width, height) inside the
+    output: only the window's pixels are computed."""
+    in_h, in_w, _ = img.shape
+    left, top, cw, ch = window or (0, 0, out_w, out_h)
+    need_h, need_v = out_w != in_w, out_h != in_h
+    if need_v:
+        rindex, rweight = resample_coeffs(in_h, out_h, filt)
+        rindex, rweight = rindex[top:top + ch], rweight[top:top + ch]
+        r0, r1 = int(rindex.min()), int(rindex.max()) + 1
+        rows = slice(r0, r1)
+    else:
+        rows = slice(top, top + ch)
+    if need_h:
+        cindex, cweight = resample_coeffs(in_w, out_w, filt, 3)
+        cols = slice(3 * left, 3 * (left + cw))
+        flat = np.ascontiguousarray(img[rows]).reshape(-1, 3 * in_w)
+        img = _pass(flat, cindex[cols], cweight[cols], 1).reshape(-1, cw, 3)
+    else:
+        img = img[rows, left:left + cw]
+    if need_v:
+        flat = np.ascontiguousarray(img).reshape(img.shape[0], -1)
+        img = _pass(flat, rindex - r0, rweight, 0).reshape(ch, cw, 3)
+    return img
+
+
+def crop(img: np.ndarray, left: int, top: int, cw: int, ch: int) -> np.ndarray:
+    """PIL's ``crop``: the part past the image's edge is black."""
+    h, w, _ = img.shape
+    if left >= 0 and top >= 0 and left + cw <= w and top + ch <= h:
+        return img[top:top + ch, left:left + cw]
+    out = np.zeros((ch, cw, 3), np.uint8)
+    x0, y0 = max(left, 0), max(top, 0)
+    x1, y1 = min(left + cw, w), min(top + ch, h)
+    if x1 > x0 and y1 > y0:
+        out[y0 - top:y1 - top, x0 - left:x1 - left] = img[y0:y1, x0:x1]
+    return out
+
+
+def luminance(img: np.ndarray) -> np.ndarray:
+    """PIL's RGB → L, (19595 r + 38470 g + 7471 b + 2^15) >> 16, as uint8
+    (H, W).  Elementwise, with no BLAS call: a BLAS library's own threads
+    would compete with the loader's."""
+    lum = img[..., 0] * np.int32(19595)
+    lum += img[..., 1] * np.int32(38470)
+    lum += img[..., 2] * np.int32(7471)
+    lum += 0x8000
+    lum >>= 16
+    return lum.astype(np.uint8)
+
+
+def _blend(d, x, alpha: np.float32):
+    """``d + alpha·(x - d)`` in float32, clipped to 0-255, truncated to uint8."""
+    t = np.subtract(x, d, dtype=np.float32)
+    t *= alpha
+    t += d
+    np.maximum(t, 0.0, out=t)
+    np.minimum(t, 255.0, out=t)
+    return t.astype(np.uint8)
+
+
+_LEVELS = np.arange(256, dtype=np.float32)
+
+
+def enhance(img: np.ndarray, kind: str, factor: float) -> np.ndarray:
+    """``ImageEnhance.Brightness`` / ``Contrast`` / ``Color`` ``.enhance``:
+    PIL's ``Image.blend(degenerate, img, factor)``, the factor as a float32.
+    The blend of a pixel depends on its level and the degenerate image's
+    there, so each op is a table lookup: over the 256 levels for Brightness
+    (degenerate 0) and Contrast (the rounded mean of L), over the 256 × 256
+    (L, level) pairs for Color."""
+    alpha = np.float32(factor)
+    if kind == "saturation":
+        lum = luminance(img)
+        if alpha == 0.0:
+            return np.repeat(lum, 3).reshape(img.shape)
+        if alpha == 1.0:
+            return img
+        index = np.repeat(lum.astype(np.uint16) << 8, 3).reshape(img.shape)
+        index |= img
+        return np.take(_blend(_LEVELS[:, None], _LEVELS[None, :], alpha).reshape(-1), index)
+    if kind == "brightness":
+        d = 0
+    else:
+        d = int(float(luminance(img).sum(dtype=np.int64)) / (img.size // 3) + 0.5)
+    if alpha == 0.0:
+        return np.full_like(img, d)
+    if alpha == 1.0:
+        return img
+    return np.take(_blend(np.float32(d), _LEVELS, alpha), img)
+
+
+def _size2d(size):
+    if isinstance(size, int):
+        return (size, size)
+    return tuple(size)
+
+
+def plan(ops, width: int, height: int, rng: np.random.RandomState, train: bool):
+    """One image's steps, drawing from ``rng`` as the JAX ``__call__`` does:
+    (steps, out_w, out_h); steps are ("resize", w, h, filter),
+    ("crop", left, top, w, h), ("flip",) and (enhance kind, factor)."""
+    steps, w, h = [], width, height
+    for name, kw in ops:
+        if name == "Resize":
+            th, tw = _size2d(kw.get("size", 224))
+            steps.append(("resize", tw, th, BILINEAR))
+            w, h = tw, th
+        elif name in ("CenterCrop", "RandomCrop"):
+            th, tw = _size2d(kw.get("size", 224))
+            if name == "RandomCrop" and train and w >= tw and h >= th:
+                left = rng.randint(0, w - tw + 1)
+                top = rng.randint(0, h - th + 1)
+            else:
+                left, top = max((w - tw) // 2, 0), max((h - th) // 2, 0)
+            steps.append(("crop", int(left), int(top), tw, th))
+            w, h = tw, th
+        elif name == "RandomResizedCrop":
+            th, tw = _size2d(kw.get("size", 224))
+            if train:
+                scale = kw.get("scale", (0.08, 1.0))
+                ratio_span = kw.get("ratio", (3 / 4, 4 / 3))
+                target = rng.uniform(*scale) * (w * h)
+                ratio = float(np.exp(rng.uniform(np.log(ratio_span[0]), np.log(ratio_span[1]))))
+                cw = min(int(round(np.sqrt(target * ratio))), w)
+                ch = min(int(round(np.sqrt(target / ratio))), h)
+                left = rng.randint(0, w - cw + 1)
+                top = rng.randint(0, h - ch + 1)
+                steps.append(("crop", int(left), int(top), cw, ch))
+            steps.append(("resize", tw, th, BILINEAR))
+            w, h = tw, th
+        elif name == "RandomHorizontalFlip":
+            if train and rng.rand() < kw.get("p", 0.5):
+                steps.append(("flip",))
+        elif name == "ColorJitter":
+            if train:
+                drawn = [(kind, rng.uniform(max(0.0, 1 - span), 1 + span))
+                         for kind, span in (("brightness", kw.get("brightness", 0.0)),
+                                            ("contrast", kw.get("contrast", 0.0)),
+                                            ("saturation", kw.get("saturation", 0.0)))
+                         if span]
+                for i in rng.permutation(len(drawn)):
+                    steps.append(drawn[int(i)])
+        elif name == "FixSize":
+            factor = 2 ** kw.get("level", 1)
+            new_w = int(np.ceil(w / factor) * factor)
+            new_h = int(np.ceil(h / factor) * factor)
+            if (new_w, new_h) != (w, h):
+                steps.append(("resize", new_w, new_h, BICUBIC))
+                w, h = new_w, new_h
+    return steps, w, h
+
+
+def apply(img: np.ndarray, steps) -> np.ndarray:
+    """Run ``steps`` on the (H, W, 3) uint8 ``img``."""
+    i = 0
+    while i < len(steps):
+        step = steps[i]
+        if step[0] == "resize":
+            _, tw, th, filt = step
+            nxt = steps[i + 1] if i + 1 < len(steps) else None
+            if (nxt is not None and nxt[0] == "crop" and nxt[1] >= 0 and nxt[2] >= 0
+                    and nxt[1] + nxt[3] <= tw and nxt[2] + nxt[4] <= th):
+                img = resize(img, tw, th, filt, window=nxt[1:])
+                i += 1
+            else:
+                img = resize(img, tw, th, filt)
+        elif step[0] == "crop":
+            img = crop(img, *step[1:])
+        elif step[0] == "flip":
+            img = img[:, ::-1]
+        else:
+            img = enhance(img, step[0], step[1])
+        i += 1
+    return img
+
+
+class HostTransform:
+    """``ops``: list of (name, kwargs); with none, ``Resize(image_size)``.
+    ``__call__(img, rng, train)`` takes one (H, W, 3) uint8 image and gives
+    one, as the JAX class does for a PIL image; ``batch`` takes a sequence
+    of them and gives (B, H, W, 3), drawing the images' plans in order."""
+
+    def __init__(self, ops: Sequence[tuple[str, dict]] = (), image_size: int = 224):
+        self.ops = [(name, dict(kw or {})) for name, kw in ops] or [
+            ("Resize", {"size": (image_size, image_size)})]
+        for name, kw in self.ops:
+            if name in _LATER or (name == "ColorJitter" and kw.get("hue", 0.0)):
+                what = "ColorJitter with a hue" if name == "ColorJitter" else name
+                raise NotImplementedError(f"host transform {what} waits for ROADMAP A8c")
+            if name not in _OPS:
+                raise ValueError(f"unknown host transform {name!r}")
+
+    def __call__(self, img: np.ndarray, rng: np.random.RandomState, train: bool) -> np.ndarray:
+        return self.batch([img], rng, train)[0]
+
+    def batch(self, images, rng: np.random.RandomState, train: bool) -> np.ndarray:
+        plans = [plan(self.ops, img.shape[1], img.shape[0], rng, train) for img in images]
+        sizes = {(w, h) for _, w, h in plans}
+        if len(sizes) != 1:
+            raise ValueError(f"the host stage gives images of sizes {sorted(sizes)}: a batch "
+                             "needs one")
+        (w, h), = sizes
+        out = np.empty((len(images), h, w, 3), np.uint8)
+        for b, (img, (steps, _, _)) in enumerate(zip(images, plans)):
+            out[b] = apply(np.asarray(img, np.uint8), steps)
+        return out

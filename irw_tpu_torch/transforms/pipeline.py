@@ -1,5 +1,7 @@
 """Device transform stage (port of ``irw_tpu/transforms/pipeline.py:379-496``,
-``DeviceTransform``).
+``DeviceTransform``) and ``build_transforms`` (``pipeline.py:499-544``),
+which splits a transform config between the host stage
+(``transforms/host.py``) and this one.
 
 Input (B, H, W, 3) uint8 (numpy or tensor); ``x.float() / 255`` then the
 configured ops, in order:
@@ -15,8 +17,7 @@ configured ops, in order:
 - ``RGBToBGR``.
 
 ``DWTTransform``, ``ResizeSubBands`` and SWT with another wavelet or level
-wait for ROADMAP A9.  The host stage (PIL
-geometry) waits for A8: the served datasets hold images at their final size.
+wait for ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from irw_tpu_torch.device import resolve_device
+from irw_tpu_torch.transforms.host import HostTransform
 from irw_tpu_torch.ops.wavelets.lifting import BASES, lifting_decompose, subband_stack
 from irw_tpu_torch.ops.wavelets.lifting_dwt import lifting_multi_level
 from irw_tpu_torch.ops.wavelets.swt import haar_swt2
@@ -110,3 +112,33 @@ def custom_transform(x: torch.Tensor, decompose_levels=None, levels=1, basis: st
                 det = det.reshape(b, c, th, factor, tw, factor).mean(dim=(3, 5))
             bands.append(det)
     return torch.stack(bands, dim=1).movedim(2, -1)
+
+
+HOST_OPS = {"Resize", "CenterCrop", "RandomCrop", "RandomResizedCrop", "RandomHorizontalFlip",
+            "ColorJitter", "RandomGrayscale", "GaussianBlur", "FixSize", "MultiCrop"}
+DEVICE_OPS = {"Normalize", "CustomTransform", "SWTTransform", "DWTTransform", "ResizeSubBands",
+              "RGBToBGR"}
+SKIP_OPS = {"ToTensor"}  # implicit in the device stage
+
+
+def build_transforms(transform_config: dict | None, image_size: int = 224, device=None):
+    """Split a transform config (ordered name → kwargs, one split of
+    ``configs/transform/*.yaml``) into (HostTransform, DeviceTransform).
+    SWT and DWT put a host-side ``FixSize`` at their level first; with no
+    host op the host stage is ``Resize(image_size)``."""
+    host_ops, device_ops = [], []
+    for name, kw in (transform_config or {}).items():
+        kw = dict(kw or {})
+        if name in SKIP_OPS:
+            continue
+        if name in HOST_OPS:
+            host_ops.append((name, kw))
+        elif name in DEVICE_OPS:
+            if name in ("SWTTransform", "DWTTransform"):
+                host_ops.append(("FixSize", {"level": int(kw.get("level", 1))}))
+            device_ops.append((name, kw))
+        else:
+            raise ValueError(f"unknown transform {name!r}")
+    if not host_ops:
+        host_ops = [("Resize", {"size": (image_size, image_size)})]
+    return HostTransform(host_ops, image_size), DeviceTransform(device_ops, device=device)

@@ -59,6 +59,7 @@ from irw_tpu_torch.losses import build_losses
 from irw_tpu_torch.models import get_model
 from irw_tpu_torch.samplers import RandomSampler
 from irw_tpu_torch.transforms import DeviceTransform
+from irw_tpu_torch.transforms.host import HostTransform as PortHostTransform
 from test_torch_multi_dino import YAML, flagship_yaml
 from test_torch_train_model import EXACT_ZEROS
 from test_torch_train_step import (CLIP, METRIC_TOL, METRICS, OPS, ORTHO_SCALE, _RefAwareLoss,
@@ -366,7 +367,8 @@ REFUSALS = {
     "model_parallel": ({"model_parallel": 2}, {}, "A13"),
     "band_parallel": ({"band_parallel": 2}, {}, "A13"),
     "pipeline_parallel": ({"pipeline_parallel": 4}, {}, "A13"),
-    "host_transform": ({}, {"host_transform": object()}, "A8b"),
+    # a host stage with MultiCrop (the SwAV branch)
+    "host_transform": ({}, {"host_ops": [("MultiCrop", {})]}, "A8c"),
 }
 
 
@@ -378,7 +380,8 @@ def test_unported_loop_options_name_their_roadmap_item(option, tmp_path):
     state = _tiny_state()
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
     with pytest.raises(NotImplementedError, match=item):
-        train(state, ds, RandomSampler(ds, BATCH, seed=0), {}, extra.get("host_transform"),
+        train(state, ds, RandomSampler(ds, BATCH, seed=0), {},
+              PortHostTransform(extra["host_ops"]) if "host_ops" in extra else None,
               DeviceTransform(OPS, device="cpu"), config, str(tmp_path),
               instrumentor=extra.get("instrumentor"))
     assert state.step == 0 and all(torch.equal(v, before[k])

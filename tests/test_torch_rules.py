@@ -69,11 +69,17 @@ def test_port_and_chip_smoke_import_no_jax():
             "irw_tpu_torch.data.loader", "irw_tpu_torch.engine.train",
             "irw_tpu_torch.engine.checkpoint", "irw_tpu_torch.engine.xbm",
             "irw_tpu_torch.utils.meters"} <= set(modules)
+    assert {"irw_tpu_torch.config", "irw_tpu_torch.config.yaml_lite",
+            "irw_tpu_torch.config.compose", "irw_tpu_torch.transforms.host",
+            "irw_tpu_torch.data.registry", "irw_tpu_torch.getter", "irw_tpu_torch.run",
+            "irw_tpu_torch.single_experiment_runner", "irw_tpu_torch.studies",
+            "irw_tpu_torch.studies.run_plan"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r} + ['irw_tpu_torch', 'chip_smoke']:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'irw_tpu'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'irw_tpu', 'yaml', 'PIL'))\n"
         "print(json.dumps(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True, timeout=300)

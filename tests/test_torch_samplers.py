@@ -15,6 +15,7 @@ from irw_tpu.data.synthetic import SyntheticDataset as JaxSyntheticDataset
 from irw_tpu.data.synthetic import SyntheticVOCDataset as JaxSyntheticVOC
 from irw_tpu.samplers import get_sampler as jax_get_sampler
 from irw_tpu_torch.data import EpochLoader, SyntheticDataset, SyntheticVOCDataset
+from irw_tpu_torch.transforms import HostTransform
 from irw_tpu_torch.samplers import (HierarchicalSampler, MPerClassSampler, RandomSampler,
                                     get_sampler)
 
@@ -102,8 +103,11 @@ def test_epoch_loader_yields_the_sampler_batches(num_workers):
     np.testing.assert_array_equal(next(batches)["index"], sampler.batches[0])
     batches.close()
     assert not [t for t in threading.enumerate() if t.name.startswith("loader")]
-    with pytest.raises(NotImplementedError, match="A8b"):
-        EpochLoader(ds, sampler.batches, host_transform=object())
+    # with a host stage: its images, uint8, in the same batches
+    host = HostTransform([("Resize", {"size": 12}), ("CenterCrop", {"size": 10})])
+    staged = list(EpochLoader(ds, sampler.batches, host, num_workers=num_workers, prefetch=2))
+    assert [b["image"].shape for b in staged] == [(8, 10, 10, 3)] * 6
+    assert all(b["image"].dtype == np.uint8 for b in staged)
 
 
 def test_sampler_arguments_are_checked():
