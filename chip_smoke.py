@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases card,build,loop
     python3 chip_smoke.py --phases card,build,runner
     python3 chip_smoke.py --phases card,build,dwt,wcnn
+    python3 chip_smoke.py --phases card,build,wcnn_train,wcnn_xbm,losses
     python3 chip_smoke.py --phases card,build,flash,flash_serve,flash_train
     python3 chip_smoke.py --phases card,build,qkv,qkv_micro,variants
 
@@ -18,7 +19,9 @@ AdamW, attention backward on kernel K3 — and the DWT serving path — uint8
 images → DeviceTransform (Normalize, CustomTransform haar level 1: kernel
 K4) → RetrievalNet ``wcnn_attention_ce`` (4 × ResNet-50 at 112², CBAM
 subband gate, f32) → L2-normalised embeddings → cosine retrieval metrics —
-and the flagship with ``vit_kwargs={"use_flash": True}``, served and
+its training, with the per-branch CE losses and with the CUB recipe's
+CalibrationLoss + SupAP and their XBM memory terms, and every loss of
+``configs/loss`` against the CPU — and the flagship with ``vit_kwargs={"use_flash": True}``, served and
 trained with every block's attention on the flash kernels K6-fwd and K6-bwd
 — and the attention-segment path — the micro-benchmarks that drive kernel K5
 (q/k/v projections fused into the attention), K2 and K3, and the flagship
@@ -83,7 +86,26 @@ and prints one line per phase:
    counts per batch, embeddings held against the same model with K4's
    plain version, img/s, peak memory, one batch profiled; then ``evaluate``
    (cosine) on a CUB-test-sized synthetic set (5794 images, 100 classes);
-13. flash: K6-fwd (o, l, m) and K6-bwd against ``flash_attention_plain``
+13. wcnn_train: the WCNN CE path trains at full width (``wcnn_attention_ce``,
+   ``multi_ce_fusionloss``, ``cub_wresnet``'s Adam) at CUB's batch of 128,
+   uint8 images and labels in [0, 200) made on the card: 3 warm-up steps,
+   then trained img/s over one synchronised window of 20 steps (CUDA-event
+   step times beside it), K4 once a step, the path's own peak memory, finite
+   metrics; one step on K4's route held against K4's plain route from the
+   same weights (loss, and the gradient of each top-level module); one step
+   profiled;
+14. wcnn_xbm: the ROADMAP lineage's CUB recipe (``wcnn_attention``'s unit
+   2048-d embeddings, CalibrationLoss + SupAP, ``memory=cub``'s 5824-slot
+   XBM filled first through its own insert, ``configs/optimizer/cub.yaml``)
+   at batch 128: 2 warm-up steps, then 10 timed with the memory term on (the
+   general rank path at full M), launches, peak memory, the four loss terms;
+   the first timed step's terms against float64 on the CPU (values, and the
+   gradient with respect to the embeddings);
+15. losses: every loss ``build_losses`` makes from ``configs/loss/*.yaml`` on
+   the card at batch 128 (the memory readers also against 5824 slots), held
+   against the same call on the CPU: value, gradient cosine, BlackBoxAP's
+   ranks;
+16. flash: K6-fwd (o, l, m) and K6-bwd against ``flash_attention_plain``
    and ``flash_attention_plain_bwd`` over the kernels' surface (N from 1 to
    577 through the one-step boundary 128/129, head dims 32, 64 and 128,
    bf16 and f32, the strided views of one fused projection, the backward
@@ -93,13 +115,13 @@ and prints one line per phase:
    on the fused views, as the path gives them, and at larger f32 shapes;
    K6-fwd timed at the served shape and, with l and m, at the training
    shape, K6-bwd at the training shape, each beside SDPA at that shape;
-14. flash_serve: the full-width flagship with ``use_flash`` serves batches
+17. flash_serve: the full-width flagship with ``use_flash`` serves batches
    of 64 (launch counts, codes against the plain route, img/s), one batch
    profiled;
-15. flash_train: the same model trains at batch 96 (launch counts per step,
+18. flash_train: the same model trains at batch 96 (launch counts per step,
    the kernel route against the plain route, trained img/s, peak memory),
    one step profiled;
-16. qkv: K5's kernels with their registers and spills from the build; K5
+19. qkv: K5's kernels with their registers and spills from the build; K5
    against ``qkv_attention_plain`` over its surface (N = 1 to 289, one past
    the bf16 plane path's 288, head dims 32, 64 and 128, D = 64 to 768 with
    a ragged 96, bf16, and f32 at N = 37 and 257), logging the path each case
@@ -111,10 +133,10 @@ and prints one line per phase:
    the production segment (three ``F.linear`` + K2), the two-call yardstick
    (one ``F.linear`` onto (D, 3D), then SDPA) and the bound, and at the
    default shape beside its plain version;
-17. qkv_micro: ``irw_tpu_torch.benchmarks.vmem_qkv_micro.run()`` and
+20. qkv_micro: ``irw_tpu_torch.benchmarks.vmem_qkv_micro.run()`` and
    ``vmem_attn_micro.run()`` at their full default widths: their JSON, their
    maxdiffs against stated limits, and the launches of K5, K2 and K3;
-18. variants: the full-width flagship served with ``fused_qkv``, with
+21. variants: the full-width flagship served with ``fused_qkv``, with
    ``split_cls`` and with ``vmem_attn + ln_fused`` (codes against the default
    route, img/s, launch counts: never K5), ``infer_vmem_ab``'s sweep of the
    frozen flagship, and train steps at batch 96 with ``ln_fused`` on the
@@ -139,7 +161,8 @@ import time
 import numpy as np
 
 PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train", "loop",
-          "runner", "dwt", "wcnn", "flash", "flash_serve", "flash_train", "qkv", "qkv_micro", "variants")
+          "runner", "dwt", "wcnn", "wcnn_train", "wcnn_xbm", "losses", "flash", "flash_serve",
+          "flash_train", "qkv", "qkv_micro", "variants")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -258,6 +281,48 @@ K4_CDF97_SHAPE = (3 * BATCH, 448, 448)   # configs/transform/cub_dwt_cdf97.yaml
 WCNN_BATCHES = 6
 WCNN_EMB_TOL = 1e-4      # K4 against its plain version, on the L2-normalised embeddings
 CUB_TEST = 5794          # CUB-200-2011's test split (100 classes)
+# the WCNN training paths: configs/dataset/cub.yaml's batch and classes,
+# configs/loss/multi_ce_fusionloss.yaml with configs/optimizer/cub_wresnet.yaml
+# (wcnn_train), and configs/model/wcnn_attention.yaml with
+# configs/loss/roadmap.yaml, configs/memory/cub.yaml and
+# configs/optimizer/cub.yaml (wcnn_xbm); tests/test_torch_wcnn_train.py holds
+# these to the files
+CUB_BATCH, CUB_CLASSES = 128, 200
+WCNN_CE_LOSS = [{"name": "MultiCrossEntropyLoss", "weight": 1.0,
+                 "kwargs": {"weights": [0.75, 0.75, 0.75, 0.75, 2.0], "label_smoothing": 0.1}}]
+CUB_WRESNET = [{"name": "Adam", "params": None, "kwargs": {"lr": 1e-05, "weight_decay": 0.0004},
+                "scheduler_on_epoch": None, "scheduler_on_step": None, "scheduler_on_val": None}]
+WCNN_EMB = {"name": "wcnn_attention",
+            "kwargs": {"num_classes": 100, "attention": "cbam", "backbone": "resnet50"}}
+ROADMAP_LOSS = [{"name": "CalibrationLoss", "weight": 1.0,
+                 "kwargs": {"pos_margin": 0.9, "neg_margin": 0.6}},
+                {"name": "SupAP", "weight": 1.0,
+                 "kwargs": {"tau": 0.01, "rho": 100.0, "offset": 1.44, "delta": 0.05}}]
+CUB_MEMORY = {"name": "XBM", "activate_after": -1, "weight": 1.0,
+              "kwargs": {"size": 5824, "unique": True}}
+CUB_OPTIMIZER = [{"name": "Adam", "params": None,
+                  "kwargs": {"lr": 1e-05, "weight_decay": 0.0004},
+                  "scheduler_on_epoch": {"name": "MultiStepLR",
+                                         "kwargs": {"milestones": [30, 70], "gamma": 0.3,
+                                                    "last_epoch": -1}},
+                  "scheduler_on_step": None, "scheduler_on_val": None}]
+WCNN_TRAIN_STEPS = 20
+WCNN_TRAIN_METRICS = ("total_loss", "grad_norm", "batch_map", "loss_0_MultiCrossEntropyLoss")
+XBM_WARMUP, XBM_STEPS = 2, 10
+XBM_TERMS = ("loss_0_CalibrationLoss", "loss_0_memory_CalibrationLoss", "loss_1_SupAP",
+             "loss_1_memory_SupAP")
+XBM_TERM_TOL = 1e-4      # the card's f32 terms against float64 on the CPU, relative
+XBM_COSINE = 0.999
+# the losses phase: every loss of configs/loss/*.yaml at CUB's batch, D = 64
+# for the hashing losses (VOC's 20 multi-label classes) and 512 for the others
+# (CUB's 200 classes), the memory readers also against CUB's 5824 slots; the
+# same call on the CPU; a score loss whose memory call costs B·M² (the rank
+# family, BlackBoxAP) is held on its first LOSS_MEMORY_ROWS queries (each
+# query's AP reads only its own row), in full on the card
+LOSS_TOL, LOSS_COSINE = 1e-5, 0.9999
+LOSS_MEMORY_ROWS = 4     # spans two of the card's 3-query chunks at M = 5824
+HASHING_LOSSES = ("HashLoss", "HashNetAdapter", "HashNetLoss", "CSQAdapter", "CSQLoss",
+                  "HHFAdapter", "HHFLoss", "SCHLoss", "QuantizationLoss")
 # K6: the flagship's attention with use_flash, served (4 bands x 64) and
 # trained (4 bands x 96); the forward's outputs are averages of unit-normal
 # rows (|o| < 2), so one bf16 ulp flip is at most 2^-7 absolute; the
@@ -899,6 +964,58 @@ def phase_profile(state):
                         f"one batch of {BATCH}", state)
 
 
+def _timed_steps(phase: str, state, tstate, step, batches, hyper, warmup: int, n: int,
+                 expected: tuple, held: int, batch: int, what: str,
+                 after_step=None) -> tuple[list, float]:
+    """``warmup`` steps, then ``n`` timed ones in one window ended by a
+    synchronize (each step's time between CUDA events beside it); the launches
+    of every kernel per step must equal ``expected``; ``after_step(i)`` runs
+    after timed step i is issued.  Returns (metrics per timed step, mean ms a
+    step)."""
+    import torch
+
+    for i in range(warmup):  # cuBLAS handles, cuDNN plans, allocator, builds
+        step(tstate, batches[i % len(batches)], hyper())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _kernel_wrappers()
+    for fn in kernels:
+        fn.launches = 0
+    per_step, metrics = [], []
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    t0 = time.perf_counter()
+    for i in range(n):
+        before = [fn.launches for fn in kernels]
+        marks[i].record()
+        metrics.append(step(tstate, batches[i % len(batches)], hyper()))
+        per_step.append(tuple(fn.launches - b for fn, b in zip(kernels, before)))
+        if after_step is not None:
+            after_step(i)
+    marks[-1].record()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    counts = _launch_counts(kernels)
+    state["launches"][phase] = counts
+    peak = torch.cuda.max_memory_allocated() - held
+    log(phase, f"launches over {n} steps: {counts}")
+    _check_launches(phase, per_step, expected, "step")
+    log(phase, f"{n * batch / seconds:.1f} trained img/s, {seconds / n * 1e3:.1f} ms per step "
+               f"over the window (batch {batch}, {what}); steps " + ", ".join(f"{t:.1f}" for t in step_ms)
+               + f" ms between CUDA events, median {statistics.median(step_ms):.1f} | the path's "
+               f"own peak memory {peak / 2 ** 30:.2f} GiB (above {held / 2 ** 30:.2f} GiB held "
+               f"before its model) | {state['card']}")
+    return metrics, seconds / n * 1e3
+
+
+def _check_finite(phase: str, metrics: list, names) -> None:
+    for i, m in enumerate(metrics):
+        values = {k: float(v) for k, v in m.items()}
+        log(phase, f"step {i}: " + ", ".join(f"{k} {v:.6f}" for k, v in values.items()))
+        if not all(math.isfinite(values[k]) for k in names):
+            raise AssertionError(f"{phase} step {i}: non-finite metrics {values}")
+
+
 def _route_step(tstate, step, batch, hyper, snapshot, core=None):
     """One train step from ``snapshot`` (parameters, BatchNorm statistics,
     HashLoss proxies, rng states), optionally with every block's attention
@@ -955,42 +1072,10 @@ def _train_flagship(state, phase: str, model, expected: tuple, plain_core, held:
         return _build_hyper(tstate.optimizer_entries, 1, tstate.step, PROTOCOL["warm_up"], None,
                             PROTOCOL["ortho_scale"])
 
-    for i in range(WARMUP_CALLS):  # cuBLAS handles, allocator, build
-        step(tstate, batches[i % 2], hyper())
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels = _kernel_wrappers()
-    for fn in kernels:
-        fn.launches = 0
-    per_step, metrics = [], []
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
-    t0 = time.perf_counter()
-    for i in range(TRAIN_STEPS):
-        before = [fn.launches for fn in kernels]
-        marks[i].record()
-        metrics.append(step(tstate, batches[i % 2], hyper()))
-        per_step.append(tuple(fn.launches - b for fn, b in zip(kernels, before)))
-    marks[-1].record()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-    mean_ms = seconds / TRAIN_STEPS * 1e3
-    counts = _launch_counts(kernels)
-    state["launches"][phase] = counts
-    peak = torch.cuda.max_memory_allocated() - held
-    log(phase, f"launches over {TRAIN_STEPS} steps: {counts}")
-    _check_launches(phase, per_step, expected, "step")
-    log(phase, f"{TRAIN_STEPS * TRAIN_BATCH / seconds:.1f} trained img/s, {mean_ms:.1f} ms per "
-               f"step over the window (batch {TRAIN_BATCH}, bf16, block remat, AdamW); steps "
-               + ", ".join(f"{t:.1f}" for t in step_ms)
-               + f" ms between CUDA events, median {statistics.median(step_ms):.1f} | the "
-               f"path's own peak memory {peak / 2 ** 30:.2f} GiB (above {held / 2 ** 30:.2f} "
-               f"GiB held before its model) | {state['card']}")
-    for i, m in enumerate(metrics):
-        values = {k: float(v) for k, v in m.items()}
-        log(phase, f"step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in values.items()))
-        if not all(math.isfinite(values[k]) for k in TRAIN_METRICS):
-            raise AssertionError(f"step {i}: non-finite metrics {values}")
+    metrics, mean_ms = _timed_steps(phase, state, tstate, step, batches, hyper, WARMUP_CALLS,
+                                    TRAIN_STEPS, expected, held, TRAIN_BATCH,
+                                    "bf16, block remat, AdamW")
+    _check_finite(phase, metrics, TRAIN_METRICS)
 
     # the kernel route against the plain route, from one saved state
     snapshot = {"model": {k: v.clone() for k, v in model.state_dict().items()},
@@ -1717,6 +1802,425 @@ def phase_wcnn(state):
         raise AssertionError(f"evaluate gave non-finite or out-of-range metrics: {res}")
 
 
+def _cub_batches(n: int, seed: int, memory: int | None = None) -> list:
+    """``n`` batches of CUB_BATCH uint8 224² images and labels in [0, 200),
+    made on the card from ``seed``; with ``memory``, distinct slot indices."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = []
+    for _ in range(n):
+        batch = {"image": torch.randint(0, 256, (CUB_BATCH, 224, 224, 3), generator=gen,
+                                        device="cuda", dtype=torch.uint8),
+                 "label": torch.randint(0, CUB_CLASSES, (CUB_BATCH,), generator=gen,
+                                        device="cuda", dtype=torch.int32)}
+        if memory:
+            batch["index"] = torch.randperm(memory, generator=gen, device="cuda")[:CUB_BATCH]
+        batches.append(batch)
+    return batches
+
+
+def _wcnn_route_step(tstate, step, batch, hyper, snapshot, plain: bool):
+    """One step from the ``snapshot`` weights with CustomTransform on K4 or
+    on its plain version; (total_loss, flattened gradient per top-level
+    module)."""
+    import torch
+
+    from irw_tpu_torch.ops.wavelets import lifting_multi_level_plain
+    from irw_tpu_torch.transforms import pipeline
+
+    model = tstate.model
+    model.load_state_dict(snapshot)
+    kernel_fn = pipeline.lifting_multi_level
+    if plain:
+        pipeline.lifting_multi_level = lifting_multi_level_plain
+    try:
+        metrics = step(tstate, batch, hyper)
+    finally:
+        pipeline.lifting_multi_level = kernel_fn
+    grads = {name: torch.cat([p.grad.flatten() for p in child.parameters()])
+             for name, child in model.named_children()}
+    return float(metrics["total_loss"]), grads
+
+
+def phase_wcnn_train(state):
+    """The WCNN CE path trains at full width: WARMUP_CALLS steps, then
+    WCNN_TRAIN_STEPS timed ones at CUB's batch (K4 once a step); the K4
+    route against the plain route from identical weights; one step
+    profiled."""
+    import torch
+
+    from irw_tpu_torch.engine import build_train_step, init_train_state
+    from irw_tpu_torch.engine.train import _build_hyper
+    from irw_tpu_torch.losses import build_losses
+    from irw_tpu_torch.models import get_model
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    held = _release_earlier_phases(state)
+    model = get_model(WCNN["name"], seed=0, **WCNN["kwargs"])
+    tstate = init_train_state(model, build_losses(WCNN_CE_LOSS), CUB_WRESNET, WCNN_CE_LOSS,
+                              seed=0)
+    step = build_train_step(DeviceTransform(DWT_OPS))
+    batches = _cub_batches(2, seed=6)
+
+    def hyper():
+        return _build_hyper(tstate.optimizer_entries, 1, tstate.step, 0, None)
+
+    metrics, step_ms = _timed_steps(
+        "wcnn_train", state, tstate, step, batches, hyper, WARMUP_CALLS, WCNN_TRAIN_STEPS,
+        (0, 0, 0, 1, 0, 0, 0), held, CUB_BATCH, "Normalize + haar DWT + 4 x ResNet-50 at 112² "
+        "+ CBAM gate + 5 CE heads, f32 with TF32 convs, Adam; images made on the card: the "
+        "host stage is outside the window, ROADMAP M0")
+    _check_finite("wcnn_train", metrics, WCNN_TRAIN_METRICS)
+
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    loss_k, grads_k = _wcnn_route_step(tstate, step, batches[0], hyper(), snapshot, plain=False)
+    loss_p, grads_p = _wcnn_route_step(tstate, step, batches[0], hyper(), snapshot, plain=True)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cosines = {m: float(torch.nn.functional.cosine_similarity(grads_k[m], grads_p[m], dim=0))
+               for m in grads_k}
+    log("wcnn_train", f"K4 vs plain route: total_loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+                      f"{rel:.2e}, limit {ROUTE_LOSS_TOL}); gradient cosine per module "
+                      + ", ".join(f"{m} {c:.6f}" for m, c in cosines.items())
+                      + f" (limit {ROUTE_COSINE})")
+    if not (rel <= ROUTE_LOSS_TOL and all(c >= ROUTE_COSINE for c in cosines.values())):
+        raise AssertionError(f"the K4 route disagrees with the plain route: {rel}, {cosines}")
+
+    busy_ms = _device_profile("wcnn_train", lambda: step(tstate, batches[1], hyper()),
+                              f"one train step of {CUB_BATCH}", state, _WCNN_GROUPS)
+    if busy_ms is not None:
+        log("wcnn_train", f"idle share against the timed steps' {step_ms:.1f} ms: "
+                          f"{1 - busy_ms / step_ms:.3f}")
+
+
+def _roadmap_terms(losses, emb, labels, ref_emb, ref_labels, valid, supap_memory=None):
+    """The four terms of ``configs/loss/roadmap.yaml`` with a memory, as the
+    train step forms them: each loss on the batch and against the memory
+    (invalid slots zeroed, inert labels, −1e9 scores); ``supap_memory``
+    replaces the SupAP memory call."""
+    import torch
+
+    from irw_tpu_torch.losses import LossContext
+    from irw_tpu_torch.utils.label_matrix import create_label_matrix
+
+    cal, sup = losses[0][0], losses[1][0]
+    ref = ref_emb * valid[:, None]
+    ref_labels = torch.where(valid, ref_labels, -1)
+    scores = torch.where(valid[None, :], emb @ ref.T, -1e9)
+    target = create_label_matrix(labels, ref_labels, dtype=emb.dtype)
+    memory = (supap_memory(sup, scores, target) if supap_memory else
+              sup(LossContext(labels=labels, scores=scores, label_matrix=target))[0])
+    return {
+        "loss_0_CalibrationLoss": cal(LossContext(labels=labels, embeddings=emb))[0],
+        "loss_0_memory_CalibrationLoss": cal(LossContext(
+            labels=labels, embeddings=emb, ref_embeddings=ref, ref_labels=ref_labels))[0],
+        "loss_1_SupAP": sup(LossContext(labels=labels, embeddings=emb, scores=emb @ emb.T,
+                                        label_matrix=create_label_matrix(labels,
+                                                                         dtype=emb.dtype)))[0],
+        "loss_1_memory_SupAP": memory,
+    }
+
+
+def _supap_rows(sup, scores, target):
+    """SupAP's general path (1 − mAP over the queries) from the rows that
+    count: a row i adds target[i] · pos_rank[i] / rank[i] to its query's AP,
+    so only the query's positives are built, (P, M) instead of (M, M)."""
+    import torch
+
+    m = scores.shape[1]
+    aps = []
+    for s, t in zip(scores, target):
+        rows = t.nonzero().flatten()
+        diff = s[None, :] - s[rows][:, None]  # diff[r, j] = s[j] − s[rows[r]]
+        approx = sup.rank_approx(diff, t, general=True)
+        approx = approx * (torch.arange(m)[None, :] != rows[:, None]).to(s.dtype)
+        rank = 1.0 + approx.sum(-1)
+        pos_rank = 1.0 + (approx * t[None, :]).sum(-1)
+        aps.append((pos_rank / rank).sum() / torch.clamp(t.sum(), min=1.0))
+    return 1.0 - torch.stack(aps).mean()
+
+
+def phase_wcnn_xbm(state):
+    """The ROADMAP lineage's CUB recipe at full width: ``wcnn_attention``'s
+    unit 2048-d embeddings, CalibrationLoss + SupAP, the 5824-slot XBM filled
+    first through its own insert, XBM_WARMUP steps then XBM_STEPS timed
+    ones with the memory term on (the general rank path at full M); the
+    first timed step's four terms against float64 on the CPU."""
+    import torch
+
+    from irw_tpu_torch.engine import build_train_step, get_memory, init_train_state
+    from irw_tpu_torch.engine.train import _build_hyper
+    from irw_tpu_torch.losses import build_losses, rank_ap
+    from irw_tpu_torch.models import get_model
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    held = _release_earlier_phases(state)
+    model = get_model(WCNN_EMB["name"], seed=0, **WCNN_EMB["kwargs"])
+    xbm = get_memory(CUB_MEMORY, 2048)
+    tstate = init_train_state(model, build_losses(ROADMAP_LOSS), CUB_OPTIMIZER, ROADMAP_LOSS,
+                              seed=0, xbm=xbm)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    fill = torch.nn.functional.normalize(
+        torch.randn(xbm.size, 2048, generator=gen, device="cuda"), dim=1)
+    tstate.xbm_state = xbm.update(
+        tstate.xbm_state, fill, torch.randint(0, CUB_CLASSES, (xbm.size,), generator=gen,
+                                              device="cuda", dtype=torch.int32),
+        torch.arange(xbm.size, device="cuda"))
+    assert bool(tstate.xbm_state.valid.all())
+    step = build_train_step(DeviceTransform(DWT_OPS), xbm=xbm, xbm_active=True)
+    batches = _cub_batches(XBM_WARMUP + XBM_STEPS, seed=8, memory=xbm.size)
+
+    def hyper():
+        return _build_hyper(tstate.optimizer_entries, 1, tstate.step, 0, None)
+
+    for i in range(XBM_WARMUP):
+        step(tstate, batches[i], hyper())
+
+    kept = {}
+
+    def keep_first(i):
+        """What the first timed step's losses read: the memory after its insert
+        (copied on the card) and, in its slots, the batch's embeddings."""
+        if i == 0:
+            mem = tstate.xbm_state
+            kept["contents"] = [t.clone() for t in (mem.embeddings, mem.labels, mem.valid)]
+            kept["emb"] = mem.embeddings[batches[XBM_WARMUP]["index"].long() % xbm.size].clone()
+
+    metrics, step_ms = _timed_steps(
+        "wcnn_xbm", state, tstate, step, batches[XBM_WARMUP:], hyper, 0, XBM_STEPS,
+        (0, 0, 0, 1, 0, 0, 0), held, CUB_BATCH, "Normalize + haar DWT + 4 x ResNet-50 at 112² "
+        f"+ CBAM gate, CalibrationLoss + SupAP with their memory terms over {xbm.size} slots, "
+        "Adam; images made on the card: the host stage is outside the window, ROADMAP M0",
+        after_step=keep_first)
+    _check_finite("wcnn_xbm", metrics, XBM_TERMS + ("total_loss", "grad_norm"))
+    checked, contents, emb = metrics[0], kept["contents"], kept["emb"]
+    labels = batches[XBM_WARMUP]["label"]
+
+    # the first timed step's terms: the card's (f32) and float64 on the CPU
+    t0 = time.perf_counter()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    x = emb.clone().requires_grad_()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    marks[0].record()
+    card = _roadmap_terms(tstate.losses, x, labels, *contents)
+    sum(card.values()).backward()
+    marks[1].record()
+    torch.cuda.synchronize()
+    terms_peak = torch.cuda.max_memory_allocated() - base
+    chunk = max(1, rank_ap.GENERAL_CHUNK_ELEMENTS // xbm.size ** 2)
+    cpu_losses = [(loss.cpu().double(), w) for loss, w in build_losses(ROADMAP_LOSS)]
+    x64 = emb.double().cpu().requires_grad_()
+    ref = _roadmap_terms(cpu_losses, x64, labels.cpu(),
+                         *(c.double().cpu() if c.is_floating_point() else c.cpu()
+                           for c in contents), supap_memory=_supap_rows)
+    sum(ref.values()).backward()
+    cosine = float(torch.nn.functional.cosine_similarity(x.grad.double().cpu().flatten(),
+                                                         x64.grad.flatten(), dim=0))
+    ref = {k: float(v.detach()) for k, v in ref.items()}
+    rels = {k: abs(float(checked[k]) - v) / abs(v) for k, v in ref.items()}
+    log("wcnn_xbm", "first timed step's terms (card f32 | CPU float64): " + ", ".join(
+        f"{k} {float(checked[k]):.7f} | {v:.7f} (rel {rels[k]:.1e})" for k, v in ref.items())
+        + f"; the card's recomputed terms "
+        + ", ".join(f"{float(v.detach()):.7f}" for v in card.values())
+        + f" (forward and backward of the four terms {marks[0].elapsed_time(marks[1]):.1f} ms "
+        f"of the {step_ms:.1f} ms step, their own peak memory {terms_peak / 2 ** 30:.2f} GiB: "
+        f"SupAP's memory term in chunks of {chunk} queries, a ({chunk}, {xbm.size}, "
+        f"{xbm.size}) f32 tensor {chunk * xbm.size ** 2 * 4 / 2 ** 30:.2f} GiB)"
+        + f"; gradient cosine against the embeddings {cosine:.6f} (limits {XBM_TERM_TOL} "
+        f"relative, {XBM_COSINE}); {time.perf_counter() - t0:.1f} s")
+    if not (all(r <= XBM_TERM_TOL for r in rels.values()) and cosine >= XBM_COSINE):
+        raise AssertionError(f"wcnn_xbm: the memory terms disagree with float64: {rels}, "
+                             f"{cosine}")
+
+
+def _loss_configs() -> list:
+    """(file, entry) for every loss of ``configs/loss/*.yaml``, read with the
+    port's YAML reader, ``${dataset.num_classes}`` set to CUB's 200 classes
+    and ``${model.kwargs.embed_dim}`` to 512."""
+    import glob
+    import os
+
+    from irw_tpu_torch.config import yaml_lite
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = []
+    for path in sorted(glob.glob(os.path.join(root, "configs", "loss", "*.yaml"))):
+        with open(path) as f:
+            text = f.read().replace("${dataset.num_classes}", str(CUB_CLASSES))
+        for entry in yaml_lite.loads(text.replace("${model.kwargs.embed_dim}", "512")):
+            out.append((os.path.basename(path), entry))
+    return out
+
+
+def _loss_inputs(loss, name: str, memory: bool, seed: int) -> dict:
+    """Seeded numpy inputs of one call: ``x`` (an array, or a list for a
+    branch loss), ``labels``, and for a memory call the (B, M) scores with the
+    memory's labels, or the reference embeddings and labels."""
+    from irw_tpu_torch.losses import LossKind
+
+    rng = np.random.RandomState(seed)
+    hashing = name in HASHING_LOSSES
+    d = 64 if hashing else 512
+
+    def unit(n):
+        x = rng.randn(n, d).astype(np.float32)
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    def labels(n):
+        if hashing:  # VOC's multi-label rows
+            y = (rng.rand(n, 20) > 0.85).astype(np.float32)
+            y[np.arange(n), rng.randint(0, 20, n)] = 1.0
+            return y
+        return rng.randint(0, CUB_CLASSES, n).astype(np.int32)
+
+    out = {"labels": labels(CUB_BATCH)}
+    size = CUB_MEMORY["kwargs"]["size"]
+    if loss.kind == LossKind.BRANCHES:
+        width = CUB_CLASSES if name == "MultiCrossEntropyLoss" else d
+        out["x"] = [rng.randn(CUB_BATCH, width).astype(np.float32)
+                    for _ in range(5 if name == "MultiCrossEntropyLoss" else 4)]
+    elif loss.kind == LossKind.LOGITS:
+        out["x"] = 2.0 * rng.randn(CUB_BATCH, CUB_CLASSES).astype(np.float32)
+    elif loss.kind == LossKind.SCORES:
+        emb = unit(CUB_BATCH)
+        other = unit(size) if memory else emb
+        out["x"] = emb @ other.T
+        out["other_labels"] = labels(size) if memory else None
+    else:
+        out["x"] = (3.0 * rng.randn(CUB_BATCH, d).astype(np.float32) if hashing
+                    else unit(CUB_BATCH))
+        if memory:
+            out["ref"], out["ref_labels"] = unit(size), labels(size)
+    return out
+
+
+def _loss_call(loss, state, inp: dict, device: str, rows: int | None = None):
+    """The loss on ``device`` (its first ``rows`` queries with ``rows``):
+    (value, gradients with respect to the inputs, or None)."""
+    import torch
+
+    from irw_tpu_torch.losses import LossContext, LossKind
+    from irw_tpu_torch.utils.label_matrix import create_label_matrix
+
+    def t(a, grad=False):
+        a = a[:rows] if rows is not None and grad else a
+        return torch.tensor(a, device=device, requires_grad=grad)
+
+    labels = t(inp["labels"])
+    labels = labels[:rows] if rows is not None else labels
+    branches = isinstance(inp["x"], list)
+    xs = [t(a, True) for a in inp["x"]] if branches else [t(inp["x"], True)]
+    if loss.kind == LossKind.BRANCHES:
+        ctx = LossContext(labels=labels, branches=xs)
+    elif loss.kind == LossKind.SCORES:
+        other = None if inp["other_labels"] is None else t(inp["other_labels"])
+        ctx = LossContext(labels=labels, scores=xs[0],
+                          label_matrix=create_label_matrix(labels, other))
+    elif "ref" in inp:
+        ctx = LossContext(labels=labels, embeddings=xs[0], ref_embeddings=t(inp["ref"]),
+                          ref_labels=t(inp["ref_labels"]))
+    else:
+        ctx = LossContext(labels=labels, embeddings=xs[0])
+    value = loss(ctx, state)[0].mean()
+    grads = (torch.autograd.grad(value, xs, allow_unused=True) if value.requires_grad
+             else None)
+    return value.detach(), grads
+
+
+def _grad_cosine(card, cpu) -> float:
+    import torch
+
+    a = torch.cat([g.double().cpu().flatten() for g in card])
+    b = torch.cat([g.double().flatten() for g in cpu])
+    if not (a.any() or b.any()):
+        return 1.0
+    return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+
+
+def phase_losses(state):
+    """Every loss ``build_losses`` makes from ``configs/loss/*.yaml`` (each
+    distinct entry once) on the card at CUB's batch, the memory readers also
+    against 5824 slots, held against the same call on the CPU from the same
+    seeded inputs: the value within LOSS_TOL relative, the gradient cosine
+    at least LOSS_COSINE, BlackBoxAP's ranks equal."""
+    import copy
+
+    import torch
+
+    from irw_tpu_torch.losses import LossKind, build_losses
+    from irw_tpu_torch.losses.rank_ap import BlackBoxAP, SmoothRankAP, true_ranker
+
+    _release_earlier_phases(state)
+    seen, checked = {}, 0
+    for file, entry in _loss_configs():
+        key = json.dumps([entry["name"], entry.get("kwargs")], sort_keys=True)
+        if key in seen:
+            log("losses", f"{file}: {entry['name']} as in {seen[key]}")
+            continue
+        seen[key] = file
+        (loss, _), = build_losses([entry])
+        name = entry["name"]
+        if getattr(loss, "inner", True) is None:
+            # multi_roadmap_loss.yaml keys its inner loss loss_name:, which the
+            # constructor swallows as the JAX one does: no call can run
+            for device in ("cpu", "cuda"):
+                inp = _loss_inputs(loss, name, False, 0)
+                try:
+                    _loss_call(loss.to(device), None, inp, device)
+                except TypeError:
+                    continue
+                raise AssertionError(f"{file}: {name} without an inner loss ran on {device}")
+            log("losses", f"{file}: {name} has no inner loss (loss_name: is swallowed, as in "
+                          "the JAX package): its call raises on both devices")
+            continue
+        loss.reset_parameters(torch.Generator().manual_seed(0))
+        card_loss = copy.deepcopy(loss).cuda()
+        loss_state = loss.init_state()
+        for _ in range(10):  # a non-trivial schedule (QuantizationLoss's weight)
+            loss_state = loss.epoch_update(loss_state)
+        reads = loss.kind == LossKind.SCORES or getattr(loss, "accepts_refs", False)
+        for memory in (False, True) if reads else (False,):
+            inp = _loss_inputs(loss, name, memory, seed=len(seen))
+            rows = (LOSS_MEMORY_ROWS if memory and isinstance(loss, (SmoothRankAP, BlackBoxAP))
+                    else None)
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            marks[0].record()
+            full, _ = _loss_call(card_loss, loss_state, inp, "cuda")
+            marks[1].record()
+            torch.cuda.synchronize()
+            ours, card_grads = _loss_call(card_loss, loss_state, inp, "cuda", rows)
+            ref, cpu_grads = _loss_call(loss, loss_state, inp, "cpu", rows)
+            rel = abs(float(ours) - float(ref)) / max(abs(float(ref)), 1e-30)
+            if (card_grads is None) != (cpu_grads is None):
+                raise AssertionError(f"{file}: {name}: a gradient on one device only")
+            cosine = 1.0 if card_grads is None else _grad_cosine(card_grads, cpu_grads)
+            same_ranks = ""
+            if isinstance(loss, BlackBoxAP):
+                scores, other = inp["x"], inp["other_labels"]
+                target = (inp["labels"][:, None] == (inp["labels"] if other is None
+                                                     else other)[None, :]).astype(np.float32)
+                adj = scores - np.float32(loss.margin) * target
+                ranks = [true_ranker(torch.tensor(adj, device=dev), loss.lambda_val).cpu()
+                         for dev in ("cuda", "cpu")]
+                if not torch.equal(*ranks):
+                    raise AssertionError(f"{file}: BlackBoxAP ranks differ between the card "
+                                         "and the CPU")
+                same_ranks = f", ranks of {tuple(adj.shape)} equal"
+            what = ("memory" if memory else "batch") + (f", first {rows} queries" if rows else "")
+            log("losses", f"{file}: {name} ({what}): card {float(ours):.7f} | CPU "
+                          f"{float(ref):.7f} (rel {rel:.1e}), gradient cosine {cosine:.7f}"
+                          f"{same_ranks}; the card's full call {float(full):.6f} in "
+                          f"{marks[0].elapsed_time(marks[1]):.1f} ms")
+            if not (math.isfinite(float(full)) and rel <= LOSS_TOL and cosine >= LOSS_COSINE):
+                raise AssertionError(f"{file}: {name} ({what}) disagrees with the CPU: rel "
+                                     f"{rel}, cosine {cosine}")
+            checked += 1
+    log("losses", f"{checked} calls of {len(seen)} distinct losses held against the CPU "
+                  f"| {state['card']}")
+
+
 def _qkv(shape, dtype, gen, fused: bool):
     """Unit-normal q, k, v of ``shape``; with ``fused`` the three strided
     views of one (…, N, 3, H, hd) projection, as ``FlashAttention`` passes
@@ -2357,7 +2861,8 @@ def main(argv=None) -> int:
     runners = {"build": phase_build, "swt": phase_swt, "attention": phase_attention,
                "serve": phase_serve, "profile": phase_profile, "retrieval": phase_retrieval,
                "train": phase_train, "loop": phase_loop, "runner": phase_runner,
-               "dwt": phase_dwt, "wcnn": phase_wcnn,
+               "dwt": phase_dwt, "wcnn": phase_wcnn, "wcnn_train": phase_wcnn_train,
+               "wcnn_xbm": phase_wcnn_xbm, "losses": phase_losses,
                "flash": phase_flash,
                "flash_serve": phase_flash_serve, "flash_train": phase_flash_train,
                "qkv": phase_qkv, "qkv_micro": phase_qkv_micro, "variants": phase_variants}
@@ -2376,7 +2881,8 @@ def main(argv=None) -> int:
                   "flash_attention_bwd": "flash_train", "fused_qkv_attention": "qkv_micro"}
     trained = {"flagship": ("train", TRAIN_STEPS), "flash": ("flash_train", TRAIN_STEPS),
                "loop": ("loop", LOOP_EPOCHS * LOOP_STEPS),
-               "runner": ("runner", RUNNER_EPOCHS * RUNNER_STEPS)}
+               "runner": ("runner", RUNNER_EPOCHS * RUNNER_STEPS),
+               "wcnn": ("wcnn_train", WCNN_TRAIN_STEPS), "wcnn_xbm": ("wcnn_xbm", XBM_STEPS)}
     served = {"flagship": ("serve", SERVE_BATCHES), "wcnn": ("wcnn", WCNN_BATCHES),
               "flash": ("flash_serve", SERVE_BATCHES),
               "loop_eval": ("loop_eval", LOOP_EVAL_BATCHES),

@@ -24,7 +24,9 @@ are read with ``np.asarray``.  Handled layouts:
 - ``batch_stats`` mean/var → BatchNorm ``running_mean``/``running_var``.
 
 ``load_jax_loss_params`` carries a JAX train state's ``loss_params`` (the
-HashLoss proxies) into the port's loss modules.
+HashLoss and HHF proxies, ArcFace's class weights, and the nested trees of
+``MultiLoss``'s ``b<i>_l<j>`` and ``MultiEmbeddingLoss``'s ``inner``) into
+the port's loss modules.
 """
 
 from __future__ import annotations
@@ -244,14 +246,25 @@ def load_jax_variables(model, variables):
     return model
 
 
+def _flatten(tree, prefix: str = "") -> dict:
+    """A nested dict of leaves → {"a.b.leaf": leaf}; empty subtrees vanish."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flatten(value, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = value
+    return out
+
+
 def load_jax_loss_params(losses, loss_params):
-    """Load a JAX train state's ``loss_params`` (loss index → leaves, e.g.
-    ``{"0": {"proxies": (C, D)}}``) into the port's ``[(loss, weight)]``,
-    strictly; returns ``losses``."""
+    """Load a JAX train state's ``loss_params`` (loss index → tree, e.g.
+    ``{"0": {"proxies": (C, D)}}`` or ``{"0": {"b0_l1": {"weights": …}}}``)
+    into the port's ``[(loss, weight)]``, strictly; returns ``losses``."""
     import torch
 
     for idx, (loss, _) in enumerate(losses):
-        tree = loss_params.get(str(idx)) or {}
+        tree = _flatten(loss_params.get(str(idx)) or {})
         loss.load_state_dict({k: torch.from_numpy(np.array(v, dtype=np.float32))
                               for k, v in tree.items()}, strict=True)
     return losses

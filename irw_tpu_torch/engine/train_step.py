@@ -20,13 +20,22 @@ One ``step(state, batch, hyper)`` call:
   unclipped loss gradients, and the per-batch ``step_update`` schedules;
 - the batch proxy mAP.
 
-With an XBM memory, every step inserts the detached embeddings, the labels
-and ``batch["index"]`` into ``state.xbm_state`` before the losses
-(``irw_tpu/engine/train_step.py:338-347``).  Only score-based or ref-aware
-losses (``accepts_refs``) read the memory (:270-278); the port has neither
-yet, so with the memory on (``xbm_active``) such a loss raises naming
-ROADMAP A11b, and for the rest the memory term is inert, as the JAX step
-warns once.
+The losses take the model's output by their kind
+(``irw_tpu/engine/train_step.py:238-268``): a BRANCHES loss the list of
+branch outputs, a LOGITS loss the output (the last of a list), an
+EMBEDDINGS loss the output (the first of a list), a SCORES loss the raw
+``emb @ emb.T`` with the batch's label matrix.
+
+With an XBM memory, every step inserts the detached embeddings (the first
+output of a list), the labels and ``batch["index"]`` into
+``state.xbm_state`` before the losses (:338-347).  With the memory on
+(``xbm_active``) and a single output, each SCORES loss and each ref-aware
+EMBEDDINGS loss (``accepts_refs``) also runs against the memory
+(:269-304): invalid slots hold a zero embedding and the inert label (−1,
+or a zero row), and SCORES losses see −1e9 at their scores.  That term,
+``loss_<i>_memory_<Loss>``, is scaled by the loss's weight times
+``xbm.weight``.  Other losses ignore the memory, and with none that reads
+it the step warns once, as the JAX step does.
 
 It returns the metrics as 0-dim tensors on the device, under the JAX step's
 names (``total_loss``, ``grad_norm``, ``batch_map``, ``loss_<i>_<Loss>``,
@@ -95,19 +104,62 @@ def build_train_step(device_transform: Callable | None = None, clip_grad: float 
     if apply_fn is not None:
         raise NotImplementedError("a pipeline-parallel apply_fn waits for ROADMAP A13")
 
+    use_xbm = xbm is not None and xbm_active
+    warned = False
+
+    def memory_refs(state):
+        """The memory's (embeddings, labels, valid mask) as the losses read
+        them: invalid slots zeroed, their labels inert."""
+        mem_emb, mem_labels, valid = xbm.contents(state.xbm_state)
+        ref_emb = mem_emb * valid[:, None]
+        if mem_labels.dim() == 1:
+            ref_labels = torch.where(valid, mem_labels, -1)
+        else:
+            ref_labels = mem_labels * valid[:, None]
+        return ref_emb, ref_labels, valid
+
     def compute_losses(output, aux, labels, state, ortho_scale):
-        total = output.new_zeros((), dtype=torch.float32)
+        is_branches = isinstance(output, (list, tuple))
+        emb = None if is_branches else output
+        refs = memory_refs(state) if use_xbm and emb is not None else None
+        first = output[0] if is_branches else output
+        total = first.new_zeros((), dtype=torch.float32)
         parts, new_states = {}, {}
         for idx, (loss, weight) in enumerate(state.losses):
             key = str(idx)
-            if loss.kind != LossKind.EMBEDDINGS:
-                raise NotImplementedError(f"{loss.kind} losses wait for ROADMAP A11")
-            value, new_states[key] = loss(LossContext(embeddings=output, labels=labels),
-                                          state.loss_states.get(key))
+            name = type(loss).__name__
+            if loss.kind == LossKind.BRANCHES:
+                ctx = LossContext(labels=labels, branches=list(output))
+            elif loss.kind == LossKind.LOGITS:
+                ctx = LossContext(labels=labels, embeddings=output[-1] if is_branches else output)
+            elif loss.kind == LossKind.SCORES:
+                # raw dot products: a model that L2-normalises its output gives cosines
+                ctx = LossContext(labels=labels, embeddings=emb, scores=emb @ emb.T,
+                                  label_matrix=create_label_matrix(labels))
+            else:
+                ctx = LossContext(labels=labels, embeddings=first)
+            value, new_states[key] = loss(ctx, state.loss_states.get(key))
             if value.dim() > 0:
                 value = value.mean()
             total = total + weight * value
-            parts[f"loss_{idx}_{type(loss).__name__}"] = value.detach()
+            parts[f"loss_{idx}_{name}"] = value.detach()
+
+            reads_memory = loss.kind == LossKind.SCORES or (
+                loss.kind == LossKind.EMBEDDINGS and getattr(loss, "accepts_refs", False))
+            if refs is not None and reads_memory:
+                ref_emb, ref_labels, valid = refs
+                if loss.kind == LossKind.SCORES:
+                    scores = torch.where(valid[None, :], emb @ ref_emb.T, -1e9)
+                    mctx = LossContext(labels=labels, embeddings=emb, scores=scores,
+                                       label_matrix=create_label_matrix(labels, ref_labels))
+                else:
+                    mctx = LossContext(labels=labels, embeddings=emb, ref_embeddings=ref_emb,
+                                       ref_labels=ref_labels)
+                mem_value, _ = loss(mctx, state.loss_states.get(key))
+                if mem_value.dim() > 0:
+                    mem_value = mem_value.mean()
+                total = total + weight * xbm.weight * mem_value
+                parts[f"loss_{idx}_memory_{name}"] = mem_value.detach()
         ortho = aux.get("ortho_loss", total.new_zeros(()))
         # the constraint violation before ortho_weight and ortho_scale
         parts["ortho_raw"] = aux.get("ortho_raw", ortho).detach()
@@ -117,27 +169,23 @@ def build_train_step(device_transform: Callable | None = None, clip_grad: float 
         parts["ortho_loss"] = ortho.detach()
         return total, parts, new_states
 
-    use_xbm = xbm is not None and xbm_active
-    warned = False
-
-    def check_memory_consumers(losses):
-        """The JAX step's memory-term rule (train_step.py:195-207, 270-278)."""
+    def warn_if_inert(losses):
+        """The JAX step's warning (train_step.py:195-207): a memory that no
+        loss reads."""
         nonlocal warned
-        readers = [type(loss).__name__ for loss, _ in losses
-                   if loss.kind == LossKind.SCORES or getattr(loss, "accepts_refs", False)]
-        if readers:
-            raise NotImplementedError(f"the XBM memory term of {readers} waits for ROADMAP A11b")
-        if not warned:
-            warned = True
-            LOGGER.warning("XBM memory is configured but no loss consumes it "
-                           f"({[type(loss).__name__ for loss, _ in losses]} are neither "
-                           "score-based nor ref-aware) — the memory term is inert")
+        if warned or any(loss.kind == LossKind.SCORES or getattr(loss, "accepts_refs", False)
+                         for loss, _ in losses):
+            return
+        warned = True
+        LOGGER.warning("XBM memory is configured but no loss consumes it "
+                       f"({[type(loss).__name__ for loss, _ in losses]} are neither "
+                       "score-based nor ref-aware) — the memory term is inert")
 
     def step(state, batch: dict, hyper: dict) -> dict:
         model = state.model
         device = next(model.parameters()).device
         if use_xbm:
-            check_memory_consumers(state.losses)
+            warn_if_inert(state.losses)
         images = batch["image"]
         if device_transform is not None:
             x = device_transform(images)
@@ -158,11 +206,18 @@ def build_train_step(device_transform: Callable | None = None, clip_grad: float 
         for p in params + [p for loss, _ in state.losses for p in loss.parameters()]:
             p.grad = None
         output, aux = model(x, state.generators)
+        # the embeddings the memory takes and batch_map reads: a list's first output
+        emb = (output[0] if isinstance(output, (list, tuple)) else output).detach()
         if xbm is not None:  # inserted before the losses read it (train_step.py:338-347)
-            state.xbm_state = xbm.update(state.xbm_state, output.detach(), labels, index)
+            state.xbm_state = xbm.update(state.xbm_state, emb, labels, index)
         total, parts, new_loss_states = compute_losses(output, aux, labels, state,
                                                        hyper.get("ortho_scale"))
-        total.backward()
+        if total.requires_grad:
+            total.backward()
+        else:  # no term reaches a parameter (a MultiLoss with no branch loss): zero gradients
+            for p in params:
+                if p.requires_grad:
+                    p.grad = torch.zeros_like(p)
 
         # frozen parameters ran under no_grad and have no gradient: the JAX
         # step's zeroed frozen leaves add nothing to its norm either
@@ -185,7 +240,6 @@ def build_train_step(device_transform: Callable | None = None, clip_grad: float 
                              for idx, (loss, _) in enumerate(state.losses)}
         state.step += 1
 
-        emb = output.detach()
         return {
             "total_loss": total.detach(),
             "grad_norm": grad_norm.detach(),

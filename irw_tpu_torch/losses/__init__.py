@@ -1,25 +1,48 @@
-"""Losses (port of ``irw_tpu/losses/__init__.py:73-95``).
+"""Losses (port of ``irw_tpu/losses/__init__.py``): the whole registry,
+adapter aliases included.
 
 ``build_losses`` turns the list-valued loss config (``[{name, weight,
 kwargs}, ...]``, ``configs/loss/*.yaml``) into ``[(loss, weight), ...]``.
-This slice ports ``HashLoss``, the flagship's; every other loss of the JAX
-registry raises naming ROADMAP A11.
 """
 
 from irw_tpu_torch.losses.base import LossBase, LossContext, LossKind
-from irw_tpu_torch.losses.hashing import HashLoss
+from irw_tpu_torch.losses.classification import ArcFaceLoss, CrossEntropy, MultiCrossEntropyLoss
+from irw_tpu_torch.losses.hashing import (CSQLoss, HashLoss, HashNetLoss, HHFLoss,
+                                          QuantizationLoss, SCHLoss)
+from irw_tpu_torch.losses.multi import FeatureDistillationLoss, MultiEmbeddingLoss, MultiLoss
+from irw_tpu_torch.losses.pairwise import CalibrationLoss, PairLoss
+from irw_tpu_torch.losses.rank_ap import (AffineAP, BlackBoxAP, FastAP, HeavisideAP, SmoothAP,
+                                          SoftBinAP, SupAP)
 
-LOSS_REGISTRY = {"HashLoss": HashLoss}
-_LATER = ("HeavisideAP", "SmoothAP", "SupAP", "AffineAP", "SoftBinAP", "BlackBoxAP",
-          "FastAP", "PairLoss", "CalibrationLoss", "CrossEntropy", "MultiCrossEntropyLoss",
-          "ArcFaceLoss", "HashNetAdapter", "HashNetLoss", "CSQAdapter", "CSQLoss",
-          "HHFAdapter", "HHFLoss", "SCHLoss", "QuantizationLoss", "MultiLoss",
-          "MultiEmbeddingLoss", "FeatureDistillationLoss")
+LOSS_REGISTRY = {
+    "HeavisideAP": HeavisideAP,
+    "SmoothAP": SmoothAP,
+    "SupAP": SupAP,
+    "AffineAP": AffineAP,
+    "SoftBinAP": SoftBinAP,
+    "BlackBoxAP": BlackBoxAP,
+    "FastAP": FastAP,
+    "PairLoss": PairLoss,
+    "CalibrationLoss": CalibrationLoss,
+    "CrossEntropy": CrossEntropy,
+    "MultiCrossEntropyLoss": MultiCrossEntropyLoss,
+    "ArcFaceLoss": ArcFaceLoss,
+    "HashLoss": HashLoss,
+    "HashNetAdapter": HashNetLoss,
+    "HashNetLoss": HashNetLoss,
+    "CSQAdapter": CSQLoss,
+    "CSQLoss": CSQLoss,
+    "HHFAdapter": HHFLoss,
+    "HHFLoss": HHFLoss,
+    "SCHLoss": SCHLoss,
+    "QuantizationLoss": QuantizationLoss,
+    "MultiLoss": MultiLoss,
+    "MultiEmbeddingLoss": MultiEmbeddingLoss,
+    "FeatureDistillationLoss": FeatureDistillationLoss,
+}
 
 
 def get_loss(name: str, **kwargs):
-    if name in _LATER:
-        raise NotImplementedError(f"loss {name!r} waits for ROADMAP A11")
     try:
         return LOSS_REGISTRY[name](**kwargs)
     except KeyError as exc:
@@ -38,5 +61,5 @@ def build_losses(loss_config):
     return out
 
 
-__all__ = ["HashLoss", "LOSS_REGISTRY", "LossBase", "LossContext", "LossKind",
-           "build_losses", "get_loss"]
+__all__ = ["LOSS_REGISTRY", "LossBase", "LossContext", "LossKind", "build_losses", "get_loss",
+           *sorted({cls.__name__ for cls in LOSS_REGISTRY.values()})]

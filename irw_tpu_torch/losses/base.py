@@ -13,6 +13,7 @@ import enum
 from dataclasses import dataclass
 from typing import Any
 
+import torch
 from torch import nn
 
 
@@ -35,6 +36,34 @@ class LossContext:
     ref_labels: Any = None
     branches: Any = None  # list of per-branch outputs (BRANCHES losses)
     train: bool = True
+
+
+def one_hot(labels, num: int, dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: a label outside [0, num) gives a zero row (where
+    ``F.one_hot`` raises)."""
+    return (labels.long()[..., None] == torch.arange(num, device=labels.device)).to(dtype)
+
+
+def maximum(x, bound: float) -> torch.Tensor:
+    """``jnp.maximum(x, bound)``: where x equals the bound the gradient is
+    split between the two sides (1/2), as ``torch.maximum`` does and
+    ``clamp`` does not."""
+    return torch.maximum(x, x.new_full((), bound))
+
+
+def clip(x, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: 1/2 of the gradient at either bound."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
+
+
+def absolute(x) -> torch.Tensor:
+    """``jnp.abs``: gradient 1 at 0, where ``torch.abs`` gives 0."""
+    return torch.where(x >= 0, x, -x)
+
+
+def l2n(x, dim: int = 1) -> torch.Tensor:
+    """x / max(‖x‖, 1e-12) along ``dim``."""
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=dim, keepdim=True), min=1e-12)
 
 
 class LossBase(nn.Module):

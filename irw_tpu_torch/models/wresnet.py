@@ -11,7 +11,8 @@
   the L2-normalised fused embedding, training with ``ce`` the per-band
   logits and the fused logits (wresnet.py:485-546).
 
-Every forward returns ``(out, aux)`` with ``aux["ortho_loss"] = 0`` (and
+Every forward takes ``(x, rngs=None)`` as the train step calls a model (no
+module here draws a mask) and returns ``(out, aux)`` with ``aux["ortho_loss"] = 0`` (and
 ``aux["gate"]``, (B, S), for ``WCNNAttention``).  The JAX modules' options
 that no config sets (``frozen_bn``, the gates' reduction ratio, pool types
 and ECA width) are the JAX defaults here.  The branches use the 7×7
@@ -77,7 +78,7 @@ class WCNN(nn.Module):
             nn.init.zeros_(self.branch_classifier.weight)
             nn.init.zeros_(self.branch_classifier.bias)
 
-    def forward(self, x):
+    def forward(self, x, rngs: dict | None = None):
         feats = self.backbone(x)
         aux = _zero_aux(x)
         if self.training and self.ce:
@@ -117,7 +118,7 @@ class WCNNAttention(nn.Module):
                 nn.init.zeros_(lin.weight)
                 nn.init.zeros_(lin.bias)
 
-    def forward(self, x):
+    def forward(self, x, rngs: dict | None = None):
         feats = self.backbone(x)
         fused, alphas = self.gate(feats)
         aux = dict(_zero_aux(x), gate=alphas)

@@ -55,7 +55,7 @@ from irw_tpu_torch.engine import (XBM, build_train_step, get_memory, init_train_
                                   maybe_resume, train)
 from irw_tpu_torch.engine import optimizers
 from irw_tpu_torch.engine.train import _build_hyper
-from irw_tpu_torch.losses import build_losses
+from irw_tpu_torch.losses import CalibrationLoss, build_losses
 from irw_tpu_torch.models import get_model
 from irw_tpu_torch.samplers import RandomSampler
 from irw_tpu_torch.transforms import DeviceTransform
@@ -345,7 +345,8 @@ def test_xbm_is_inert_for_hashloss():
 def test_memory_before_activate_after_only_takes_inserts():
     """Before ``activate_after`` the step inserts and no loss reads the
     memory, so a ref-aware loss trains as it would without one (with the
-    memory on it raises naming A11b: ``tests/test_torch_train_step.py``)."""
+    memory on it adds its memory term:
+    ``test_ref_aware_loss_trains_with_the_memory_on``)."""
     memory = XBM(size=N_TRAIN, embedding_dim=64, label_shape=(20,))
     state = _tiny_state(xbm=memory)
     state.losses.append((_RefAwareLoss(), 1.0))
@@ -355,7 +356,33 @@ def test_memory_before_activate_after_only_takes_inserts():
     metrics = build_train_step(DeviceTransform(OPS, device="cpu"), xbm=memory)(state, batch,
                                                                                 hyper)
     assert "loss_1__RefAwareLoss" in metrics and torch.isfinite(metrics["total_loss"])
+    assert not any("memory" in key for key in metrics)
     assert int(state.xbm_state.valid.sum()) == BATCH
+
+
+def test_ref_aware_loss_trains_with_the_memory_on(tmp_path):
+    """A ref-aware loss (``CalibrationLoss``) beside HashLoss through
+    ``train``: two epochs, the memory on from the second (``activate_after``
+    2), where its memory term joins the metrics; the run ends."""
+    memory = XBM(size=N_TRAIN, embedding_dim=64, label_shape=(20,), activate_after=2)
+    state = _tiny_state(xbm=memory)
+    state.losses.append((CalibrationLoss(), 1.0))
+    exp = dict(CONFIG["experience"], max_iter=2, step_per_epoch=2, test_eval_freq=-1,
+               async_checkpoint=False)
+    ds = _tiny_data()
+    state, _ = train(state, ds, RandomSampler(ds, BATCH, seed=0), {}, None,
+                     DeviceTransform(OPS, device="cpu"), {"experience": exp}, str(tmp_path))
+    assert state.step == 4 and state.epoch == 2
+    records = [r for r in _records(tmp_path) if "train/total_loss" in r]
+    key = "train/loss_1_memory_CalibrationLoss"
+    assert [key in r for r in records] == [False, True]
+    assert all(np.isfinite(v) for r in records for v in r.values())
+    drawn = RandomSampler(ds, BATCH, seed=0)
+    seen = set()
+    for epoch in (1, 2):
+        drawn.reshuffle(epoch)
+        seen.update(int(i) for batch in drawn.batches[:2] for i in batch)
+    assert state.xbm_state.valid.nonzero().flatten().tolist() == sorted(seen)
 
 
 REFUSALS = {
