@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases card,build,loop
     python3 chip_smoke.py --phases card,build,runner
     python3 chip_smoke.py --phases card,build,dwt,wcnn
+    python3 chip_smoke.py --phases card,build,wavelets
     python3 chip_smoke.py --phases card,build,wcnn_train,wcnn_xbm,losses
     python3 chip_smoke.py --phases card,build,flash,flash_serve,flash_train
     python3 chip_smoke.py --phases card,build,qkv,qkv_micro,variants
@@ -86,6 +87,19 @@ and prints one line per phase:
    counts per batch, embeddings held against the same model with K4's
    plain version, img/s, peak memory, one batch profiled; then ``evaluate``
    (cosine) on a CUB-test-sized synthetic set (5794 images, 100 classes);
+12b. wavelets: K4 in bf16 and f16 against its plain version, bit for bit,
+   at the served haar shape, cdf97's (192, 448, 448) and a two-pass case,
+   timed beside the bound and ``conv2d`` in the same dtype, and its three
+   wrappers one launch each; the filter-bank library (``wavedec2``,
+   ``swt2``, ``resize_bilinear`` and every inverse) on a served batch
+   against the same calls on the CPU, with TF32 allowed; then the two DWT
+   configs from ``configs/`` through ``compose`` → ``build_transforms`` →
+   the getter's model → ``evaluate``: path A ``wcnn_attention_all_subs`` on
+   ``dwt_all_subs`` (7 × ResNet-50 over 7 bands resized to 112²), path B
+   ``wcnn_attention_ce`` on ``cifar_dwt`` (DWTTransform, 4 × ResNet-50 at
+   112²): 3 warm-up and 20 timed batches of 64 (img/s, peak memory,
+   launches), one batch's embeddings against the same model fed the CPU
+   transform's bands;
 13. wcnn_train: the WCNN CE path trains at full width (``wcnn_attention_ce``,
    ``multi_ce_fusionloss``, ``cub_wresnet``'s Adam) at CUB's batch of 128,
    uint8 images and labels in [0, 200) made on the card: 3 warm-up steps,
@@ -161,8 +175,8 @@ import time
 import numpy as np
 
 PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train", "loop",
-          "runner", "dwt", "wcnn", "wcnn_train", "wcnn_xbm", "losses", "flash", "flash_serve",
-          "flash_train", "qkv", "qkv_micro", "variants")
+          "runner", "dwt", "wcnn", "wavelets", "wcnn_train", "wcnn_xbm", "losses", "flash",
+          "flash_serve", "flash_train", "qkv", "qkv_micro", "variants")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -1603,6 +1617,27 @@ def _k4_case(basis, levels, shape, seed, time_it=False, path_wanted=("register",
     return x, err, path, times
 
 
+def _k4_yardstick_filters() -> dict:
+    """The ``conv2d`` filters K4 is timed beside, (4, 1, k, k) f32 on the
+    CPU: haar's four 2 x 2 haar · v6 filters, which give the same bands up
+    to rounding at stride 2, and the four 9 x 9 CDF 9/7 analysis filters
+    (outer products of the 9-tap low-pass and the zero-padded 7-tap
+    high-pass), whose boundary handling and band scaling are the filter
+    bank's, not the lifting's: timed, not compared."""
+    import torch
+
+    r = 1.0 / math.sqrt(2.0)
+    lo = torch.tensor([0.026748757411, -0.016864118443, -0.078223266529, 0.266864118443,
+                       0.602949018236, 0.266864118443, -0.078223266529, -0.016864118443,
+                       0.026748757411])
+    hi = torch.tensor([0.0, 0.091271763114, -0.057543526229, -0.591271763114, 1.115087052457,
+                       -0.591271763114, -0.057543526229, 0.091271763114, 0.0])
+    return {"haar": torch.tensor([[[[0.25, 0.25], [0.25, 0.25]]], [[[-0.5, -0.5], [0.5, 0.5]]],
+                                  [[[-0.5, 0.5], [-0.5, 0.5]]], [[[r, -r], [-r, r]]]]),
+            "cdf97": torch.stack([torch.outer(a, b) for a, b in ((lo, lo), (hi, lo), (lo, hi),
+                                                                 (hi, hi))])[:, None]}
+
+
 def phase_dwt(state):
     import torch
     import torch.nn.functional as F
@@ -1628,17 +1663,8 @@ def phase_dwt(state):
     plain_ms = time_ms(lambda: lifting_multi_level_plain(x, 1, "cdf97"), iters=5)
     n, h, w = K4_CDF97_SHAPE
     b_ms, b_by = bound_ms(4 * n * h * w * 2, _lifting_flops(n, h, w, 1, "cdf97"), "float32")
-    # yardstick of cost: one conv2d with the four 9 x 9 CDF 9/7 analysis filters
-    # (outer products of the 9-tap low-pass and the zero-padded 7-tap high-pass)
-    # at stride 2, TF32 off; its boundary handling and band scaling are the
-    # filter bank's, not the lifting's, so it is timed and not compared
-    lo = torch.tensor([0.026748757411, -0.016864118443, -0.078223266529, 0.266864118443,
-                       0.602949018236, 0.266864118443, -0.078223266529, -0.016864118443,
-                       0.026748757411])
-    hi = torch.tensor([0.0, 0.091271763114, -0.057543526229, -0.591271763114, 1.115087052457,
-                       -0.591271763114, -0.057543526229, 0.091271763114, 0.0])
-    filt97 = torch.stack([torch.outer(a, b) for a, b in ((lo, lo), (hi, lo), (lo, hi), (hi, hi))])
-    filt97 = filt97[:, None].cuda()
+    # yardstick of cost: one conv2d with the 9 x 9 analysis filters, TF32 off
+    filt97 = _k4_yardstick_filters()["cdf97"].cuda()
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -1659,12 +1685,9 @@ def phase_dwt(state):
 
     # the served case, haar level 1 at (192, 224, 224)
     x, err, path, _ = _k4_case("haar", 1, K4_SHAPE, seed=7)
-    # yardstick: conv2d, stride 2, with the four 2x2 haar · v6 filters computes
-    # the same bands up to rounding; TF32 off so it is the same f32 math
-    r = 1.0 / math.sqrt(2.0)
-    filt = torch.tensor([[[[0.25, 0.25], [0.25, 0.25]]], [[[-0.5, -0.5], [0.5, 0.5]]],
-                         [[[-0.5, 0.5], [-0.5, 0.5]]], [[[r, -r], [-r, r]]]],
-                        dtype=torch.float32, device="cuda")
+    # yardstick: conv2d, stride 2, with the haar · v6 filters; TF32 off so it
+    # is the same f32 math
+    filt = _k4_yardstick_filters()["haar"].cuda()
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -1800,6 +1823,280 @@ def phase_wcnn(state):
     if not (all(math.isfinite(v) for v in res.values()) and 0.0 <= res["map_level0"] <= 1.0
             and res["num_k_level0"] == k):
         raise AssertionError(f"evaluate gave non-finite or out-of-range metrics: {res}")
+
+
+K4_LOW_CASES = [("haar", 1, K4_SHAPE), ("cdf97", 1, K4_CDF97_SHAPE),
+                ("cdf97", 5, (3 * BATCH, 256, 256))]     # register, tile, two-pass
+LIBRARY_TOL = 1e-5       # the filter-bank library on the card against the CPU, relative
+# the two DWT configs as a user composes them (configs/model, configs/transform)
+DWT_PATHS = {"A": ["model=wcnn_attention_all_subs", "transform=dwt_all_subs"],
+             "B": ["model=wcnn_attention_ce", "transform=cifar_dwt"]}
+DWT_PATH_BANDS = {"A": (7, 112), "B": (4, 112)}
+DWT_EVAL = (2 * BATCH, 6 * BATCH)   # synthetic query and gallery of each path's evaluate
+
+
+def _k4_low_precision(state, dtype) -> dict:
+    """K4 in ``dtype`` against its plain version on K4_LOW_CASES, bit for
+    bit, on the path ``lifting_kernel_variants`` names; the served haar case
+    and cdf97's timed beside the plain version, the bound and ``conv2d`` in
+    ``dtype``; returns the numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from irw_tpu_torch.ops.wavelets import lifting_multi_level, lifting_multi_level_plain
+    from irw_tpu_torch.ops.wavelets.lifting_dwt import lifting_kernel_variants
+
+    name = str(dtype).removeprefix("torch.")
+    filters = _k4_yardstick_filters()
+    out_rec = {}
+    for basis, levels, shape in K4_LOW_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        x = (torch.rand(shape, generator=gen, device="cuda") * 2.0 - 1.0).to(dtype)
+        before = lifting_multi_level.launches
+        out = lifting_multi_level(x, levels, basis)
+        ref = lifting_multi_level_plain(x, levels, basis)
+        torch.cuda.synchronize()
+        path = lifting_multi_level.last_path
+        err = (out.float() - ref.float()).abs().max().item()
+        n, h, w = shape
+        key = f"{basis} l={levels} {tuple(shape)}"
+        msg = f"K4 {key} {name}, {path} path: max|kernel - plain| = {err:.3e} (limit 0.0)"
+        if not (err == 0.0 and out.dtype == dtype and torch.isfinite(out.float()).all()):
+            raise AssertionError(f"K4 {key} {name} disagrees with its plain version: {err}")
+        if (path != lifting_kernel_variants(h, w, levels, basis)["path"]
+                or lifting_multi_level.launches != before + 1):
+            raise AssertionError(f"K4 {key} {name}: {lifting_multi_level.launches - before} "
+                                 f"launches on the {path} path")
+        rec = {"path": path, "max_abs_err": err}
+        if levels == 1:
+            rec.update(k4_times(lambda: lifting_multi_level(x, levels, basis)))
+            rec["plain_ms"] = time_ms(lambda: lifting_multi_level_plain(x, levels, basis), iters=5)
+            nbytes = x.element_size() * (n * h * w + n * 4 * (h >> levels) * (w >> levels))
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                nbytes, _lifting_flops(n, h, w, levels, basis), "float32")
+            filt = filters[basis].to(device="cuda", dtype=dtype)
+            x4 = x[:, None]
+            pad = 0 if basis == "haar" else 4
+            with torch.no_grad():
+                rec["library_ms"] = time_ms(lambda: F.conv2d(x4, filt, stride=2, padding=pad))
+            msg += (f" | kernel {rec['ms']:.4f} ms, L2 flushed {rec['cold_ms']:.4f} ms, device "
+                    f"{rec['device_ms']:.4f} ms, host {rec['host_ms']:.4f} ms | plain "
+                    f"{rec['plain_ms']:.4f} ms | conv2d {name} ({basis} analysis filters, stride "
+                    f"2) {rec['library_ms']:.4f} ms | bound {rec['bound_ms']:.4f} ms "
+                    f"({rec['bound_by']}) | {state['card']}")
+        out_rec[key] = rec
+        log("wavelets", msg)
+        del x, out, ref
+    return out_rec
+
+
+def _k4_wrappers(dtype):
+    """``haar_multi_level``, ``cdf97_multi_level`` and ``haar_dwt2_fused``: one
+    K4 launch each, bit for bit the plain version of their basis."""
+    import torch
+
+    from irw_tpu_torch.ops.wavelets import (
+        cdf97_multi_level,
+        haar_dwt2_fused,
+        haar_multi_level,
+        lifting_multi_level,
+        lifting_multi_level_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = (torch.rand(K4_SHAPE, generator=gen, device="cuda") * 2.0 - 1.0).to(dtype)
+    counts = {}
+    for fn, args, basis, levels in [(haar_multi_level, (2,), "haar", 2),
+                                    (cdf97_multi_level, (2,), "cdf97", 2),
+                                    (haar_dwt2_fused, (), "haar", 1)]:
+        before = lifting_multi_level.launches
+        out = fn(x, *args)
+        counts[fn.__name__] = lifting_multi_level.launches - before
+        torch.cuda.synchronize()
+        if not torch.equal(out, lifting_multi_level_plain(x, levels, basis)):
+            raise AssertionError(f"{fn.__name__} {dtype} disagrees with the plain version")
+    log("wavelets", f"K4 wrappers {dtype}: launches {counts} (one each), bit for bit the plain "
+                    f"version")
+    if set(counts.values()) != {1}:
+        raise AssertionError(f"K4 wrappers: launches {counts}")
+    return counts
+
+
+def _library_on_card(state, images) -> None:
+    """The filter-bank library on the planes of a served batch, on the card
+    and on the CPU, with TF32 allowed in cuDNN and cuBLAS (the port calls
+    neither: a TF32 leak would show here as 1e-3 errors)."""
+    import torch
+
+    from irw_tpu_torch.ops.wavelets import (
+        iswt2,
+        lifting_dwt2,
+        lifting_idwt2,
+        resize_bilinear,
+        swt2,
+        wavedec2,
+        waverec2,
+    )
+
+    planes = images.float().div(255.0).permute(0, 3, 1, 2).reshape(-1, 224, 224)
+
+    def calls(x):
+        db2 = wavedec2(x, "db2", level=2, mode="symmetric")
+        haar = wavedec2(x, "haar", level=2, mode="symmetric")
+        swt = swt2(x, "db2", level=2)
+        ll = haar[0].reshape(BATCH, 3, 56, 56).permute(0, 2, 3, 1)
+        lift = lifting_dwt2(x, "cdf97")
+        return {"wavedec2 db2 l=2 symmetric": [db2[0], *db2[1], *db2[2]],
+                "wavedec2 haar l=2 symmetric": [haar[0], *haar[1], *haar[2]],
+                "swt2 db2 l=2": [b for ca, det in swt for b in (ca, *det)],
+                "resize 56 → 112": [resize_bilinear(ll, 112)],
+                "resize 56 → 24": [resize_bilinear(ll, 24)],
+                "waverec2 db2": [waverec2(db2, "db2", mode="symmetric")],
+                "waverec2 haar": [waverec2(haar, "haar", mode="symmetric")],
+                "iswt2 db2": [iswt2(swt, "db2")],
+                "lifting_idwt2 cdf97": [lifting_idwt2(*lift, "cdf97")]}
+
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card = calls(planes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calls(planes)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    cpu = calls(planes.cpu())
+    worst = 0.0
+    for what, outs in card.items():
+        errs = []
+        for ours, ref in zip(outs, cpu[what]):
+            rel = (ours.cpu() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+            errs.append(rel)
+        worst = max(worst, *errs)
+        log("wavelets", f"{what} on {tuple(planes.shape)}: max|card - CPU| / max(1, max|CPU|) "
+                        f"= {max(errs):.3e} (limit {LIBRARY_TOL})")
+        if not max(errs) <= LIBRARY_TOL:
+            raise AssertionError(f"{what}: the card is {max(errs)} from the CPU")
+    log("wavelets", f"the library's {len(card)} calls on the card, TF32 allowed in cuDNN and "
+                    f"cuBLAS: {card_ms:.1f} ms for all; worst {worst:.3e} | {state['card']}")
+
+
+def _dwt_path(state, label: str) -> dict:
+    """One DWT config at full width, as a user composes it: WARMUP_CALLS and
+    SERVE_BATCHES timed batches of BATCH through the test split's device
+    stage and the getter's model; one batch against the CPU transform's
+    bands; then the cosine ``evaluate`` on a synthetic query/gallery through
+    both stages.  Returns its numbers."""
+    import torch
+
+    from irw_tpu_torch import single_experiment_runner as runner
+    from irw_tpu_torch.config import compose
+    from irw_tpu_torch.data import SyntheticDataset
+    from irw_tpu_torch.engine import evaluate
+    from irw_tpu_torch.getter import Getter
+    from irw_tpu_torch.models.wresnet import WCNNAttention
+    from irw_tpu_torch.transforms import DeviceTransform, build_transforms
+
+    held = _release_earlier_phases(state)
+    config = compose(runner.CONFIG_DIR, "default", DWT_PATHS[label])
+    host, device = build_transforms(config.transform.test)
+    bands, side = DWT_PATH_BANDS[label]
+    t0 = time.perf_counter()
+    model = Getter().get_model(config.model, seed=0)
+    build_s = time.perf_counter() - t0
+    if not (isinstance(model, WCNNAttention) and len(model.backbone.branches) == bands
+            and model.backbone.out_dim == 2048):
+        raise AssertionError(f"path {label}: the getter built {type(model).__name__} with "
+                             f"{len(model.backbone.branches)} branches")
+    desc = (f"path {label} ({' '.join(DWT_PATHS[label])}): host {[n for n, _ in host.ops]}, "
+            f"device {[n for n, _ in device.ops]}, {bands} x ResNet-50 at {side}², "
+            f"{config.model.kwargs.embed_dim}-d config, model built in {build_s:.1f} s")
+    log("wavelets", desc)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    batches = [torch.randint(0, 256, (BATCH, 224, 224, 3), generator=gen, device="cuda",
+                             dtype=torch.uint8) for _ in range(SERVE_DISTINCT)]
+    kernels = _kernel_wrappers()
+    with torch.inference_mode():
+        x = device(batches[0])
+        if x.shape != (BATCH, bands, side, side, 3):
+            raise AssertionError(f"path {label}: device stage gave {tuple(x.shape)}")
+        for i in range(WARMUP_CALLS):
+            model(device(batches[i % SERVE_DISTINCT]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels:
+            fn.launches = 0
+        per_batch, outs = [], []
+        t0 = time.perf_counter()
+        for i in range(SERVE_BATCHES):
+            before = [fn.launches for fn in kernels]
+            outs.append(model(device(batches[i % SERVE_DISTINCT]))[0])
+            per_batch.append(tuple(fn.launches - b for fn, b in zip(kernels, before)))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        counts = _launch_counts(kernels)
+        state["launches"][f"wavelets_{label}"] = counts
+        _check_launches("wavelets", per_batch, (0,) * len(kernels), f"batch, path {label}")
+        ips = SERVE_BATCHES * BATCH / seconds
+        log("wavelets", f"path {label}: {ips:.1f} img/s over {SERVE_BATCHES} batches of {BATCH} "
+                        f"after {WARMUP_CALLS} warm-up ({seconds / SERVE_BATCHES * 1e3:.1f} ms a "
+                        f"batch: device stage + model) | its own peak memory "
+                        f"{peak / 2 ** 30:.2f} GiB | K4 launches {counts['lifting_multi_level']}"
+                        f" | cuDNN TF32 {torch.backends.cudnn.allow_tf32} | {state['card']}")
+        emb = outs[0]
+        cpu = DeviceTransform(device.ops, device="cpu")
+        ref = model(cpu(batches[0].cpu()).cuda())[0]
+        dmax = (emb - ref).abs().max().item()
+        log("wavelets", f"path {label}, batch 0: max|emb - the model fed the CPU transform's bands|"
+                        f" = {dmax:.3e} (limit {WCNN_EMB_TOL})")
+        if not (emb.shape == (BATCH, 2048) and torch.isfinite(emb).all()
+                and dmax <= WCNN_EMB_TOL):
+            raise AssertionError(f"path {label}: embeddings {tuple(emb.shape)}, {dmax} from the "
+                                 "CPU transform's")
+    nq, ng = DWT_EVAL
+    query = SyntheticDataset(num_samples=nq, num_classes=100, image_size=224, seed=11)
+    gallery = SyntheticDataset(num_samples=ng, num_classes=100, image_size=224, seed=12)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = evaluate(model, {"query": query, "gallery": gallery}, device, batch_size=BATCH,
+                   distance_metric="cosine", host_transform=host)
+    eval_s = time.perf_counter() - t0
+    log("wavelets", f"path {label}: evaluate (cosine) of {nq} queries against {ng} through the "
+                    f"host and device stages: {eval_s:.2f} s; map {res['map_level0']:.4f}, "
+                    f"recall@1 {res['recall_at_1_level0']:.4f} | {state['card']}")
+    if not (all(math.isfinite(v) for v in res.values()) and 0.0 <= res["map_level0"] <= 1.0):
+        raise AssertionError(f"path {label}: evaluate gave {res}")
+    del model, batches, outs
+    _release_earlier_phases(state)
+    return {"img_per_s": ips, "peak_gib": peak / 2 ** 30, "eval_s": eval_s,
+            "k4_launches": counts["lifting_multi_level"]}
+
+
+def phase_wavelets(state):
+    """K4 in bf16 and f16, its wrappers, the filter-bank library on the card,
+    and the two DWT configs end to end at full width."""
+    import torch
+
+    low = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        name = str(dtype).removeprefix("torch.")
+        low[name] = _k4_low_precision(state, dtype)
+        low[name]["wrapper_launches"] = _k4_wrappers(dtype)
+    served = low["bfloat16"][f"haar l=1 {K4_SHAPE}"]
+    rec = state["kernels"].setdefault("lifting_multi_level", {
+        "name": "lifting_multi_level", "route": "cuda",
+        "source": "irw_tpu_torch/csrc/lifting_dwt.cu",
+        "replaces": "irw_tpu/ops/wavelets/pallas_dwt.py:208", "dtype": "bfloat16",
+        **{k: served[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "path")}})
+    rec.update(low)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    _library_on_card(state, torch.randint(0, 256, (BATCH, 224, 224, 3), generator=gen,
+                                          device="cuda", dtype=torch.uint8))
+    state["dwt_paths"] = {label: _dwt_path(state, label) for label in DWT_PATHS}
 
 
 def _cub_batches(n: int, seed: int, memory: int | None = None) -> list:
@@ -2861,7 +3158,8 @@ def main(argv=None) -> int:
     runners = {"build": phase_build, "swt": phase_swt, "attention": phase_attention,
                "serve": phase_serve, "profile": phase_profile, "retrieval": phase_retrieval,
                "train": phase_train, "loop": phase_loop, "runner": phase_runner,
-               "dwt": phase_dwt, "wcnn": phase_wcnn, "wcnn_train": phase_wcnn_train,
+               "dwt": phase_dwt, "wcnn": phase_wcnn, "wavelets": phase_wavelets,
+               "wcnn_train": phase_wcnn_train,
                "wcnn_xbm": phase_wcnn_xbm, "losses": phase_losses,
                "flash": phase_flash,
                "flash_serve": phase_flash_serve, "flash_train": phase_flash_train,
@@ -2886,7 +3184,9 @@ def main(argv=None) -> int:
     served = {"flagship": ("serve", SERVE_BATCHES), "wcnn": ("wcnn", WCNN_BATCHES),
               "flash": ("flash_serve", SERVE_BATCHES),
               "loop_eval": ("loop_eval", LOOP_EVAL_BATCHES),
-              "runner_eval": ("runner_eval", RUNNER_EVAL_UNITS)}
+              "runner_eval": ("runner_eval", RUNNER_EVAL_UNITS),
+              "wavelets_A": ("wavelets_A", SERVE_BATCHES),
+              "wavelets_B": ("wavelets_B", SERVE_BATCHES)}
 
     def per_run(paths, name):
         return {path: runs[key].get(name, 0) / n for path, (key, n) in paths.items() if key in runs}

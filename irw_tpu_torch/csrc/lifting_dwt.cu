@@ -1,5 +1,6 @@
 // Fused multi-level 2-D lifting DWT, coarsest level only:
-// x (N, H, W) f32 -> out (N, 4, H/2^l, W/2^l) f32, bands [LL, LH, HL, HH].
+// x (N, H, W) -> out (N, 4, H/2^l, W/2^l), bands [LL, LH, HL, HH], in f32,
+// bf16 or f16 (the storage type T; every path is a template on it).
 //
 // Replaces: irw_tpu/ops/wavelets/pallas_dwt.py, lifting_multi_level_pallas
 // (kernel body _dwt_kernel, lifts _pair_lift_sublane,
@@ -14,12 +15,21 @@
 // TPU).  Every product, sum and quotient is rounded on its own
 // (__fmul_rn / __fadd_rn / __fdiv_rn: nvcc contracts nothing into an FMA),
 // in the order the plain PyTorch version computes them, so the two agree
-// bit for bit on every path.
+// bit for bit on every path.  In bf16 and f16 the values are loaded into
+// f32 and every product, sum and quotient is rounded to T right after it
+// (mul / add / dvd below), the lifting coefficients, k and sqrt 2 being
+// values of T already: that is the plain version's arithmetic in T, whose
+// constants are 0-d tensors of x's dtype (each op on two values of T,
+// taken in f32 and rounded once; f32 carries 24 bits >= 2 * 11 + 2, so the
+// double rounding is exact).  Registers, shared memory and the path rule
+// stay f32; loads and stores move T, half the bytes of f32.
 //
 // Bound on the H100: memory.  A level does a few flops per element; the
 // input is read once and the output written once: at the served shape
 // (N = 3 * 64 = 192 planes of 224 x 224, haar, one level) 38.5 MB + 38.5 MB,
-// about 23 us at 3.35 TB/s.
+// about 23 us at 3.35 TB/s; half that in bf16 or f16, where the two
+// conversions that round each operation add instructions the f32 paths
+// do not have.
 //
 // Three paths; irw_lifting_dwt_variant picks one from the shape and the step
 // table (lifting_kernel_variants in the wrapper applies the same rule).  The
@@ -81,9 +91,12 @@
 //    level) or LL alone into a second workspace (an earlier level, which
 //    also lifts only the rows LL needs).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -106,6 +119,100 @@ constexpr int kTileMaxPairs = 64;       // a tile's side, in coarsest pairs, at 
 constexpr int kTileMaxShared = 115712;  // 113 KiB a block: two blocks an SM at least
 constexpr int kTileAnyHaloLevels = 2;   // levels at which any halo pays; deeper,
 constexpr int kTileMaxGrowth = 2;       // the region at most this x the tile's input
+
+constexpr float kSqrt2 = 1.41421356237309504880f;
+
+// The storage types: f32 values pass as they are; a bf16 or f16 value is
+// widened on load and each operation's f32 result rounded back to T.
+template <typename T>
+constexpr bool kF32 = std::is_same_v<T, float>;
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T v) {
+    if constexpr (kF32<T>) return v;
+    else if constexpr (std::is_same_v<T, __nv_bfloat16>) return __bfloat162float(v);
+    else return __half2float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+    if constexpr (kF32<T>) return v;
+    else if constexpr (std::is_same_v<T, __nv_bfloat16>) return __float2bfloat16_rn(v);
+    else return __float2half_rn(v);
+}
+
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+    if constexpr (kF32<T>) return v;
+    else return to_f32<T>(from_f32<T>(v));
+}
+
+template <typename T>
+__device__ __forceinline__ float mul(float a, float b) { return rnd<T>(__fmul_rn(a, b)); }
+template <typename T>
+__device__ __forceinline__ float add(float a, float b) { return rnd<T>(__fadd_rn(a, b)); }
+template <typename T>
+__device__ __forceinline__ float dvd(float a, float b) { return rnd<T>(__fdiv_rn(a, b)); }
+
+template <typename T>
+__device__ __forceinline__ float ldg(const T* p) {
+    if constexpr (kF32<T>) return __ldg(p);
+    else return to_f32<T>(__ldg(p));
+}
+
+// the 16 bits of a 2-byte T, and back
+template <typename T>
+__device__ __forceinline__ unsigned short bits(float v) {
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) return __bfloat16_as_ushort(from_f32<T>(v));
+    else return __half_as_ushort(from_f32<T>(v));
+}
+
+template <typename T>
+__device__ __forceinline__ float unbits(unsigned int b) {
+    if constexpr (std::is_same_v<T, __nv_bfloat16>)
+        return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(b)));
+    else return __half2float(__ushort_as_half(static_cast<unsigned short>(b)));
+}
+
+// N consecutive elements of a 2-byte T (4, 8 or 16 bytes, aligned to their
+// size) into f32 registers with one load
+template <typename T, int N>
+__device__ __forceinline__ void load_vec(const T* src, float* v) {
+    static_assert(!kF32<T> && (N == 2 || N == 4 || N == 8), "2, 4 or 8 two-byte elements");
+    unsigned int u[N / 2];
+    if constexpr (N == 8) {
+        const uint4 t = *reinterpret_cast<const uint4*>(src);
+        u[0] = t.x; u[1] = t.y; u[2] = t.z; u[3] = t.w;
+    } else if constexpr (N == 4) {
+        const uint2 t = *reinterpret_cast<const uint2*>(src);
+        u[0] = t.x; u[1] = t.y;
+    } else {
+        u[0] = *reinterpret_cast<const unsigned int*>(src);
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = unbits<T>(u[i / 2] >> (16 * (i % 2)) & 0xffffu);
+}
+
+// N = 2 or 4 values (of T already) to consecutive elements, one store
+template <typename T, int N>
+__device__ __forceinline__ void store_vec(T* dst, const float* v) {
+    static_assert(N == 2 || N == 4, "2 or 4 elements");
+    if constexpr (kF32<T>) {
+        if constexpr (N == 4)
+            *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        else
+            *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+    } else {
+        unsigned int u[N / 2];
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i)
+            u[i] = bits<T>(v[2 * i]) | static_cast<unsigned int>(bits<T>(v[2 * i + 1])) << 16;
+        if constexpr (N == 4)
+            *reinterpret_cast<uint2*>(dst) = make_uint2(u[0], u[1]);
+        else
+            *reinterpret_cast<unsigned int*>(dst) = u[0];
+    }
+}
 
 struct Step {
     int target;                 // 0: even, 1: odd
@@ -141,28 +248,30 @@ struct TilePlan {
 
 // The new value of target element i of a half-length sequence of m elements
 // whose other parity is src (element j at src[j * stride]).
+template <typename T>
 __device__ __forceinline__ float lifted(const Step& s, const float* src, int i, int m,
                                         int stride, float target) {
     if (s.pair) {
         const int a = i + s.shift[0], b = i + s.shift[1];
         const float va = (a >= 0 && a < m) ? src[a * stride] : 0.f;
         const float vb = (b >= 0 && b < m) ? src[b * stride] : 0.f;
-        return __fadd_rn(target, __fmul_rn(s.coeff[0], __fadd_rn(va, vb)));
+        return add<T>(target, mul<T>(s.coeff[0], add<T>(va, vb)));
     }
     float acc = 0.f;
     for (int t = 0; t < s.ntaps; ++t) {
         const int j = i + s.shift[t];
-        const float term = __fmul_rn(s.coeff[t], (j >= 0 && j < m) ? src[j * stride] : 0.f);
-        acc = t == 0 ? term : __fadd_rn(acc, term);
+        const float term = mul<T>(s.coeff[t], (j >= 0 && j < m) ? src[j * stride] : 0.f);
+        acc = t == 0 ? term : add<T>(acc, term);
     }
-    return __fadd_rn(target, acc);
+    return add<T>(target, acc);
 }
 
 // H pass: src (n, h, w) -> dst (n, h, w) with rows [0, h/2) = s * k and,
 // when write_high, rows [h/2, h) = d / k.  Block (kStrip, kRowsY), one
 // column strip of one plane; dynamic shared memory h * kStrip floats.
+template <typename T>
 __global__ void __launch_bounds__(kStrip * kRowsY)
-lift_h_kernel(const float* __restrict__ src, float* __restrict__ dst, int n, int h, int w,
+lift_h_kernel(const T* __restrict__ src, T* __restrict__ dst, int n, int h, int w,
               const __grid_constant__ Family fam, int write_high) {
     extern __shared__ float sm[];           // [h][kStrip]: even rows, then odd rows
     const int m = h / 2;
@@ -172,26 +281,27 @@ lift_h_kernel(const float* __restrict__ src, float* __restrict__ dst, int n, int
     float* odd = sm + m * kStrip;
     const size_t hw = static_cast<size_t>(h) * w;
     for (int p = blockIdx.y; p < n; p += gridDim.y) {
-        const float* plane = src + p * hw;
+        const T* plane = src + p * hw;
         for (int i = threadIdx.y; i < h; i += kRowsY)
             sm[((i & 1) * m + (i >> 1)) * kStrip + c] =
-                col < w ? plane[static_cast<size_t>(i) * w + col] : 0.f;
+                col < w ? to_f32<T>(plane[static_cast<size_t>(i) * w + col]) : 0.f;
         __syncthreads();
         for (int s = 0; s < fam.nsteps; ++s) {
             const Step& st = fam.step[s];
             float* tgt = st.target ? odd : even;
             const float* other = (st.target ? even : odd) + c;
             for (int i = threadIdx.y; i < m; i += kRowsY)
-                tgt[i * kStrip + c] = lifted(st, other, i, m, kStrip, tgt[i * kStrip + c]);
+                tgt[i * kStrip + c] = lifted<T>(st, other, i, m, kStrip, tgt[i * kStrip + c]);
             __syncthreads();
         }
         if (col < w) {
-            float* out = dst + p * hw;
+            T* out = dst + p * hw;
             for (int i = threadIdx.y; i < m; i += kRowsY) {
-                out[static_cast<size_t>(i) * w + col] = __fmul_rn(even[i * kStrip + c], fam.k);
+                out[static_cast<size_t>(i) * w + col] =
+                    from_f32<T>(mul<T>(even[i * kStrip + c], fam.k));
                 if (write_high)
                     out[static_cast<size_t>(m + i) * w + col] =
-                        __fdiv_rn(odd[i * kStrip + c], fam.k);
+                        from_f32<T>(dvd<T>(odd[i * kStrip + c], fam.k));
             }
         }
         __syncthreads();                    // the next plane overwrites the strip
@@ -202,19 +312,20 @@ lift_h_kernel(const float* __restrict__ src, float* __restrict__ dst, int n, int
 // all_bands: dst is (n, 4, h/2, w/2); else dst is LL alone, (n, h/2, w/2).
 // Block kThreadsW threads, kRowsW rows of one plane; dynamic shared memory
 // kRowsW * w floats.
+template <typename T>
 __global__ void __launch_bounds__(kThreadsW)
-lift_w_kernel(const float* __restrict__ src, float* __restrict__ dst, int n, int h, int w,
+lift_w_kernel(const T* __restrict__ src, T* __restrict__ dst, int n, int h, int w,
               int rows, const __grid_constant__ Family fam, int all_bands) {
     extern __shared__ float sm[];           // [kRowsW][w]: per row even cols, then odd
-    const float v6[4] = {0.5f, 1.0f, 1.0f, 1.41421356237309504880f};
+    const float v6[4] = {0.5f, 1.0f, 1.0f, rnd<T>(kSqrt2)};
     const int mw = w / 2, mh = h / 2;
     const int r0 = blockIdx.x * kRowsW;
     const int nr = min(kRowsW, rows - r0);
     for (int p = blockIdx.y; p < n; p += gridDim.y) {
-        const float* plane = src + (static_cast<size_t>(p) * h + r0) * w;
+        const T* plane = src + (static_cast<size_t>(p) * h + r0) * w;
         for (int e = threadIdx.x; e < nr * w; e += kThreadsW) {
             const int r = e / w, j = e - r * w;
-            sm[r * w + (j & 1) * mw + (j >> 1)] = plane[e];
+            sm[r * w + (j & 1) * mw + (j >> 1)] = to_f32<T>(plane[e]);
         }
         __syncthreads();
         for (int s = 0; s < fam.nsteps; ++s) {
@@ -224,7 +335,7 @@ lift_w_kernel(const float* __restrict__ src, float* __restrict__ dst, int n, int
             for (int e = threadIdx.x; e < nr * mw; e += kThreadsW) {
                 const int r = e / mw, i = e - r * mw;
                 float* row = sm + r * w;
-                row[toff + i] = lifted(st, row + ooff, i, mw, 1, row[toff + i]);
+                row[toff + i] = lifted<T>(st, row + ooff, i, mw, 1, row[toff + i]);
             }
             __syncthreads();
         }
@@ -234,29 +345,30 @@ lift_w_kernel(const float* __restrict__ src, float* __restrict__ dst, int n, int
             const bool high_w = j >= mw, high_h = gr >= mh;
             const int band = (high_h ? 1 : 0) + (high_w ? 2 : 0);
             if (!all_bands && band != 0) continue;
-            const float v = high_w ? __fdiv_rn(sm[r * w + j], fam.k)
-                                   : __fmul_rn(sm[r * w + j], fam.k);
+            const float v = high_w ? dvd<T>(sm[r * w + j], fam.k)
+                                   : mul<T>(sm[r * w + j], fam.k);
             const size_t o = (static_cast<size_t>(all_bands ? p * 4 + band : p) * mh +
                               (high_h ? gr - mh : gr)) * mw + (high_w ? j - mw : j);
-            dst[o] = __fmul_rn(v, v6[band]);
+            dst[o] = from_f32<T>(mul<T>(v, v6[band]));
         }
         __syncthreads();
     }
 }
 
 // A shift-0 step on one (even, odd) pair: target plus its update from src.
+template <typename T>
 __device__ __forceinline__ float lift0(const Step& s, float target, float src) {
-    if (s.pair) return __fadd_rn(target, __fmul_rn(s.coeff[0], __fadd_rn(src, src)));
-    float acc = __fmul_rn(s.coeff[0], src);
-    for (int t = 1; t < s.ntaps; ++t) acc = __fadd_rn(acc, __fmul_rn(s.coeff[t], src));
-    return __fadd_rn(target, acc);
+    if (s.pair) return add<T>(target, mul<T>(s.coeff[0], add<T>(src, src)));
+    float acc = mul<T>(s.coeff[0], src);
+    for (int t = 1; t < s.ntaps; ++t) acc = add<T>(acc, mul<T>(s.coeff[t], src));
+    return add<T>(target, acc);
 }
 
 // One level of the register path on the top-left R x CW corner of v: lift
 // along H and scale; lift along W every row (last level) or the s rows
 // alone (inner level: LL is all the next needs), then, inner, leave the
 // scaled LL in the top-left (R/2) x (CW/2) corner.
-template <int PH, int PW, int R, int CW, bool LAST>
+template <typename T, int PH, int PW, int R, int CW, bool LAST>
 __device__ __forceinline__ void reg_level(float (&v)[PH][PW], const Family& fam) {
     for (int s = 0; s < fam.nsteps; ++s) {
         const Step& st = fam.step[s];
@@ -264,20 +376,20 @@ __device__ __forceinline__ void reg_level(float (&v)[PH][PW], const Family& fam)
 #pragma unroll
             for (int r = 0; r < R; r += 2)
 #pragma unroll
-                for (int c = 0; c < CW; ++c) v[r + 1][c] = lift0(st, v[r + 1][c], v[r][c]);
+                for (int c = 0; c < CW; ++c) v[r + 1][c] = lift0<T>(st, v[r + 1][c], v[r][c]);
         } else {
 #pragma unroll
             for (int r = 0; r < R; r += 2)
 #pragma unroll
-                for (int c = 0; c < CW; ++c) v[r][c] = lift0(st, v[r][c], v[r + 1][c]);
+                for (int c = 0; c < CW; ++c) v[r][c] = lift0<T>(st, v[r][c], v[r + 1][c]);
         }
     }
 #pragma unroll
     for (int r = 0; r < R; r += 2)
 #pragma unroll
         for (int c = 0; c < CW; ++c) {
-            v[r][c] = __fmul_rn(v[r][c], fam.k);
-            v[r + 1][c] = __fdiv_rn(v[r + 1][c], fam.k);
+            v[r][c] = mul<T>(v[r][c], fam.k);
+            v[r + 1][c] = dvd<T>(v[r + 1][c], fam.k);
         }
     constexpr int kRowStep = LAST ? 1 : 2;
     for (int s = 0; s < fam.nsteps; ++s) {
@@ -286,12 +398,12 @@ __device__ __forceinline__ void reg_level(float (&v)[PH][PW], const Family& fam)
 #pragma unroll
             for (int r = 0; r < R; r += kRowStep)
 #pragma unroll
-                for (int c = 0; c < CW; c += 2) v[r][c + 1] = lift0(st, v[r][c + 1], v[r][c]);
+                for (int c = 0; c < CW; c += 2) v[r][c + 1] = lift0<T>(st, v[r][c + 1], v[r][c]);
         } else {
 #pragma unroll
             for (int r = 0; r < R; r += kRowStep)
 #pragma unroll
-                for (int c = 0; c < CW; c += 2) v[r][c] = lift0(st, v[r][c], v[r][c + 1]);
+                for (int c = 0; c < CW; c += 2) v[r][c] = lift0<T>(st, v[r][c], v[r][c + 1]);
         }
     }
     if constexpr (!LAST) {
@@ -299,21 +411,21 @@ __device__ __forceinline__ void reg_level(float (&v)[PH][PW], const Family& fam)
         for (int r = 0; r < R / 2; ++r)
 #pragma unroll
             for (int c = 0; c < CW / 2; ++c)
-                v[r][c] = __fmul_rn(__fmul_rn(v[2 * r][2 * c], fam.k), 0.5f);
+                v[r][c] = mul<T>(mul<T>(v[2 * r][2 * c], fam.k), 0.5f);
     }
 }
 
-template <int PH, int PW, int LVL, int L>
+template <typename T, int PH, int PW, int LVL, int L>
 __device__ __forceinline__ void reg_levels(float (&v)[PH][PW], const Family& fam) {
-    reg_level<PH, PW, (PH >> LVL), (PW >> LVL), LVL == L - 1>(v, fam);
-    if constexpr (LVL + 1 < L) reg_levels<PH, PW, LVL + 1, L>(v, fam);
+    reg_level<T, PH, PW, (PH >> LVL), (PW >> LVL), LVL == L - 1>(v, fam);
+    if constexpr (LVL + 1 < L) reg_levels<T, PH, PW, LVL + 1, L>(v, fam);
 }
 
 // Register path: L levels, C coarsest columns a thread.  Grid (coarsest
 // rows x column groups / kRegThreads, planes), planes walked past 65535.
-template <int L, int C>
+template <typename T, int L, int C>
 __global__ void __launch_bounds__(kRegThreads)
-lift_reg_kernel(const float* __restrict__ x, float* __restrict__ out, int n, int h, int w,
+lift_reg_kernel(const T* __restrict__ x, T* __restrict__ out, int n, int h, int w,
                 const __grid_constant__ Family fam) {
     constexpr int PH = 1 << L, PW = C << L;     // the input patch a thread reads
     const int hc = h >> L, wc = w >> L, groups = wc / C;
@@ -322,11 +434,15 @@ lift_reg_kernel(const float* __restrict__ x, float* __restrict__ out, int n, int
     const int i = e / groups, g = e - i * groups;
     const size_t hw = static_cast<size_t>(h) * w, band = static_cast<size_t>(hc) * wc;
     for (int p = blockIdx.y; p < n; p += gridDim.y) {
-        const float* src = x + p * hw + static_cast<size_t>(i) * PH * w + g * PW;
+        const T* src = x + p * hw + static_cast<size_t>(i) * PH * w + g * PW;
         float v[PH][PW];
 #pragma unroll
         for (int r = 0; r < PH; ++r) {
-            if constexpr (PW % 4 == 0) {
+            if constexpr (!kF32<T>) {
+                // PW two-byte elements: 4, 8 or 16 bytes, aligned as the f32
+                // path's 8 and 16 (W % 4 == 0 where PW = 4)
+                load_vec<T, PW>(src + static_cast<size_t>(r) * w, v[r]);
+            } else if constexpr (PW % 4 == 0) {
 #pragma unroll
                 for (int c = 0; c < PW; c += 4) {
                     const float4 t =
@@ -342,23 +458,23 @@ lift_reg_kernel(const float* __restrict__ x, float* __restrict__ out, int n, int
                 v[r][1] = t.y;
             }
         }
-        reg_levels<PH, PW, 0, L>(v, fam);
+        reg_levels<T, PH, PW, 0, L>(v, fam);
         // the last level's W scale, then v6: [LL, LH, HL, HH]
         float b[4][C];
 #pragma unroll
         for (int q = 0; q < C; ++q) {
-            b[0][q] = __fmul_rn(__fmul_rn(v[0][2 * q], fam.k), 0.5f);
-            b[1][q] = __fmul_rn(__fmul_rn(v[1][2 * q], fam.k), 1.0f);
-            b[2][q] = __fmul_rn(__fdiv_rn(v[0][2 * q + 1], fam.k), 1.0f);
-            b[3][q] = __fmul_rn(__fdiv_rn(v[1][2 * q + 1], fam.k), 1.41421356237309504880f);
+            b[0][q] = mul<T>(mul<T>(v[0][2 * q], fam.k), 0.5f);
+            b[1][q] = mul<T>(mul<T>(v[1][2 * q], fam.k), 1.0f);
+            b[2][q] = mul<T>(dvd<T>(v[0][2 * q + 1], fam.k), 1.0f);
+            b[3][q] = mul<T>(dvd<T>(v[1][2 * q + 1], fam.k), rnd<T>(kSqrt2));
         }
-        float* o = out + p * 4 * band + static_cast<size_t>(i) * wc + g * C;
+        T* o = out + p * 4 * band + static_cast<size_t>(i) * wc + g * C;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
             if constexpr (C == 2)
-                *reinterpret_cast<float2*>(o + k * band) = make_float2(b[k][0], b[k][1]);
+                store_vec<T, 2>(o + k * band, b[k]);
             else
-                o[k * band] = b[k][0];
+                o[k * band] = from_f32<T>(b[k][0]);
         }
     }
 }
@@ -372,7 +488,7 @@ __host__ __device__ constexpr int clamp_index(int i, int n) {
 // whose sum is scaled after).  Elements whose source lies past the run are
 // left alone (0 on the first tap): the run's halo holds the outputs' cone,
 // so they feed only the halo's own pairs.
-template <int N, int NP, bool PAIR, bool FIRST>
+template <typename T, int N, int NP, bool PAIR, bool FIRST>
 __device__ __forceinline__ void tap(float (&acc)[NP], const float (&src)[NP], float c) {
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
@@ -381,8 +497,8 @@ __device__ __forceinline__ void tap(float (&acc)[NP], const float (&src)[NP], fl
             continue;
         }
         const float v = src[clamp_index(i + N, NP)];
-        const float term = PAIR ? v : __fmul_rn(c, v);
-        acc[i] = FIRST ? term : __fadd_rn(acc[i], term);
+        const float term = PAIR ? v : mul<T>(c, v);
+        acc[i] = FIRST ? term : add<T>(acc[i], term);
     }
 }
 
@@ -391,75 +507,75 @@ __device__ __forceinline__ void tap(float (&acc)[NP], const float (&src)[NP], fl
 // range, in the table's order but for two taps, whose sum is the same
 // either way).  Each shift is a compile-time register offset: one jump to
 // lo's case, then one compare a further tap.
-template <int NP, bool PAIR>
+template <typename T, int NP, bool PAIR>
 __device__ __forceinline__ void taps(const Step& st, float (&acc)[NP], const float (&src)[NP]) {
     const int hi = st.hi;
     const float* cn = st.cn;
     switch (st.lo) {
-        case -4: tap<-4, NP, PAIR, true>(acc, src, cn[0]); if (hi > -4) goto add_m3; goto done;
-        case -3: tap<-3, NP, PAIR, true>(acc, src, cn[1]); if (hi > -3) goto add_m2; goto done;
-        case -2: tap<-2, NP, PAIR, true>(acc, src, cn[2]); if (hi > -2) goto add_m1; goto done;
-        case -1: tap<-1, NP, PAIR, true>(acc, src, cn[3]); if (hi > -1) goto add_0; goto done;
-        case 0: tap<0, NP, PAIR, true>(acc, src, cn[4]); if (hi > 0) goto add_p1; goto done;
-        case 1: tap<1, NP, PAIR, true>(acc, src, cn[5]); if (hi > 1) goto add_p2; goto done;
-        case 2: tap<2, NP, PAIR, true>(acc, src, cn[6]); if (hi > 2) goto add_p3; goto done;
-        case 3: tap<3, NP, PAIR, true>(acc, src, cn[7]); if (hi > 3) goto add_p4; goto done;
-        default: tap<4, NP, PAIR, true>(acc, src, cn[8]); goto done;
+        case -4: tap<T, -4, NP, PAIR, true>(acc, src, cn[0]); if (hi > -4) goto add_m3; goto done;
+        case -3: tap<T, -3, NP, PAIR, true>(acc, src, cn[1]); if (hi > -3) goto add_m2; goto done;
+        case -2: tap<T, -2, NP, PAIR, true>(acc, src, cn[2]); if (hi > -2) goto add_m1; goto done;
+        case -1: tap<T, -1, NP, PAIR, true>(acc, src, cn[3]); if (hi > -1) goto add_0; goto done;
+        case 0: tap<T, 0, NP, PAIR, true>(acc, src, cn[4]); if (hi > 0) goto add_p1; goto done;
+        case 1: tap<T, 1, NP, PAIR, true>(acc, src, cn[5]); if (hi > 1) goto add_p2; goto done;
+        case 2: tap<T, 2, NP, PAIR, true>(acc, src, cn[6]); if (hi > 2) goto add_p3; goto done;
+        case 3: tap<T, 3, NP, PAIR, true>(acc, src, cn[7]); if (hi > 3) goto add_p4; goto done;
+        default: tap<T, 4, NP, PAIR, true>(acc, src, cn[8]); goto done;
     }
 add_m3:
-    tap<-3, NP, PAIR, false>(acc, src, cn[1]);
+    tap<T, -3, NP, PAIR, false>(acc, src, cn[1]);
     if (hi == -3) goto done;
 add_m2:
-    tap<-2, NP, PAIR, false>(acc, src, cn[2]);
+    tap<T, -2, NP, PAIR, false>(acc, src, cn[2]);
     if (hi == -2) goto done;
 add_m1:
-    tap<-1, NP, PAIR, false>(acc, src, cn[3]);
+    tap<T, -1, NP, PAIR, false>(acc, src, cn[3]);
     if (hi == -1) goto done;
 add_0:
-    tap<0, NP, PAIR, false>(acc, src, cn[4]);
+    tap<T, 0, NP, PAIR, false>(acc, src, cn[4]);
     if (hi == 0) goto done;
 add_p1:
-    tap<1, NP, PAIR, false>(acc, src, cn[5]);
+    tap<T, 1, NP, PAIR, false>(acc, src, cn[5]);
     if (hi == 1) goto done;
 add_p2:
-    tap<2, NP, PAIR, false>(acc, src, cn[6]);
+    tap<T, 2, NP, PAIR, false>(acc, src, cn[6]);
     if (hi == 2) goto done;
 add_p3:
-    tap<3, NP, PAIR, false>(acc, src, cn[7]);
+    tap<T, 3, NP, PAIR, false>(acc, src, cn[7]);
     if (hi == 3) goto done;
 add_p4:
-    tap<4, NP, PAIR, false>(acc, src, cn[8]);
+    tap<T, 4, NP, PAIR, false>(acc, src, cn[8]);
 done:
     if (PAIR) {
 #pragma unroll
-        for (int i = 0; i < NP; ++i) acc[i] = __fmul_rn(st.coeff[0], acc[i]);
+        for (int i = 0; i < NP; ++i) acc[i] = mul<T>(st.coeff[0], acc[i]);
     }
 }
 
 // One lifting step on a run of NP pairs held in registers: tgt[i] plus its
 // update for each i set in `valid` (the pairs inside the level's plane).
-template <int NP>
+template <typename T, int NP>
 __device__ __forceinline__ void run_step(const Step& st, float (&tgt)[NP], const float (&src)[NP],
                                          unsigned valid) {
     float acc[NP];
     if (st.pair)
-        taps<NP, true>(st, acc, src);
+        taps<T, NP, true>(st, acc, src);
     else
-        taps<NP, false>(st, acc, src);
+        taps<T, NP, false>(st, acc, src);
 #pragma unroll
     for (int i = 0; i < NP; ++i)
-        if (valid >> i & 1u) tgt[i] = __fadd_rn(tgt[i], acc[i]);
+        if (valid >> i & 1u) tgt[i] = add<T>(tgt[i], acc[i]);
 }
 
-template <int NP>
+template <typename T, int NP>
 __device__ __forceinline__ void lift_run(const Family& fam, float (&e)[NP], float (&o)[NP],
                                          unsigned valid) {
     for (int s = 0; s < fam.nsteps; ++s) {
         const Step& st = fam.step[s];
         if (st.target)
-            run_step(st, o, e, valid);
+            run_step<T>(st, o, e, valid);
         else
-            run_step(st, e, o, valid);
+            run_step<T>(st, e, o, valid);
     }
 }
 
@@ -498,9 +614,9 @@ __device__ __forceinline__ void tile_origin(const TilePlan& pl, int t, int* p, i
 // A and B rows have an odd stride, so the W phase's threads, one a row, hit
 // distinct banks.  Both phases run one loop body, so the lifting code, the
 // bulk of the kernel, is there once.
-template <int HALO, int R, int MIN_BLOCKS>
+template <typename T, int HALO, int R, int MIN_BLOCKS>
 __global__ void __launch_bounds__(kTileThreads, MIN_BLOCKS)
-lift_tile_kernel(const float* __restrict__ x, float* __restrict__ out, int h, int w,
+lift_tile_kernel(const T* __restrict__ x, T* __restrict__ out, int h, int w,
                  const __grid_constant__ Family fam, const __grid_constant__ TilePlan pl) {
     constexpr int NP = R + 2 * HALO;
     extern __shared__ __align__(16) float tile_sm[];
@@ -512,7 +628,7 @@ lift_tile_kernel(const float* __restrict__ x, float* __restrict__ out, int h, in
     const bool vec_out = wc % 4 == 0 && pl.tc % 4 == 0;
     int p, br, bc;
     tile_origin(pl, blockIdx.x, &p, &br, &bc);
-    const float* plane = x + static_cast<size_t>(p) * h * w;
+    const T* plane = x + static_cast<size_t>(p) * h * w;
     int sa = 0;                                 // A's row stride, in floats
     for (int j = 0; j < L; ++j) {
         const int last = j == L - 1;
@@ -551,10 +667,10 @@ lift_tile_kernel(const float* __restrict__ x, float* __restrict__ out, int h, in
 #pragma unroll
                         for (int i = 0; i < NP; ++i) {
                             const bool in = cin && (rows_in >> i & 1u);
-                            ev[i] = in ? __ldg(plane + col + static_cast<ptrdiff_t>(2 * i) * w)
+                            ev[i] = in ? ldg<T>(plane + col + static_cast<ptrdiff_t>(2 * i) * w)
                                        : 0.f;
-                            od[i] = in ? __ldg(plane + col +
-                                               static_cast<ptrdiff_t>(2 * i + 1) * w)
+                            od[i] = in ? ldg<T>(plane + col +
+                                                static_cast<ptrdiff_t>(2 * i + 1) * w)
                                        : 0.f;
                         }
                     } else {
@@ -580,7 +696,7 @@ lift_tile_kernel(const float* __restrict__ x, float* __restrict__ out, int h, in
                     }
                     valid = rin ? plane_bits(bc + q0, mc, NP) : 0u;
                 }
-                lift_run(fam, ev, od, valid);
+                lift_run<T>(fam, ev, od, valid);
                 if (!wphase) {
                     // s * k (and d / k) into B, the column's even or odd half
                     const bool cin = valid != 0u;
@@ -589,10 +705,10 @@ lift_tile_kernel(const float* __restrict__ x, float* __restrict__ out, int h, in
                     for (int i = HALO; i < HALO + R; ++i) {
                         const int row = k * R + i - HALO;
                         if (row < nr) {
-                            const float s = cin ? __fmul_rn(ev[i], fam.k) : 0.f;
+                            const float s = cin ? mul<T>(ev[i], fam.k) : 0.f;
                             if (last) {
                                 col[(2 * row) * sb] = s;
-                                col[(2 * row + 1) * sb] = cin ? __fdiv_rn(od[i], fam.k) : 0.f;
+                                col[(2 * row + 1) * sb] = cin ? dvd<T>(od[i], fam.k) : 0.f;
                             } else {
                                 col[row * sb] = s;
                             }
@@ -606,28 +722,26 @@ lift_tile_kernel(const float* __restrict__ x, float* __restrict__ out, int h, in
                     float lo[R], hi[R];
 #pragma unroll
                     for (int i = 0; i < R; ++i) {
-                        lo[i] = __fmul_rn(__fmul_rn(ev[HALO + i], fam.k), par ? 1.0f : 0.5f);
-                        hi[i] = __fmul_rn(__fdiv_rn(od[HALO + i], fam.k),
-                                          par ? 1.41421356237309504880f : 1.0f);
+                        lo[i] = mul<T>(mul<T>(ev[HALO + i], fam.k), par ? 1.0f : 0.5f);
+                        hi[i] = mul<T>(dvd<T>(od[HALO + i], fam.k),
+                                       par ? rnd<T>(kSqrt2) : 1.0f);
                     }
-                    float* o_lo = out + (static_cast<size_t>(p) * 4 + par) * band +
-                                  static_cast<size_t>(gi) * wc + gq0;
-                    float* o_hi = o_lo + 2 * band;
+                    T* o_lo = out + (static_cast<size_t>(p) * 4 + par) * band +
+                              static_cast<size_t>(gi) * wc + gq0;
+                    T* o_hi = o_lo + 2 * band;
                     const int nq = min(R, min(ncol - k * R, wc - gq0));
                     if (vec_out && nq == R) {
 #pragma unroll
                         for (int i = 0; i < R; i += 4) {
-                            *reinterpret_cast<float4*>(o_lo + i) =
-                                make_float4(lo[i], lo[i + 1], lo[i + 2], lo[i + 3]);
-                            *reinterpret_cast<float4*>(o_hi + i) =
-                                make_float4(hi[i], hi[i + 1], hi[i + 2], hi[i + 3]);
+                            store_vec<T, 4>(o_lo + i, lo + i);
+                            store_vec<T, 4>(o_hi + i, hi + i);
                         }
                     } else {
 #pragma unroll
                         for (int i = 0; i < R; ++i)
                             if (i < nq) {
-                                o_lo[i] = lo[i];
-                                o_hi[i] = hi[i];
+                                o_lo[i] = from_f32<T>(lo[i]);
+                                o_hi[i] = from_f32<T>(hi[i]);
                             }
                     }
                 } else {
@@ -637,7 +751,7 @@ lift_tile_kernel(const float* __restrict__ x, float* __restrict__ out, int h, in
                     for (int i = 0; i < R; ++i)
                         if (k * R + i < ncol)
                             arow[i] = valid >> (HALO + i) & 1u
-                                          ? __fmul_rn(__fmul_rn(ev[HALO + i], fam.k), 0.5f)
+                                          ? mul<T>(mul<T>(ev[HALO + i], fam.k), 0.5f)
                                           : 0.f;
                 }
             }
@@ -797,26 +911,27 @@ int read_family(int nsteps, const int* meta, const float* coeffs, float k, Famil
     return 0;
 }
 
-int launch_register(const float* x, float* out, int n, int h, int w, int levels,
-                    const Family& fam, cudaStream_t strm) {
+template <typename T>
+int launch_register(const T* x, T* out, int n, int h, int w, int levels, const Family& fam,
+                    cudaStream_t strm) {
     const int c = levels == 1 && w % 4 == 0 ? 2 : 1;
     const long long items = static_cast<long long>(h >> levels) * ((w >> levels) / c);
     const dim3 grid(static_cast<unsigned>((items + kRegThreads - 1) / kRegThreads),
                     n < 65535 ? n : 65535);
     if (levels == 1 && c == 2)
-        lift_reg_kernel<1, 2><<<grid, kRegThreads, 0, strm>>>(x, out, n, h, w, fam);
+        lift_reg_kernel<T, 1, 2><<<grid, kRegThreads, 0, strm>>>(x, out, n, h, w, fam);
     else if (levels == 1)
-        lift_reg_kernel<1, 1><<<grid, kRegThreads, 0, strm>>>(x, out, n, h, w, fam);
+        lift_reg_kernel<T, 1, 1><<<grid, kRegThreads, 0, strm>>>(x, out, n, h, w, fam);
     else if (levels == 2)
-        lift_reg_kernel<2, 1><<<grid, kRegThreads, 0, strm>>>(x, out, n, h, w, fam);
+        lift_reg_kernel<T, 2, 1><<<grid, kRegThreads, 0, strm>>>(x, out, n, h, w, fam);
     else
-        lift_reg_kernel<3, 1><<<grid, kRegThreads, 0, strm>>>(x, out, n, h, w, fam);
+        lift_reg_kernel<T, 3, 1><<<grid, kRegThreads, 0, strm>>>(x, out, n, h, w, fam);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Kernel>
-int launch_tile(Kernel kernel, const float* x, float* out, int n, int h, int w,
-                const Family& fam, const TilePlan& pl, int bytes, cudaStream_t strm) {
+template <typename T, typename Kernel>
+int launch_tile(Kernel kernel, const T* x, T* out, int n, int h, int w, const Family& fam,
+                const TilePlan& pl, int bytes, cudaStream_t strm) {
     // tile indices are ints: 2^31 tiles of 16 outputs or more (the least a
     // tile holds) would not fit the card's memory
     const long long tiles = static_cast<long long>(n) * pl.tiles_r * pl.tiles_c;
@@ -829,46 +944,78 @@ int launch_tile(Kernel kernel, const float* x, float* out, int n, int h, int w,
 
 // the tile kernel whose runs hold the lift's reach (the plan's halos may be
 // narrower: none along an axis one tile spans)
-int launch_tile(const float* x, float* out, int n, int h, int w, const Family& fam,
-                const TilePlan& pl, int bytes, cudaStream_t strm) {
-    return pl.reach <= 2 ? launch_tile(lift_tile_kernel<2, kTileRun, 4>, x, out, n, h, w, fam,
+template <typename T>
+int launch_tile(const T* x, T* out, int n, int h, int w, const Family& fam, const TilePlan& pl,
+                int bytes, cudaStream_t strm) {
+    return pl.reach <= 2 ? launch_tile(lift_tile_kernel<T, 2, kTileRun, 4>, x, out, n, h, w, fam,
                                        pl, bytes, strm)
-                         : launch_tile(lift_tile_kernel<kTileMaxHalo, 2 * kTileRun, 2>, x, out, n,
-                                       h, w, fam, pl, bytes, strm);
+                         : launch_tile(lift_tile_kernel<T, kTileMaxHalo, 2 * kTileRun, 2>, x, out,
+                                       n, h, w, fam, pl, bytes, strm);
 }
 
-int launch_two_pass(const float* x, float* out, float* lift_ws, float* ll_ws, int n, int h,
-                    int w, int levels, const Family& fam, cudaStream_t strm) {
+template <typename T>
+int launch_two_pass(const T* x, T* out, T* lift_ws, T* ll_ws, int n, int h, int w, int levels,
+                    const Family& fam, cudaStream_t strm) {
     const int grid_n = n < 65535 ? n : 65535;
     for (int lvl = 0; lvl < levels; ++lvl) {
         const int hl = h >> lvl, wl = w >> lvl;
         const bool last = lvl == levels - 1;
-        const float* src = lvl == 0 ? x : ll_ws;
+        const T* src = lvl == 0 ? x : ll_ws;
         const int h_bytes = hl * kStrip * 4;
-        int status = set_shared(lift_h_kernel, h_bytes);
+        int status = set_shared(lift_h_kernel<T>, h_bytes);
         if (status) return status;
-        lift_h_kernel<<<dim3((wl + kStrip - 1) / kStrip, grid_n), dim3(kStrip, kRowsY),
-                        h_bytes, strm>>>(src, lift_ws, n, hl, wl, fam, last ? 1 : 0);
+        lift_h_kernel<T><<<dim3((wl + kStrip - 1) / kStrip, grid_n), dim3(kStrip, kRowsY),
+                           h_bytes, strm>>>(src, lift_ws, n, hl, wl, fam, last ? 1 : 0);
         status = static_cast<int>(cudaGetLastError());
         if (status) return status;
         const int rows = last ? hl : hl / 2;   // an earlier level needs LL only
         const int w_bytes = kRowsW * wl * 4;
-        status = set_shared(lift_w_kernel, w_bytes);
+        status = set_shared(lift_w_kernel<T>, w_bytes);
         if (status) return status;
-        lift_w_kernel<<<dim3((rows + kRowsW - 1) / kRowsW, grid_n), kThreadsW, w_bytes,
-                        strm>>>(lift_ws, last ? out : ll_ws, n, hl, wl, rows, fam,
-                                last ? 1 : 0);
+        lift_w_kernel<T><<<dim3((rows + kRowsW - 1) / kRowsW, grid_n), kThreadsW, w_bytes,
+                           strm>>>(lift_ws, last ? out : ll_ws, n, hl, wl, rows, fam,
+                                   last ? 1 : 0);
         status = static_cast<int>(cudaGetLastError());
         if (status) return status;
     }
     return 0;
 }
 
+// x (n, h, w) of T, 16-byte aligned; out (n, 4, h >> levels, w >> levels)
+// of T; the workspaces of T.  The rest as irw_lifting_dwt_f32 below.
+template <typename T>
+int lifting_dwt(const void* x, void* out, void* lift_ws, void* ll_ws, int n, int h, int w,
+                int levels, int nsteps, const int* meta, const float* coeffs, float k,
+                const int* reach, void* stream) {
+    Family fam;
+    TilePlan pl;
+    int bytes = -1;
+    if (n <= 0 || levels < 1 || levels > 30 || h % (1 << levels) || w % (1 << levels) ||
+        reinterpret_cast<uintptr_t>(x) % 16 || read_family(nsteps, meta, coeffs, k, &fam))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const auto* xt = static_cast<const T*>(x);
+    auto* ot = static_cast<T*>(out);
+    auto strm = static_cast<cudaStream_t>(stream);
+    switch (variant(h, w, levels, fam, reach, &pl, &bytes)) {
+        case 2:
+            return launch_register(xt, ot, n, h, w, levels, fam, strm);
+        case 1:
+            return launch_tile(xt, ot, n, h, w, fam, pl, bytes, strm);
+        case 0:
+            if (lift_ws == nullptr || (levels > 1 && ll_ws == nullptr))
+                return static_cast<int>(cudaErrorInvalidValue);
+            return launch_two_pass(xt, ot, static_cast<T*>(lift_ws), static_cast<T*>(ll_ws), n, h,
+                                   w, levels, fam, strm);
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
 }  // namespace
 
 // The path irw_lifting_dwt_f32 takes for an (h, w) plane at `levels` and the
 // step table (meta as there; reach as there): 2 register, 1 tile,
-// 0 two_pass, -1 none.
+// 0 two_pass, -1 none.  The same for every storage type.
 extern "C" int irw_lifting_dwt_variant(int h, int w, int levels, int nsteps, const int* meta,
                                        const int* reach) {
     Family fam;
@@ -893,28 +1040,26 @@ extern "C" int irw_lifting_dwt_f32(const void* x, void* out, void* lift_ws, void
                                    int n, int h, int w, int levels, int nsteps,
                                    const int* meta, const float* coeffs, float k,
                                    const int* reach, void* stream) {
-    Family fam;
-    TilePlan pl;
-    int bytes = -1;
-    if (n <= 0 || levels < 1 || levels > 30 || h % (1 << levels) || w % (1 << levels) ||
-        reinterpret_cast<uintptr_t>(x) % 16 || read_family(nsteps, meta, coeffs, k, &fam))
-        return static_cast<int>(cudaErrorInvalidValue);
-    const auto* xf = static_cast<const float*>(x);
-    auto* of = static_cast<float*>(out);
-    auto strm = static_cast<cudaStream_t>(stream);
-    switch (variant(h, w, levels, fam, reach, &pl, &bytes)) {
-        case 2:
-            return launch_register(xf, of, n, h, w, levels, fam, strm);
-        case 1:
-            return launch_tile(xf, of, n, h, w, fam, pl, bytes, strm);
-        case 0:
-            if (lift_ws == nullptr || (levels > 1 && ll_ws == nullptr))
-                return static_cast<int>(cudaErrorInvalidValue);
-            return launch_two_pass(xf, of, static_cast<float*>(lift_ws),
-                                   static_cast<float*>(ll_ws), n, h, w, levels, fam, strm);
-        default:
-            return static_cast<int>(cudaErrorInvalidValue);
-    }
+    return lifting_dwt<float>(x, out, lift_ws, ll_ws, n, h, w, levels, nsteps, meta, coeffs, k,
+                              reach, stream);
+}
+
+// The same in bf16 and in f16: every tensor of that type, coeffs and k
+// values of it (rounded by the caller, as the plain version rounds them).
+extern "C" int irw_lifting_dwt_bf16(const void* x, void* out, void* lift_ws, void* ll_ws,
+                                    int n, int h, int w, int levels, int nsteps,
+                                    const int* meta, const float* coeffs, float k,
+                                    const int* reach, void* stream) {
+    return lifting_dwt<__nv_bfloat16>(x, out, lift_ws, ll_ws, n, h, w, levels, nsteps, meta,
+                                      coeffs, k, reach, stream);
+}
+
+extern "C" int irw_lifting_dwt_f16(const void* x, void* out, void* lift_ws, void* ll_ws,
+                                   int n, int h, int w, int levels, int nsteps,
+                                   const int* meta, const float* coeffs, float k,
+                                   const int* reach, void* stream) {
+    return lifting_dwt<__half>(x, out, lift_ws, ll_ws, n, h, w, levels, nsteps, meta, coeffs,
+                               k, reach, stream);
 }
 
 extern "C" const char* irw_cuda_error_string(int status) {

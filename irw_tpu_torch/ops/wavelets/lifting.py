@@ -1,5 +1,5 @@
-"""Lifting-scheme DWT in plain PyTorch: Haar, CDF-9/7 and the 13 families
-(port of ``irw_tpu/ops/wavelets/lifting.py:32-297``, forward only).
+"""Lifting-scheme DWT in plain PyTorch: Haar, CDF-9/7 and the 13 families,
+forward and inverse (port of ``irw_tpu/ops/wavelets/lifting.py:32-297``).
 
 Semantics of the reference's transform-pipeline wavelets:
 
@@ -11,8 +11,9 @@ Semantics of the reference's transform-pipeline wavelets:
 - the four subbands get the "v6" scales LL·0.5, LH·1, HL·1, HH·√2.
 
 Tensors have trailing spatial dims (..., H, W) and compute in their own
-dtype.  The inverses are not on the served path and wait (ROADMAP
-A9-remainder).
+dtype, every constant rounded to it first as jnp does
+(``lifting_families.scalar``), so bf16 results equal the JAX package's bit
+for bit.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ from irw_tpu_torch.ops.wavelets.lifting_families import (
     LIFTING_FAMILIES,
     divide,
     family_lift_1d,
+    family_unlift_1d,
+    interleave,
+    multiply,
     shift,
     split_even_odd,
 )
@@ -47,22 +51,39 @@ CDF97_K = 1.149604398
 def _haar_lift_1d(x, dim: int):
     even, odd = split_even_odd(x, dim)
     d = odd - even
-    s = even + 0.5 * d
-    return s * SQRT2, divide(d, SQRT2)
+    s = even + multiply(d, 0.5)
+    return multiply(s, SQRT2), divide(d, SQRT2)
+
+
+def _haar_unlift_1d(s, d, dim: int):
+    s, d = divide(s, SQRT2), multiply(d, SQRT2)
+    even = s - multiply(d, 0.5)
+    return interleave(even, d + even, dim)
 
 
 def _cdf97_lift_1d(x, dim: int):
     even, odd = split_even_odd(x, dim)
-    odd = odd + CDF97_A1 * (even + shift(even, 1, dim))
-    even = even + CDF97_A2 * (shift(odd, -1, dim) + odd)
-    odd = odd + CDF97_A3 * (even + shift(even, 1, dim))
-    even = even + CDF97_A4 * (shift(odd, -1, dim) + odd)
-    return even * CDF97_K, divide(odd, CDF97_K)
+    odd = odd + multiply(even + shift(even, 1, dim), CDF97_A1)
+    even = even + multiply(shift(odd, -1, dim) + odd, CDF97_A2)
+    odd = odd + multiply(even + shift(even, 1, dim), CDF97_A3)
+    even = even + multiply(shift(odd, -1, dim) + odd, CDF97_A4)
+    return multiply(even, CDF97_K), divide(odd, CDF97_K)
 
 
-# basis → (1D lift, the multiple the reference pads H and W to)
-_LIFT_1D = {"haar": (_haar_lift_1d, 2), "cdf97": (_cdf97_lift_1d, 4)}
-_LIFT_1D.update({key: (partial(family_lift_1d, family=fam), 2)
+def _cdf97_unlift_1d(s, d, dim: int):
+    s, d = divide(s, CDF97_K), multiply(d, CDF97_K)
+    even = s - multiply(shift(d, -1, dim) + d, CDF97_A4)
+    odd = d - multiply(even + shift(even, 1, dim), CDF97_A3)
+    even = even - multiply(shift(odd, -1, dim) + odd, CDF97_A2)
+    odd = odd - multiply(even + shift(even, 1, dim), CDF97_A1)
+    return interleave(even, odd, dim)
+
+
+# basis → (1D lift, 1D inverse, the multiple the reference pads H and W to)
+_LIFT_1D = {"haar": (_haar_lift_1d, _haar_unlift_1d, 2),
+            "cdf97": (_cdf97_lift_1d, _cdf97_unlift_1d, 4)}
+_LIFT_1D.update({key: (partial(family_lift_1d, family=fam),
+                       partial(family_unlift_1d, family=fam), 2)
                  for key, fam in LIFTING_FAMILIES.items()})
 _LIFT_1D.update({alias: _LIFT_1D[key] for alias, key in FAMILY_ALIASES.items()})
 
@@ -70,7 +91,8 @@ BASES = tuple(sorted(_LIFT_1D))
 
 
 def _basis(basis: str):
-    """(1D lift, pad multiple) of a basis; ValueError for an unknown one."""
+    """(1D lift, 1D inverse, pad multiple) of a basis; ValueError for an
+    unknown one."""
     try:
         return _LIFT_1D[basis]
     except KeyError:
@@ -82,14 +104,22 @@ def lift_1d(x, basis: str, dim: int):
     return _basis(basis)[0](x, dim=dim)
 
 
-def _lifting_dwt2(x, basis: str):
+def _lifting_dwt2(x, basis: str, scales_2d=COEFFS_SCALES_2D):
     """One-level 2D lifting DWT on (..., H, W), H and W even.  Returns
     (ll, lh, hl, hh), each (..., H/2, W/2)."""
     low_h, high_h = lift_1d(x, basis, -2)      # rows pass (along H)
     ll, hl = lift_1d(low_h, basis, -1)         # cols pass (along W) on each half
     lh, hh = lift_1d(high_h, basis, -1)
-    s0, s1, s2, s3 = COEFFS_SCALES_2D
-    return ll * s0, lh * s1, hl * s2, hh * s3
+    return tuple(multiply(band, s) for band, s in zip((ll, lh, hl, hh), scales_2d))
+
+
+def _lifting_idwt2(ll, lh, hl, hh, basis: str, scales_2d=COEFFS_SCALES_2D):
+    """Inverse of ``_lifting_dwt2`` (``lifting.py:176-183``)."""
+    unlift = _basis(basis)[1]
+    ll, lh, hl, hh = (divide(band, s) for band, s in zip((ll, lh, hl, hh), scales_2d))
+    low_h = unlift(ll, hl, dim=-1)
+    high_h = unlift(lh, hh, dim=-1)
+    return unlift(low_h, high_h, dim=-2)
 
 
 def _pad_to_multiple(x, multiple: int):
@@ -103,11 +133,34 @@ def _pad_to_multiple(x, multiple: int):
     return x
 
 
-def lifting_dwt2(x, basis: str = "haar"):
+def lifting_dwt2(x, basis: str = "haar", scales_2d=COEFFS_SCALES_2D):
     """One-level 2D lifting DWT for any basis (haar, cdf97 and the 13
     families with their aliases), padding H and W first as the reference
     does (to 4 for cdf97, else 2).  (..., H, W) → 4 × (..., H'/2, W'/2)."""
-    return _lifting_dwt2(_pad_to_multiple(x, _basis(basis)[1]), basis)
+    return _lifting_dwt2(_pad_to_multiple(x, _basis(basis)[2]), basis, scales_2d)
+
+
+def lifting_idwt2(ll, lh, hl, hh, basis: str = "haar", scales_2d=COEFFS_SCALES_2D):
+    """Inverse of ``lifting_dwt2`` (of its padded input)."""
+    return _lifting_idwt2(ll, lh, hl, hh, basis, scales_2d)
+
+
+def haar_dwt2(x, scales_2d=COEFFS_SCALES_2D):
+    """One-level Haar lifting DWT.  (..., H, W) → 4 × (..., H/2, W/2)."""
+    return lifting_dwt2(x, "haar", scales_2d)
+
+
+def haar_idwt2(ll, lh, hl, hh, scales_2d=COEFFS_SCALES_2D):
+    return _lifting_idwt2(ll, lh, hl, hh, "haar", scales_2d)
+
+
+def cdf97_dwt2(x, scales_2d=COEFFS_SCALES_2D):
+    """One-level CDF-9/7 lifting DWT (H and W padded to a multiple of 4)."""
+    return lifting_dwt2(x, "cdf97", scales_2d)
+
+
+def cdf97_idwt2(ll, lh, hl, hh, scales_2d=COEFFS_SCALES_2D):
+    return _lifting_idwt2(ll, lh, hl, hh, "cdf97", scales_2d)
 
 
 def lifting_decompose(x, levels: int = 1, basis: str = "haar"):

@@ -6,10 +6,15 @@ along H, then along W on both halves, then the v6 scales (0.5, 1, 1, √2);
 recurse on the scaled LL; return the last level's [LL, LH, HL, HH].
 
 ``lifting_multi_level`` launches the CUDA kernel K4 (``csrc/lifting_dwt.cu``)
-for a CUDA f32 tensor and runs ``lifting_multi_level_plain`` (built from
-``ops.wavelets.lifting``) for a CPU tensor; it never falls back from one to
-the other.  The kernel takes every basis as a table of lifting steps, so one
-kernel serves haar, cdf97 and the 13 families.  ``lifting_kernel_variants``
+for a CUDA f32, bf16 or f16 tensor and runs ``lifting_multi_level_plain``
+(built from ``ops.wavelets.lifting``) for a CPU tensor; it never falls back
+from one to the other.  In bf16 and f16 the kernel rounds every operation to
+the dtype, with the constants rounded to it first, as the plain version
+does: the two agree bit for bit in every dtype.  ``haar_multi_level``,
+``cdf97_multi_level`` and ``haar_dwt2_fused`` are the JAX package's thin
+wrappers (``pallas_dwt.py:223-237``), one K4 launch each.  The kernel takes
+every basis as a table of lifting steps, so one kernel serves haar, cdf97
+and the 13 families.  ``lifting_kernel_variants``
 names the path a shape takes on the card: ``register`` (haar, levels 1-3),
 ``tile`` (every other basis, all levels in one launch, the halo from
 ``kernel_reach``) or ``two_pass`` (what a tile cannot hold).
@@ -33,7 +38,7 @@ from irw_tpu_torch.ops.wavelets.lifting import (
     SQRT2,
     _lifting_dwt2,
 )
-from irw_tpu_torch.ops.wavelets.lifting_families import resolve_family
+from irw_tpu_torch.ops.wavelets.lifting_families import resolve_family, scalar
 
 MAX_STEPS = 8          # csrc/lifting_dwt.cu kMaxSteps, kMaxTaps, kStrip,
 MAX_TAPS = 9           # kRowsW and the shared memory a block may take
@@ -241,23 +246,30 @@ def lifting_kernel_variants(h: int, w: int, levels: int, basis: str) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _step_arrays(basis: str):
+def _step_arrays(basis: str, dtype: torch.dtype = torch.float32):
+    """The step table as the kernel's arguments, every coefficient and k
+    rounded to ``dtype``."""
     steps, k = kernel_steps(basis)
+    like = torch.empty((), dtype=dtype)
     meta, coeffs = [], []
     for target, pair, shifts, cs in steps:
         meta += [target, pair, len(shifts), *shifts, *[0] * (MAX_TAPS - len(shifts))]
-        coeffs += [*cs, *[0.0] * (MAX_TAPS - len(cs))]
+        coeffs += [*(scalar(c, like).item() for c in cs), *[0.0] * (MAX_TAPS - len(cs))]
     return (len(steps), (ctypes.c_int * len(meta))(*meta),
-            (ctypes.c_float * len(coeffs))(*coeffs), k)
+            (ctypes.c_float * len(coeffs))(*coeffs), scalar(k, like).item())
 
 
+# the kernel's entry point for each dtype it takes
+ENTRY = {torch.float32: "irw_lifting_dwt_f32", torch.bfloat16: "irw_lifting_dwt_bf16",
+         torch.float16: "irw_lifting_dwt_f16"}
+_LAUNCH_ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                 ctypes.POINTER(ctypes.c_float), ctypes.c_float,
+                 ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
+                ctypes.c_int)
 _SIGNATURES = {
-    "irw_lifting_dwt_f32": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                             ctypes.POINTER(ctypes.c_float), ctypes.c_float,
-                             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
-                            ctypes.c_int),
+    **{entry: _LAUNCH_ARGS for entry in ENTRY.values()},
     "irw_lifting_dwt_variant": ([ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                  ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)],
                                 ctypes.c_int),
@@ -267,22 +279,21 @@ _SIGNATURES = {
 def lifting_multi_level(x: torch.Tensor, levels: int = 1, basis: str = "haar") -> torch.Tensor:
     """Multi-level lifting DWT, coarsest level: (N, H, W) → (N, 4, H/2ˡ, W/2ˡ).
 
-    CPU tensor: the plain version, in x's dtype.  CUDA f32 tensor: kernel K4,
-    counted in ``lifting_multi_level.launches`` (one per call, whatever the
-    number of levels), on the path ``lifting_kernel_variants`` names (held
-    once a shape against the one the C side takes; kept in
-    ``lifting_multi_level.last_path``).  Other dtypes on the card raise:
-    nothing on the served path gives one (``DeviceTransform`` is f32 from
-    /255 on)."""
+    CPU tensor: the plain version, in x's dtype.  CUDA f32, bf16 or f16
+    tensor: kernel K4 in that dtype, counted in
+    ``lifting_multi_level.launches`` (one per call, whatever the number of
+    levels), on the path ``lifting_kernel_variants`` names (held once a
+    shape against the one the C side takes; kept in
+    ``lifting_multi_level.last_path``).  Other dtypes on the card raise."""
     _check(x, levels, basis)
     if x.device.type == "cpu":
         return lifting_multi_level_plain(x, levels, basis)
     if x.device.type != "cuda":
         raise ValueError(f"lifting_multi_level: no kernel for device {x.device}; the kernel "
-                         "takes float32 (N, H, W) planes on a CUDA device")
-    if x.dtype != torch.float32:
-        raise NotImplementedError(f"lifting_multi_level: kernel K4 takes float32; {x.dtype} "
-                                  "on the card waits for ROADMAP A9-remainder")
+                         "takes float32, bfloat16 or float16 (N, H, W) planes on a CUDA device")
+    if x.dtype not in ENTRY:
+        raise NotImplementedError(f"lifting_multi_level: kernel K4 takes float32, bfloat16 or "
+                                  f"float16, not {x.dtype}")
     n, h, w = x.shape
     path = _kernel_path(h, w, levels, basis)
     x = x.contiguous()
@@ -296,14 +307,14 @@ def lifting_multi_level(x: torch.Tensor, levels: int = 1, basis: str = "haar") -
         lift_ws = torch.empty((n, h, w), dtype=x.dtype, device=x.device)
         if levels > 1:
             ll_ws = torch.empty((n, h // 2, w // 2), dtype=x.dtype, device=x.device)
-    nsteps, meta, coeffs, k = _step_arrays(basis)
+    nsteps, meta, coeffs, k = _step_arrays(basis, x.dtype)
     reach = _reach_args(basis)
     lib = cuda_lib.load("lifting_dwt", _SIGNATURES)
-    status = lib.irw_lifting_dwt_f32(x.data_ptr(), out.data_ptr(),
-                                     None if lift_ws is None else lift_ws.data_ptr(),
-                                     None if ll_ws is None else ll_ws.data_ptr(),
-                                     n, h, w, levels, nsteps, meta, coeffs, k, reach,
-                                     cuda_lib.stream_of(x))
+    status = getattr(lib, ENTRY[x.dtype])(x.data_ptr(), out.data_ptr(),
+                                          None if lift_ws is None else lift_ws.data_ptr(),
+                                          None if ll_ws is None else ll_ws.data_ptr(),
+                                          n, h, w, levels, nsteps, meta, coeffs, k, reach,
+                                          cuda_lib.stream_of(x))
     cuda_lib.check(status, "lifting_multi_level", lib)
     lifting_multi_level.launches += 1
     lifting_multi_level.last_path = path
@@ -312,3 +323,19 @@ def lifting_multi_level(x: torch.Tensor, levels: int = 1, basis: str = "haar") -
 
 lifting_multi_level.launches = 0
 lifting_multi_level.last_path = None
+
+
+def haar_multi_level(x: torch.Tensor, levels: int = 1) -> torch.Tensor:
+    """``lifting_multi_level`` for haar (``haar_multi_level_pallas``)."""
+    return lifting_multi_level(x, levels, "haar")
+
+
+def cdf97_multi_level(x: torch.Tensor, levels: int = 1) -> torch.Tensor:
+    """``lifting_multi_level`` for cdf97 (``cdf97_multi_level_pallas``)."""
+    return lifting_multi_level(x, levels, "cdf97")
+
+
+def haar_dwt2_fused(x: torch.Tensor) -> torch.Tensor:
+    """One Haar level in one K4 launch: (N, H, W) → (N, 4, H/2, W/2)
+    (``haar_dwt2_pallas``; named so as not to shadow ``lifting.haar_dwt2``)."""
+    return lifting_multi_level(x, 1, "haar")

@@ -5,8 +5,14 @@ A family is data: a tuple of lifting steps, each updating one parity from
 zero-padded shifted taps of the other, plus the final (s·k, d/k)
 normalisation.  The tables are a copy of the JAX package's (the port
 imports nothing of it); the coefficients follow the reference files cited on
-each spec.  ``family_lift_1d`` runs any family along one axis of a tensor;
-kernel K4 (``csrc/lifting_dwt.cu``) takes the same tables as arguments.
+each spec.  ``family_lift_1d`` runs any family along one axis of a tensor and
+``family_unlift_1d`` inverts it; kernel K4 (``csrc/lifting_dwt.cu``) takes
+the same tables as arguments.
+
+Every constant multiplies or divides as a 0-d tensor of x's dtype on x's
+device (``scalar``): jnp rounds a weakly typed Python float to the array's
+dtype before the operation, where PyTorch would multiply a bf16 or f16
+tensor by the float in f32 and round once.  In f32 the two are the same.
 """
 
 from __future__ import annotations
@@ -248,16 +254,34 @@ def split_even_odd(x: torch.Tensor, dim: int):
     return even, x[tuple(idx)]
 
 
+def interleave(even: torch.Tensor, odd: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inverse of ``split_even_odd``: even and odd samples back in turn."""
+    dim = dim % even.dim()
+    shape = list(even.shape)
+    shape[dim] *= 2
+    return torch.stack([even, odd], dim=dim + 1).reshape(shape)
+
+
+def scalar(c: float, like: torch.Tensor) -> torch.Tensor:
+    """``c`` as a 0-d tensor in ``like``'s dtype, on its device."""
+    return torch.full((), c, dtype=like.dtype, device=like.device)
+
+
+def multiply(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x · c with c rounded to x's dtype first, as jnp's ``c * x``."""
+    return scalar(c, x) * x
+
+
 def divide(x: torch.Tensor, k: float) -> torch.Tensor:
     """x / k as a true division in x's dtype.  (PyTorch's CUDA ``x / float``
     multiplies by the reciprocal; the JAX package and kernel K4 divide.)"""
-    return x / torch.full((), k, dtype=x.dtype, device=x.device)
+    return x / scalar(k, x)
 
 
 def _apply_taps(src, taps, dim: int):
     acc = None
     for n, coeff in taps:
-        term = coeff * shift(src, n, dim)
+        term = multiply(shift(src, n, dim), coeff)
         acc = term if acc is None else acc + term
     return acc
 
@@ -272,4 +296,17 @@ def family_lift_1d(x: torch.Tensor, dim: int, family):
             even = even + _apply_taps(odd, taps, dim)
         else:
             odd = odd + _apply_taps(even, taps, dim)
-    return even * k, divide(odd, k)
+    return multiply(even, k), divide(odd, k)
+
+
+def family_unlift_1d(s: torch.Tensor, d: torch.Tensor, dim: int, family):
+    """Exact inverse of ``family_lift_1d``: unscale, undo the steps in
+    reverse, interleave (``lifting_families.py:273-286``)."""
+    steps, k = family
+    even, odd = divide(s, k), multiply(d, k)
+    for target, taps in reversed(steps):
+        if target == "even":
+            even = even - _apply_taps(odd, taps, dim)
+        else:
+            odd = odd - _apply_taps(even, taps, dim)
+    return interleave(even, odd, dim)

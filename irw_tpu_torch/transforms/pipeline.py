@@ -7,17 +7,23 @@ Input (B, H, W, 3) uint8 (numpy or tensor); ``x.float() / 255`` then the
 configured ops, in order:
 
 - ``Normalize`` (ImageNet mean/std by default);
-- ``SWTTransform`` with ``wavelet="haar"``, ``level=1``: kernel K1 on the
-  card (``ops.wavelets.haar_swt2``) → (B, 4, H, W, C), bands [LL, LH, HL, HH];
+- ``SWTTransform``: haar at level 1 on kernel K1 on the card
+  (``ops.wavelets.haar_swt2``), any other wavelet or level the coarsest
+  tuple of ``ops.wavelets.swt2`` → (B, 4, H, W, C), bands [LL, LH, HL, HH];
+- ``DWTTransform``: ``ops.wavelets.wavedec2`` (mode ``symmetric`` unless
+  given, pywt's default), its ``coeffs[0]`` and ``coeffs[1]`` → (B, 4, h, w, C);
 - ``CustomTransform`` (the lifting DWT, ``pipeline.py:401-447``): kernel K4
   (``ops.wavelets.lifting_multi_level``) where the JAX package calls its
   Pallas kernel, else the plain lifting stack → (B, 4, h, w, C), or
   (B, h, w, C) with ``ll_only``, or the 3·levels + 1 band stack with
   ``coarse_only=False``;
+- ``ResizeSubBands``: every band of (B, S, h, w, C) resized to ``size`` (an
+  int or a pair) as ``jax.image.resize(method="bilinear")``
+  (``ops.wavelets.resize_bilinear``);
 - ``RGBToBGR``.
 
-``DWTTransform``, ``ResizeSubBands`` and SWT with another wavelet or level
-wait for ROADMAP A9.
+The JAX package has no kernel for ``swt2``, ``wavedec2`` or the resize:
+they are plain PyTorch on every device, in full f32.
 """
 
 from __future__ import annotations
@@ -29,14 +35,14 @@ import torch
 
 from irw_tpu_torch.device import resolve_device
 from irw_tpu_torch.transforms.host import HostTransform
+from irw_tpu_torch.ops.wavelets.dwt import swt2, wavedec2
 from irw_tpu_torch.ops.wavelets.lifting import BASES, lifting_decompose, subband_stack
 from irw_tpu_torch.ops.wavelets.lifting_dwt import lifting_multi_level
+from irw_tpu_torch.ops.wavelets.resize import resize_bilinear
 from irw_tpu_torch.ops.wavelets.swt import haar_swt2
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
-
-_LATER = ("DWTTransform", "ResizeSubBands")
 
 
 class DeviceTransform:
@@ -44,14 +50,8 @@ class DeviceTransform:
 
     def __init__(self, ops: Sequence[tuple[str, dict]] = (), device=None):
         self.ops = [(name, dict(kw or {})) for name, kw in ops]
-        for name, kw in self.ops:
-            if name in _LATER:
-                raise NotImplementedError(f"device transform {name!r} waits for ROADMAP A9")
-            if name == "SWTTransform" and (kw.get("wavelet", "haar") != "haar"
-                                           or int(kw.get("level", 1)) != 1):
-                raise NotImplementedError("SWTTransform other than haar level 1 "
-                                          "waits for ROADMAP A9")
-            if name not in ("Normalize", "SWTTransform", "CustomTransform", "RGBToBGR"):
+        for name, _ in self.ops:
+            if name not in DEVICE_OPS:
                 raise ValueError(f"unknown device transform {name!r}")
         self.device = resolve_device(device)
 
@@ -66,14 +66,42 @@ class DeviceTransform:
                                    device=x.device)
                 x = (x - mean) / std
             elif name == "SWTTransform":
-                b, h, w, c = x.shape
-                flat = x.permute(0, 3, 1, 2).reshape(b * c, h, w)
-                x = haar_swt2(flat).reshape(b, c, 4, h, w).permute(0, 2, 3, 4, 1)
+                x = swt_transform(x, **kw)
+            elif name == "DWTTransform":
+                x = dwt_transform(x, **kw)
             elif name == "CustomTransform":
                 x = custom_transform(x, **kw)
+            elif name == "ResizeSubBands":
+                size = kw.get("size", 224)
+                b, s = x.shape[:2]
+                flat = resize_bilinear(x.reshape((b * s,) + tuple(x.shape[2:])), size)
+                x = flat.reshape((b, s) + tuple(flat.shape[1:]))
             elif name == "RGBToBGR":
                 x = x.flip(-1)
         return x
+
+
+def swt_transform(x: torch.Tensor, level=1, wavelet: str = "haar", **_) -> torch.Tensor:
+    """``SWTTransform`` on (B, H, W, C) → (B, 4, H, W, C): haar level 1 on
+    kernel K1, as the JAX package's Pallas kernel; else the coarsest tuple
+    of ``swt2``, ``(ca, (lh, hl, hh)), *_`` (``pipeline.py:448-461``)."""
+    b, h, w, c = x.shape
+    if wavelet == "haar" and int(level) == 1:
+        flat = x.permute(0, 3, 1, 2).reshape(b * c, h, w)
+        return haar_swt2(flat).reshape(b, c, 4, h, w).permute(0, 2, 3, 4, 1)
+    (ca, (lh, hl, hh)), *_ = swt2(x.permute(0, 3, 1, 2), wavelet, level=int(level))
+    return torch.stack([ca, lh, hl, hh], dim=1).movedim(2, -1)
+
+
+def dwt_transform(x: torch.Tensor, level=1, wavelet: str = "haar", mode: str = "symmetric",
+                  **_) -> torch.Tensor:
+    """``DWTTransform`` on (B, H, W, C) → (B, 4, h, w, C): ``wavedec2``'s
+    ``coeffs[0]`` and ``coeffs[1]`` (``pipeline.py:462-475``).  pywt's
+    default extension is ``symmetric``; for haar on even sizes it equals
+    periodization."""
+    coeffs = wavedec2(x.permute(0, 3, 1, 2), wavelet, level=int(level), mode=mode)
+    ca, (lh, hl, hh) = coeffs[0], coeffs[1]
+    return torch.stack([ca, lh, hl, hh], dim=1).movedim(2, -1)
 
 
 def custom_transform(x: torch.Tensor, decompose_levels=None, levels=1, basis: str = "haar",

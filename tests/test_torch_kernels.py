@@ -32,6 +32,9 @@ from irw_tpu_torch.ops.qkv_attention import (
     qkv_kernel_variants,
 )
 from irw_tpu_torch.ops.wavelets import (
+    cdf97_multi_level,
+    haar_dwt2_fused,
+    haar_multi_level,
     haar_swt2,
     haar_swt2_plain,
     lifting_multi_level,
@@ -309,10 +312,55 @@ def test_lifting_kernel_picks_every_path(card):
                                    rtol=0, atol=0)
 
 
+# every path in bf16 and f16: the register path's 4-, 8- and 16-byte loads
+# and 4-byte stores, the tile path's halos and 8-byte stores, both two-pass
+# kernels
+LOW_PRECISION_CASES = [("haar", 1, (6, 224, 224)), ("haar", 1, (3, 20, 6)),
+                       ("haar", 2, (3, 36, 100)), ("haar", 3, (3, 24, 16)),
+                       ("haar", 4, (2, 224, 224)),
+                       ("cdf97", 1, (2, 448, 448)), ("cdf97", 1, (3, 20, 6)),
+                       ("daub4", 3, (2, 224, 224)), ("bior48", 2, (4, 64, 32)),
+                       ("coif12", 1, (1, 6, 2)), ("rev_bior_spline_39", 2, (7, 36, 100)),
+                       ("cdf97", 3, (2, 448, 448)), ("cdf97", 5, (2, 256, 256))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("basis,levels,shape", LOW_PRECISION_CASES)
+def test_lifting_kernel_low_precision_on_card(card, basis, levels, shape, dtype):
+    """In bf16 and f16 K4 rounds every operation to the dtype, with the
+    constants rounded to it first, as the plain version does: bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(2)
+    x = torch.randn(shape, generator=gen, device=card).to(dtype)
+    before = lifting_multi_level.launches
+    out = lifting_multi_level(x, levels, basis)
+    torch.cuda.synchronize()
+    assert lifting_multi_level.launches == before + 1 and out.dtype == dtype
+    path = lifting_kernel_variants(*shape[1:], levels, basis)["path"]
+    assert lifting_multi_level.last_path == path
+    torch.testing.assert_close(out, lifting_multi_level_plain(x, levels, basis), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_lifting_wrappers_launch_once(card, dtype):
+    x = torch.randn(3, 64, 96, generator=torch.Generator(device=card).manual_seed(3),
+                    device=card).to(dtype)
+    for fn, args, basis, levels in [(haar_multi_level, (2,), "haar", 2),
+                                    (cdf97_multi_level, (2,), "cdf97", 2),
+                                    (haar_dwt2_fused, (), "haar", 1)]:
+        before = lifting_multi_level.launches
+        out = fn(x, *args)
+        torch.cuda.synchronize()
+        assert lifting_multi_level.launches == before + 1
+        torch.testing.assert_close(out, lifting_multi_level_plain(x, levels, basis),
+                                   rtol=0, atol=0)
+
+
 @pytest.mark.cuda
 def test_lifting_kernel_refuses_what_it_does_not_take(card):
-    with pytest.raises(NotImplementedError, match="float32"):
-        lifting_multi_level(torch.zeros(1, 8, 8, device=card, dtype=torch.bfloat16))
+    with pytest.raises(NotImplementedError, match="float64"):
+        lifting_multi_level(torch.zeros(1, 8, 8, device=card, dtype=torch.float64))
     with pytest.raises(ValueError, match="shared"):
         lifting_multi_level(torch.zeros(1, 8192, 4096, device=card), levels=5, basis="cdf97")
     with pytest.raises(ValueError, match="divide"):

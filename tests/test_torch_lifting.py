@@ -11,11 +11,30 @@ held to its cases and to the constants of csrc/lifting_dwt.cu.
 Tolerances, in f32, scaled by max(1, max|ref|) (bands reach about 5):
 1e-6 for haar and 1e-5 for the rest against the jnp lifting (XLA fuses the
 jitted chain and contracts some multiply-adds: up to two ulps apart), 1e-5
-for haar and 1e-4 for the rest against the Pallas kernel.
+for haar and 1e-4 for the rest against the Pallas kernel; the inverses
+against the JAX inverses as the forward, and back to the input to 1e-5.
+
+In bf16 the port rounds every constant to the dtype before it multiplies or
+divides, as jnp rounds a weakly typed Python float, and computes each
+operation in f32 rounded once, as XLA's CPU backend does for bf16: the
+plain version and ``lifting_decompose`` equal the JAX functions bit for bit.
+
+In f16 the reference's arithmetic depends on jit.  Op by op
+(``jax.disable_jit``) each jnp operation rounds to f16 once, and the port
+equals it bit for bit at every level.  Jitted, XLA's algebraic simplifier
+rewrites the chain before it runs: ``d / √2`` becomes ``d · 0.70703`` (the reciprocal
+rounded to f16) and consecutive constant products fold into one (the
+optimised HLO of ``haar_dwt2`` in f16 shows both; bf16 is normalised to f32
+op by op first and keeps the division).  No order of plain PyTorch ops
+reproduces a rewrite that the compiler picks per fusion, so the jitted
+reference is held at ``F16_ULPS`` units in the last place of each band's
+max |ref| (measured: at most 9.0 over these cases and two more seeds).
 """
 
+import functools
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -47,6 +66,18 @@ def close(ours, ref, tol):
 
 def tol_of(basis, haar=1e-6, other=1e-5):
     return haar if basis == "haar" else other
+
+
+def equal(ours, ref):
+    np.testing.assert_array_equal(ours.float().numpy(), np.asarray(ref).astype(np.float32))
+
+
+def within_ulps(ours, ref, ulps):
+    ref = np.asarray(ref).astype(np.float32)
+    ours = ours.float().numpy()
+    assert ours.shape == ref.shape
+    unit = float(np.spacing(np.float16(np.abs(ref).max())))
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=ulps * unit)
 
 
 def test_family_tables_match():
@@ -90,6 +121,164 @@ def test_dwt2_decompose_and_stack_match_jax(basis):
           jax_lifting.subband_stack(jnp.asarray(images), 2, basis), tol)
     close(lifting.subband_stack(torch.from_numpy(images), 1, basis, ll_only=True),
           jax_lifting.subband_stack(jnp.asarray(images), 1, basis, ll_only=True), tol)
+
+
+# the C7 cases: the four bases of the probe, and a family alias
+LOW_BASES = ["haar", "cdf97", "bior48", "daub4", "rev_bior_spline_39"]
+LOW_DTYPES = {"bfloat16": (torch.bfloat16, jnp.bfloat16), "float16": (torch.float16, jnp.float16)}
+F16_ULPS = 16
+LOW_LEVELS = 3
+
+
+def _bands(approx, details):
+    return [band for lvl in range(len(approx)) for band in (approx[lvl], *details[lvl])]
+
+
+@functools.lru_cache(maxsize=None)
+def _low_references(basis, dtype):
+    """One (2, 32, 32) plane in ``dtype`` and the JAX package's results on
+    it, computed once for the three level cases of a basis: the jitted
+    ``lifting_decompose`` at LOW_LEVELS levels (its first l levels are the
+    jnp calls of ``lifting_decompose`` at l levels, one level after the
+    other), the same op by op in f16, and the Pallas kernel in interpret
+    mode at LOW_LEVELS levels."""
+    tdtype, jdtype = LOW_DTYPES[dtype]
+    x = np.random.RandomState(3).randn(2, 32, 32).astype(np.float32)
+    xj = jnp.asarray(x).astype(jdtype)
+    jitted = jax_lifting.lifting_decompose(xj, LOW_LEVELS, basis)
+    op_by_op = None
+    if dtype == "float16":
+        with jax.disable_jit():
+            op_by_op = jax_lifting.lifting_decompose(xj, LOW_LEVELS, basis)
+    pallas = lifting_multi_level_pallas(xj, levels=LOW_LEVELS, basis=basis, interpret=True)
+    return torch.from_numpy(x).to(tdtype), jitted, op_by_op, pallas
+
+
+def _first_levels(result, levels):
+    approx, details = result
+    return _bands(approx[:levels], details[:levels])
+
+
+def _coarsest(result, levels):
+    return np.stack([np.asarray(b).astype(np.float32)
+                     for b in _first_levels(result, levels)[-4:]], axis=1)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3])
+@pytest.mark.parametrize("basis", LOW_BASES)
+def test_bf16_lifting_matches_jax_bit_for_bit(basis, levels):
+    """``lifting_decompose`` against the jitted JAX function, and
+    ``lifting_multi_level_plain`` against the coarsest level of it and, at
+    LOW_LEVELS, against the Pallas kernel."""
+    x, jitted, _, pallas = _low_references(basis, "bfloat16")
+    for ours, ref in zip(_bands(*lifting.lifting_decompose(x, levels, basis)),
+                         _first_levels(jitted, levels), strict=True):
+        assert ours.dtype == torch.bfloat16
+        equal(ours, ref)
+    plain = lifting_multi_level_plain(x, levels, basis)
+    equal(plain, _coarsest(jitted, levels))
+    if levels == LOW_LEVELS:
+        equal(plain, pallas)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3])
+@pytest.mark.parametrize("basis", LOW_BASES)
+def test_f16_lifting_matches_jax(basis, levels):
+    """Bit for bit against jnp op by op at every level, the plain version
+    against the coarsest level of it: this is the case that guards C7 in
+    f16.  Within F16_ULPS of the jitted function and, at LOW_LEVELS, of the
+    Pallas kernel (the module docstring says why)."""
+    x, jitted, op_by_op, pallas = _low_references(basis, "float16")
+    ours = _bands(*lifting.lifting_decompose(x, levels, basis))
+    for band, ref in zip(ours, _first_levels(op_by_op, levels), strict=True):
+        assert band.dtype == torch.float16
+        equal(band, ref)
+    for band, ref in zip(ours, _first_levels(jitted, levels), strict=True):
+        within_ulps(band, ref, F16_ULPS)
+    plain = lifting_multi_level_plain(x, levels, basis)
+    equal(plain, _coarsest(op_by_op, levels))
+    if levels == LOW_LEVELS:
+        within_ulps(plain, pallas, F16_ULPS)
+
+
+def test_constants_round_as_jnp():
+    """Every constant of the lift, rounded to bf16 and f16 as the port rounds
+    it (``scalar``), is the value jnp gives the weakly typed float."""
+    consts = {0.5, lifting.SQRT2, lifting.CDF97_A1, lifting.CDF97_A2, lifting.CDF97_A3,
+              lifting.CDF97_A4, lifting.CDF97_K}
+    for steps, k in families.LIFTING_FAMILIES.values():
+        consts |= {k, *(c for _, taps in steps for _, c in taps)}
+    for dtype, jdtype in [(torch.bfloat16, jnp.bfloat16), (torch.float16, jnp.float16)]:
+        like = torch.zeros((), dtype=dtype)
+        for c in consts:
+            ref = float((jnp.ones((), jdtype) * c).astype(jnp.float32))
+            assert families.scalar(c, like).item() == ref, c
+
+
+@pytest.mark.parametrize("basis", ["haar", "cdf97", "daub4", "coif12", "bior_spline_48",
+                                   "rev_bior37"])
+def test_lifting_inverses_match_jax(basis):
+    """``lifting_idwt2`` (through ``family_unlift_1d``, ``_haar_unlift_1d`` or
+    ``_cdf97_unlift_1d``) against the JAX package, and back to the input."""
+    x = np.random.RandomState(5).randn(2, 3, 32, 24).astype(np.float32)
+    bands = lifting.lifting_dwt2(torch.from_numpy(x), basis)
+    jbands = jax_lifting.lifting_dwt2(jnp.asarray(x), basis)
+    back = lifting.lifting_idwt2(*bands, basis)
+    close(back, jax_lifting.lifting_idwt2(*jbands, basis), tol_of(basis))
+    close(back, x, 1e-5)
+
+
+def test_haar_and_cdf97_with_scales_match_jax():
+    x = np.random.RandomState(6).randn(2, 20, 16).astype(np.float32)
+    scales = (1.0, 0.5, 2.0, 1.0)
+    for fwd, inv, jfwd, jinv in [(lifting.haar_dwt2, lifting.haar_idwt2, jax_lifting.haar_dwt2,
+                                  jax_lifting.haar_idwt2),
+                                 (lifting.cdf97_dwt2, lifting.cdf97_idwt2,
+                                  jax_lifting.cdf97_dwt2, jax_lifting.cdf97_idwt2)]:
+        tol = tol_of("haar" if fwd is lifting.haar_dwt2 else "cdf97")
+        for s in (lifting.COEFFS_SCALES_2D, scales):
+            bands = fwd(torch.from_numpy(x), s)
+            jbands = jfwd(jnp.asarray(x), s)
+            for ours, ref in zip(bands, jbands):
+                close(ours, ref, tol)
+            close(inv(*bands, s), jinv(*jbands, s), tol)
+            close(inv(*bands, s), x, 1e-5)
+
+
+def test_interleave_inverts_the_split():
+    x = torch.arange(24.0).reshape(2, 3, 4)
+    for dim in (0, 1, -1):
+        even, odd = families.split_even_odd(x.narrow(dim, 0, x.shape[dim] // 2 * 2), dim)
+        torch.testing.assert_close(families.interleave(even, odd, dim),
+                                   x.narrow(dim, 0, x.shape[dim] // 2 * 2), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_wrappers_on_the_cpu(dtype):
+    """``haar_multi_level``, ``cdf97_multi_level`` and ``haar_dwt2_fused`` are
+    ``lifting_multi_level`` of their basis (the plain version on the CPU) and
+    the JAX package's ``*_pallas`` wrappers."""
+    from irw_tpu.ops.wavelets.pallas_dwt import (
+        cdf97_multi_level_pallas,
+        haar_dwt2_pallas,
+        haar_multi_level_pallas,
+    )
+
+    x = torch.from_numpy(np.random.RandomState(7).randn(3, 32, 16).astype(np.float32)).to(dtype)
+    xj = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                                                 else jnp.float32)
+    for ours, ref, plain in [
+            (lifting_dwt.haar_multi_level(x, 2), haar_multi_level_pallas(xj, 2, interpret=True),
+             lifting_multi_level_plain(x, 2, "haar")),
+            (lifting_dwt.cdf97_multi_level(x, 2), cdf97_multi_level_pallas(xj, 2, interpret=True),
+             lifting_multi_level_plain(x, 2, "cdf97")),
+            (lifting_dwt.haar_dwt2_fused(x), haar_dwt2_pallas(xj, interpret=True),
+             lifting_multi_level_plain(x, 1, "haar"))]:
+        assert torch.equal(ours, plain) and ours.dtype == dtype
+        if dtype == torch.bfloat16:
+            equal(ours, ref)
+        else:
+            close(ours, ref, 1e-4)
 
 
 def test_unknown_basis_raises():

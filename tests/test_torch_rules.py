@@ -240,12 +240,12 @@ def test_refusals_name_the_supported_surface(call):
         calls[call]()
 
 
-class _CudaBf16:
-    """Stands in for a bf16 tensor on the card, which this machine cannot
+class _CudaFloat64:
+    """Stands in for an f64 tensor on the card, which this machine cannot
     make: what ``lifting_multi_level`` reads before it would launch."""
 
     device = torch.device("cuda")
-    dtype = torch.bfloat16
+    dtype = torch.float64
     shape = (2, 8, 8)
 
     def dim(self):
@@ -256,9 +256,11 @@ class _CudaBf16:
 
 
 def test_lifting_kernel_refuses_other_dtypes_on_the_card():
+    """K4 takes f32, bf16 and f16 on the card; another float dtype is
+    refused by name, before a launch."""
     before = lifting_multi_level.launches
-    with pytest.raises(NotImplementedError, match="float32"):
-        lifting_multi_level(_CudaBf16())
+    with pytest.raises(NotImplementedError, match="bfloat16 or float16, not torch.float64"):
+        lifting_multi_level(_CudaFloat64())
     assert lifting_multi_level.launches == before
 
 

@@ -6,21 +6,42 @@ the jnp ``swt2``.  Tolerance 1e-6: both compute the same f32 arithmetic.
 
 ``CustomTransform`` (the lifting DWT) takes the JAX package's three routes;
 each is held to the JAX ``DeviceTransform`` at 1e-5 · max(1, max|ref|)
-(the jitted jnp chain rounds a few ulps apart, tests/test_torch_lifting.py).
+(the jitted jnp chain rounds a few ulps apart, tests/test_torch_lifting.py),
+as are ``SWTTransform`` at another wavelet or level, ``DWTTransform`` and
+``ResizeSubBands`` (the filter bank and the resize sum in another order,
+tests/test_torch_dwt.py).  The device stages of the three DWT configs,
+``cifar_dwt``, ``dwt_all_subs`` and ``sdd_dwt_all_subs``, both splits, are
+held to the JAX package's the same way.  Then one slice a path, images →
+both packages' device stage → the WCNN model with the same weights (the
+bridge) at resnet18 width → embeddings at the WCNN tolerance 1e-4:
+``wcnn_attention_all_subs`` on ``dwt_all_subs`` (7 bands, ResizeSubBands),
+``wcnn_attention_ce`` on ``cifar_dwt`` (DWTTransform).  The configs come
+through the port's ``compose``; ResizeSubBands' size and the images are cut
+to 16² and 32² there.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax import traverse_util
 
+from irw_tpu.models import get_model as jax_get_model
 from irw_tpu.ops.wavelets import swt2
 from irw_tpu.ops.wavelets.pallas_dwt import haar_swt2_pallas
 from irw_tpu.transforms.pipeline import DeviceTransform as JaxDeviceTransform
+from irw_tpu.transforms.pipeline import build_transforms as jax_build_transforms
+from irw_tpu_torch.bridge import load_jax_variables
+from irw_tpu_torch.config import compose
+from irw_tpu_torch.models import get_model
+from irw_tpu_torch.models.wresnet import WCNNAttention
 from irw_tpu_torch.ops.wavelets import haar_swt2_plain
-from irw_tpu_torch.transforms import DeviceTransform, pipeline
+from irw_tpu_torch.single_experiment_runner import CONFIG_DIR
+from irw_tpu_torch.transforms import DeviceTransform, build_transforms, pipeline
 
 TOL = 1e-6
+WCNN_TOL = 1e-4
 
 
 @pytest.mark.parametrize("shape", [(3, 16, 16), (2, 10, 14)])
@@ -59,15 +80,116 @@ def test_device_transform_matches_jax(ops):
     np.testing.assert_allclose(ours, ref, atol=TOL, rtol=0)
 
 
-@pytest.mark.parametrize("ops", [
-    [("SWTTransform", {"level": 2, "wavelet": "haar"})],
-    [("SWTTransform", {"level": 1, "wavelet": "db2"})],
-    [("DWTTransform", {})],
-    [("ResizeSubBands", {"size": 8})],
+def close(ours, ref, tol=1e-5):
+    ref = np.asarray(ref)
+    ours = ours.numpy() if torch.is_tensor(ours) else np.asarray(ours)
+    assert ours.shape == ref.shape
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=tol * max(1.0, np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("ops,shape", [
+    ([("SWTTransform", {"level": 2, "wavelet": "haar"})], (4, 16, 12, 3)),
+    ([("SWTTransform", {"level": 1, "wavelet": "db2"})], (4, 16, 12, 3)),
+    ([("DWTTransform", {})], (4, 8, 6, 3)),
+    ([("DWTTransform", {}), ("ResizeSubBands", {"size": 8})], (4, 8, 8, 3)),
 ])
-def test_device_transform_later_ops_raise(ops):
-    with pytest.raises(NotImplementedError, match="A9"):
-        DeviceTransform(ops, device="cpu")
+def test_device_transform_wavelet_ops_match_jax(monkeypatch, ops, shape):
+    """SWT at another wavelet or level (the coarsest tuple of ``swt2``),
+    ``DWTTransform`` (``wavedec2``, symmetric) and ``ResizeSubBands``; none
+    calls K1."""
+    monkeypatch.setattr(pipeline, "haar_swt2", None)
+    images = np.random.RandomState(5).randint(0, 255, (3, 16, 12, 3), dtype=np.uint8)
+    ours = DeviceTransform(ops, device="cpu")(images)
+    ref = JaxDeviceTransform(ops)(images)
+    assert ours.shape == (3, *shape)
+    close(ours, ref)
+
+
+@pytest.mark.parametrize("ops", [
+    [("SWTTransform", {"level": 1, "wavelet": "db5"})],
+    [("DWTTransform", {"wavelet": "haar", "mode": "wrap"})],
+])
+def test_device_transform_bad_wavelet_args_raise(ops):
+    with pytest.raises(ValueError, match="unknown wavelet|extension mode"):
+        DeviceTransform(ops, device="cpu")(np.zeros((1, 8, 8, 3), np.uint8))
+
+
+@pytest.mark.parametrize("split", ["train", "test"])
+@pytest.mark.parametrize("name", ["cifar_dwt", "dwt_all_subs", "sdd_dwt_all_subs"])
+def test_config_device_stage_matches_jax(name, split):
+    """``build_transforms`` of both packages on one split of the config:
+    the same host ops in the same order (the crops of ``sdd_dwt_all_subs``,
+    listed after the DWT, run on the host first; ``FixSize`` before
+    ``DWTTransform``), and the same device stage on the same uint8 images."""
+    cfg = compose(CONFIG_DIR, "default", [f"transform={name}"]).transform[split]
+    host, device = build_transforms(cfg, device="cpu")
+    jhost, jdevice = jax_build_transforms(cfg)
+    assert [n for n, _ in host.ops] == [n for n, _ in jhost.ops]
+    images = np.random.RandomState(6).randint(0, 255, (2, 32, 32, 3), dtype=np.uint8)
+    ours = device(images)
+    ref = jdevice(images)
+    bands = {"cifar_dwt": (4, 16, 16), "dwt_all_subs": (7, 112, 112),
+             "sdd_dwt_all_subs": (7, 256, 256)}[name]
+    assert ours.shape == (2, *bands, 3)
+    close(ours, ref)
+
+
+def _random_variables(jmodel, bands, seed):
+    """Every variable of ``jmodel`` drawn with numpy from its shapes
+    (``jax.eval_shape`` of the init: no init compile): kernels at
+    1/sqrt(fan-in), BatchNorm scales and variances in [0.5, 1.5), means and
+    biases small."""
+    shapes = jax.eval_shape(
+        lambda x: jmodel.init({"params": jax.random.PRNGKey(0)}, x, train=True), bands)
+    rng = np.random.RandomState(seed)
+    out = {}
+    for path, leaf in traverse_util.flatten_dict(shapes).items():
+        shape = leaf.shape
+        if path[-1] == "kernel":      # banded HWIO convs (S, H, W, I, O), or Dense (I, O)
+            value = rng.randn(*shape) / np.sqrt(np.prod(shape[1:-1] if len(shape) == 5
+                                                        else shape[:1]))
+        elif path[-1] in ("scale", "var"):
+            value = 0.5 + rng.rand(*shape)
+        else:
+            value = 0.1 * rng.randn(*shape)
+        out[path] = jnp.asarray(value, jnp.float32)
+    return traverse_util.unflatten_dict(out)
+
+
+def _slice(model_name, transform_name, overrides, num_bands):
+    """Images → both packages' device stage of the config's test split → the
+    config's model at resnet18 width, one set of weights: (embeddings, gate)
+    of each."""
+    cfg = compose(CONFIG_DIR, "default", [f"model={model_name}", f"transform={transform_name}",
+                                          *overrides])
+    _, device = build_transforms(cfg.transform.test, device="cpu")
+    _, jdevice = jax_build_transforms(cfg.transform.test)
+    images = np.random.RandomState(7).randint(0, 255, (3, 32, 32, 3), dtype=np.uint8)
+    bands, jbands = device(images), jdevice(images)
+    close(bands, jbands)
+    kw = dict(cfg.model.kwargs, backbone="resnet18", num_classes=5)
+    jmodel = jax_get_model(cfg.model.name, **kw)
+    variables = _random_variables(jmodel, jbands, 8)
+    model = get_model(cfg.model.name, device="cpu", **kw)
+    assert isinstance(model, WCNNAttention) and len(model.backbone.branches) == num_bands
+    load_jax_variables(model, variables)
+    jemb, jaux = jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(variables, jbands)
+    with torch.no_grad():
+        emb, aux = model.eval()(bands)
+    return (emb, aux["gate"]), (jemb, jaux["gate"])
+
+
+@pytest.mark.parametrize("model_name,transform_name,overrides,num_bands", [
+    # path A: two lifting levels, 7 bands of 8², ResizeSubBands to 16²
+    ("wcnn_attention_all_subs", "dwt_all_subs", ["transform.test.ResizeSubBands.size=16"], 7),
+    # path B: DWTTransform haar level 1 symmetric, 4 bands of 16²
+    ("wcnn_attention_ce", "cifar_dwt", [], 4),
+])
+def test_dwt_slice_matches_jax(model_name, transform_name, overrides, num_bands):
+    (emb, gate), (jemb, jgate) = _slice(model_name, transform_name, overrides, num_bands)
+    assert emb.shape == (3, 512) and gate.shape == (3, num_bands)
+    np.testing.assert_allclose(emb.numpy(), np.asarray(jemb), rtol=0, atol=WCNN_TOL)
+    np.testing.assert_allclose(gate.numpy(), np.asarray(jgate), rtol=0, atol=WCNN_TOL)
 
 
 NORMALIZE = ("Normalize", {"mean": [0.485, 0.456, 0.406], "std": [0.229, 0.224, 0.225]})
