@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases card,build,wcnn_train,wcnn_xbm,losses
     python3 chip_smoke.py --phases card,build,flash,flash_serve,flash_train
     python3 chip_smoke.py --phases card,build,qkv,qkv_micro,variants
+    python3 chip_smoke.py --phases card,build,siblings
 
 Drives the port's serving path — uint8 images → DeviceTransform (/255, Haar
 SWT: kernel K1) → the flagship MultiDinoHashing (4 × DINOv2 ViT-S/14 at
@@ -27,7 +28,9 @@ trained with every block's attention on the flash kernels K6-fwd and K6-bwd
 — and the attention-segment path — the micro-benchmarks that drive kernel K5
 (q/k/v projections fused into the attention), K2 and K3, and the flagship
 with the ViT Block variants ``fused_qkv``, ``split_cls`` and ``ln_fused`` —
-and prints one line per phase:
+and the flagship's siblings — the shared tower ``SharedDinoHashing`` served
+and trained on K1, K2 and K3, with prompts and DSLN, and every other
+configuration of the family — and prints one line per phase:
 
 1. card: name and power limit (nvidia-smi);
 2. build: the kernels from ``irw_tpu_torch/csrc``, one nvcc each, in parallel;
@@ -154,7 +157,25 @@ and prints one line per phase:
    ``split_cls`` and with ``vmem_attn + ln_fused`` (codes against the default
    route, img/s, launch counts: never K5), ``infer_vmem_ab``'s sweep of the
    frozen flagship, and train steps at batch 96 with ``ln_fused`` on the
-   K2/K3 route against the same steps without it.
+   K2/K3 route against the same steps without it;
+22. siblings: the flagship's siblings at full width, each from its
+   ``configs/model`` file read with the port's YAML reader.
+   ``shareddino_attention_hashing_ortho.yaml`` (one unbanded ViT-S/14 over
+   the band-major batch, unfrozen, bf16, block remat, ``vmem_attn``,
+   ``cross_attention_advanced``, 64 bits) serves as ``serve`` does (K1 = 1,
+   K2 = 12 a batch, codes against the plain route, img/s, peak memory) and
+   trains as ``train`` does (K1 = 1, K2 = 24, K3 = 12 a step, the kernel
+   route against the plain route, trained img/s, peak memory, one step
+   profiled); ``prompted_shared_dino.yaml`` (a frozen f32 tower, 10 prompts,
+   DSLN over 4 bands, the standard head) serves a batch of 64 and takes 3
+   train steps (the prompts' gradient non-zero, the tower, DSLN included,
+   unchanged bit for bit, finite ``grad_norm``); ``multidino_attention``,
+   ``_cbam`` and ``multidino_original_attention`` (continuous embeddings),
+   ``multidino_attention_pretrain`` (``temperature_gated``),
+   ``multidino_hashing_attention_pretrained`` and the flagship with
+   ``use_bn: false`` serve a batch of 64 each (launches, finite outputs),
+   the last also one train step; every model's first 4 images of its batch
+   against a CPU copy of it (TF32 off on the card for the comparison).
 
 Then a JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -176,7 +197,7 @@ import numpy as np
 
 PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train", "loop",
           "runner", "dwt", "wcnn", "wavelets", "wcnn_train", "wcnn_xbm", "losses", "flash",
-          "flash_serve", "flash_train", "qkv", "qkv_micro", "variants")
+          "flash_serve", "flash_train", "qkv", "qkv_micro", "variants", "siblings")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -381,6 +402,18 @@ MICRO_GRAD_TOL = 2 ** -5
 VARIANT_BATCHES = 4      # timed served batches per Block variant
 LN_TRAIN_STEPS = 3       # the first from identical weights: its loss is compared
 LN_LOSS_TOL = 1e-3       # ln_fused against the plain LayerNorm, relative
+# the siblings phase: configs/model files of the flagship's family
+SHARED_CONFIG = "shareddino_attention_hashing_ortho"
+PROMPTED_CONFIG = "prompted_shared_dino"
+FAMILY_SERVED = ("multidino_attention", "multidino_attention_cbam",
+                 "multidino_original_attention", "multidino_attention_pretrain",
+                 "multidino_hashing_attention_pretrained")
+PROMPT_STEPS = 3
+CPU_IMAGES = 4           # images of a served batch held against a CPU copy of the model
+CPU_F32_TOL = 1e-4       # f32 logits, the card with TF32 off against the CPU, absolute
+# bf16: both sides round at the same points and accumulate in other orders;
+# hashing logits take the bf16 convention (LOGIT_MARGIN), unit embeddings a cosine
+CPU_EMB_COSINE = 0.999
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -757,22 +790,46 @@ def phase_attention(state):
         "library_ms": lib_ms, "standalone_ms": ms, "standalone_bound_ms": b_ms}
 
 
-def _flagship_model(vit_kwargs=None):
+def _flagship_model(vit_kwargs=None, **overrides):
     """The flagship from its YAML kwargs at full width, random weights from
-    seed 0; ``vit_kwargs`` are added to the backbone's (``FLASH``)."""
+    seed 0; ``vit_kwargs`` are added to the backbone's (``FLASH``),
+    ``overrides`` replace kwargs (``use_bn``)."""
     import torch
 
     from irw_tpu_torch.models import get_model
 
-    kwargs = dict(FLAGSHIP["kwargs"], vit_kwargs=dict(vit_kwargs or {}))
-    model = get_model(FLAGSHIP["name"], seed=0, **kwargs)
+    kwargs = dict(FLAGSHIP["kwargs"], vit_kwargs=dict(vit_kwargs or {}), **overrides)
+    model = _layerscale_one(get_model(FLAGSHIP["name"], seed=0, **kwargs))
+    assert model.backbone.vit.dtype == torch.bfloat16
+    return model
+
+
+def _layerscale_one(model):
+    """``model`` with every block's LayerScale set to 1 (at the 1e-5 init
+    attention barely reaches the codes), after checking its tower is ViT-S/14
+    at full width."""
+    import torch
+
     vit = model.backbone.vit
-    assert vit.dtype == torch.bfloat16 and vit.embed_dim == 384 and len(vit.blocks) == 12
-    with torch.no_grad():  # LayerScale 1: at the 1e-5 init attention barely reaches the codes
+    assert vit.embed_dim == 384 and len(vit.blocks) == 12
+    with torch.no_grad():
         for blk in vit.blocks:
             blk.ls1.fill_(1.0)
             blk.ls2.fill_(1.0)
     return model
+
+
+def _family_model(config: str):
+    """``configs/model/<config>.yaml``'s model at full width (read with the
+    port's YAML reader), random weights from seed 0, LayerScale set to 1."""
+    import os
+
+    from irw_tpu_torch import single_experiment_runner as runner
+    from irw_tpu_torch.config import yaml_lite
+    from irw_tpu_torch.models import get_model
+
+    cfg = yaml_lite.load(os.path.join(runner.CONFIG_DIR, "model", f"{config}.yaml"))
+    return _layerscale_one(get_model(cfg["name"], seed=0, **cfg["kwargs"]))
 
 
 def _check_cores(model, name: str):
@@ -822,7 +879,8 @@ def _release_earlier_phases(state) -> int:
     return torch.cuda.memory_allocated()
 
 
-def _serve_flagship(state, phase: str, model, expected: tuple, plain_core, held: int):
+def _serve_flagship(state, phase: str, model, expected: tuple, plain_core, held: int,
+                    what: str = "SWT + 4 x ViT-S/14 + fusion + hash, bf16"):
     """WARMUP_CALLS batches, then SERVE_BATCHES timed ones of BATCH (cycling
     SERVE_DISTINCT image sets) through the flagship ``model``: the launches
     of every kernel per batch must equal ``expected``; then the codes of
@@ -868,7 +926,7 @@ def _serve_flagship(state, phase: str, model, expected: tuple, plain_core, held:
         _check_launches(phase, per_batch, expected, "batch")
         ips = SERVE_BATCHES * BATCH / seconds
         log(phase, f"{ips:.1f} img/s, {seconds / SERVE_BATCHES * 1e3:.1f} ms per batch (batch "
-                   f"{BATCH}, SWT + 4 x ViT-S/14 + fusion + hash, bf16) | the path's own peak "
+                   f"{BATCH}, {what}) | the path's own peak "
                    f"memory {peak / 2 ** 30:.2f} GiB (above {held / 2 ** 30:.2f} GiB held "
                    f"before its model) | {state['card']}")
 
@@ -1058,7 +1116,8 @@ def _route_step(tstate, step, batch, hyper, snapshot, core=None):
     return float(metrics["total_loss"]), grads
 
 
-def _train_flagship(state, phase: str, model, expected: tuple, plain_core, held: int):
+def _train_flagship(state, phase: str, model, expected: tuple, plain_core, held: int,
+                    what: str = "bf16, block remat, AdamW"):
     """The flagship ``model`` trains: WARMUP_CALLS steps, then TRAIN_STEPS
     AdamW steps at batch 96, trained img/s over the whole window to a
     synchronize (each step's time between CUDA events beside it), whose launches of every kernel per step
@@ -1087,8 +1146,7 @@ def _train_flagship(state, phase: str, model, expected: tuple, plain_core, held:
                             PROTOCOL["ortho_scale"])
 
     metrics, mean_ms = _timed_steps(phase, state, tstate, step, batches, hyper, WARMUP_CALLS,
-                                    TRAIN_STEPS, expected, held, TRAIN_BATCH,
-                                    "bf16, block remat, AdamW")
+                                    TRAIN_STEPS, expected, held, TRAIN_BATCH, what)
     _check_finite(phase, metrics, TRAIN_METRICS)
 
     # the kernel route against the plain route, from one saved state
@@ -2785,6 +2843,182 @@ def phase_flash_train(state):
                     flash_attention_plain_autograd, held)
 
 
+def _serve_once(label: str, model, images, expected: tuple):
+    """One served batch of ``images`` through the device transform and
+    ``model``: its launches must equal ``expected`` and its output be finite.
+    Returns (bands, output: logits of a hashing model, else the embeddings)."""
+    import torch
+
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    transform = DeviceTransform(SWT_OPS)
+    kernels = _kernel_wrappers()
+    hashing = hasattr(model, "forward_logits")
+    with torch.inference_mode():
+        for fn in kernels:
+            fn.launches = 0
+        bands = transform(images)
+        out = (model.forward_logits(bands) if hashing else model(bands))[0]
+        torch.cuda.synchronize()
+    _check_launches("siblings", [tuple(fn.launches for fn in kernels)], expected,
+                    f"batch, {label}")
+    if not (torch.isfinite(out).all() and out.shape[0] == len(images)):
+        raise AssertionError(f"{label}: served output not finite / wrong shape {out.shape}")
+    return bands, out
+
+
+def _against_cpu(label: str, model, bands, out) -> None:
+    """The first CPU_IMAGES of a served batch through a CPU copy of ``model``
+    (its kernels' wrappers take their plain versions there), the card's side
+    recomputed with TF32 off: f32 logits within CPU_F32_TOL; bf16 logits
+    within LOGIT_MARGIN with the codes equal past it; unit embeddings at
+    cosine CPU_EMB_COSINE or more."""
+    import copy
+
+    import torch
+
+    hashing = hasattr(model, "forward_logits")
+    bf16 = model.backbone.vit.dtype == torch.bfloat16
+    cpu = copy.deepcopy(model).cpu()
+    x = bands[:CPU_IMAGES]
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            card = (model.forward_logits(x) if hashing else model(x))[0].float().cpu()
+            t0 = time.perf_counter()
+            ref = (cpu.forward_logits(x.cpu()) if hashing else cpu(x.cpu()))[0].float()
+            cpu_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    del cpu
+    dmax = (card - ref).abs().max().item()
+    if not hashing:
+        cos = torch.nn.functional.cosine_similarity(card, ref, dim=-1).min().item()
+        ok = cos >= CPU_EMB_COSINE
+        verdict = f"min cosine {cos:.6f} (limit {CPU_EMB_COSINE})"
+    elif bf16:
+        sure = ref.abs() > LOGIT_MARGIN
+        n_differ = int(((torch.sign(card) != torch.sign(ref)) & sure).sum())
+        ok = dmax <= LOGIT_MARGIN and n_differ == 0
+        verdict = (f"codes differ at {n_differ} of {int(sure.sum())}/{sure.numel()} bits past "
+                   f"{LOGIT_MARGIN} (limit {LOGIT_MARGIN} on |logit - cpu|)")
+    else:
+        ok = dmax <= CPU_F32_TOL
+        verdict = f"limit {CPU_F32_TOL}"
+    log("siblings", f"{label} against the CPU on {CPU_IMAGES} images: max|card - cpu| = "
+                    f"{dmax:.3e}; {verdict} (CPU {cpu_s:.1f} s)")
+    if not ok:
+        raise AssertionError(f"{label}: the card disagrees with the CPU")
+
+
+def phase_siblings(state):
+    """The flagship's siblings at full width (ROADMAP A10a): the shared tower
+    served and trained on K1, K2 and K3, the prompted DSLN tower, and one
+    served batch of every other configuration of the family."""
+    import torch
+
+    from irw_tpu_torch.data import SyntheticVOCDataset
+    from irw_tpu_torch.engine import build_train_step, init_train_state
+    from irw_tpu_torch.engine.train import _build_hyper
+    from irw_tpu_torch.losses import build_losses
+    from irw_tpu_torch.ops.attention import attention_plain, attention_plain_autograd
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    images = SyntheticVOCDataset(num_train=BATCH, image_size=224, seed=7).images
+    tds = SyntheticVOCDataset(num_train=TRAIN_BATCH * 2, image_size=224, seed=3)
+    tbatches = [{"image": tds.images[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+                 "label": tds.labels[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]} for i in range(2)]
+
+    # (a) the slice's path: the unfrozen shared tower on K1, K2, K3
+    shared_what = "SWT + 1 x ViT-S/14 over 4 x 64 band-major + fusion + hash, bf16"
+    held = _release_earlier_phases(state)
+    model = _family_model(SHARED_CONFIG)
+    assert type(model).__name__ == "SharedDinoHashing" and model.backbone.vit.pos_embed.dim() == 2
+    _check_cores(model, "vmem_attention_fn")
+    _serve_flagship(state, "siblings_serve", model, (1, 12, 0, 0, 0, 0, 0), attention_plain,
+                    held, shared_what)
+    bands, out = _serve_once(SHARED_CONFIG, model, images, (1, 12, 0, 0, 0, 0, 0))
+    _against_cpu(SHARED_CONFIG, model, bands, out)
+    del model, bands, out
+    held = _release_earlier_phases(state)
+    model = _family_model(SHARED_CONFIG)
+    _train_flagship(state, "siblings_train", model, (1, 24, 12, 0, 0, 0, 0),
+                    attention_plain_autograd, held,
+                    "1 x ViT-S/14 over 4 x 96 band-major, bf16, block remat, AdamW")
+    del model
+
+    # (b) prompts and DSLN in a frozen f32 tower
+    held = _release_earlier_phases(state)
+    model = _family_model(PROMPTED_CONFIG)
+    vit = model.backbone.vit
+    assert model.frozen_backbone and model.num_prompts == 10 and vit.num_domains == 4
+    assert vit.dtype == torch.float32 and type(model.head).__name__ == "StandardFusionHead"
+    bands, out = _serve_once(PROMPTED_CONFIG, model, images, (1, 0, 0, 0, 0, 0, 0))
+    _against_cpu(PROMPTED_CONFIG, model, bands, out)
+    del bands, out
+    tower = {k: v.clone() for k, v in model.backbone.state_dict().items()}
+    tstate = init_train_state(model, build_losses(HASH_LOSS), OPTIMIZER, HASH_LOSS, seed=0)
+    step = build_train_step(DeviceTransform(SWT_OPS), proxy_map_metric="hamming")
+    kernels = _kernel_wrappers()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(PROMPT_STEPS):
+        for fn in kernels:
+            fn.launches = 0
+        m = step(tstate, tbatches[i % 2], _build_hyper(tstate.optimizer_entries, 1, tstate.step,
+                                                       0, None, None))
+        _check_launches("siblings", [tuple(fn.launches for fn in kernels)],
+                        (1, 0, 0, 0, 0, 0, 0), f"train step, {PROMPTED_CONFIG}")
+        grad = model.prompts.grad
+        grad_abs = 0.0 if grad is None else grad.abs().sum().item()
+        moved = [k for k, v in model.backbone.state_dict().items()
+                 if not torch.equal(v, tower[k])]
+        log("siblings", f"{PROMPTED_CONFIG} step {i}: total_loss {float(m['total_loss']):.6f}, "
+                        f"grad_norm {float(m['grad_norm']):.6f}, sum|d prompts| {grad_abs:.4e}, "
+                        f"tower tensors moved {len(moved)} of {len(tower)}")
+        if not (grad_abs > 0 and not moved and math.isfinite(float(m["grad_norm"]))):
+            raise AssertionError(f"{PROMPTED_CONFIG} step {i}: prompts' gradient {grad_abs}, "
+                                 f"tower moved {moved[:3]}, grad_norm {float(m['grad_norm'])}")
+    torch.cuda.synchronize()
+    log("siblings", f"{PROMPTED_CONFIG}: {PROMPT_STEPS} steps of {TRAIN_BATCH} in "
+                    f"{time.perf_counter() - t0:.2f} s (the first included), the path's own peak "
+                    f"memory {(torch.cuda.max_memory_allocated() - held) / 2 ** 30:.2f} GiB | "
+                    f"{state['card']}")
+    del model, tstate, step, tower
+
+    # (c) one served batch of every other configuration, and the flagship
+    # without BatchNorm in its hash head, which also trains one step
+    for config in FAMILY_SERVED + ("flagship, use_bn: false",):
+        _release_earlier_phases(state)
+        if config in FAMILY_SERVED:
+            model = _family_model(config)
+        else:
+            model = _flagship_model(use_bn=False)
+        frozen = model.frozen_backbone
+        _check_cores(model, "dot_product_attention" if frozen else "vmem_attention_fn")
+        expected = (1, 0 if frozen else 12, 0, 0, 0, 0, 0)
+        bands, out = _serve_once(config, model, images, expected)
+        log("siblings", f"{config}: {type(model).__name__}, head "
+                        f"{type(model.head).__name__}, frozen {frozen}, output {tuple(out.shape)}")
+        _against_cpu(config, model, bands, out)
+        del bands, out
+        if config not in FAMILY_SERVED:
+            assert model.hash_head.bn is None
+            tstate = init_train_state(model, build_losses(HASH_LOSS), OPTIMIZER, HASH_LOSS)
+            step = build_train_step(DeviceTransform(SWT_OPS), proxy_map_metric="hamming")
+            for fn in kernels:
+                fn.launches = 0
+            m = step(tstate, tbatches[0], _build_hyper(tstate.optimizer_entries, 1, 0, 0, None,
+                                                       None))
+            _check_launches("siblings", [tuple(fn.launches for fn in kernels)],
+                            (1, 24, 12, 0, 0, 0, 0), f"train step, {config}")
+            _check_finite("siblings", [m], TRAIN_METRICS)
+            del tstate, step
+        del model
+    _release_earlier_phases(state)
+
+
 def _k5_inputs(b, n, d, heads_dim, dtype, seed):
     """x unit normal, weights (d, heads_dim) / sqrt(d), biases * 0.01 (the
     micro-benchmark's scales), drawn on the card."""
@@ -3163,7 +3397,8 @@ def main(argv=None) -> int:
                "wcnn_xbm": phase_wcnn_xbm, "losses": phase_losses,
                "flash": phase_flash,
                "flash_serve": phase_flash_serve, "flash_train": phase_flash_train,
-               "qkv": phase_qkv, "qkv_micro": phase_qkv_micro, "variants": phase_variants}
+               "qkv": phase_qkv, "qkv_micro": phase_qkv_micro, "variants": phase_variants,
+               "siblings": phase_siblings}
     for name in phases:
         if name != "card":
             t0 = time.perf_counter()
@@ -3180,13 +3415,15 @@ def main(argv=None) -> int:
     trained = {"flagship": ("train", TRAIN_STEPS), "flash": ("flash_train", TRAIN_STEPS),
                "loop": ("loop", LOOP_EPOCHS * LOOP_STEPS),
                "runner": ("runner", RUNNER_EPOCHS * RUNNER_STEPS),
-               "wcnn": ("wcnn_train", WCNN_TRAIN_STEPS), "wcnn_xbm": ("wcnn_xbm", XBM_STEPS)}
+               "wcnn": ("wcnn_train", WCNN_TRAIN_STEPS), "wcnn_xbm": ("wcnn_xbm", XBM_STEPS),
+               "shared": ("siblings_train", TRAIN_STEPS)}
     served = {"flagship": ("serve", SERVE_BATCHES), "wcnn": ("wcnn", WCNN_BATCHES),
               "flash": ("flash_serve", SERVE_BATCHES),
               "loop_eval": ("loop_eval", LOOP_EVAL_BATCHES),
               "runner_eval": ("runner_eval", RUNNER_EVAL_UNITS),
               "wavelets_A": ("wavelets_A", SERVE_BATCHES),
-              "wavelets_B": ("wavelets_B", SERVE_BATCHES)}
+              "wavelets_B": ("wavelets_B", SERVE_BATCHES),
+              "shared": ("siblings_serve", SERVE_BATCHES)}
 
     def per_run(paths, name):
         return {path: runs[key].get(name, 0) / n for path, (key, n) in paths.items() if key in runs}

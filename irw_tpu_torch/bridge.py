@@ -5,8 +5,17 @@ and, for models with BatchNorm, ``batch_stats`` — to a state dict of numpy
 arrays for the matching ``irw_tpu_torch`` module.  It needs no JAX: leaves
 are read with ``np.asarray``.  Handled layouts:
 
-- ``BandedViT_0/VmapVisionTransformer_0/…`` with the band axis leading
-  (a ``MultiDinoHashing``), or a bare ``VisionTransformer`` tree;
+- the multi-band ViT family: ``BandedViT_0/VmapVisionTransformer_0/…``
+  with the band axis leading (``MultiDinoHashing``, ``MultiDinoAttention``)
+  or the unbanded ``VisionTransformer_0`` and the top-level (S, P, D)
+  ``prompts`` (``SharedDinoHashing``); beside it the fusion head
+  (``StandardFusionHead_0``, ``SemanticFusionHead_0``, ``GatedFusionHead_0``,
+  ``CrossAttentionBottleneckHead_0`` or ``GateFusionHead_0`` with its
+  BatchNorm statistics) and the ``HashHead_0`` (its BatchNorm, or without
+  one the Dense bias); or a bare ``VisionTransformer`` tree (its own
+  ``prompts`` too);
+- a LayerNorm as ``LayerNorm_0/{scale,bias}``, or a DSLN's per-domain
+  ``scale``/``bias`` of shape (num_domains, D);
 - ``BandedResNet_0/VmapResNet_0/…`` with the band axis leading (a ``WCNN``
   or ``WCNNAttention``; the subband gate's Dense or ECA conv and the
   classifiers ``DenseGeneral_0`` and ``Dense_0`` beside it), or a bare
@@ -49,6 +58,12 @@ def _ln(t) -> dict:
     return {"weight": _a(t["scale"]), "bias": _a(t["bias"])}
 
 
+def _domain_ln(t) -> dict:
+    """A ``DomainLayerNorm``: its ``LayerNorm_0`` child with one domain, its
+    own (num_domains, D) ``scale``/``bias`` with several."""
+    return _ln(t["LayerNorm_0"] if "LayerNorm_0" in t else t)
+
+
 def _mha(t) -> dict:
     out = {}
     for name in ("query", "key", "value"):
@@ -76,10 +91,10 @@ def _prefixed(prefix: str, d: dict) -> dict:
 
 def _block(t) -> dict:
     sd = {}
-    sd.update(_prefixed("norm1", _ln(t["norm1"]["LayerNorm_0"])))
+    sd.update(_prefixed("norm1", _domain_ln(t["norm1"])))
     sd.update(_prefixed("attn", _flash_mha(t) if "attn_qkv" in t else _mha(t["attn"])))
     sd["ls1"] = _a(t["ls1"])
-    sd.update(_prefixed("norm2", _ln(t["norm2"]["LayerNorm_0"])))
+    sd.update(_prefixed("norm2", _domain_ln(t["norm2"])))
     sd.update(_prefixed("mlp.fc1", _dense(t["Mlp_0"]["Dense_0"])))
     sd.update(_prefixed("mlp.fc2", _dense(t["Mlp_0"]["Dense_1"])))
     sd["ls2"] = _a(t["ls2"])
@@ -121,17 +136,37 @@ def _vit(t, lead: int) -> dict:
     sd["pos_embed"] = pos.reshape(*pos.shape[:-3], *pos.shape[-2:])
     for i, blk in enumerate(_block_trees(t, lead)):
         sd.update(_prefixed(f"blocks.{i}", _block(blk)))
-    sd.update(_prefixed("norm", _ln(t["norm"]["LayerNorm_0"])))
+    sd.update(_prefixed("norm", _domain_ln(t["norm"])))
+    if "prompts" in t:
+        sd["prompts"] = _a(t["prompts"])
     return sd
 
 
-def _fusion_head(t) -> dict:
-    sd = {"query_tokens": _a(t["query_tokens"])}
-    sd.update(_prefixed("core.attn", _mha(t["_AttnCore_0"]["MultiHeadDotProductAttention_0"])))
+_HEADS = ("StandardFusionHead_0", "SemanticFusionHead_0", "GatedFusionHead_0",
+          "CrossAttentionBottleneckHead_0", "GateFusionHead_0")
+
+
+def _fusion_head(t, stats) -> dict:
+    """A fusion head's tree (and its ``batch_stats``) → its state dict."""
+    if "BatchNorm_0" in t:  # GateFusionHead: a subband gate, Dense, BatchNorm
+        gate = next(k for k in _GATES if k in t)
+        return {**_prefixed("gate", _gate(t[gate])), **_prefixed("fc", _dense(t["Dense_0"])),
+                **_prefixed("bn", _batch_norm(t["BatchNorm_0"], stats["BatchNorm_0"]))}
+    sd = {}
+    for key in ("query_token", "query_tokens"):
+        if key in t:
+            sd[key] = _a(t[key])
+    if "_AttnCore_0" in t:
+        sd.update(_prefixed("core.attn",
+                            _mha(t["_AttnCore_0"]["MultiHeadDotProductAttention_0"])))
+    if "Dense_0" in t:  # GatedFusionHead: the gate net's Dense layers, at the head's level
+        sd.update(_prefixed("gate_fc1", _dense(t["Dense_0"])))
+        sd.update(_prefixed("gate_fc2", _dense(t["Dense_1"])))
     sd.update(_prefixed("norm1", _ln(t["norm1"])))
     sd.update(_prefixed("mlp.fc1", _dense(t["Mlp_0"]["Dense_0"])))
     sd.update(_prefixed("mlp.fc2", _dense(t["Mlp_0"]["Dense_1"])))
-    sd.update(_prefixed("out_proj", _dense(t["out_proj"])))
+    if "out_proj" in t:
+        sd.update(_prefixed("out_proj", _dense(t["out_proj"])))
     sd.update(_prefixed("norm2", _ln(t["norm2"])))
     i = 0
     while f"proj_{i}" in t:
@@ -204,35 +239,49 @@ def _wcnn(variables) -> dict:
     return sd
 
 
+def _hash_head(params, stats) -> dict:
+    """``HashHead_0``: the Dense, then its BatchNorm, or its bias without one."""
+    sd = _prefixed("linear", _dense(params["Dense_0"]))
+    if "BatchNorm_0" in params:
+        sd.update(_prefixed("bn", _batch_norm(params["BatchNorm_0"], stats["BatchNorm_0"])))
+    return sd
+
+
 def from_jax_variables(variables) -> dict:
-    """flax variables of a ``MultiDinoHashing``, ``VisionTransformer``,
-    ``WCNN``, ``WCNNAttention``, ``ResNet`` or subband gate → the port
-    module's state dict (numpy arrays)."""
+    """flax variables of a model of the multi-band ViT family, a
+    ``VisionTransformer``, a fusion head, ``WCNN``, ``WCNNAttention``,
+    ``ResNet`` or subband gate → the port module's state dict (numpy
+    arrays)."""
     params = variables["params"]
+    stats = variables.get("batch_stats", {})
     if "PatchEmbed_0" in params:
         return _vit(params, lead=0)
+    if "norm2" in params or ("BatchNorm_0" in params and any(g in params for g in _GATES)):
+        return _fusion_head(params, stats)
     if "BandedResNet_0" in params:
         return _wcnn(variables)
     if "Conv_0" in params and "BatchNorm_0" in params:
         return _resnet(params, variables["batch_stats"])
     if set(params) in ({"SubbandChannelGate_0"}, {"Conv_0"}, {"Dense_0", "Dense_1"}):
         return _gate(params)
-    if "BandedViT_0" not in params:
-        raise ValueError(f"no bridge for a tree with {sorted(params)}; the port carries "
-                         "MultiDinoHashing, VisionTransformer, WCNN, WCNNAttention, ResNet "
-                         "and the subband gates")
-    sd = _prefixed("backbone.vit", _vit(params["BandedViT_0"]["VmapVisionTransformer_0"], lead=1))
-    heads = [k for k in params if k.startswith("CrossAttentionBottleneckHead")]
+    if "BandedViT_0" in params:
+        sd = _prefixed("backbone.vit",
+                       _vit(params["BandedViT_0"]["VmapVisionTransformer_0"], lead=1))
+    elif "VisionTransformer_0" in params:
+        sd = _prefixed("backbone.vit", _vit(params["VisionTransformer_0"], lead=0))
+        if "prompts" in params:
+            sd["prompts"] = _a(params["prompts"])
+    else:
+        raise ValueError(f"no bridge for a tree with {sorted(params)}; the port carries the "
+                         "multi-band ViT family, VisionTransformer, WCNN, WCNNAttention, "
+                         "ResNet and the subband gates")
+    heads = [k for k in params if k in _HEADS]
     if len(heads) != 1:
-        raise ValueError(f"expected one cross-attention fusion head, found {heads}")
-    sd.update(_prefixed("head", _fusion_head(params[heads[0]])))
-    hh = params["HashHead_0"]
-    sd["hash_head.linear.weight"] = _dense(hh["Dense_0"])["weight"]
-    sd.update(_prefixed("hash_head.bn", _ln(hh["BatchNorm_0"])))
-    stats = variables["batch_stats"]["HashHead_0"]["BatchNorm_0"]
-    sd["hash_head.bn.running_mean"] = _a(stats["mean"])
-    sd["hash_head.bn.running_var"] = _a(stats["var"])
-    sd["hash_head.bn.num_batches_tracked"] = np.array(0, dtype=np.int64)
+        raise ValueError(f"expected one fusion head, found {heads} in {sorted(params)}")
+    sd.update(_prefixed("head", _fusion_head(params[heads[0]], stats.get(heads[0], {}))))
+    if "HashHead_0" in params:
+        sd.update(_prefixed("hash_head", _hash_head(params["HashHead_0"],
+                                                    stats.get("HashHead_0", {}))))
     return sd
 
 

@@ -11,6 +11,9 @@ One ``step(state, batch, hyper)`` call:
 - the weighted loss sum plus the fusion head's ortho term, scaled by the
   runtime ``hyper["ortho_scale"]``;
 - one backward;
+- the gradients of the model's ``frozen_param_collections`` dropped (a
+  frozen tower that prompts or DSLN backpropagate through receives them;
+  the JAX step zeroes those leaves, :417-426);
 - the global gradient norm over the network's parameters and global-norm
   clipping, min(1, clip / (norm + 1e-6));
 - per-entry optimizer steps at the host-computed group learning rates
@@ -202,7 +205,9 @@ def build_train_step(device_transform: Callable | None = None, clip_grad: float 
                                       "ROADMAP A12")
 
         model.train()
-        params = list(model.parameters())
+        frozen = getattr(model, "frozen_param_collections", ())
+        named = list(model.named_parameters())
+        params = [p for _, p in named]
         for p in params + [p for loss, _ in state.losses for p in loss.parameters()]:
             p.grad = None
         output, aux = model(x, state.generators)
@@ -219,8 +224,11 @@ def build_train_step(device_transform: Callable | None = None, clip_grad: float 
                 if p.requires_grad:
                     p.grad = torch.zeros_like(p)
 
-        # frozen parameters ran under no_grad and have no gradient: the JAX
-        # step's zeroed frozen leaves add nothing to its norm either
+        # frozen parameters train in no optimizer and count in no norm: the
+        # JAX step's zeroed frozen leaves add nothing to its norm either
+        for name, p in named:
+            if any(f in name for f in frozen):
+                p.grad = None
         grads = [p.grad for p in params if p.grad is not None]
         # optax.global_norm: sqrt of the summed squares (torch.sum's cascade
         # sum: vector_norm accumulates less exactly on the CPU)

@@ -1,8 +1,16 @@
-"""Models of the served slice: the flagship MultiDinoHashing and its parts."""
+"""Models of the port: the multi-band ViT family (the flagship
+MultiDinoHashing and its siblings) and the wavelet-CNN family."""
 
-from irw_tpu_torch.models.multi_dino import BandedViT, MultiDinoHashing
+from irw_tpu_torch.models.multi_dino import (
+    BandedViT,
+    MultiDinoAttention,
+    MultiDinoHashing,
+    SharedDinoHashing,
+    SharedViT,
+)
 from irw_tpu_torch.models.registry import MODEL_REGISTRY, get_model
 from irw_tpu_torch.models.vit import VIT_DIMS, VisionTransformer, make_vit, vit_config
 
-__all__ = ["BandedViT", "MODEL_REGISTRY", "MultiDinoHashing", "VIT_DIMS",
-           "VisionTransformer", "get_model", "make_vit", "vit_config"]
+__all__ = ["BandedViT", "MODEL_REGISTRY", "MultiDinoAttention", "MultiDinoHashing",
+           "SharedDinoHashing", "SharedViT", "VIT_DIMS", "VisionTransformer", "get_model",
+           "make_vit", "vit_config"]

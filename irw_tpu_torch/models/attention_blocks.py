@@ -2,8 +2,11 @@
 ``irw_tpu/models/attention_blocks.py:19-83``).
 
 Each gate takes (B, S, D) and returns the gate-weighted MEAN over subbands,
-einsum('bsd,bs->bd') / S, with the (B, S) gate.  ``ChannelGate1D`` and
-``CrossBandAttention`` belong to mtwavenet and wait for ROADMAP A10.
+einsum('bsd,bs->bd') / S, with the (B, S) gate.  The pools over D are taken
+in the input's dtype (a bf16 backbone's, for the ViT fusion heads) and the
+gate and the weighted mean in f32, as the JAX gates (``dtype=float32``)
+promote them.  ``ChannelGate1D`` and ``CrossBandAttention`` belong to
+mtwavenet and wait for ROADMAP A10b.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from irw_tpu_torch.models.resnet import lecun_normal_
 
 
 def _fuse(x, scale):
-    return torch.einsum("bsd,bs->bd", x, scale) / x.shape[1]
+    return torch.einsum("bsd,bs->bd", x.to(scale.dtype), scale) / x.shape[1]
 
 
 class SubbandChannelGate(nn.Module):
@@ -52,7 +55,8 @@ class SubbandEca(nn.Module):
         lecun_normal_(self.weight, generator)
 
     def forward(self, x):
-        scale = torch.sigmoid(F.conv1d(x.mean(dim=-1)[:, None], self.weight, padding=1)[:, 0])
+        pooled = x.mean(dim=-1)[:, None].to(self.weight.dtype)
+        scale = torch.sigmoid(F.conv1d(pooled, self.weight, padding=1)[:, 0])
         return _fuse(x, scale), scale
 
 

@@ -1,15 +1,22 @@
-"""Reference-config dialect for ``MultiDinoHashing`` and the wavelet-CNN
-routes of ``RetrievalNet`` (port of ``irw_tpu/models/factory.py:30-122,
-142-201, 275-300``).
+"""Reference-config dialect for the multi-band ViT family and the
+wavelet-CNN routes of ``RetrievalNet`` (port of
+``irw_tpu/models/factory.py:30-122, 142-201, 275-300``).
 
 The reference's presets name torch classes with their own kwargs dialect
 (``backbones_config`` lists, ``binary_config.nbits``, ``with_autocast``,
 ``attention`` + ``attention_type`` pairs); the adapters accept it verbatim,
-so ``configs/model/multidino_attention_hashing_ortho.yaml``'s and
-``configs/model/wcnn_attention_ce.yaml``'s ``kwargs`` build their models.
-Keys the JAX module does not declare are dropped, as the JAX factory drops
-them; a key the JAX module takes and the port's does not raises, naming the
-ROADMAP item that will port it.
+so the family's configs (``configs/model/multidino_*.yaml``,
+``shareddino_*.yaml``) and ``configs/model/wcnn_attention_ce.yaml`` build
+their models.  Keys the JAX module does not declare are dropped, as the JAX
+factory drops them; a key the JAX module takes and the port's does not
+raises, naming the ROADMAP item that will port it.
+
+One drop is a trap kept on purpose: ``PromptedSharedDinoHashing`` is a
+function ``(num_prompts=10, **kw)``, so the JAX factory's accepted set is
+its signature, {num_prompts, kw}, and it drops every other key of a config
+(factory.py:30-35).  The ``_prtun`` configs therefore build a frozen f32
+``SharedDinoHashing`` with the ``standard`` head, 64 bits and no DSLN,
+whatever else they say; the port builds the same.
 """
 
 from __future__ import annotations
@@ -18,8 +25,7 @@ import inspect
 
 import torch
 
-from irw_tpu_torch.models import wresnet
-from irw_tpu_torch.models.multi_dino import MultiDinoHashing
+from irw_tpu_torch.models import multi_dino, wresnet
 
 
 # the fields of each JAX module the factory builds (flax's ``parent`` and
@@ -27,9 +33,16 @@ from irw_tpu_torch.models.multi_dino import MultiDinoHashing
 # (irw_tpu/models/factory.py:30-52); tests/test_torch_factory.py holds each
 # set to irw_tpu's modules
 JAX_FIELDS = {
+    "MultiDinoAttention": frozenset({"backbone", "fusion_config", "num_bands", "frozen_backbone",
+                                     "vit_kwargs", "parent", "name"}),
     "MultiDinoHashing": frozenset({"backbone", "fusion_config", "nbits", "use_bn", "num_bands",
                                    "frozen_backbone", "tanh_train", "vit_kwargs", "parent",
                                    "name"}),
+    "SharedDinoHashing": frozenset({"backbone", "fusion_config", "nbits", "num_bands",
+                                    "frozen_backbone", "num_prompts", "use_dsln", "vit_kwargs",
+                                    "parent", "name"}),
+    # a function: its signature, the **kw parameter's name included
+    "PromptedSharedDinoHashing": frozenset({"num_prompts", "kw"}),
     "WCNN": frozenset({"num_classes", "backbone", "ce", "frozen_bn", "dtype", "parent", "name"}),
     "WCNNAttention": frozenset({"num_classes", "attention", "ce", "backbone", "frozen_bn", "dtype",
                                 "parent", "name"}),
@@ -52,7 +65,7 @@ def _filter_kwargs(ctor, kw: dict, renames: dict | None = None) -> dict:
             missing.append(k2)
     if missing:
         raise NotImplementedError(f"{ctor.__name__}: the JAX model takes {sorted(missing)}, "
-                                  "which the port does not take yet (ROADMAP A10)")
+                                  "which the port does not take yet (ROADMAP A10b)")
     return out
 
 
@@ -62,8 +75,9 @@ def pop_common(kw: dict, device: torch.device) -> dict:
     - ``with_autocast`` → the bf16 compute policy;
     - ``binary_config.nbits`` → ``nbits``;
     - ``backbones_config[0]``, or a single ``backbone_config``, →
-      ``backbone`` and ``frozen_backbone``; its ``use_dsln`` (domain-specific
-      LayerNorm) raises until ROADMAP A10 ports DSLN;
+      ``backbone`` and ``frozen_backbone``, and its ``use_dsln``
+      (domain-specific LayerNorm) → ``use_dsln``, which ``SharedDinoHashing``
+      takes and the filter drops for every other module;
     - unfrozen backbones → block remat with policy ``"nothing"``
       (factory.py:86-88) and ``vmem_attn`` on the card (factory.py:106 reads
       "on TPU"; here it means kernels K2 and K3 on a CUDA device).
@@ -84,8 +98,7 @@ def pop_common(kw: dict, device: torch.device) -> dict:
         kw.setdefault("backbone", bcfg.get("name", "dinov2_vits14"))
         kw.setdefault("frozen_backbone", bool(bcfg.get("frozen", False)))
         if bcfg.get("use_dsln"):
-            raise NotImplementedError("backbone_config.use_dsln: the domain-specific LayerNorm "
-                                      "(DSLN) waits for ROADMAP A10")
+            kw.setdefault("use_dsln", True)
     vit_kw = dict(kw.get("vit_kwargs") or {})
     if autocast:
         vit_kw.setdefault("dtype", "bfloat16")
@@ -98,24 +111,33 @@ def pop_common(kw: dict, device: torch.device) -> dict:
     return kw
 
 
-def multidino_adapter(**fixed):
-    """The class adapter of ``reference_model_entries`` for
-    ``MultiDinoHashing`` (factory.py:112-122): the shared dialect, then
-    ``fixed`` (``MultiDinoHashingTF``: ``tanh_train=True``), a list
-    ``branches`` as a tuple, ``dino_backbone`` read as ``backbone``."""
+def class_adapter(cls, **fixed):
+    """The class adapter of ``reference_model_entries`` (factory.py:112-122):
+    the shared dialect, then ``fixed`` (``MultiDinoHashingTF``:
+    ``tanh_train=True``; ``PretrainedMultiDinoHashing``:
+    ``frozen_backbone=True``, over the config's), a list ``branches`` as a
+    tuple, ``dino_backbone`` read as ``backbone``, and the keys ``cls``
+    takes."""
 
-    def build(device: torch.device, **kw) -> MultiDinoHashing:
+    def build(device: torch.device, **kw):
         kw = pop_common(kw, device)
         kw.update(fixed)
         if isinstance(kw.get("branches"), list):
             kw["branches"] = tuple(kw["branches"])
-        return MultiDinoHashing(**_filter_kwargs(MultiDinoHashing, kw,
-                                                 {"dino_backbone": "backbone"}))
+        return cls(**_filter_kwargs(cls, kw, {"dino_backbone": "backbone"}))
 
     return build
 
 
-build_multidino_hashing = multidino_adapter()
+REFERENCE_ENTRIES = {
+    "MultiDinoAttention": class_adapter(multi_dino.MultiDinoAttention),
+    "MultiDinoHashing": class_adapter(multi_dino.MultiDinoHashing),
+    "MultiDinoHashingTF": class_adapter(multi_dino.MultiDinoHashing, tanh_train=True),
+    "PretrainedMultiDinoHashing": class_adapter(multi_dino.MultiDinoHashing,
+                                                frozen_backbone=True),
+    "SharedDinoHashing": class_adapter(multi_dino.SharedDinoHashing),
+    "PromptedSharedDinoHashing": class_adapter(multi_dino.PromptedSharedDinoHashing),
+}
 
 
 def _attention_kw(kw: dict) -> dict:
@@ -150,10 +172,11 @@ def build_retrieval_net(device: torch.device, backbone_name: str, embed_dim: int
     directly.  ``with_autocast`` and the wrapper's own keys (``embed_dim``,
     ``pooling``, …) do not reach them; ``pretrained`` hub weights do not exist
     offline, so the flag does nothing.  Every other trunk, and the wrapped
-    embedding route, wait for ROADMAP A10."""
+    embedding route, wait for ROADMAP A10b (``wresnet``, ``mtwavenet``) and
+    A10c (the embedding trunks)."""
     if backbone_name not in _WCNN_ROUTES:
         raise ValueError(f"RetrievalNet: backbone_name {backbone_name!r} waits for ROADMAP "
-                         f"A10; this slice builds {sorted(_WCNN_ROUTES)}")
+                         f"A10b or A10c; the port builds {sorted(_WCNN_ROUTES)}")
     cls, attention, ce = _WCNN_ROUTES[backbone_name]
     if attention:
         kw = _attention_kw(kw)

@@ -130,41 +130,55 @@ class Mlp(nn.Module):
         return apply_dropout(x, self.dropout, self.training, generator)
 
 
-class HashHead(nn.Module):
-    """Linear hash projection (no bias) + BatchNorm1d (``layers.py:123-146``)
-    with flax ``BatchNorm`` semantics, eps 1e-5.  Eval: the running
-    statistics.  Training: the batch mean and the BIASED batch variance,
-    max(E[x²] − E[x]², 0) in f32, and the running statistics updated in place
-    as 0.99·running + 0.01·batch (flax momentum 0.99, torch momentum 0.01 —
-    torch's ``BatchNorm1d`` would store the unbiased variance)."""
+class BatchNorm(nn.BatchNorm1d):
+    """flax ``BatchNorm`` over the last axis of (B, C), eps 1e-5.  Eval: the
+    running statistics.  Training: the batch mean and the BIASED batch
+    variance, max(E[x²] − E[x]², 0) in f32, and the running statistics
+    updated in place as 0.99·running + 0.01·batch (flax momentum 0.99, torch
+    momentum 0.01 — torch's ``BatchNorm1d`` would store the unbiased
+    variance)."""
 
-    momentum = 0.99
+    momentum_flax = 0.99
 
-    def __init__(self, in_dim: int, nbits: int, use_bn: bool = True):
-        super().__init__()
-        if not use_bn:
-            raise NotImplementedError("HashHead(use_bn=False) waits for ROADMAP A10")
-        self.linear = Linear(in_dim, nbits, bias=False)
-        self.bn = nn.BatchNorm1d(nbits, eps=1e-5, momentum=1.0 - self.momentum)
-
-    def reset_parameters(self, generator=None):
-        with torch.no_grad():
-            self.linear.weight.normal_(0.0, 0.01, generator=generator)
-        self.bn.reset_parameters()
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=1.0 - self.momentum_flax)
 
     def forward(self, x):
-        x = self.linear(x.float())
-        bn = self.bn
         if self.training:
             mean = x.mean(dim=0)
             var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
             with torch.no_grad():
-                bn.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
-                bn.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+                m = self.momentum_flax
+                self.running_mean.mul_(m).add_((1.0 - m) * mean)
+                self.running_var.mul_(m).add_((1.0 - m) * var)
         else:
-            mean, var = bn.running_mean, bn.running_var
-        mul = torch.rsqrt(var + bn.eps) * bn.weight
-        return (x - mean) * mul + bn.bias
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
+
+
+class HashHead(nn.Module):
+    """Linear hash projection + BatchNorm bit centering (``layers.py:123-146``):
+    the projection without bias, then ``BatchNorm``.  ``use_bn=False`` gives
+    the projection a zero-init bias and no BatchNorm, as the reference's
+    ``bias=not use_bn``.  The projection's weight is drawn from N(0, 0.01²)."""
+
+    def __init__(self, in_dim: int, nbits: int, use_bn: bool = True):
+        super().__init__()
+        self.linear = Linear(in_dim, nbits, bias=not use_bn)
+        self.bn = BatchNorm(nbits) if use_bn else None
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.linear.weight.normal_(0.0, 0.01, generator=generator)
+        if self.linear.bias is not None:
+            nn.init.zeros_(self.linear.bias)
+        if self.bn is not None:
+            self.bn.reset_parameters()
+
+    def forward(self, x):
+        x = self.linear(x.float())
+        return x if self.bn is None else self.bn(x)
 
 
 def binarize(logits, train: bool = False, continuous: str = "identity"):

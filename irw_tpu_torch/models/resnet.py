@@ -14,7 +14,7 @@ they are.  f32 throughout.  flax semantics kept:
 - 3×3 convs pad 1, the 7×7 stride-2 stem pads 3; the 1×1 projections of
   ``padding='SAME'`` pad nothing at any size;
 - the stem's 3×3 stride-2 max-pool pads with −inf (the 1×1 stem without
-  it belongs to ``WaveResNet``, ROADMAP A10);
+  it belongs to ``WaveResNet``, ROADMAP A10b);
 - convs are bias-free; parameters start from flax's initialisers
   (lecun-normal kernels, BatchNorm scale 1 and bias 0).
 

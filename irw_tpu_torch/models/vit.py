@@ -26,6 +26,14 @@ every LayerNorm (``norm1``, ``norm2``, the final ``norm``) for
 ``ops.fused_ln.FusedLayerNorm``, same parameters.  ``quant_int8`` (ROADMAP
 A14) raises.
 
+Two extras of the unbanded ViT serve the shared-tower models
+(``multi_dino.SharedDinoHashing``): ``num_domains`` > 1 gives every
+LayerNorm per-domain parameters (``DomainLayerNorm``, the DSLN), selected by
+the ``domain`` id of each sample passed to ``forward``; a ``prompts``
+argument (P tokens per sample) is inserted after the CLS token, after the
+position sum.  ``num_prompts`` gives the ViT its own (1, P, D) prompt
+tokens, used when no ``prompts`` are passed (vit.py:482-489).
+
 Training: ``dropout`` drops attention probabilities (not on the flash
 route, which has no attention dropout, as ``_flash_mha``) and MLP outputs,
 with masks drawn from the ``generator`` passed to ``forward`` (flax's
@@ -101,12 +109,53 @@ class PatchEmbed(nn.Module):
         return (y + b[:, None, :]).reshape(*pre, hp * wp, wmat.shape[1])
 
 
-def domain_layer_norm(dim: int, fused: bool = False, **kw) -> nn.Module:
-    """``DomainLayerNorm`` (vit.py:62-88) on its single-domain path, which is
-    a LayerNorm: flax's, or with ``fused`` the one whose backward recomputes
-    its statistics (vit.py:72-79), same parameters.  Per-domain parameters
-    wait for ROADMAP A10."""
+class DomainLayerNorm(nn.Module):
+    """``DomainLayerNorm``'s multi-domain path (vit.py:80-88): a LayerNorm
+    whose scale and bias rows, (num_domains, D), are picked per sample by
+    ``domain`` (B,) and broadcast over the tokens of (B, N, D).
+
+    Unlike ``LayerNorm`` it computes in x's dtype, as the JAX module does: in
+    bf16 the mean (summed in f32) is rounded to bf16, the variance is the
+    two-pass mean((x − mean)²), and 1/sqrt(var + 1e-6) is taken in bf16 with
+    1e-6 rounded to bf16 first (a weakly typed constant).  The f32 scale and
+    bias then promote the output to f32.  The backward of the row gather is a
+    scatter-add over the domains."""
+
+    eps = 1e-6
+
+    def __init__(self, dim: int, num_domains: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_domains, dim))
+        self.bias = nn.Parameter(torch.zeros(num_domains, dim))
+
+    def forward(self, x, domain):
+        if domain is None:
+            raise ValueError("a DomainLayerNorm with several domains needs the domain id of "
+                             "each sample")
+        mean = x.float().mean(dim=-1, keepdim=True).to(x.dtype)
+        centred = x - mean
+        var = (centred * centred).float().mean(dim=-1, keepdim=True).to(x.dtype)
+        eps = torch.full((), self.eps, dtype=x.dtype, device=x.device)
+        y = centred * torch.reciprocal(torch.sqrt(var + eps))
+        return y * self.weight[domain][:, None, :] + self.bias[domain][:, None, :]
+
+
+def domain_layer_norm(dim: int, fused: bool = False, num_domains: int = 1,
+                      **kw) -> nn.Module:
+    """``DomainLayerNorm`` (vit.py:62-88).  With one domain it is a
+    LayerNorm: flax's, or with ``fused`` the one whose backward recomputes its
+    statistics (vit.py:72-79), same parameters.  With several it has
+    per-domain parameters and ignores ``fused``, as the JAX module does."""
+    if num_domains > 1:
+        if kw.get("bands") is not None:
+            raise ValueError("per-domain LayerNorms belong to the unbanded (shared) ViT")
+        return DomainLayerNorm(dim, num_domains)
     return (FusedLayerNorm if fused else LayerNorm)(dim, **kw)
+
+
+def _norm(norm, x, domain):
+    """``norm(x)``, with the samples' ``domain`` ids for a ``DomainLayerNorm``."""
+    return norm(x, domain) if isinstance(norm, DomainLayerNorm) else norm(x)
 
 
 class _MHA(nn.Module):
@@ -250,11 +299,11 @@ class Block(nn.Module):
                  exact_gelu: bool = False, bands: int | None = None,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
                  use_flash: bool = False, split_cls: bool = False, fused_qkv: bool = False,
-                 ln_fused: bool = False):
+                 ln_fused: bool = False, num_domains: int = 1):
         super().__init__()
         lead = () if bands is None else (bands,)
         self.dtype = dtype
-        self.norm1 = domain_layer_norm(dim, fused=ln_fused, bands=bands, dtype=dtype)
+        self.norm1 = domain_layer_norm(dim, ln_fused, num_domains, bands=bands, dtype=dtype)
         # vit.py:345-374: use_flash, then split_cls, then fused_qkv, then the
         # MHA route with or without vmem_attn
         if use_flash:
@@ -265,22 +314,23 @@ class Block(nn.Module):
         else:
             self.attn = Attention(dim, num_heads, vmem_attn, bands, dtype, dropout)
         self.ls1 = nn.Parameter(torch.full((*lead, dim), layerscale_init))
-        self.norm2 = domain_layer_norm(dim, fused=ln_fused, bands=bands, dtype=dtype)
+        self.norm2 = domain_layer_norm(dim, ln_fused, num_domains, bands=bands, dtype=dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, exact_gelu, bands, dtype, dropout)
         self.ls2 = nn.Parameter(torch.full((*lead, dim), layerscale_init))
 
-    def forward(self, x, generator: torch.Generator | None = None):
-        x = torch.addcmul(x, self.attn(self.norm1(x), generator),
+    def forward(self, x, generator: torch.Generator | None = None, domain=None):
+        x = torch.addcmul(x, self.attn(_norm(self.norm1, x, domain), generator),
                           _per_band(self.ls1, x).to(self.dtype))
-        return torch.addcmul(x, self.mlp(self.norm2(x), generator),
+        return torch.addcmul(x, self.mlp(_norm(self.norm2, x, domain), generator),
                              _per_band(self.ls2, x).to(self.dtype))
 
 
-def _run_block(blk, tokens, seed: int | None):
+def _run_block(blk, tokens, seed: int | None, domain=None):
     """``blk`` with its dropout generator made from ``seed`` inside the call,
-    so that a block recomputed in the backward draws the same masks."""
+    so that a block recomputed in the backward draws the same masks (and
+    sees the same ``domain`` ids)."""
     gen = None if seed is None else torch.Generator(device=tokens.device).manual_seed(seed)
-    return blk(tokens, gen)
+    return blk(tokens, gen, domain)
 
 
 class VisionTransformer(nn.Module):
@@ -288,7 +338,8 @@ class VisionTransformer(nn.Module):
 
     Input (B, H, W, C) → (B, D), or with ``bands=S`` (S, B, H, W, C) →
     (S, B, D).  ``img_size`` fixes the position-embedding length, which the
-    JAX module infers at init.
+    JAX module infers at init.  ``num_domains`` and ``num_prompts`` (the
+    unbanded ViT only) are described in the module's docstring.
     """
 
     def __init__(self, embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
@@ -299,7 +350,8 @@ class VisionTransformer(nn.Module):
                  dropout: float = 0.0, remat_blocks: bool = False,
                  remat_policy: str | None = None, use_flash: bool = False,
                  scan_blocks: bool = False, scan_group: int = 1, fused_qkv: bool = False,
-                 split_cls: bool = False, ln_fused: bool = False, quant_int8: bool = False):
+                 split_cls: bool = False, ln_fused: bool = False, quant_int8: bool = False,
+                 num_domains: int = 1, num_prompts: int = 0):
         super().__init__()
         if isinstance(dtype, str):  # 'bfloat16' / 'float32' from YAML configs
             dtype = getattr(torch, dtype)
@@ -312,8 +364,11 @@ class VisionTransformer(nn.Module):
                                       "(None or 'nothing')")
         if remat_policy not in _REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
+        if bands is not None and num_prompts:
+            raise ValueError("prompt tokens belong to the unbanded (shared) ViT")
         lead = () if bands is None else (bands,)
         self.embed_dim = embed_dim
+        self.num_domains = num_domains
         self.layerscale_init = layerscale_init
         self.dtype = dtype
         self.dropout = dropout
@@ -322,27 +377,35 @@ class VisionTransformer(nn.Module):
         self.patch_embed = PatchEmbed(in_chans, embed_dim, patch_size, bands, dtype)
         self.cls_token = nn.Parameter(torch.zeros(*lead, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(*lead, num_patches + 1, embed_dim))
+        self.prompts = (nn.Parameter(torch.zeros(1, num_prompts, embed_dim))
+                        if num_prompts else None)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, layerscale_init, vmem_attn,
-                  exact_gelu, bands, dtype, dropout, use_flash, split_cls, fused_qkv, ln_fused)
+                  exact_gelu, bands, dtype, dropout, use_flash, split_cls, fused_qkv, ln_fused,
+                  num_domains)
             for _ in range(depth))
-        self.norm = domain_layer_norm(embed_dim, fused=ln_fused, bands=bands, dtype=dtype)
+        self.norm = domain_layer_norm(embed_dim, ln_fused, num_domains, bands=bands,
+                                      dtype=dtype)
 
     def reset_parameters(self, generator=None):
         self.patch_embed.reset_parameters(generator)
         trunc_normal_(self.cls_token, 0.02, generator)
         trunc_normal_(self.pos_embed, 0.02, generator)
+        if self.prompts is not None:
+            trunc_normal_(self.prompts, 0.02, generator)
         for m in self.modules():
             if isinstance(m, Linear):
                 m.reset_parameters(generator)
-            elif isinstance(m, (LayerNorm, FusedLayerNorm)):
+            elif isinstance(m, (LayerNorm, FusedLayerNorm, DomainLayerNorm)):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
         for blk in self.blocks:
             nn.init.constant_(blk.ls1, self.layerscale_init)
             nn.init.constant_(blk.ls2, self.layerscale_init)
 
-    def forward(self, x, generator: torch.Generator | None = None):
+    def forward(self, x, generator: torch.Generator | None = None, domain=None, prompts=None):
+        """``domain``: (B,) domain ids (read with ``num_domains`` > 1);
+        ``prompts``: (B, P, D) tokens to insert after CLS."""
         tokens = self.patch_embed(x)                            # (…, B, Np, D)
         *pre, _, d = tokens.shape
         cls, pos = self.cls_token, self.pos_embed
@@ -351,15 +414,22 @@ class VisionTransformer(nn.Module):
         cls = cls.expand(*pre, 1, d)
         # the f32 cls/pos promote the concat, and the sum is cast back to the
         # compute dtype, as in vit.py:479-494
-        tokens = (torch.cat([cls.float(), tokens.float()], dim=-2) + pos).to(self.dtype)
+        tokens = torch.cat([cls.float(), tokens.float()], dim=-2) + pos
+        if prompts is None and self.prompts is not None:
+            prompts = self.prompts.expand(tokens.shape[0], -1, -1)
+        if prompts is not None:  # after CLS, without position embeddings (vit.py:482-489)
+            tokens = torch.cat([tokens[:, :1], prompts.float(), tokens[:, 1:]], dim=1)
+        tokens = tokens.to(self.dtype)
+        if self.num_domains <= 1:
+            domain = None
         for blk in self.blocks:
             # one seed per block, as nn.scan splits the dropout rng
             seed = draw_seed(generator) if self.training and self.dropout > 0.0 else None
             if self.remat_blocks and torch.is_grad_enabled():
-                tokens = checkpoint(_run_block, blk, tokens, seed, use_reentrant=False)
+                tokens = checkpoint(_run_block, blk, tokens, seed, domain, use_reentrant=False)
             else:
-                tokens = _run_block(blk, tokens, seed)
-        return self.norm(tokens)[..., 0, :]
+                tokens = _run_block(blk, tokens, seed, domain)
+        return _norm(self.norm, tokens, domain)[..., 0, :]
 
 
 VIT_DIMS = {

@@ -17,7 +17,7 @@ module here draws a mask) and returns ``(out, aux)`` with ``aux["ortho_loss"] = 
 that no config sets (``frozen_bn``, the gates' reduction ratio, pool types
 and ECA width) are the JAX defaults here.  The branches use the 7×7
 stride-2 stem with max-pool; the 1×1 stem belongs to ``WaveResNet``, which
-waits for ROADMAP A10.  f32 throughout: the JAX factory's ``with_autocast``
+waits for ROADMAP A10b.  f32 throughout: the JAX factory's ``with_autocast``
 reaches only ``vit_kwargs``, which these modules do not take.
 """
 

@@ -9,7 +9,7 @@ to ``engine.train``.  ``device=None`` means the card.
 
 k-fold splits, ``dsch_train`` and ``hooks_configs.active`` wait for ROADMAP
 A12; models outside the port's registry (the default
-``model=single_band_tiny`` among them) for A10.
+``model=single_band_tiny`` among them) for A10b–A10d.
 """
 
 from __future__ import annotations

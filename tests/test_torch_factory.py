@@ -1,26 +1,53 @@
-"""The port's reference-config factory against irw_tpu's (ROADMAP C1, C2).
+"""The port's reference-config factory against irw_tpu's (ROADMAP C1, C2,
+C8, C9).
 
 The JAX class adapter renames ``dino_backbone`` to ``backbone``, reads a
 single ``backbone_config``, and drops only the keys its module does not
 declare; ``MultiDinoHashingTF`` trains on tanh-binarised logits.  The port
 builds the same model from the same keys, raises where it cannot (a key the
-JAX module takes, DSLN), and its ``tanh_train`` model matches the JAX one
-through the bridge at test_tiny width: f32, 1e-4 on the outputs.
+JAX module takes), and its ``tanh_train`` model matches the JAX one through
+the bridge at test_tiny width: f32, 1e-4 on the outputs.  Every config of
+the multi-band ViT family in ``configs/model/`` builds, at full width, to the
+same resolved fields in both packages (construction only: the port's
+parameters on the meta device, no JAX init), ``PromptedSharedDinoHashing``'s
+drop of every key but ``num_prompts`` included (C9); a
+``backbone_config.use_dsln`` reaches ``SharedDinoHashing`` and is dropped
+for ``MultiDinoHashing`` (C8).
 """
+
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from irw_tpu.models import get_model as jax_get_model
 from irw_tpu.models import multi_dino as jax_multi_dino
 from irw_tpu.models import wresnet as jax_wresnet
 from irw_tpu.models.factory import _accepted as jax_accepted
+from irw_tpu.models.fusion import get_fusion_head as jax_fusion_head
+from irw_tpu.models.vit import VIT_DIMS as JAX_VIT_DIMS
+from irw_tpu.models.vit import vit_config as jax_vit_config
 from irw_tpu_torch.bridge import load_jax_variables
-from irw_tpu_torch.models import get_model
+from irw_tpu_torch.config import compose
+from irw_tpu_torch.getter import Getter
+from irw_tpu_torch.models import MODEL_REGISTRY, get_model
+from irw_tpu_torch.models.vit import DomainLayerNorm
+from irw_tpu_torch.single_experiment_runner import CONFIG_DIR
+from irw_tpu_torch.studies.run_plan import expand_jobs, load_plan
 from test_torch_vit import randomize
+
+REPO = Path(__file__).resolve().parents[1]
+# every config of configs/model/ whose model is of the multi-band ViT family
+FAMILY = ("multidino_attention", "multidino_attention_cbam", "multidino_original_attention",
+          "multidino_attention_hashing", "multidino_attention_hashing_ortho",
+          "multidino_attention_pretrain", "multidino_hashing_attention_pretrained",
+          "multidino_tiny", "shared_dino_hashing", "shareddino_attention_hashing_ortho",
+          "shareddino_attention_hashing_ortho_prtun",
+          "shareddino_attention_hashing_ortho_prtun_dmln", "prompted_shared_dino")
 
 TOL = 1e-4
 TINY_FUSION = {"use_all_tokens": False, "type": "cross_attention_advanced", "output_dim": 64,
@@ -38,7 +65,10 @@ def test_jax_fields_copy_matches_irw_tpu():
     from irw_tpu_torch.models.factory import JAX_FIELDS
 
     modules = {"MultiDinoHashing": jax_multi_dino.MultiDinoHashing, "WCNN": jax_wresnet.WCNN,
-               "WCNNAttention": jax_wresnet.WCNNAttention}
+               "WCNNAttention": jax_wresnet.WCNNAttention,
+               "MultiDinoAttention": jax_multi_dino.MultiDinoAttention,
+               "SharedDinoHashing": jax_multi_dino.SharedDinoHashing,
+               "PromptedSharedDinoHashing": jax_multi_dino.PromptedSharedDinoHashing}
     assert set(JAX_FIELDS) == set(modules)
     for name, cls in modules.items():
         assert JAX_FIELDS[name] == jax_accepted(cls), name
@@ -57,10 +87,15 @@ def test_backbone_keys_build_the_backbone_jax_builds(dialect):
     assert model.frozen_backbone == jmodel.frozen_backbone
 
 
-def test_dsln_raises_naming_the_roadmap():
+def test_dsln_key_is_dropped_for_the_banded_flagship_as_jax_drops_it():
+    """C8: ``backbone_config.use_dsln`` becomes ``use_dsln``, which
+    MultiDinoHashing does not declare: both factories build the flagship
+    without per-domain LayerNorms."""
     kw = tiny_kwargs(backbone_config={"name": "test_tiny", "frozen": False, "use_dsln": True})
-    with pytest.raises(NotImplementedError, match="A10"):
-        get_model("MultiDinoHashing", device="cpu", **kw)
+    jmodel = jax_get_model("MultiDinoHashing", **kw)
+    model = get_model("MultiDinoHashing", device="cpu", **kw)
+    assert resolved(model) == jax_resolved(jmodel)
+    assert not any(isinstance(m, DomainLayerNorm) for m in model.modules())
 
 
 def test_factory_drops_only_what_the_jax_factory_drops():
@@ -109,3 +144,86 @@ def test_tanh_train_matches_jax(name):
     jcodes, _ = jmodel.apply(variables, jnp.asarray(bands), train=False)
     assert set(np.unique(codes.numpy())) <= {-1.0, 1.0}
     np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+
+
+def jax_resolved(jmodel) -> dict:
+    """The fields a JAX model of the family resolved to, in the terms
+    ``resolved`` reads off a port model."""
+    kind = type(jmodel).__name__
+    vit = jax_vit_config(jmodel.backbone, **(jmodel.vit_kwargs or {}))
+    dim = JAX_VIT_DIMS[jmodel.backbone]
+    head = jax_fusion_head(jmodel.fusion_config or {"output_dim": dim}, dim)
+    out = {"kind": kind, "width": vit["embed_dim"], "depth": vit["depth"],
+           "dtype": str(jnp.dtype(vit.get("dtype", jnp.float32))),
+           "remat": bool(vit.get("remat_blocks", False)),
+           "vmem_attn": bool(vit.get("vmem_attn", False)),
+           "frozen": jmodel.frozen_backbone, "head": type(head).__name__,
+           "head_width": head.embed_dim, "temperature": getattr(head, "temperature", None),
+           "residual_query": getattr(head, "residual_query", False)}
+    if kind != "MultiDinoAttention":
+        out["nbits"] = jmodel.nbits
+        out["use_bn"] = getattr(jmodel, "use_bn", True)
+        out["tanh"] = getattr(jmodel, "tanh_train", kind == "SharedDinoHashing")
+    if kind == "SharedDinoHashing":
+        out["prompts"] = jmodel.num_prompts
+        out["dsln"] = jmodel.use_dsln
+    return out
+
+
+def resolved(model) -> dict:
+    kind = type(model).__name__
+    vit = model.backbone.vit
+    out = {"kind": kind, "width": vit.embed_dim, "depth": len(vit.blocks),
+           "dtype": str(vit.dtype).replace("torch.", ""), "remat": vit.remat_blocks,
+           "vmem_attn": vit.blocks[0].attn.core.__name__ == "vmem_attention_fn",
+           "frozen": model.frozen_backbone, "head": type(model.head).__name__,
+           "head_width": model.head.embed_dim,
+           "temperature": getattr(model.head, "temperature", None),
+           "residual_query": getattr(model.head, "residual_query", False)}
+    if kind != "MultiDinoAttention":
+        out["nbits"] = model.hash_head.linear.weight.shape[0]
+        out["use_bn"] = model.hash_head.bn is not None
+        out["tanh"] = getattr(model, "tanh_train", kind == "SharedDinoHashing")
+    if kind == "SharedDinoHashing":
+        out["prompts"] = model.num_prompts
+        out["dsln"] = model.use_dsln
+    return out
+
+
+@pytest.mark.parametrize("config", FAMILY)
+def test_family_config_builds_what_jax_builds(config):
+    """Full width, construction only: the port's parameters on the meta
+    device, the JAX module unbound."""
+    with open(REPO / "configs/model" / f"{config}.yaml") as f:
+        cfg = yaml.safe_load(f)
+    jmodel = jax_get_model(cfg["name"], **cfg["kwargs"])
+    with torch.device("meta"):
+        model = MODEL_REGISTRY[cfg["name"]](torch.device("cpu"), **cfg["kwargs"])
+    assert resolved(model) == jax_resolved(jmodel)
+    if config.startswith("shareddino_attention_hashing_ortho_prtun"):
+        # C9: only num_prompts reaches the model; every field else is the default
+        assert resolved(model) == dict(resolved_defaults(), prompts=10)
+
+
+def resolved_defaults() -> dict:
+    return {"kind": "SharedDinoHashing", "width": 384, "depth": 12, "dtype": "float32",
+            "remat": False, "vmem_attn": False, "frozen": True, "head": "StandardFusionHead",
+            "head_width": 384, "temperature": None, "residual_query": False, "nbits": 64,
+            "use_bn": True, "tanh": True, "dsln": False}
+
+
+def test_bn_ablation_job_without_batch_norm_builds_through_the_getter():
+    """studies/bn_ablation_hard_cpu.yaml's use_bn=false job: composed by the
+    port and JAX alike, and its model built by the port's getter without the
+    hash head's BatchNorm."""
+    from irw_tpu.config import compose as jax_compose
+
+    jobs = expand_jobs(load_plan(REPO / "studies/bn_ablation_hard_cpu.yaml"))
+    (_, overrides), *_ = [(n, o) for n, o in jobs if "model.kwargs.use_bn=False" in o]
+    cfg = compose(CONFIG_DIR, "default", overrides)
+    assert cfg.to_dict() == jax_compose(CONFIG_DIR, "default", overrides).to_dict()
+    model = Getter().get_model(cfg.model, device="cpu")
+    jmodel = jax_get_model(cfg.model.name, **cfg.model.kwargs.to_dict())
+    assert model.hash_head.bn is None and model.hash_head.linear.bias is not None
+    assert resolved(model) == jax_resolved(jmodel)
+    assert resolved(model)["nbits"] == 32 and not model.frozen_backbone
