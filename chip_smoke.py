@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases card,build,flash,flash_serve,flash_train
     python3 chip_smoke.py --phases card,build,qkv,qkv_micro,variants
     python3 chip_smoke.py --phases card,build,siblings
+    python3 chip_smoke.py --phases card,build,trunks
 
 Drives the port's serving path — uint8 images → DeviceTransform (/255, Haar
 SWT: kernel K1) → the flagship MultiDinoHashing (4 × DINOv2 ViT-S/14 at
@@ -197,7 +198,7 @@ import numpy as np
 
 PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train", "loop",
           "runner", "dwt", "wcnn", "wavelets", "wcnn_train", "wcnn_xbm", "losses", "flash",
-          "flash_serve", "flash_train", "qkv", "qkv_micro", "variants", "siblings")
+          "flash_serve", "flash_train", "qkv", "qkv_micro", "variants", "siblings", "trunks")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -414,6 +415,15 @@ CPU_F32_TOL = 1e-4       # f32 logits, the card with TF32 off against the CPU, a
 # bf16: both sides round at the same points and accumulate in other orders;
 # hashing logits take the bf16 convention (LOGIT_MARGIN), unit embeddings a cosine
 CPU_EMB_COSINE = 0.999
+
+# the trunks phase: the single-trunk configs of configs/model (ROADMAP A10c),
+# over the SWT stack (kernel K1) or over Normalize'd plain images
+TRUNK_SWT = ("single_band", "detail_tester", "multi_dino")
+TRUNK_PLAIN = ("dino_hashing", "dino_default", "dino", "dino_v3", "deit", "ibot", "resnet",
+               "resnet_ce", "resnet_hashing", "resnet_dsch", "resnet_max_ln", "convnext")
+TRUNK_PLAIN_OPS = [("Normalize", {})]
+TRUNK_TIMED = 10         # timed served batches per config, after WARMUP_CALLS
+TRUNK_STEPS = 3
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -3019,6 +3029,347 @@ def phase_siblings(state):
     _release_earlier_phases(state)
 
 
+def _trunk_model(config: str):
+    """``configs/model/<config>.yaml`` composed over ``configs/default.yaml``
+    (the port's ``compose``) and built by the ``Getter`` at full width, seed
+    0, on the card; LayerScale set to 1 (the ViTs' ``ls1``/``ls2``,
+    ConvNeXt's ``gamma``) and the zero-initialised classifiers drawn, so
+    that the towers and heads reach the output.  Returns (config, model)."""
+    import torch
+
+    from irw_tpu_torch import single_experiment_runner as runner
+    from irw_tpu_torch.config import compose
+    from irw_tpu_torch.getter import Getter
+    from irw_tpu_torch.models.layers import Linear
+
+    cfg = compose(runner.CONFIG_DIR, "default", [f"model={config}"])
+    model = Getter().get_model(cfg.model, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("ls1", "ls2", "gamma"):
+                p.fill_(1.0)
+        for mod in model.modules():
+            if isinstance(mod, Linear) and not mod.weight.any():
+                mod.weight.normal_(0.0, mod.weight.shape[-1] ** -0.5, generator=gen)
+    return cfg, model
+
+
+def _trunk_bf16(model) -> bool:
+    import torch
+
+    return any(getattr(m, "dtype", None) == torch.bfloat16 for m in model.modules())
+
+
+def _trunk_outputs(model, x):
+    """(eval output, the pre-sign logits of a model whose eval output is ±1
+    codes, else None)."""
+    kind = type(model).__name__
+    out = model(x)[0]
+    if kind == "DINOHashBaseline":
+        logits = model.hash_head(model.backbone(x))
+    elif kind == "SingleBandNet" and model.hash_head is not None:
+        logits = model.hash_head(model.backbone(x[:, model.band]))
+    elif kind == "ResNetHashing":
+        logits = model.fc(model.trunk(x))
+    elif kind == "ResNet50Mod":
+        logits = model.dsch(x)[0]
+    else:
+        logits = None
+    return out.float(), None if logits is None else logits.float()
+
+
+def _hold_trunk(label: str, what: str, card, ref, bf16: bool) -> None:
+    """``card`` against ``ref``, each (output, logits or None): codes equal
+    past the margin (LOGIT_MARGIN in bf16, 1e-3 in f32) and the logits within
+    it (CPU_F32_TOL in f32); unit embeddings at cosine CPU_EMB_COSINE (bf16)
+    or within CPU_F32_TOL (f32)."""
+    import torch
+
+    (out, logits), (out_ref, logits_ref) = card, ref
+    if logits is not None:
+        margin, tol = (LOGIT_MARGIN, LOGIT_MARGIN) if bf16 else (1e-3, CPU_F32_TOL)
+        sure = logits_ref.abs() > margin
+        n_differ = int(((torch.sign(out) != torch.sign(logits_ref)) & sure).sum())
+        dmax = (logits - logits_ref).abs().max().item()
+        ok = n_differ == 0 and dmax <= tol and 2 * int(sure.sum()) >= sure.numel()
+        verdict = (f"max|logit - {what}| = {dmax:.3e} (limit {tol}); codes differ at {n_differ} "
+                   f"of {int(sure.sum())}/{sure.numel()} bits past {margin}")
+    elif bf16:
+        cos = torch.nn.functional.cosine_similarity(out, out_ref, dim=-1).min().item()
+        ok = cos >= CPU_EMB_COSINE
+        verdict = f"min cosine to {what} {cos:.6f} (limit {CPU_EMB_COSINE})"
+    else:
+        dmax = (out - out_ref).abs().max().item()
+        ok = dmax <= CPU_F32_TOL
+        verdict = f"max|out - {what}| = {dmax:.3e} (limit {CPU_F32_TOL})"
+    log("trunks", f"{label}: {verdict}")
+    if not ok:
+        raise AssertionError(f"trunks: {label} disagrees with {what}")
+
+
+def _serve_trunk(state, config: str, images) -> None:
+    """TRUNK_WARMUP batches, then TRUNK_TIMED timed batches of BATCH through
+    the device transform (the SWT stack, kernel K1, for the band models;
+    Normalize for the others) and the model: launches per batch, img/s; then
+    the first batch held against the plain route (K1's plain version, on the
+    card) or, with no kernel on the path, against a CPU copy of the model
+    on CPU_IMAGES images (TF32 off on the card)."""
+    import copy
+
+    import torch
+
+    from irw_tpu_torch.ops.wavelets import haar_swt2_plain
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    _release_earlier_phases(state)
+    cfg, model = _trunk_model(config)
+    swt = config in TRUNK_SWT
+    bf16 = _trunk_bf16(model)
+    transform = DeviceTransform(SWT_OPS if swt else TRUNK_PLAIN_OPS)
+    kernels = _kernel_wrappers()
+    with torch.inference_mode():
+        for i in range(WARMUP_CALLS):
+            model(transform(images[i % len(images)]))
+        torch.cuda.synchronize()
+        for fn in kernels:
+            fn.launches = 0
+        per_batch = []
+        t0 = time.perf_counter()
+        for i in range(TRUNK_TIMED):
+            before = [fn.launches for fn in kernels]
+            out = model(transform(images[i % len(images)]))[0]
+            per_batch.append(tuple(fn.launches - b for fn, b in zip(kernels, before)))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        state["launches"][f"trunks_{config}"] = _launch_counts(kernels)
+        _check_launches("trunks", per_batch, (1 if swt else 0,) + (0,) * 6, f"batch, {config}")
+        ips = TRUNK_TIMED * BATCH / seconds
+        log("trunks", f"{config}: {cfg.model.name} → {type(model).__name__}, "
+                      f"{'bf16' if bf16 else 'f32'}, output {tuple(out.shape)}; {ips:.1f} img/s, "
+                      f"{seconds / TRUNK_TIMED * 1e3:.2f} ms per batch of {BATCH} "
+                      f"({TRUNK_TIMED} timed after {WARMUP_CALLS}) | {state['card']}")
+
+        x = transform(images[0])
+        if not torch.isfinite(_trunk_outputs(model, x)[0]).all():
+            raise AssertionError(f"trunks: {config}'s output is not finite")
+        if swt:
+            raw = torch.from_numpy(images[0]).cuda().float() / 255.0
+            b, h, w, c = raw.shape
+            flat = haar_swt2_plain(raw.permute(0, 3, 1, 2).reshape(b * c, h, w))
+            plain = flat.reshape(b, c, 4, h, w).permute(0, 2, 3, 4, 1)
+            _hold_trunk(config, "the plain route", _trunk_outputs(model, x),
+                        _trunk_outputs(model, plain), bf16)
+        else:
+            cpu = copy.deepcopy(model).cpu()
+            flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+            try:
+                card = _trunk_outputs(model, x[:CPU_IMAGES])
+            finally:
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+            ref = _trunk_outputs(cpu, x[:CPU_IMAGES].cpu())
+            _hold_trunk(config, "the CPU", tuple(None if t is None else t.cpu() for t in card),
+                        ref, bf16)
+            del cpu
+    del model
+
+
+def _train_trunk(state, config: str, loss_file: str, batches, alpha: float = 1.0):
+    """TRUNK_STEPS train steps of ``config``'s model at BATCH with the loss
+    of ``configs/loss/<loss_file>`` and ``configs/optimizer/basic.yaml``'s
+    AdamW, the optimizers and the step built with the config's freezing set
+    (``model.freeze_*`` and the model's frozen collections), ``model_alpha``
+    ``alpha``.  Returns (model, the parameters before, the last metrics, the
+    first step's loss input)."""
+    import os
+
+    import torch
+
+    from irw_tpu_torch import single_experiment_runner as runner
+    from irw_tpu_torch.config import yaml_lite
+    from irw_tpu_torch.engine import build_train_step, init_train_state
+    from irw_tpu_torch.engine.train import _build_hyper
+    from irw_tpu_torch.losses import build_losses
+    from irw_tpu_torch.transforms import DeviceTransform
+    from irw_tpu_torch.utils.freezing import config_freeze_set
+
+    _release_earlier_phases(state)
+    cfg, model = _trunk_model(config)
+    loss_cfg = yaml_lite.load(os.path.join(runner.CONFIG_DIR, "loss", loss_file))
+    frozen = config_freeze_set(model, cfg.model)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    tstate = init_train_state(model, build_losses(loss_cfg), OPTIMIZER, loss_cfg, seed=0,
+                              frozen_collections=frozen)
+    tstate.model_alpha = alpha
+    step = build_train_step(DeviceTransform(TRUNK_PLAIN_OPS), frozen_collections=frozen)
+    seen = []
+    hook = tstate.losses[0][0].register_forward_hook(
+        lambda mod, args, out: seen.append(args[0]) if not seen else None)
+    kernels = _kernel_wrappers()
+    metrics = []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TRUNK_STEPS):
+            for fn in kernels:
+                fn.launches = 0
+            metrics.append(step(tstate, batches[i % len(batches)],
+                                _build_hyper(tstate.optimizer_entries, 1, tstate.step, 0, None)))
+            _check_launches("trunks", [tuple(fn.launches for fn in kernels)], (0,) * 7,
+                            f"train step, {config}")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        hook.remove()
+    _check_finite("trunks", metrics, ("total_loss", "grad_norm"))
+    log("trunks", f"{config} trained {TRUNK_STEPS} steps of {BATCH} ({loss_file}, freezing set "
+                  f"{frozen}) in {seconds:.2f} s, the first step included | {state['card']}")
+    return model, before, metrics[-1], seen[0], tstate
+
+
+def _train_batches(n_classes: int, multi_label: bool, seed: int) -> list:
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(2):
+        labels = ((rng.rand(BATCH, n_classes) > 0.8).astype(np.float32) if multi_label
+                  else rng.randint(0, n_classes, BATCH))
+        if multi_label:
+            labels[:, 0] = 1.0
+        out.append({"image": rng.randint(0, 256, (BATCH, 224, 224, 3), dtype=np.uint8),
+                    "label": labels})
+    return out
+
+
+def phase_trunks(state):
+    """Every single-trunk model (ROADMAP A10c): the configs of TRUNK_SWT and
+    TRUNK_PLAIN served at full width; four of them trained; the repo's
+    default composition through the runner (K4) and
+    ``studies/smoke_plan.yaml``'s jobs through ``run_plan``."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from irw_tpu_torch import single_experiment_runner as runner
+    from irw_tpu_torch.data import SyntheticVOCDataset
+    from irw_tpu_torch.getter import Getter
+    from irw_tpu_torch.studies.run_plan import expand_jobs, load_plan, run_jobs
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    ds = SyntheticVOCDataset(num_train=BATCH * 2, image_size=224, seed=11)
+    images = [ds.images[:BATCH], ds.images[BATCH:]]
+    for config in TRUNK_SWT + TRUNK_PLAIN:
+        _serve_trunk(state, config, images)
+
+    # training: CE with frozen BatchNorm, HashLoss at α = 2, a metric loss
+    # unfrozen, and freeze_pos_embedding
+    model, before, _, _, _ = _train_trunk(state, "resnet_ce", "celoss.yaml",
+                                          _train_batches(8, False, 1))
+    stats = [k for k in before if k.endswith(("running_mean", "running_var"))]
+    moved = [k for k in stats if not torch.equal(model.state_dict()[k], before[k])]
+    log("trunks", f"resnet_ce: frozen_bn {model.trunk.frozen_bn}; BatchNorm statistics moved "
+                  f"{len(moved)} of {len(stats)}")
+    if moved or not model.trunk.frozen_bn:
+        raise AssertionError(f"trunks: resnet_ce's frozen BatchNorm moved {moved[:3]}")
+
+    batches = _train_batches(20, True, 2)
+    model, before, _, ctx, tstate = _train_trunk(state, "resnet_hashing", "hash_loss.yaml",
+                                                 batches, alpha=2.0)
+    model.load_state_dict(before)  # the weights the first step saw
+    with torch.no_grad():
+        fc = model.fc(model.trunk(DeviceTransform(TRUNK_PLAIN_OPS)(batches[0]["image"])))
+    # the step's forward and this one may take other TF32 conv algorithms
+    dmax = (torch.tanh(2.0 * fc) - ctx.embeddings).abs().max().item()
+    d_one = (torch.tanh(fc) - ctx.embeddings).abs().max().item()
+    log("trunks", f"resnet_hashing: model_alpha {tstate.model_alpha}; max|tanh(2·fc) - what the "
+                  f"loss saw| = {dmax:.3e} (limit 1e-3), max|tanh(fc) - what it saw| = "
+                  f"{d_one:.3e}")
+    if not (dmax <= 1e-3 and d_one > 10 * dmax):
+        raise AssertionError("trunks: the loss did not see tanh(2·fc)")
+    del model, tstate, ctx
+
+    model, before, _, _, _ = _train_trunk(state, "convnext", "pair_loss.yaml",
+                                          _train_batches(10, False, 3))
+    changed = sum(not torch.equal(v, before[k]) for k, v in model.state_dict().items())
+    log("trunks", f"convnext (unfrozen): {changed} of {len(before)} tensors moved")
+    if not changed or model.frozen_backbone:
+        raise AssertionError("trunks: convnext did not train")
+
+    model, before, _, _, _ = _train_trunk(state, "dino_default", "celoss.yaml",
+                                          _train_batches(200, False, 4))
+    held = ("backbone.pos_embed", "backbone.cls_token")
+    same = [k for k in held if torch.equal(model.state_dict()[k], before[k])]
+    head_moved = not torch.equal(model.classifier.weight, before["classifier.weight"])
+    log("trunks", f"dino_default (freeze_pos_embedding): {same} unchanged; the classifier "
+                  f"moved: {head_moved}")
+    if len(same) != len(held) or not head_moved:
+        raise AssertionError("trunks: dino_default's frozen embeddings moved or its head did not")
+    del model
+    _release_earlier_phases(state)
+
+    # the repo's default composition through the runner, on the card (K4)
+    root = tempfile.mkdtemp(prefix="irw_trunks_")
+    try:
+        kernels = _kernel_wrappers()
+        wrapped = []
+        get_transform = Getter.get_transform
+
+        def counting(self, transform_config, device=None):
+            (h, d), test = get_transform(self, transform_config, device)
+            wrapped.append(_UnitLaunches(d, kernels))
+            return (h, wrapped[-1]), test
+
+        overrides = ["dataset=synthetic", "experience.max_iter=1", "experience.step_per_epoch=2",
+                     f"experience.log_dir={root}"]
+        Getter.get_transform = counting
+        try:
+            for fn in kernels:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            score = runner.run_one(overrides)
+            seconds = time.perf_counter() - t0
+        finally:
+            Getter.get_transform = get_transform
+        (transform,) = wrapped
+        steps, evals = transform.units(False), transform.units(True)
+        state["launches"]["trunks_default"] = {fn.__name__: sum(u[i] for u in steps)
+                                               for i, fn in enumerate(kernels)}
+        state["launches"]["trunks_default_eval"] = {fn.__name__: sum(u[i] for u in evals)
+                                                    for i, fn in enumerate(kernels)}
+        state["default_units"] = (len(steps), len(evals))
+        _check_launches("trunks", steps, (0, 0, 0, 1, 0, 0, 0), "train step, default composition")
+        _check_launches("trunks", evals, (0, 0, 0, 1, 0, 0, 0),
+                        "eval batch, default composition (the first: the size probe)")
+        log("trunks", f"default composition (single_band_tiny, transform dwt, synthetic): "
+                      f"{len(steps)} train steps, {len(evals)} inference batches, map_level0 "
+                      f"{score:.4f} in {seconds:.1f} s | {state['card']}")
+        if len(steps) != 2 or not 0.0 <= score <= 1.0:
+            raise AssertionError(f"trunks: the default composition ran {len(steps)} steps, "
+                                 f"score {score}")
+
+        # studies/smoke_plan.yaml through run_plan, each job in its own process
+        repo = os.path.dirname(os.path.abspath(__file__))
+        jobs = expand_jobs(load_plan(os.path.join(repo, "studies", "smoke_plan.yaml")))
+        jobs = [(name, [o for o in overrides_ if not o.startswith("experience.log_dir=")]
+                 + [f"experience.log_dir={root}"]) for name, overrides_ in jobs]
+        t0 = time.perf_counter()
+        failed = run_jobs(jobs)
+        seconds = time.perf_counter() - t0
+        scores = {}
+        for name, _ in jobs:
+            records = _jsonl(os.path.join(root, name, "metrics.jsonl"))
+            scores[name] = [r["test/map_level0"] for r in records if "test/map_level0" in r]
+        log("trunks", f"smoke_plan: {len(jobs)} jobs in {seconds:.1f} s, failed {failed}, "
+                      f"map_level0 {scores}")
+        if failed or not all(len(v) == 1 and 0.0 <= v[0] <= 1.0 for v in scores.values()):
+            raise AssertionError(f"trunks: smoke_plan failed {failed} / {scores}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _release_earlier_phases(state)
+
+
 def _k5_inputs(b, n, d, heads_dim, dtype, seed):
     """x unit normal, weights (d, heads_dim) / sqrt(d), biases * 0.01 (the
     micro-benchmark's scales), drawn on the card."""
@@ -3398,7 +3749,7 @@ def main(argv=None) -> int:
                "flash": phase_flash,
                "flash_serve": phase_flash_serve, "flash_train": phase_flash_train,
                "qkv": phase_qkv, "qkv_micro": phase_qkv_micro, "variants": phase_variants,
-               "siblings": phase_siblings}
+               "siblings": phase_siblings, "trunks": phase_trunks}
     for name in phases:
         if name != "card":
             t0 = time.perf_counter()
@@ -3423,7 +3774,11 @@ def main(argv=None) -> int:
               "runner_eval": ("runner_eval", RUNNER_EVAL_UNITS),
               "wavelets_A": ("wavelets_A", SERVE_BATCHES),
               "wavelets_B": ("wavelets_B", SERVE_BATCHES),
-              "shared": ("siblings_serve", SERVE_BATCHES)}
+              "shared": ("siblings_serve", SERVE_BATCHES),
+              **{config: (f"trunks_{config}", TRUNK_TIMED) for config in TRUNK_SWT}}
+    if "default_units" in state:  # the default composition's run (trunks)
+        trained["default"] = ("trunks_default", state["default_units"][0])
+        served["default_eval"] = ("trunks_default_eval", state["default_units"][1])
 
     def per_run(paths, name):
         return {path: runs[key].get(name, 0) / n for path, (key, n) in paths.items() if key in runs}

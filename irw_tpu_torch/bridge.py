@@ -21,6 +21,16 @@ are read with ``np.asarray``.  Handled layouts:
   classifiers ``DenseGeneral_0`` and ``Dense_0`` beside it), or a bare
   ``ResNet`` tree (``Conv_0``, ``BatchNorm_0``, ``Bottleneck_i`` or
   ``BasicBlock_i``), or a bare subband gate;
+- the single-trunk models: the baselines' ``VisionTransformer_0`` (or
+  ``BandedViT_0``) with its ``HashHead_0`` or classifier ``Dense_0``
+  (``DINOHashBaseline``, ``SingleBandNet``, ``DinoModelCE``,
+  ``MultiDinoModel``); ``ResNet_0`` with ``Dense_0`` (and ``LayerNorm_0``)
+  of the hashing ResNets, ``ResNet50Mod``'s ``ResNet50DSCH_0``;
+  ``RetrievalNet``'s ``backbone``, ``LayerNorm_0`` and projection
+  ``fc/Dense_i`` (with ``BatchNorm_i`` or ``LayerNorm_i`` between); bare
+  ``DenseNet`` (``DenseLayer_i``, ``Transition_i``) and ``ConvNeXt``
+  (``ConvNeXtBlock_i``, whose depthwise kernel (7, 7, 1, C) becomes
+  (C, 1, 7, 7)) trees;
 - the scanned block stack ``blocks/Block_0/…`` with a depth axis after the
   band axis (``tools/convert_torch_weights.py:189-205``), its grouped form
   ``blocks/inner/Block_0/…`` (depth split as (G, k)), and unrolled
@@ -239,6 +249,103 @@ def _wcnn(variables) -> dict:
     return sd
 
 
+def _densenet(params, stats) -> dict:
+    """A ``DenseNet`` tree → ``models.densenet.DenseNet``."""
+    sd = {"stem.weight": _conv(params["Conv_0"]["kernel"])}
+    sd.update(_prefixed("stem_norm", _batch_norm(params["BatchNorm_0"], stats["BatchNorm_0"])))
+    for kind, prefix, parts in (("DenseLayer", "layers", (("norm1", "BatchNorm_0"),
+                                                          ("conv1", "Conv_0"),
+                                                          ("norm2", "BatchNorm_1"),
+                                                          ("conv2", "Conv_1"))),
+                                ("Transition", "transitions", (("norm", "BatchNorm_0"),
+                                                               ("conv", "Conv_0")))):
+        i = 0
+        while f"{kind}_{i}" in params:
+            t, st = params[f"{kind}_{i}"], stats[f"{kind}_{i}"]
+            for port, jax_name in parts:
+                key = f"{prefix}.{i}.{port}"
+                if jax_name.startswith("Conv"):
+                    sd[f"{key}.weight"] = _conv(t[jax_name]["kernel"])
+                else:
+                    sd.update(_prefixed(key, _batch_norm(t[jax_name], st[jax_name])))
+            i += 1
+    sd.update(_prefixed("norm", _batch_norm(params["BatchNorm_1"], stats["BatchNorm_1"])))
+    return sd
+
+
+def _conv_bias(t) -> dict:
+    return {"weight": _conv(t["kernel"]), "bias": _a(t["bias"])}
+
+
+def _convnext(params) -> dict:
+    """A ``ConvNeXt`` tree → ``models.convnext.ConvNeXt``: ``Conv_0`` and
+    ``LayerNorm_0`` the stem, ``LayerNorm_s``/``Conv_s`` the downsampling
+    before stage s, the last ``LayerNorm`` the final norm."""
+    sd = {**_prefixed("stem", _conv_bias(params["Conv_0"])),
+          **_prefixed("stem_norm", _ln(params["LayerNorm_0"]))}
+    stages = sum(1 for k in params if k.startswith("Conv_"))
+    for s in range(1, stages):
+        sd.update(_prefixed(f"down_norms.{s - 1}", _ln(params[f"LayerNorm_{s}"])))
+        sd.update(_prefixed(f"downsamples.{s - 1}", _conv_bias(params[f"Conv_{s}"])))
+    sd.update(_prefixed("norm", _ln(params[f"LayerNorm_{stages}"])))
+    i = 0
+    while f"ConvNeXtBlock_{i}" in params:
+        t = params[f"ConvNeXtBlock_{i}"]
+        sd.update(_prefixed(f"blocks.{i}", {
+            **_prefixed("dwconv", _conv_bias(t["Conv_0"])),
+            **_prefixed("norm", _ln(t["LayerNorm_0"])),
+            **_prefixed("fc1", _dense(t["Dense_0"])), **_prefixed("fc2", _dense(t["Dense_1"])),
+            "gamma": _a(t["gamma"])}))
+        i += 1
+    return sd
+
+
+def _trunk(params, stats) -> dict:
+    """A bare trunk: ViT, DenseNet, ConvNeXt or ResNet."""
+    if "PatchEmbed_0" in params:
+        return _vit(params, lead=0)
+    if "DenseLayer_0" in params:
+        return _densenet(params, stats)
+    if "ConvNeXtBlock_0" in params:
+        return _convnext(params)
+    return _resnet(params, stats)
+
+
+def _projection(params, stats) -> dict:
+    """``ProjectionHead``: ``Dense_i`` → ``layers.i``, the norm between
+    layers i and i + 1 (``BatchNorm_i`` or ``LayerNorm_i``) → ``norms.i``."""
+    sd, i = {}, 0
+    while f"Dense_{i}" in params:
+        sd.update(_prefixed(f"layers.{i}", _dense(params[f"Dense_{i}"])))
+        if f"BatchNorm_{i}" in params:
+            sd.update(_prefixed(f"norms.{i}", _batch_norm(params[f"BatchNorm_{i}"],
+                                                          stats[f"BatchNorm_{i}"])))
+        elif f"LayerNorm_{i}" in params:
+            sd.update(_prefixed(f"norms.{i}", _ln(params[f"LayerNorm_{i}"])))
+        i += 1
+    return sd
+
+
+def _single_trunk(params, stats) -> dict:
+    """The hashing ResNets (``ResNet_0``, ``LayerNorm_0``, ``Dense_0``),
+    ``ResNet50Mod`` (``ResNet50DSCH_0``) and ``RetrievalNet`` (``backbone``,
+    ``LayerNorm_0``, ``fc``)."""
+    if "ResNet50DSCH_0" in params:
+        return _prefixed("dsch", _single_trunk(params["ResNet50DSCH_0"],
+                                               stats["ResNet50DSCH_0"]))
+    if "ResNet_0" in params:
+        sd = _prefixed("trunk", _resnet(params["ResNet_0"], stats["ResNet_0"]))
+        if "Dense_0" in params:
+            sd.update(_prefixed("fc", _dense(params["Dense_0"])))
+    else:
+        sd = _prefixed("backbone", _trunk(params["backbone"], stats.get("backbone", {})))
+        if "fc" in params:
+            sd.update(_prefixed("fc", _projection(params["fc"], stats.get("fc", {}))))
+    if "LayerNorm_0" in params:
+        sd.update(_prefixed("norm", _ln(params["LayerNorm_0"])))
+    return sd
+
+
 def _hash_head(params, stats) -> dict:
     """``HashHead_0``: the Dense, then its BatchNorm, or its bias without one."""
     sd = _prefixed("linear", _dense(params["Dense_0"]))
@@ -248,37 +355,44 @@ def _hash_head(params, stats) -> dict:
 
 
 def from_jax_variables(variables) -> dict:
-    """flax variables of a model of the multi-band ViT family, a
-    ``VisionTransformer``, a fusion head, ``WCNN``, ``WCNNAttention``,
-    ``ResNet`` or subband gate → the port module's state dict (numpy
-    arrays)."""
+    """flax variables of a model of the multi-band ViT family, a baseline, a
+    single-trunk model, a ``VisionTransformer``, ``ResNet``, ``DenseNet`` or
+    ``ConvNeXt``, a fusion head, ``WCNN``, ``WCNNAttention`` or subband gate
+    → the port module's state dict (numpy arrays)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    if "PatchEmbed_0" in params:
-        return _vit(params, lead=0)
     if "norm2" in params or ("BatchNorm_0" in params and any(g in params for g in _GATES)):
         return _fusion_head(params, stats)
     if "BandedResNet_0" in params:
         return _wcnn(variables)
-    if "Conv_0" in params and "BatchNorm_0" in params:
-        return _resnet(params, variables["batch_stats"])
+    if "PatchEmbed_0" in params or ("Conv_0" in params and ("BatchNorm_0" in params
+                                                            or "LayerNorm_0" in params)):
+        return _trunk(params, stats)
     if set(params) in ({"SubbandChannelGate_0"}, {"Conv_0"}, {"Dense_0", "Dense_1"}):
         return _gate(params)
+    if {"ResNet_0", "ResNet50DSCH_0", "backbone"} & set(params):
+        return _single_trunk(params, stats)
+    heads = [k for k in params if k in _HEADS]
+    if len(heads) > 1:
+        raise ValueError(f"expected one fusion head, found {heads} in {sorted(params)}")
     if "BandedViT_0" in params:
         sd = _prefixed("backbone.vit",
                        _vit(params["BandedViT_0"]["VmapVisionTransformer_0"], lead=1))
     elif "VisionTransformer_0" in params:
-        sd = _prefixed("backbone.vit", _vit(params["VisionTransformer_0"], lead=0))
+        # the shared tower of the family, or a baseline's bare ViT
+        sd = _prefixed("backbone.vit" if heads else "backbone",
+                       _vit(params["VisionTransformer_0"], lead=0))
         if "prompts" in params:
             sd["prompts"] = _a(params["prompts"])
     else:
         raise ValueError(f"no bridge for a tree with {sorted(params)}; the port carries the "
-                         "multi-band ViT family, VisionTransformer, WCNN, WCNNAttention, "
-                         "ResNet and the subband gates")
-    heads = [k for k in params if k in _HEADS]
-    if len(heads) != 1:
-        raise ValueError(f"expected one fusion head, found {heads} in {sorted(params)}")
-    sd.update(_prefixed("head", _fusion_head(params[heads[0]], stats.get(heads[0], {}))))
+                         "multi-band ViT family, the baselines, the single-trunk models, "
+                         "VisionTransformer, ResNet, DenseNet, ConvNeXt, WCNN, WCNNAttention "
+                         "and the subband gates")
+    if heads:
+        sd.update(_prefixed("head", _fusion_head(params[heads[0]], stats.get(heads[0], {}))))
+    elif "Dense_0" in params:  # DinoModelCE's classifier
+        sd.update(_prefixed("classifier", _dense(params["Dense_0"])))
     if "HashHead_0" in params:
         sd.update(_prefixed("hash_head", _hash_head(params["HashHead_0"],
                                                     stats.get("HashHead_0", {}))))

@@ -34,6 +34,8 @@ from typing import Callable
 
 import torch
 
+from irw_tpu_torch.utils.freezing import frozen_names
+
 # ---------------------------------------------------------------------------
 # torch-semantics LR schedules: fn(counter) -> multiplicative factor
 # ---------------------------------------------------------------------------
@@ -209,9 +211,10 @@ def _group_hyper(name: str, kwargs: dict) -> tuple[float, dict]:
 _OPTIMIZERS = {"Adam": torch.optim.Adam, "AdamW": torch.optim.AdamW, "SGD": torch.optim.SGD}
 
 
-def _param_label(name: str, param: torch.Tensor, module_names, frozen_collections=()) -> str:
-    """``_label_tree``'s rule for one parameter."""
-    if any(frozen in name for frozen in frozen_collections):
+def _param_label(name: str, param: torch.Tensor, module_names, frozen: set) -> str:
+    """``_label_tree``'s rule for one parameter (``frozen``: the names the
+    freezing set selects)."""
+    if name in frozen:
         return "frozen"
     for mod in module_names:
         if mod in name:
@@ -254,8 +257,8 @@ def set_group_lrs(optimizer: torch.optim.Optimizer, lrs: dict) -> None:
 def build_optimizers(opt_config: list, model: torch.nn.Module,
                      frozen_collections=None) -> list[OptimizerEntry]:
     """One ``OptimizerEntry`` per config entry.  ``frozen_collections``
-    (default: the model's ``frozen_param_collections``) are parameter-name
-    substrings whose parameters no optimizer holds."""
+    (default: the model's ``frozen_param_collections``) is a freezing set
+    (``utils.freezing``) whose parameters no optimizer holds."""
     if frozen_collections is None:
         frozen_collections = getattr(model, "frozen_param_collections", ())
     entries = []
@@ -272,8 +275,9 @@ def build_optimizers(opt_config: list, model: torch.nn.Module,
             group_kwargs[mod["name"]] = {**kwargs, **(mod.get("kwargs") or {})}
         members = {label: [] for label in group_kwargs}
         module = model if target is None else model.get_submodule(target)
+        frozen = frozen_names(module, frozen_collections)
         for pname, param in module.named_parameters():
-            label = _param_label(pname, param, module_names, frozen_collections)
+            label = _param_label(pname, param, module_names, frozen)
             if label != "frozen":
                 members[label].append(param)
 

@@ -25,6 +25,7 @@ from irw_tpu_torch.data.loader import EpochLoader
 from irw_tpu_torch.engine.checkpoint import finalize_checkpoints, save_checkpoint
 from irw_tpu_torch.engine.evaluate import evaluate
 from irw_tpu_torch.engine.train_step import build_train_step
+from irw_tpu_torch.utils.freezing import config_freeze_set
 from irw_tpu_torch.utils.meters import DictAverage
 
 LOGGER = logging.getLogger(__name__)
@@ -92,17 +93,13 @@ def _build_hyper(optimizer_entries, epoch, step, warm_up, warm_up_key, ortho_sca
     return hyper
 
 
-def _refuse_unported(exp: dict, config: dict, instrumentor) -> None:
+def _refuse_unported(exp: dict, instrumentor) -> None:
     """The loop's options that wait for a later ROADMAP item (the step
     refuses ``sub_batch`` below the batch and adaptive weights itself)."""
     if instrumentor is not None:
         raise NotImplementedError("the fixed-batch instrumentor (hooks) waits for ROADMAP A12")
     if exp.get("with_fast_eval"):
         raise NotImplementedError("with_fast_eval (the fast-eval subset) waits for ROADMAP A12")
-    model_cfg = dict(config.get("model") or {})
-    for flag in ("freeze_batch_norm", "freeze_pos_embedding"):
-        if model_cfg.get(flag):
-            raise NotImplementedError(f"model.{flag} waits for ROADMAP A12")
     # use_mesh is ignored on one device, as the JAX loop ignores it with one
     for key in ("model_parallel", "band_parallel", "pipeline_parallel"):
         if int(exp.get(key, 1) or 1) > 1:
@@ -123,7 +120,7 @@ def train(state, train_dataset, sampler, eval_datasets: dict, host_transform, de
     ``eval_fn(state, datasets)`` replaces ``engine.evaluate``.  Returns
     (state, metrics by split)."""
     exp = dict(config.get("experience", config))
-    _refuse_unported(exp, config, instrumentor)
+    _refuse_unported(exp, instrumentor)
     max_iter = exp.get("max_iter", 50)
     step_per_epoch = exp.get("step_per_epoch", None)
     # per-split eval cadence: each split has its own freq; -1 turns that
@@ -153,6 +150,11 @@ def train(state, train_dataset, sampler, eval_datasets: dict, host_transform, de
 
     model = state.model
     device = next(model.parameters()).device
+    # the model's frozen collections and the config's freeze_batch_norm /
+    # freeze_pos_embedding: their gradients are dropped, so no optimizer
+    # moves them (init_train_state leaves them out of the optimizers too
+    # where run passes the set)
+    frozen = config_freeze_set(model, config.get("model"))
     xbm = state.xbm
     xbm_activate_after = xbm.activate_after if xbm is not None else 0
     steps = {}
@@ -163,7 +165,7 @@ def train(state, train_dataset, sampler, eval_datasets: dict, host_transform, de
                 device_transform, clip_grad=exp.get("clip_grad", None),
                 proxy_map_metric="hamming" if distance_metric == "hamming" else "cosine",
                 xbm=xbm, sub_batch=exp.get("sub_batch", None), adaptive_weights=adaptive,
-                xbm_active=xbm_on)
+                xbm_active=xbm_on, frozen_collections=frozen)
         return steps[xbm_on]
 
     run_eval = eval_fn or (lambda current, datasets: evaluate(

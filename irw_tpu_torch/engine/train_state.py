@@ -33,19 +33,22 @@ class TrainState:
     xbm_state: XBMState | None = None  # the memory's buffers on the model's device
     step: int = 0  # global batch counter
     epoch: int = 0
-    # continuation α for tanh(α·x) models (HashNet/DSCH); no ported model takes it
+    # continuation α for tanh(α·x) models (HashNet/DSCH), passed to a forward
+    # that takes ``alpha``
     model_alpha: float = 1.0
 
 
 def init_train_state(model: nn.Module, losses, optimizer_config, loss_config=(),
-                     seed: int = 0, xbm=None) -> TrainState:
+                     seed: int = 0, xbm=None, frozen_collections=None) -> TrainState:
     """Set up training for ``model`` (built on its device, e.g. by
     ``get_model``): the losses' parameters drawn from ``seed`` and moved to
     the model's device, the network's optimizers from ``optimizer_config``
     (``configs/optimizer/*.yaml``), the losses' own optimizers from
     ``loss_config`` (``configs/loss/*.yaml``), the ``xbm`` memory's empty
     buffers on the model's device, and the rng streams seeded from
-    ``seed``.  Returns the model in training mode."""
+    ``seed``.  ``frozen_collections`` (default: the model's
+    ``frozen_param_collections``) is the freezing set no optimizer holds.
+    Returns the model in training mode."""
     device = next(model.parameters()).device
     gen = torch.Generator().manual_seed(seed)
     for loss, _ in losses:
@@ -55,7 +58,7 @@ def init_train_state(model: nn.Module, losses, optimizer_config, loss_config=(),
                   for i, name in enumerate(("dropout", "band_drop"))}
     return TrainState(
         model=model.train(),
-        optimizer_entries=build_optimizers(list(optimizer_config), model),
+        optimizer_entries=build_optimizers(list(optimizer_config), model, frozen_collections),
         losses=list(losses),
         loss_optimizers=build_loss_optimizers(loss_config, losses),
         loss_states={str(i): loss.init_state() for i, (loss, _) in enumerate(losses)},

@@ -7,13 +7,15 @@ One ``step(state, batch, hyper)`` call:
 - the training-mode forward, dropout and band-drop masks from the state's
   generators (attention: kernels K2 forward, and K3 in the backward; with
   block remat each block's forward runs again in the backward, so K2 runs
-  twice per block);
+  twice per block), with ``alpha=state.model_alpha`` for a model whose
+  forward takes the continuation α (the hashing ResNets, :94-107);
 - the weighted loss sum plus the fusion head's ortho term, scaled by the
   runtime ``hyper["ortho_scale"]``;
 - one backward;
-- the gradients of the model's ``frozen_param_collections`` dropped (a
-  frozen tower that prompts or DSLN backpropagate through receives them;
-  the JAX step zeroes those leaves, :417-426);
+- the gradients of the freezing set dropped: ``frozen_collections``, by
+  default the model's ``frozen_param_collections`` (a frozen tower that
+  prompts or DSLN backpropagate through receives them; the JAX step zeroes
+  those leaves, :417-426);
 - the global gradient norm over the network's parameters and global-norm
   clipping, min(1, clip / (norm + 1e-6));
 - per-entry optimizer steps at the host-computed group learning rates
@@ -49,6 +51,7 @@ batch) and adaptive loss weighting (ROADMAP A12), and a pipeline-parallel
 
 from __future__ import annotations
 
+import inspect
 import logging
 from typing import Callable
 
@@ -57,6 +60,7 @@ import torch
 
 from irw_tpu_torch.engine.optimizers import set_group_lrs
 from irw_tpu_torch.losses.base import LossContext, LossKind
+from irw_tpu_torch.utils.freezing import frozen_names
 from irw_tpu_torch.utils.label_matrix import create_label_matrix
 
 LOGGER = logging.getLogger(__name__)
@@ -95,13 +99,15 @@ def _as_device(x, device) -> torch.Tensor:
 def build_train_step(device_transform: Callable | None = None, clip_grad: float | None = None,
                      proxy_map_metric: str = "cosine", xbm=None, sub_batch: int | None = None,
                      adaptive_weights: bool = False, apply_fn: Callable | None = None,
-                     xbm_active: bool = False):
+                     xbm_active: bool = False, frozen_collections=None):
     """Returns ``step(state, batch, hyper) -> metrics``.  ``batch``: ``image``
     (B, H, W, 3) uint8 or float, numpy or tensor, ``label`` and, with a
     unique ``xbm``, ``index``.  ``hyper``: ``lrs`` (entry name → label →
     lr), ``active`` (entry name → bool) and optionally ``ortho_scale`` —
     what ``engine.train._build_hyper`` makes.  ``xbm_active``: the memory
-    term is on (the loop turns it on at ``xbm.activate_after``)."""
+    term is on (the loop turns it on at ``xbm.activate_after``).
+    ``frozen_collections``: the freezing set (``utils.freezing``), by
+    default the model's ``frozen_param_collections``."""
     if adaptive_weights:
         raise NotImplementedError("adaptive loss weighting waits for ROADMAP A12")
     if apply_fn is not None:
@@ -109,6 +115,8 @@ def build_train_step(device_transform: Callable | None = None, clip_grad: float 
 
     use_xbm = xbm is not None and xbm_active
     warned = False
+    # model → (the names its freezing set selects, whether forward takes alpha)
+    model_facts = {}
 
     def memory_refs(state):
         """The memory's (embeddings, labels, valid mask) as the losses read
@@ -205,12 +213,19 @@ def build_train_step(device_transform: Callable | None = None, clip_grad: float 
                                       "ROADMAP A12")
 
         model.train()
-        frozen = getattr(model, "frozen_param_collections", ())
+        if id(model) not in model_facts:
+            model_facts[id(model)] = (
+                frozen_names(model, getattr(model, "frozen_param_collections", ())
+                             if frozen_collections is None else frozen_collections),
+                "alpha" in inspect.signature(model.forward).parameters)
+        frozen, takes_alpha = model_facts[id(model)]
         named = list(model.named_parameters())
         params = [p for _, p in named]
         for p in params + [p for loss, _ in state.losses for p in loss.parameters()]:
             p.grad = None
-        output, aux = model(x, state.generators)
+        extra = {"alpha": state.model_alpha} if takes_alpha else {}
+        out = model(x, state.generators, **extra)
+        output, aux = out if isinstance(out, tuple) else (out, {})
         # the embeddings the memory takes and batch_map reads: a list's first output
         emb = (output[0] if isinstance(output, (list, tuple)) else output).detach()
         if xbm is not None:  # inserted before the losses read it (train_step.py:338-347)
@@ -227,7 +242,7 @@ def build_train_step(device_transform: Callable | None = None, clip_grad: float 
         # frozen parameters train in no optimizer and count in no norm: the
         # JAX step's zeroed frozen leaves add nothing to its norm either
         for name, p in named:
-            if any(f in name for f in frozen):
+            if name in frozen:
                 p.grad = None
         grads = [p.grad for p in params if p.grad is not None]
         # optax.global_norm: sqrt of the summed squares (torch.sum's cascade

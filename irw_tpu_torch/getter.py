@@ -59,13 +59,14 @@ class Getter:
         return get_sampler(sampler_config["name"], dataset,
                            **dict(sampler_config.get("kwargs") or {}))
 
-    def get_model(self, model_config, device=None, seed: int = 0):
+    def get_model(self, model_config, device=None, seed: int = 0, image_size=None):
         """The model of ``model_config`` ({name, kwargs}) on ``device``, its
-        weights drawn from ``seed``."""
+        weights drawn from ``seed``; ``image_size`` (height, width of its
+        input) sizes its ViTs' position embeddings."""
         name = model_config["name"]
         kwargs = dict(model_config.get("kwargs") or {})
         LOGGER.info(f"building model {name} ({kwargs})")
-        return get_model(name, device=device, seed=seed, **kwargs)
+        return get_model(name, device=device, seed=seed, image_size=image_size, **kwargs)
 
     def get_loss(self, loss_config):
         return build_losses(loss_config)

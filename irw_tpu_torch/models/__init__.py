@@ -1,5 +1,7 @@
 """Models of the port: the multi-band ViT family (the flagship
-MultiDinoHashing and its siblings) and the wavelet-CNN family."""
+MultiDinoHashing and its siblings), the wavelet-CNN family, and the
+single-trunk models (the baselines, the hashing ResNets, DenseNet, ConvNeXt,
+RetrievalNet's embedding route)."""
 
 from irw_tpu_torch.models.multi_dino import (
     BandedViT,

@@ -1,31 +1,46 @@
-"""Reference-config dialect for the multi-band ViT family and the
-wavelet-CNN routes of ``RetrievalNet`` (port of
-``irw_tpu/models/factory.py:30-122, 142-201, 275-300``).
+"""Reference-config dialect (port of ``irw_tpu/models/factory.py``).
 
 The reference's presets name torch classes with their own kwargs dialect
 (``backbones_config`` lists, ``binary_config.nbits``, ``with_autocast``,
-``attention`` + ``attention_type`` pairs); the adapters accept it verbatim,
-so the family's configs (``configs/model/multidino_*.yaml``,
-``shareddino_*.yaml``) and ``configs/model/wcnn_attention_ce.yaml`` build
-their models.  Keys the JAX module does not declare are dropped, as the JAX
+``attention`` + ``attention_type`` pairs, ``backbone_name``/``detail_index``
+…); the adapters accept it verbatim, so the multi-band ViT family's configs
+(``configs/model/multidino_*.yaml``, ``shareddino_*.yaml``), the baselines'
+(``single_band*``, ``detail_tester``, ``dino_hash*``), the wavelet-CNN
+routes of ``RetrievalNet`` and its single-trunk routes (the hashing ResNets,
+``dino_ce``, ``multi_dino*``, and the embedding trunks it wraps) build their
+models.  Keys the JAX module does not declare are dropped, as the JAX
 factory drops them; a key the JAX module takes and the port's does not
 raises, naming the ROADMAP item that will port it.
 
-One drop is a trap kept on purpose: ``PromptedSharedDinoHashing`` is a
-function ``(num_prompts=10, **kw)``, so the JAX factory's accepted set is
-its signature, {num_prompts, kw}, and it drops every other key of a config
-(factory.py:30-35).  The ``_prtun`` configs therefore build a frozen f32
-``SharedDinoHashing`` with the ``standard`` head, 64 bits and no DSLN,
-whatever else they say; the port builds the same.
+Traps kept on purpose, as the JAX factory has them:
+
+- ``PromptedSharedDinoHashing`` is a function ``(num_prompts=10, **kw)``,
+  so the JAX factory's accepted set is its signature, {num_prompts, kw}, and
+  it drops every other key of a config (factory.py:30-35).  The ``_prtun``
+  configs therefore build a frozen f32 ``SharedDinoHashing`` with the
+  ``standard`` head, 64 bits and no DSLN, whatever else they say;
+- ``with_autocast`` is a parameter of ``build_retrieval_net``, so it never
+  reaches the shared dialect there: every ``RetrievalNet`` route builds in
+  f32, ``dino_ce`` and ``multi_dino*`` included; the class adapters and
+  ``build_single_band`` pass it on, as a bf16 ViT (factory.py:84-85);
+- the embedding trunks are built without ``vit_kwargs`` (factory.py:229-249),
+  so no ``RetrievalNet`` ViT trunk remats or takes K2/K3;
+- a ResNet trunk returns pooled (B, C) features, so ``pooling`` does nothing
+  (``resnet_max_ln.yaml``'s ``max`` included).
 """
 
 from __future__ import annotations
 
 import inspect
+import logging
 
 import torch
 
-from irw_tpu_torch.models import multi_dino, wresnet
+from irw_tpu_torch.models import baselines, convnext, hashing_nets, multi_dino, resnet, wresnet
+from irw_tpu_torch.models.retrieval_net import RetrievalNet
+from irw_tpu_torch.models.vit import make_vit
+
+LOGGER = logging.getLogger(__name__)
 
 
 # the fields of each JAX module the factory builds (flax's ``parent`` and
@@ -46,6 +61,19 @@ JAX_FIELDS = {
     "WCNN": frozenset({"num_classes", "backbone", "ce", "frozen_bn", "dtype", "parent", "name"}),
     "WCNNAttention": frozenset({"num_classes", "attention", "ce", "backbone", "frozen_bn", "dtype",
                                 "parent", "name"}),
+    "DINOHashBaseline": frozenset({"backbone", "nbits", "frozen_backbone", "vit_kwargs", "parent",
+                                   "name"}),
+    "SingleBandNet": frozenset({"backbone", "band", "mode", "nbits", "frozen_backbone",
+                                "vit_kwargs", "parent", "name"}),
+    "DinoModelCE": frozenset({"backbone", "num_classes", "frozen_backbone", "vit_kwargs",
+                              "parent", "name"}),
+    "MultiDinoModel": frozenset({"backbone", "branches", "frozen_backbone", "vit_kwargs",
+                                 "parent", "name"}),
+    "ResNetCE": frozenset({"num_classes", "depth", "frozen_bn", "dtype", "parent", "name"}),
+    "ResNetHashing": frozenset({"nbits", "depth", "frozen_bn", "dtype", "parent", "name"}),
+    "ResNet50DSCH": frozenset({"n_bits", "double_pool", "use_layernorm", "normalize", "frozen_bn",
+                               "dtype", "parent", "name"}),
+    "ResNet50Mod": frozenset({"n_bits", "dtype", "parent", "name"}),
 }
 
 
@@ -111,22 +139,42 @@ def pop_common(kw: dict, device: torch.device) -> dict:
     return kw
 
 
-def class_adapter(cls, **fixed):
+def class_adapter(cls, renames: dict | None = None, **fixed):
     """The class adapter of ``reference_model_entries`` (factory.py:112-122):
     the shared dialect, then ``fixed`` (``MultiDinoHashingTF``:
     ``tanh_train=True``; ``PretrainedMultiDinoHashing``:
     ``frozen_backbone=True``, over the config's), a list ``branches`` as a
-    tuple, ``dino_backbone`` read as ``backbone``, and the keys ``cls``
-    takes."""
+    tuple, ``dino_backbone`` read as ``backbone`` (and ``renames``), and the
+    keys ``cls`` takes."""
+    renames = {"dino_backbone": "backbone", **(renames or {})}
 
     def build(device: torch.device, **kw):
         kw = pop_common(kw, device)
         kw.update(fixed)
         if isinstance(kw.get("branches"), list):
             kw["branches"] = tuple(kw["branches"])
-        return cls(**_filter_kwargs(cls, kw, {"dino_backbone": "backbone"}))
+        return cls(**_filter_kwargs(cls, kw, renames))
 
     return build
+
+
+def build_single_band(device: torch.device, **kw):
+    """``SingleBandNet``/``DetailTesterNet`` (factory.py:125-139): the
+    reference keys ``backbone_name``, ``detail_index``, ``is_hashing``
+    (hashing unless false) and ``output_dim`` (the bit count in hashing
+    mode, dropped in metric mode)."""
+    kw = pop_common(kw, device)
+    is_hashing = kw.pop("is_hashing", True)
+    kw.setdefault("mode", "hashing" if is_hashing else "metric")
+    out_dim = kw.pop("output_dim", None)
+    if out_dim and kw["mode"] == "hashing":
+        kw.setdefault("nbits", int(out_dim))
+    return baselines.SingleBandNet(**_filter_kwargs(
+        baselines.SingleBandNet, kw,
+        {"backbone_name": "backbone", "detail_index": "band", "dino_backbone": "backbone"}))
+
+
+_N_BITS = {"nbits": "n_bits", "num_bits": "n_bits"}
 
 
 REFERENCE_ENTRIES = {
@@ -137,6 +185,11 @@ REFERENCE_ENTRIES = {
                                                 frozen_backbone=True),
     "SharedDinoHashing": class_adapter(multi_dino.SharedDinoHashing),
     "PromptedSharedDinoHashing": class_adapter(multi_dino.PromptedSharedDinoHashing),
+    "DINOHashBaseline": class_adapter(baselines.DINOHashBaseline),
+    "SingleBandNet": build_single_band,
+    "DetailTesterNet": build_single_band,
+    "ResNet50Mod": class_adapter(hashing_nets.ResNet50Mod, _N_BITS),
+    "ResNet50DSCH": class_adapter(hashing_nets.ResNet50DSCH, _N_BITS),
 }
 
 
@@ -153,36 +206,105 @@ def _attention_kw(kw: dict) -> dict:
     return out
 
 
-# backbone_name → (module, attention kwargs, ce): the passthrough trunks of
-# this slice (factory.py:189-196)
+# backbone_name → (module, attention kwargs, ce): the wavelet-CNN trunks
+# (factory.py:194-201)
 _WCNN_ROUTES = {
     "wcnn": (wresnet.WCNN, False, False),
     "wcnn_ce": (wresnet.WCNN, False, True),
     "wcnn_attention": (wresnet.WCNNAttention, True, False),
     "wcnn_attention_ce": (wresnet.WCNNAttention, True, True),
 }
+_HASH_RENAMES = {"num_bits": "nbits", "n_bits": "nbits"}
+# the passthrough trunks of ROADMAP A10b (wresnet.py, mtwavenet.py)
+_A10B_ROUTES = ("wresnet", "wresnet_ce", "mtwavenet", "mtwavenet50", "mtwavenet50_fusion",
+                "hybrid_mtwavenet_ce", "hybrid_mtwavenet_v2_ce")
+# the towers of the HF vision wrapper, ROADMAP A10d
+_A10D_ROUTES = ("clip", "siglip2", "metaclip2", "openclip")
+
+
+def _direct(device, cls, kw, renames=None, **fixed):
+    """factory.py:184-187: the shared dialect, the keys ``cls`` takes, then
+    ``fixed``."""
+    kw = _filter_kwargs(cls, pop_common(kw, device), renames)
+    kw.update(fixed)
+    return cls(**kw)
+
+
+def _passthrough(device, name: str, kw: dict):
+    """The trunks the reference's forward returns untouched
+    (factory.py:189-227), or None for a wrapped embedding trunk."""
+    if name in _WCNN_ROUTES:
+        cls, attention, ce = _WCNN_ROUTES[name]
+        if attention:
+            kw = _attention_kw(kw)
+        kw = pop_common(kw, device)
+        kw.setdefault("num_bands", _subband_count(kw.get("decom_level", 1),
+                                                  kw.get("coarse_only", True)))
+        return cls(**dict(_filter_kwargs(cls, kw), ce=ce))
+    if name == "resnet_ce":
+        return _direct(device, hashing_nets.ResNetCE, kw, depth=50)
+    if name == "resnet18_ce":
+        return _direct(device, hashing_nets.ResNetCE, kw, depth=18)
+    if name in ("resnet50_tanh", "resnet_hashing_2"):
+        return _direct(device, hashing_nets.ResNetHashing, kw, _HASH_RENAMES, depth=50)
+    if name == "dino_ce":
+        return _direct(device, baselines.DinoModelCE, kw, {"dino_backbone": "backbone"})
+    if name in ("multi_dino", "multi_dino_v3"):
+        kw = pop_common(kw, device)
+        if isinstance(kw.get("branches"), list):
+            kw["branches"] = tuple(kw["branches"])
+        return baselines.MultiDinoModel(**_filter_kwargs(baselines.MultiDinoModel, kw,
+                                                         {"dino_backbone": "backbone"}))
+    if name in _A10B_ROUTES:
+        raise ValueError(f"RetrievalNet: backbone_name {name!r} waits for ROADMAP A10b")
+    return None
+
+
+def _embedding_trunk(name: str, kw: dict):
+    """The trunk ``RetrievalNet`` wraps (factory.py:229-261), built without
+    ``vit_kwargs``."""
+    if name in ("resnet18", "resnet50", "resnet101"):
+        return getattr(resnet, name)()
+    if name == "vit":
+        return make_vit("vit_small", patch_size=16)
+    if name.startswith("vit_deit"):
+        return make_vit("deit_base" if "base" in name else "deit_small", patch_size=16)
+    if name in ("dino", "dino_v3"):
+        return make_vit(kw.get("dino_backbone", "dinov2_vits14"))
+    if name == "convnext":
+        bb = kw.get("bb_name", "convnext_tiny")
+        return convnext.convnext_small() if "small" in bb else convnext.convnext_tiny()
+    if name == "ibot":
+        bb = kw.get("bb_name", "vit_small")
+        return make_vit("vit_base" if "base" in bb else "vit_small", patch_size=16)
+    if name in _A10D_ROUTES:
+        raise ValueError(f"RetrievalNet: backbone_name {name!r} (the HF vision "
+                                  "wrapper's tower) waits for ROADMAP A10d")
+    raise ValueError(f"RetrievalNet: unknown backbone_name {name!r} (net.py:20-414 dispatch)")
 
 
 def build_retrieval_net(device: torch.device, backbone_name: str, embed_dim: int = 512,
                         norm_features=False, without_fc=False, with_autocast=False,
                         pooling: str = "default", projection_normalization_layer: str = "none",
                         pretrained=False, frozen=False, **kw):
-    """``RetrievalNet`` presets (factory.py:156-201): the wavelet-CNN trunks,
-    which the reference's forward returns untouched, build their module
-    directly.  ``with_autocast`` and the wrapper's own keys (``embed_dim``,
-    ``pooling``, …) do not reach them; ``pretrained`` hub weights do not exist
-    offline, so the flag does nothing.  Every other trunk, and the wrapped
-    embedding route, wait for ROADMAP A10b (``wresnet``, ``mtwavenet``) and
-    A10c (the embedding trunks)."""
-    if backbone_name not in _WCNN_ROUTES:
-        raise ValueError(f"RetrievalNet: backbone_name {backbone_name!r} waits for ROADMAP "
-                         f"A10b or A10c; the port builds {sorted(_WCNN_ROUTES)}")
-    cls, attention, ce = _WCNN_ROUTES[backbone_name]
-    if attention:
-        kw = _attention_kw(kw)
-    kw = pop_common(kw, device)
-    kw.setdefault("num_bands", _subband_count(kw.get("decom_level", 1), kw.get("coarse_only", True)))
-    return cls(**dict(_filter_kwargs(cls, kw), ce=ce))
+    """``RetrievalNet`` presets (factory.py:158-272).  Two routes, as the
+    reference's: the trunks its forward returns untouched (the wavelet CNNs,
+    the hashing ResNets, ``dino_ce``, ``multi_dino*``) build their module
+    directly; every other trunk is wrapped by ``RetrievalNet`` (pool →
+    standardize → projection → L2).  ``with_autocast`` and the wrapper's own
+    keys (``embed_dim``, ``pooling``, …) do not reach a passthrough trunk;
+    ``pretrained`` hub weights do not exist offline, so the flag only logs."""
+    if pretrained:
+        LOGGER.info(f"model preset asks pretrained={pretrained!r} for {backbone_name!r}: the "
+                    "port draws random weights (load converted ones with bridge)")
+    model = _passthrough(device, backbone_name, kw)
+    if model is not None:
+        return model
+    proj_norm = projection_normalization_layer
+    return RetrievalNet(_embedding_trunk(backbone_name, kw), embed_dim=int(embed_dim),
+                        pooling=pooling, standardize=bool(norm_features),
+                        projection_norm=None if proj_norm in (None, "none") else proj_norm,
+                        without_fc=bool(without_fc), frozen_backbone=bool(frozen))
 
 
 def _subband_count(levels, coarse_only=True) -> int:

@@ -27,6 +27,27 @@ def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
     return x / torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True) + eps)
 
 
+def zero_aux(out: torch.Tensor) -> dict:
+    """The aux dict of a model without an ortho term: ``ortho_loss`` 0 on
+    ``out``'s device."""
+    return {"ortho_loss": torch.zeros((), device=out.device)}
+
+
+def global_pool(x, pool: str = "avg"):
+    """(B, H, W, C) → (B, C) (``layers.py:21-35``): ``default``/``avg`` the
+    mean, ``max`` the max, ``avg_max`` half their sum, ``none`` the map
+    flattened in (H, W, C) order."""
+    if pool in ("avg", "default"):
+        return x.mean(dim=(-3, -2))
+    if pool == "max":
+        return x.amax(dim=(-3, -2))
+    if pool == "avg_max":
+        return 0.5 * (x.mean(dim=(-3, -2)) + x.amax(dim=(-3, -2)))
+    if pool == "none":
+        return x.reshape(x.shape[0], -1)
+    raise ValueError(f"unknown pool {pool!r}")
+
+
 def linear(x, weight, bias, dtype: torch.dtype):
     """x·weightᵀ + bias in ``dtype``: weight (out, in), or (S, out, in) with x
     (S, …, in) as one batched matmul over the band axis."""
@@ -155,6 +176,45 @@ class BatchNorm(nn.BatchNorm1d):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean) * mul + self.bias
+
+
+class ProjectionHead(nn.Module):
+    """Linear layers of widths ``dims`` (``layers.py:102-120``); between two
+    of them ``norm`` (``bn``: flax BatchNorm, momentum 0.99; ``ln``:
+    LayerNorm; ``None``: nothing), then ReLU.  One width is one Linear."""
+
+    def __init__(self, in_dim: int, dims, norm: str | None = None):
+        super().__init__()
+        widths = [in_dim, *dims]
+        self.norm_kind = norm
+        self.layers = nn.ModuleList(Linear(a, b) for a, b in zip(widths[:-1], widths[1:]))
+        inner = widths[1:-1]
+        if norm == "bn":
+            self.norms = nn.ModuleList(BatchNorm(d) for d in inner)
+        elif norm == "ln":
+            self.norms = nn.ModuleList(LayerNorm(d) for d in inner)
+        elif norm is None:
+            self.norms = None
+        else:
+            raise ValueError(f"unknown projection norm {norm!r}")
+
+    def reset_parameters(self, generator=None):
+        for layer in self.layers:
+            layer.reset_parameters(generator)
+        for norm in self.norms or ():
+            nn.init.ones_(norm.weight)
+            nn.init.zeros_(norm.bias)
+            if isinstance(norm, BatchNorm):
+                norm.reset_running_stats()
+
+    def forward(self, x):
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                if self.norms is not None:
+                    x = self.norms[i](x)
+                x = F.relu(x)
+        return x
 
 
 class HashHead(nn.Module):

@@ -1,6 +1,9 @@
 """Model registry: name → constructor (port of
-``irw_tpu/models/registry.py:56-63, 73-81, 88-91, 109-135`` for the models
-the port serves: the multi-band ViT family and the wavelet-CNN family).
+``irw_tpu/models/registry.py:23-93, 109-135`` for the models the port
+serves: the multi-band ViT family, the wavelet-CNN family, the baselines and
+the single-trunk models, and the bare trunks).  A bare trunk (``resnet50``,
+``densenet121``, ``convnext``, ``vit_small``, …) returns its pooled (B, D)
+features without an aux dict, as the JAX registry's.
 
 ``get_model`` builds on the CPU, draws the weights from a seeded
 ``torch.Generator``, moves the model to ``device`` and returns it in eval
@@ -13,12 +16,18 @@ from __future__ import annotations
 import torch
 
 from irw_tpu_torch.device import resolve_device
-from irw_tpu_torch.models import multi_dino, wresnet
+from irw_tpu_torch.models import baselines, convnext, densenet, hashing_nets, multi_dino, resnet
+from irw_tpu_torch.models import wresnet
 from irw_tpu_torch.models.factory import REFERENCE_ENTRIES, build_retrieval_net
+from irw_tpu_torch.models.vit import VisionTransformer, make_vit
 
 
 def _direct(cls, **fixed):
     return lambda device, **kw: cls(**kw, **fixed)
+
+
+def _vit(name: str):
+    return lambda device, **kw: make_vit(name, **kw)
 
 
 MODEL_REGISTRY = {
@@ -26,7 +35,35 @@ MODEL_REGISTRY = {
     **REFERENCE_ENTRIES,
     "RetrievalNet": build_retrieval_net,
     "retrieval_net": build_retrieval_net,
-    # native names (registry.py:56-63, 73-81)
+    # native names (registry.py:35-85): plain trunks
+    "resnet18": _direct(resnet.resnet18),
+    "resnet34": _direct(resnet.resnet34),
+    "resnet50": _direct(resnet.resnet50),
+    "resnet101": _direct(resnet.resnet101),
+    "densenet121": _direct(densenet.densenet121),
+    "convnext": _direct(convnext.convnext_tiny),
+    "convnext_tiny": _direct(convnext.convnext_tiny),
+    "convnext_small": _direct(convnext.convnext_small),
+    "vit_small": _vit("vit_small"),
+    "vit_base": _vit("vit_base"),
+    "vit_tiny": _vit("vit_tiny"),
+    "deit_small": _vit("deit_small"),
+    "dino": _vit("dinov2_vits14"),
+    # CE and hashing single trunks
+    "resnet_ce": _direct(hashing_nets.ResNetCE),
+    "resnet18_ce": _direct(hashing_nets.ResNetCE, depth=18),
+    "resnet50_tanh": _direct(hashing_nets.ResNetHashing),
+    "resnet_hashing_2": _direct(hashing_nets.ResNetHashing),
+    "resnet_hashing_alpha": _direct(hashing_nets.ResNetHashingAlpha),
+    "resnet50_dsch": _direct(hashing_nets.ResNet50DSCH),
+    "resnet50_mod": _direct(hashing_nets.ResNet50Mod),
+    # the baselines
+    "dino_ce": _direct(baselines.DinoModelCE),
+    "multi_dino": _direct(baselines.MultiDinoModel),
+    "dino_hash_baseline": _direct(baselines.DINOHashBaseline),
+    "single_band_net": _direct(baselines.SingleBandNet),
+    "detail_tester": _direct(baselines.DetailTesterNet),
+    # the multi-band ViT and wavelet-CNN families
     "multidino_attention": _direct(multi_dino.MultiDinoAttention),
     "multidino_attention_hashing": _direct(multi_dino.MultiDinoHashing),
     "multidino_attention_hashing_ortho": _direct(multi_dino.MultiDinoHashing),
@@ -41,22 +78,39 @@ MODEL_REGISTRY = {
     "wcnn_attention_ce": _direct(wresnet.WCNNAttention, ce=True),
 }
 
+# the JAX registry's names still to port, by ROADMAP item: the wavelet CNNs
+# (A10b) and the HF vision wrapper's towers (A10d)
+LATER = {**dict.fromkeys(("wresnet", "wresnet_ce", "mtwavenet", "mtwavenet50",
+                          "mtwavenet50_fusion", "hybrid_mtwavenet_ce", "hybrid_mtwavenet_v2_ce"),
+                         "A10b"),
+         **dict.fromkeys(("clip", "openclip", "clip_vit_b32", "clip_vit_b16", "vit_b16_hf",
+                          "siglip2", "metaclip2"), "A10d")}
+
 
 def get_model(name: str, device: str | torch.device | None = None, seed: int = 0,
-              **kwargs):
+              image_size: tuple[int, int] | None = None, **kwargs):
     """Instantiate a registered model with random weights from ``seed``.
 
     ``vit_kwargs["dtype"]`` may be a string ('bfloat16'/'float32') from YAML
-    configs.  Other models of the JAX registry wait for ROADMAP A10b–A10d.  Weights
+    configs.  The models of ``LATER`` raise, naming their ROADMAP item.  Weights
     are drawn on the CPU, then moved: the same seed gives the same model on
-    either device.
+    either device.  ``image_size`` (height, width of the model's input, a
+    band's for a band stack) sizes every ViT's position embeddings, as the
+    JAX init sizes them from its sample input; without it a ViT takes its
+    ``img_size``.
     """
     device = resolve_device(device)
+    if name in LATER:
+        raise ValueError(f"model {name!r} waits for ROADMAP {LATER[name]}")
     try:
         ctor = MODEL_REGISTRY[name]
     except KeyError as exc:
-        raise ValueError(f"unknown model {name!r}; this slice serves "
-                         f"{sorted(MODEL_REGISTRY)} (the rest: ROADMAP A10b-A10d)") from exc
+        raise ValueError(f"unknown model {name!r}; the port builds "
+                         f"{sorted(MODEL_REGISTRY)}") from exc
     model = ctor(device, **kwargs)
+    if image_size is not None:
+        for mod in model.modules():
+            if isinstance(mod, VisionTransformer):
+                mod.fit_grid(*image_size)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device).eval()

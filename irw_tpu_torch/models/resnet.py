@@ -2,9 +2,10 @@
 ``irw_tpu/models/resnet.py:23-125``).
 
 Input and output keep the JAX package's NHWC layout at the module boundary:
-``ResNet`` takes (B, H, W, C) and returns pooled (B, D) features; inside,
-the tensors are NCHW views of channels-last memory, which cuDNN takes as
-they are.  f32 throughout.  flax semantics kept:
+``ResNet`` takes (B, H, W, C) and returns pooled (B, D) features, or with
+``return_stages`` the four stages' (B, h, w, C) maps; inside, the tensors are
+NCHW views of channels-last memory, which cuDNN takes as they are.  f32
+throughout.  flax semantics kept:
 
 - ``BatchNorm``: eps 1e-5, flax momentum 0.9 (= torch momentum 0.1); eval
   uses the running statistics; training normalises with the batch
@@ -16,7 +17,10 @@ they are.  f32 throughout.  flax semantics kept:
 - the stem's 3×3 stride-2 max-pool pads with −inf (the 1×1 stem without
   it belongs to ``WaveResNet``, ROADMAP A10b);
 - convs are bias-free; parameters start from flax's initialisers
-  (lecun-normal kernels, BatchNorm scale 1 and bias 0).
+  (lecun-normal kernels, BatchNorm scale 1 and bias 0);
+- ``frozen_bn`` (resnet.py:85-87): in training every BatchNorm normalises
+  with its running statistics and leaves them untouched, as flax's
+  ``use_running_average``; the gradient still reaches scale and bias.
 
 ``convs`` and ``norms`` of a block follow flax's auto-naming order
 (``Conv_i``/``BatchNorm_i``; a projection comes last), which is all the
@@ -118,9 +122,11 @@ BLOCKS = {"basic": BasicBlock, "bottleneck": Bottleneck}
 class ResNet(nn.Module):
     """Stage-structured ResNet: (B, H, W, C) → globally average-pooled (B, D)."""
 
-    def __init__(self, stage_sizes=(3, 4, 6, 3), block: str = "bottleneck", width: int = 64):
+    def __init__(self, stage_sizes=(3, 4, 6, 3), block: str = "bottleneck", width: int = 64,
+                 frozen_bn: bool = False):
         super().__init__()
         cls = BLOCKS[block]
+        self.frozen_bn = frozen_bn
         self.stem = _conv(3, width, 7, 2, 3)
         self.stem_norm = BatchNorm(width)
         blocks, cin = [], width
@@ -130,7 +136,16 @@ class ResNet(nn.Module):
                 blocks.append(cls(cin, filters, 2 if stage > 0 and i == 0 else 1))
                 cin = filters * cls.expansion
         self.blocks = nn.ModuleList(blocks)
+        self.stage_ends = [sum(stage_sizes[:i + 1]) for i in range(len(stage_sizes))]
         self.out_dim = cin
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if self.frozen_bn:
+            for mod in self.modules():
+                if isinstance(mod, BatchNorm):
+                    mod.train(False)
+        return self
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         for mod in self.modules():
@@ -139,11 +154,17 @@ class ResNet(nn.Module):
             elif isinstance(mod, BatchNorm):
                 mod.reset_parameters()
 
-    def forward(self, x):
+    def forward(self, x, rngs: dict | None = None, *, return_stages: bool = False):
+        """``rngs`` is unused: a bare trunk takes the models' call."""
         x = x.permute(0, 3, 1, 2)  # NHWC memory as an NCHW view (channels last)
         x = F.max_pool2d(F.relu(self.stem_norm(self.stem(x))), 3, 2, padding=1)
-        for blk in self.blocks:
+        stages = []
+        for i, blk in enumerate(self.blocks):
             x = blk(x)
+            if i + 1 in self.stage_ends:
+                stages.append(x.permute(0, 2, 3, 1))
+        if return_stages:
+            return stages
         return x.mean(dim=(2, 3))
 
 
@@ -158,3 +179,7 @@ def resnet34(**kw) -> ResNet:
 def resnet50(**kw) -> ResNet:
     return ResNet(stage_sizes=(3, 4, 6, 3), block="bottleneck", **kw)
 
+
+
+def resnet101(**kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 23, 3), block="bottleneck", **kw)

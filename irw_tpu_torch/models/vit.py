@@ -387,6 +387,15 @@ class VisionTransformer(nn.Module):
         self.norm = domain_layer_norm(embed_dim, ln_fused, num_domains, bands=bands,
                                       dtype=dtype)
 
+    def fit_grid(self, height: int, width: int):
+        """Position embeddings for (height, width) inputs, one row per patch
+        and one for CLS, as the JAX init sizes them from its sample input;
+        drawn by ``reset_parameters``."""
+        p = self.patch_embed.patch_size
+        pos = self.pos_embed
+        self.pos_embed = nn.Parameter(pos.new_zeros(*pos.shape[:-2], (height // p) * (width // p)
+                                                    + 1, pos.shape[-1]))
+
     def reset_parameters(self, generator=None):
         self.patch_embed.reset_parameters(generator)
         trunc_normal_(self.cls_token, 0.02, generator)

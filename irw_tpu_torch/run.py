@@ -7,9 +7,11 @@ resumes it from the run's rolling checkpoint (``experience.resume`` or
 ``maybe_resume``) or rotates a stale ``metrics.jsonl`` aside, and hands it
 to ``engine.train``.  ``device=None`` means the card.
 
-k-fold splits, ``dsch_train`` and ``hooks_configs.active`` wait for ROADMAP
-A12; models outside the port's registry (the default
-``model=single_band_tiny`` among them) for A10b–A10d.
+The config's ``model.freeze_batch_norm`` and ``model.freeze_pos_embedding``
+join the model's frozen collections in the freezing set no optimizer holds
+(``run.py:113-130``).  k-fold splits, ``dsch_train`` and
+``hooks_configs.active`` wait for ROADMAP A12; the wavelet CNNs for A10b and
+the HF towers for A10d.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from irw_tpu_torch.engine.checkpoint import maybe_resume, rotate_stale_metrics
 from irw_tpu_torch.engine.train import train as engine_train
 from irw_tpu_torch.engine.train_state import init_train_state
 from irw_tpu_torch.getter import Getter
+from irw_tpu_torch.utils.freezing import config_freeze_set
 
 LOGGER = logging.getLogger(__name__)
 
@@ -79,27 +82,31 @@ def run(config, device=None) -> dict:
     sampler.seed = seed
     sampler.reshuffle(0)
 
-    model = getter.get_model(config.model, device, seed)
+    # the first batch through the train stages: its size fixes the ViTs'
+    # token count, as the JAX init reads it from a sample batch
+    first = sampler.batches[0]
+    images = host_train.batch([train_ds.images[i] for i in first],
+                              np.random.RandomState(seed), True)
+    with torch.inference_mode():
+        sample = device_train(images)
+    model = getter.get_model(config.model, device, seed, image_size=tuple(sample.shape[-3:-1]))
     loss_config = config.get("loss", [])
     losses = getter.get_loss(loss_config)
 
     xbm = None
     memory_cfg = config.get("memory")
     if memory_cfg:
-        # the memory's embedding size from one eval-mode forward of the first
-        # batch, its images from the train host stage
-        first = sampler.batches[0]
-        images = host_train.batch([train_ds.images[i] for i in first],
-                                  np.random.RandomState(seed), True)
+        # the memory's embedding size from one eval-mode forward of that batch
         with torch.inference_mode():
-            out = model(device_train(images))
+            out = model(sample)
         emb = out[0] if isinstance(out, tuple) else out
         label_shape = train_ds.labels.shape[1:] if train_ds.labels.ndim > 1 else ()
         xbm = getter.get_memory(memory_cfg, int(emb.shape[-1]), label_shape)
 
     optimizer_cfg = config.get("optimizer", [{"name": "AdamW", "params": None,
                                               "kwargs": {"lr": 1e-4}}])
-    state = init_train_state(model, losses, optimizer_cfg, loss_config, seed=seed, xbm=xbm)
+    state = init_train_state(model, losses, optimizer_cfg, loss_config, seed=seed, xbm=xbm,
+                             frozen_collections=config_freeze_set(model, config.model))
     if exp.get("resume") or exp.get("maybe_resume"):
         maybe_resume(state, log_dir)
     else:

@@ -13,6 +13,15 @@ parameters on the meta device, no JAX init), ``PromptedSharedDinoHashing``'s
 drop of every key but ``num_prompts`` included (C9); a
 ``backbone_config.use_dsln`` reaches ``SharedDinoHashing`` and is dropped
 for ``MultiDinoHashing`` (C8).
+
+Every file of ``configs/model/`` composes through the port's ``compose``
+over ``configs/default.yaml``: 42 build (the port's parameters on the meta
+device), and each of the other 16 raises, naming ROADMAP A10b (the wavelet
+CNNs) or A10d (the HF towers).  The 22 files of the single-trunk models
+(the baselines, the hashing ResNets, ``RetrievalNet``'s ``dino_ce``,
+``multi_dino*`` and wrapped trunks) build the same resolved fields in both
+factories: the tower's width, depth, patch, dtype, remat and K2 route, the
+trunk's stages or widths, the head's sizes and flags.
 """
 
 from pathlib import Path
@@ -24,7 +33,9 @@ import pytest
 import torch
 import yaml
 
+from irw_tpu.models import baselines as jax_baselines
 from irw_tpu.models import get_model as jax_get_model
+from irw_tpu.models import hashing_nets as jax_hashing_nets
 from irw_tpu.models import multi_dino as jax_multi_dino
 from irw_tpu.models import wresnet as jax_wresnet
 from irw_tpu.models.factory import _accepted as jax_accepted
@@ -68,7 +79,11 @@ def test_jax_fields_copy_matches_irw_tpu():
                "WCNNAttention": jax_wresnet.WCNNAttention,
                "MultiDinoAttention": jax_multi_dino.MultiDinoAttention,
                "SharedDinoHashing": jax_multi_dino.SharedDinoHashing,
-               "PromptedSharedDinoHashing": jax_multi_dino.PromptedSharedDinoHashing}
+               "PromptedSharedDinoHashing": jax_multi_dino.PromptedSharedDinoHashing,
+               **{name: getattr(jax_baselines, name) for name in
+                  ("DINOHashBaseline", "SingleBandNet", "DinoModelCE", "MultiDinoModel")},
+               **{name: getattr(jax_hashing_nets, name) for name in
+                  ("ResNetCE", "ResNetHashing", "ResNet50DSCH", "ResNet50Mod")}}
     assert set(JAX_FIELDS) == set(modules)
     for name, cls in modules.items():
         assert JAX_FIELDS[name] == jax_accepted(cls), name
@@ -227,3 +242,168 @@ def test_bn_ablation_job_without_batch_norm_builds_through_the_getter():
     assert model.hash_head.bn is None and model.hash_head.linear.bias is not None
     assert resolved(model) == jax_resolved(jmodel)
     assert resolved(model)["nbits"] == 32 and not model.frozen_backbone
+
+
+# --- every file of configs/model/ through compose -------------------------------------
+
+# the single-trunk models' configs (ROADMAP A10c1: the first 8; A10c2: the rest)
+SINGLE_TRUNK = ("single_band_tiny", "single_band", "detail_tester", "dino_hash_baseline",
+                "dino_hashing", "dino_default", "multi_dino", "multi_dino_v3",
+                "resnet", "resnet50", "resnet50_ce", "resnet50_tanh", "resnet_ce", "resnet_dsch",
+                "resnet_hashing", "resnet_hashing_2", "resnet_max_ln", "dino", "dino_v3", "deit",
+                "ibot", "convnext")
+WCNN_FAMILY = ("wcnn", "wcnn_all_subs", "wcnn_attention", "wcnn_attention_ce",
+               "wcnn_attention_wo_dwt", "wresnet_text", "wcnn_attention_all_subs")
+# the configs still to port, by the ROADMAP item their raise names
+LATER = {**dict.fromkeys(("wresnet", "wresnet_cifar", "wresnet_cifar_ce", "wresnet_sdd",
+                          "wresnet_sdd_ce", "mtwavenet", "mtwavenet50", "mtwavenet50_fusion",
+                          "mtwavenet_fusion", "mtwavenet_fusion_dml", "mtwavenet_tuned",
+                          "hybrid_wavenet", "hybrid_wavenet_v2"), "A10b"),
+         **dict.fromkeys(("openclip", "metaclip2", "siglip2"), "A10d")}
+MODEL_CONFIGS = sorted(p.stem for p in (REPO / "configs/model").glob("*.yaml"))
+
+
+def test_model_configs_split_into_built_and_later():
+    built = set(FAMILY) | set(SINGLE_TRUNK) | set(WCNN_FAMILY)
+    assert len(MODEL_CONFIGS) == 58 and len(built) == 42 and len(LATER) == 16
+    assert built | set(LATER) == set(MODEL_CONFIGS) and not built & set(LATER)
+
+
+def _composed(config):
+    cfg = compose(CONFIG_DIR, "default", [f"model={config}"])
+    return cfg.model.name, cfg.model.kwargs.to_dict()
+
+
+@pytest.mark.parametrize("config", MODEL_CONFIGS)
+def test_model_config_composes_and_builds_or_names_its_item(config):
+    """The default composition with ``model=<config>``: its model builds on
+    the meta device, or raises naming the ROADMAP item it waits for."""
+    name, kwargs = _composed(config)
+    if config in LATER:
+        with pytest.raises(ValueError, match=LATER[config]):
+            if name in MODEL_REGISTRY:
+                MODEL_REGISTRY[name](torch.device("cpu"), **kwargs)
+            else:
+                get_model(name, device="cpu", **kwargs)
+        return
+    with torch.device("meta"):
+        model = MODEL_REGISTRY[name](torch.device("cpu"), **kwargs)
+    assert next(model.parameters()).is_meta
+
+
+def _jax_tower(cfg: dict) -> tuple:
+    return ("ViT", cfg["embed_dim"], cfg["depth"], cfg.get("patch_size", 14),
+            str(jnp.dtype(cfg.get("dtype") or jnp.float32)), bool(cfg.get("remat_blocks")),
+            bool(cfg.get("vmem_attn")))
+
+
+def _tower(vit) -> tuple:
+    return ("ViT", vit.embed_dim, len(vit.blocks), vit.patch_embed.patch_size,
+            str(vit.dtype).replace("torch.", ""), vit.remat_blocks,
+            vit.blocks[0].attn.core.__name__ == "vmem_attention_fn")
+
+
+_DEPTHS = {18: ((2, 2, 2, 2), "BasicBlock"), 101: ((3, 4, 23, 3), "Bottleneck")}
+
+
+def _jax_trunk(trunk) -> tuple:
+    kind = type(trunk).__name__
+    if kind == "VisionTransformer":
+        return _jax_tower({f: getattr(trunk, f) for f in ("embed_dim", "depth", "patch_size",
+                                                          "dtype", "remat_blocks", "vmem_attn")})
+    if kind == "ResNet":
+        return ("ResNet", tuple(trunk.stage_sizes), trunk.block.__name__)
+    return ("ConvNeXt", tuple(trunk.depths), tuple(trunk.dims))
+
+
+def _trunk(trunk) -> tuple:
+    kind = type(trunk).__name__
+    if kind == "VisionTransformer":
+        return _tower(trunk)
+    if kind == "ResNet":
+        ends = [0, *trunk.stage_ends]
+        return ("ResNet", tuple(b - a for a, b in zip(ends[:-1], ends[1:])),
+                type(trunk.blocks[0]).__name__)
+    return ("ConvNeXt", trunk.depths, (trunk.stem.out_channels,
+                                       *(d.out_channels for d in trunk.downsamples)))
+
+
+def jax_single_resolved(jm) -> dict:
+    """The fields a JAX single-trunk model resolved to."""
+    kind = type(jm).__name__
+    out = {"kind": kind}
+    if kind in ("DINOHashBaseline", "SingleBandNet", "DinoModelCE", "MultiDinoModel"):
+        out["tower"] = _jax_tower(jax_vit_config(jm.backbone, **(jm.vit_kwargs or {})))
+        out["frozen"] = jm.frozen_backbone
+        if kind == "SingleBandNet":
+            out.update(band=jm.band, mode=jm.mode)
+        if kind == "DINOHashBaseline" or (kind == "SingleBandNet" and jm.mode == "hashing"):
+            out["nbits"] = jm.nbits
+        if kind == "DinoModelCE":
+            out["num_classes"] = jm.num_classes
+        if kind == "MultiDinoModel":
+            out["branches"] = tuple(jm.branches)
+    elif kind == "RetrievalNet":
+        out.update(trunk=_jax_trunk(jm.backbone), pooling=jm.pooling, standardize=jm.standardize,
+                   without_fc=jm.without_fc, frozen=jm.frozen_backbone)
+        if not jm.without_fc:
+            out.update(embed_dim=jm.embed_dim, projection_norm=jm.projection_norm)
+    elif kind in ("ResNetCE", "ResNetHashing"):
+        stages, block = _DEPTHS.get(jm.depth, ((3, 4, 6, 3), "Bottleneck"))
+        out.update(trunk=("ResNet", stages, block), frozen_bn=jm.frozen_bn,
+                   width=jm.num_classes if kind == "ResNetCE" else jm.nbits)
+    else:  # ResNet50Mod
+        out["width"] = jm.n_bits
+    return out
+
+
+def single_resolved(model) -> dict:
+    """``jax_single_resolved``'s fields, read off a port model."""
+    kind = type(model).__name__
+    out = {"kind": kind}
+    if kind in ("DINOHashBaseline", "SingleBandNet", "DinoModelCE", "MultiDinoModel"):
+        vit = model.backbone.vit if kind == "MultiDinoModel" else model.backbone
+        out["tower"] = _tower(vit)
+        out["frozen"] = model.frozen_backbone
+        if kind == "SingleBandNet":
+            out.update(band=model.band, mode=model.mode)
+        if getattr(model, "hash_head", None) is not None:
+            out["nbits"] = model.hash_head.linear.weight.shape[0]
+        if kind == "DinoModelCE":
+            out["num_classes"] = model.classifier.weight.shape[0]
+        if kind == "MultiDinoModel":
+            out["branches"] = model.branches
+    elif kind == "RetrievalNet":
+        out.update(trunk=_trunk(model.backbone), pooling=model.pooling,
+                   standardize=model.norm is not None, without_fc=model.fc is None,
+                   frozen=model.frozen_backbone)
+        if model.fc is not None:
+            out.update(embed_dim=model.fc.layers[-1].weight.shape[0],
+                       projection_norm=model.fc.norm_kind)
+    elif kind in ("ResNetCE", "ResNetHashing"):
+        out.update(trunk=_trunk(model.trunk), frozen_bn=model.trunk.frozen_bn,
+                   width=model.fc.weight.shape[0])
+    else:  # ResNet50Mod
+        out["width"] = model.dsch.fc.weight.shape[0]
+    return out
+
+
+@pytest.mark.parametrize("config", SINGLE_TRUNK)
+def test_single_trunk_config_builds_what_jax_builds(config):
+    """Full width, construction only, after ``compose``: the traps mirrored
+    (``with_autocast`` a bf16 ViT only through the class adapters and
+    ``build_single_band``; no RetrievalNet route remats or takes K2; a
+    ResNet trunk's ``pooling`` inert; ``vit_deit_distilled`` a DeiT-S/16)."""
+    name, kwargs = _composed(config)
+    jmodel = jax_get_model(name, **kwargs)
+    with torch.device("meta"):
+        model = MODEL_REGISTRY[name](torch.device("cpu"), **kwargs)
+    resolved_ = single_resolved(model)
+    assert resolved_ == jax_single_resolved(jmodel)
+    tower = resolved_.get("tower") or resolved_.get("trunk")
+    if config in ("single_band", "detail_tester", "dino_hashing"):
+        assert tower[4] == "bfloat16"
+    elif tower and tower[0] == "ViT":
+        assert tower[4] == "float32" and not tower[5] and not tower[6]
+    if config == "deit":
+        assert tower[1:4] == (384, 12, 16)

@@ -61,6 +61,7 @@ from irw_tpu_torch.samplers import RandomSampler
 from irw_tpu_torch.transforms import DeviceTransform
 from irw_tpu_torch.transforms.host import HostTransform as PortHostTransform
 from test_torch_multi_dino import YAML, flagship_yaml
+from test_torch_shared_dino import CONFIGS
 from test_torch_train_model import EXACT_ZEROS
 from test_torch_train_step import (CLIP, METRIC_TOL, METRICS, OPS, ORTHO_SCALE, _RefAwareLoss,
                                    _yaml)
@@ -388,8 +389,6 @@ def test_ref_aware_loss_trains_with_the_memory_on(tmp_path):
 REFUSALS = {
     "instrumentor": ({}, {"instrumentor": object()}, "A12"),
     "with_fast_eval": ({"with_fast_eval": True}, {}, "A12"),
-    "freeze_batch_norm": ({}, {"model": {"freeze_batch_norm": True}}, "A12"),
-    "freeze_pos_embedding": ({}, {"model": {"freeze_pos_embedding": True}}, "A12"),
     "sub_batch": ({"sub_batch": 3}, {}, "A12"),
     "model_parallel": ({"model_parallel": 2}, {}, "A13"),
     "band_parallel": ({"band_parallel": 2}, {}, "A13"),
@@ -413,6 +412,95 @@ def test_unported_loop_options_name_their_roadmap_item(option, tmp_path):
               instrumentor=extra.get("instrumentor"))
     assert state.step == 0 and all(torch.equal(v, before[k])
                                    for k, v in state.model.state_dict().items())
+
+
+# the parameters each freezing flag holds in single_band_tiny.yaml's model
+FROZEN_BY = {"freeze_batch_norm": ("hash_head.bn.weight", "hash_head.bn.bias"),
+             "freeze_pos_embedding": ("backbone.pos_embed", "backbone.cls_token")}
+
+
+@pytest.fixture(scope="module")
+def frozen_runs(tmp_path_factory):
+    """``model.freeze_batch_norm`` and ``model.freeze_pos_embedding``
+    (``irw_tpu/utils/freezing.py``) together: one epoch of two steps of
+    single_band_tiny.yaml's model (vit_tiny at depth 1, unfrozen, 16²
+    bands) through both packages' ``train``, the optimizers built without
+    the frozen parameters as both ``run``s build them.  Returns (the port's
+    final state, the JAX final parameters and statistics as a port state
+    dict, the start)."""
+    from irw_tpu.utils import freezing as jax_freezing
+    from irw_tpu_torch.utils.freezing import config_freeze_set
+
+    root = tmp_path_factory.mktemp("frozen")
+    model_cfg = {flag: True for flag in FROZEN_BY}
+    opt_cfg, loss_cfg = _configs()
+    kw = dict(yaml.safe_load(open(CONFIGS / "model/single_band_tiny.yaml"))["kwargs"],
+              vit_kwargs={"depth": 1, "img_size": TINY_IMG})
+    ds = _tiny_data()
+    jds = JaxSyntheticVOC(num_train=N_TRAIN, image_size=TINY_IMG, seed=4)
+    jmodel = jax_get_model("single_band_net", **kw)
+    frozen = jax_freezing.combine(jax_freezing.freeze_batch_norm_params(),
+                                  jax_freezing.freeze_pos_embedding())
+    jdt = JaxDeviceTransform(OPS)
+    batch = {"image": ds.images[:BATCH], "label": ds.labels[:BATCH]}
+    rngs = {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}
+    variables = randomize(jax.jit(lambda r, x: jmodel.init(r, x, train=True))(
+        rngs, jdt(jnp.asarray(batch["image"]))), 0)
+    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    jlosses = jax_build_losses(loss_cfg)
+    entries = jax_optimizers.build_optimizers(opt_cfg, params, frozen_collections=frozen)
+    loss_tx = Getter().get_loss_optimizer(loss_cfg)
+    jstate = jax_init_train_state(jmodel, jlosses, entries, loss_tx, batch, jdt, seed=0)
+    jstate = jstate.replace(params=params, batch_stats=jax.tree_util.tree_map(
+        jnp.asarray, variables["batch_stats"]))
+    exp = dict(CONFIG["experience"], max_iter=1, step_per_epoch=2, test_eval_freq=-1,
+               async_checkpoint=False, clip_grad=None, ortho_scale=None)
+    config = {"experience": exp, "model": model_cfg}
+    # copied before the JAX loop donates the state's buffers
+    start = {k: np.array(v) for k, v in from_jax_variables(
+        {"params": jstate.params, "batch_stats": jstate.batch_stats}).items()}
+    start_loss = jax.tree_util.tree_map(np.array, jax.device_get(jstate.loss_params))
+    jfinal, _ = jax_train(jmodel, jstate, jlosses, entries, loss_tx, jds,
+                          JaxRandomSampler(jds, BATCH, seed=0), {},
+                          HostTransform([("Resize", {"size": TINY_IMG})]), jdt, config,
+                          str(root / "jax"))
+
+    model = get_model("single_band_net", device="cpu", **kw)
+    model.load_state_dict({k: torch.from_numpy(v.copy()) for k, v in start.items()})
+    state = init_train_state(model, build_losses(loss_cfg), opt_cfg, loss_cfg,
+                             frozen_collections=config_freeze_set(model, model_cfg))
+    load_jax_loss_params(state.losses, start_loss)
+    state, _ = train(state, ds, RandomSampler(ds, BATCH, seed=0), {}, None,
+                     DeviceTransform(OPS, device="cpu"), config, str(root / "port"))
+    ref = from_jax_variables({"params": jfinal.params, "batch_stats": jfinal.batch_stats})
+    return state, ref, start
+
+
+@pytest.mark.parametrize("flag", sorted(FROZEN_BY))
+def test_freeze_flags_train_as_jax(flag, frozen_runs):
+    """The parameters ``flag`` freezes (every BatchNorm's scale and bias; the
+    position embeddings and the CLS token) stay as they were, bit for bit,
+    in both packages, and no optimizer holds them; every parameter that no
+    flag freezes ends within the loop test's bound of the JAX one."""
+    state, ref, start = frozen_runs
+    held = set(FROZEN_BY[flag])
+    every_held = {k for names in FROZEN_BY.values() for k in names}
+    n, moved = 2, 0
+    for name, p in state.model.named_parameters():
+        ours = p.detach().numpy()
+        if name in held:
+            np.testing.assert_array_equal(ours, start[name], err_msg=name)
+            np.testing.assert_array_equal(ref[name], start[name], err_msg=name)
+        elif name not in every_held:
+            bound = n * 2 * LR * (1 + WD * np.abs(start[name]))
+            assert np.all(np.abs(ours - ref[name]) <= bound), name
+            moved += int(np.any(ours != start[name]))
+    assert moved > 0
+    named = dict(state.model.named_parameters())
+    held_ids = {id(named[k]) for k in held}
+    for entry in state.optimizer_entries:  # no optimizer holds them
+        assert not any(id(p) in held_ids for g in entry.optimizer.param_groups
+                       for p in g["params"])
 
 
 def test_mesh_keys_at_one_are_ignored(tmp_path):

@@ -265,14 +265,15 @@ def test_lifting_kernel_refuses_other_dtypes_on_the_card():
 
 
 def test_unported_models_and_heads_name_their_roadmap_item():
-    with pytest.raises(ValueError, match="A10"):
-        get_model("resnet50", device="cpu")
-    for name in ("wresnet", "resnet_ce", "mtwavenet", "vit", "resnet50"):
-        with pytest.raises(ValueError, match="A10"):
+    # the wavelet CNNs still to port (A10b) and the HF towers (A10d)
+    for name, item in (("wresnet", "A10b"), ("mtwavenet", "A10b"),
+                       ("hybrid_mtwavenet_v2_ce", "A10b"), ("siglip2", "A10d"),
+                       ("openclip", "A10d")):
+        with pytest.raises(ValueError, match=item):
             get_model("RetrievalNet", device="cpu", backbone_name=name)
-    # WaveResNet, a model of the registry still to port (A10b)
-    with pytest.raises(ValueError, match="A10b"):
-        get_model("wresnet", device="cpu")
+    for name, item in (("wresnet", "A10b"), ("mtwavenet50_fusion", "A10b"), ("clip", "A10d")):
+        with pytest.raises(ValueError, match=item):
+            get_model(name, device="cpu")
     # the one ViT Block variant of irw_tpu/models/vit.py:326-334 still to
     # port; the scanned layouts are only parameter layouts, accepted and ignored
     with pytest.raises(NotImplementedError, match="A14"):

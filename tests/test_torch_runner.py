@@ -264,8 +264,6 @@ REFUSALS = {
     "kfold": (["experience.kfold.use_kfold=true"], NotImplementedError, "A12"),
     "dsch_train": (["experience.dsch_train=true"], NotImplementedError, "A12"),
     "hooks": (["experience.hooks_configs.active=true"], NotImplementedError, "A12"),
-    "default_model": (["dataset.kwargs.num_samples=8", "dataset.kwargs.image_size=16"],
-                      ValueError, "A10"),
     "multicrop": (["transform=multicrop"], NotImplementedError, "A8c"),
     "file_dataset": (["dataset=voc"], NotImplementedError, "A8c"),
 }
