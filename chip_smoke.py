@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases card,build,qkv,qkv_micro,variants
     python3 chip_smoke.py --phases card,build,siblings
     python3 chip_smoke.py --phases card,build,trunks
+    python3 chip_smoke.py --phases card,build,files
 
 Drives the port's serving path — uint8 images → DeviceTransform (/255, Haar
 SWT: kernel K1) → the flagship MultiDinoHashing (4 × DINOv2 ViT-S/14 at
@@ -177,6 +178,19 @@ configuration of the family — and prints one line per phase:
    ``use_bn: false`` serve a batch of 64 each (launches, finite outputs),
    the last also one train step; every model's first 4 images of its batch
    against a CPU copy of it (TF32 off on the card for the comparison).
+23. files: datasets read from files.  A VOC tree (384 train and 192 val
+   JPEGs at 500 x 375, XML annotations, one CMYK, one grayscale, one PNG
+   named .jpg and one cut JPEG among them) and a CUB-200 tree (64 classes
+   each side of 100) written with Pillow; the host image loader built with
+   g++ (its build seconds, or the compiler's error and the Pillow route);
+   ``EpochLoader`` alone at the study's train host ops in img/s on each
+   route; ``studies/voc_lambda_ablation.yaml``'s first job through the
+   runner at full width (2 epochs of 4 steps of 96, one eval; K1 = 1, K2 =
+   24, K3 = 12 a step) and ``cub.yaml`` + ``cub_dwt`` + ``wcnn_attention_ce``
+   (2 steps of 128, one cosine eval; K4 = 1 a step), each batch's decode
+   route, trained img/s; K1 and K4 on the first decoded train batches and
+   K2 and K3 on block 0's q, k, v of the first step, each against its plain
+   version.
 
 Then a JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -198,7 +212,8 @@ import numpy as np
 
 PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train", "loop",
           "runner", "dwt", "wcnn", "wavelets", "wcnn_train", "wcnn_xbm", "losses", "flash",
-          "flash_serve", "flash_train", "qkv", "qkv_micro", "variants", "siblings", "trunks")
+          "flash_serve", "flash_train", "qkv", "qkv_micro", "variants", "siblings", "trunks",
+          "files")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -424,6 +439,29 @@ TRUNK_PLAIN = ("dino_hashing", "dino_default", "dino", "dino_v3", "deit", "ibot"
 TRUNK_PLAIN_OPS = [("Normalize", {})]
 TRUNK_TIMED = 10         # timed served batches per config, after WARMUP_CALLS
 TRUNK_STEPS = 3
+# the files phase: VOC and CUB-200 trees written as JPEG files (VOC's usual
+# 500 x 375), read back through the datasets, the loader and the runner.
+# studies/voc_lambda_ablation.yaml's first job (ortho_weight 0) at full width
+# on 384 train (= gallery) and 192 val (= query) images: 2 epochs of 4 steps
+# of 96, one eval at epoch 2; then cub.yaml + cub_dwt + wcnn_attention_ce on 64
+# train classes of 4 images (< 100) and 64 test classes of 2 (> 100): 2 steps
+# of 128 and one cosine eval
+FILES_PLAN = "studies/voc_lambda_ablation.yaml"
+FILES_JOB = "model.kwargs.fusion_config.ortho_weight=0"
+FILES_VOC_TRAIN, FILES_VOC_VAL, FILES_IMAGE = 384, 192, (500, 375)
+FILES_EPOCHS = 2
+FILES_STEPS = FILES_VOC_TRAIN // TRAIN_BATCH
+FILES_CUTS = [f"experience.max_iter={FILES_EPOCHS}", "experience.train_eval_freq=2",
+              "experience.test_eval_freq=2", f"experience.evaluation.top_k={FILES_VOC_TRAIN}"]
+FILES_CUB_CLASSES, FILES_CUB_TRAIN, FILES_CUB_TEST = 64, 4, 2
+FILES_CUB_STEPS = FILES_CUB_CLASSES * FILES_CUB_TRAIN // CUB_BATCH
+FILES_CUB_JOB = ["dataset=cub", "transform=cub_dwt", "model=wcnn_attention_ce",
+                 "loss=multi_ce_fusionloss", "optimizer=cub_wresnet", "experience.max_iter=1",
+                 "experience.train_eval_freq=1", "experience.test_eval_freq=1",
+                 "experience.evaluation.distance_metric=cosine",
+                 f"experience.evaluation.top_k={FILES_CUB_CLASSES * FILES_CUB_TEST}"]
+FILES_SPECIAL = {3: "cmyk", 4: "gray", 5: "png", 6: "truncated"}
+FILES_LOADER_WORKERS = 8   # configs/experience/default.yaml's num_workers
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -3716,6 +3754,392 @@ def phase_variants(state):
     _release_earlier_phases(state)
 
 
+def _write_jpeg(path, arr, kind: str = "jpeg") -> None:
+    """``arr`` (H, W, 3) uint8 to ``path`` as a baseline JPEG, or as the
+    sample ``kind`` names: CMYK or grayscale JPEG, a PNG under the JPEG's
+    name, or a JPEG cut in its scan data."""
+    from PIL import Image
+
+    img = Image.fromarray(arr)
+    if kind == "cmyk":
+        img = img.convert("CMYK")
+    elif kind == "gray":
+        img = img.convert("L")
+    img.save(path, "PNG" if kind == "png" else "JPEG", quality=90)
+    if kind == "truncated":
+        with open(path, "rb") as f:
+            data = f.read()
+        with open(path, "wb") as f:
+            f.write(data[:len(data) // 2])
+
+
+def _photos(rs, w: int, h: int, n_base: int = 4):
+    """An endless supply of (h, w, 3) uint8 images that compress like
+    photographs: windows at random offsets into ``n_base`` smooth random
+    images with noise, twice as wide and high."""
+    yy, xx = np.mgrid[0:2 * h, 0:2 * w].astype(np.float32)
+    bases = []
+    for _ in range(n_base):
+        f = rs.uniform(0.005, 0.05, (3, 2))
+        phase = rs.uniform(0, 2 * np.pi, 3)
+        smooth = np.stack([np.sin(f[c, 0] * xx + f[c, 1] * yy + phase[c]) for c in range(3)], -1)
+        noisy = 127.5 + 100 * smooth + rs.randint(-12, 13, smooth.shape)
+        bases.append(np.clip(noisy, 0, 255).astype(np.uint8))
+    while True:
+        y, x = rs.randint(h), rs.randint(w)
+        yield np.ascontiguousarray(bases[rs.randint(n_base)][y:y + h, x:x + w])
+
+
+def _write_file_trees(root) -> tuple[str, str]:
+    """The VOC tree (``VOCdevkit/VOC2012``: ids, XML annotations of 1-3 of
+    the 20 classes, JPEGs, FILES_SPECIAL among the train ids) and the CUB
+    tree (``images.txt``, ``image_class_labels.txt``, ``images/``, half
+    the images portrait) under ``root``; the JPEGs encoded on 8 threads."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from irw_tpu_torch.data.datasets_multilabel import VOC_CLASSES
+
+    rs = np.random.RandomState(17)
+    landscape = _photos(rs, *FILES_IMAGE)
+    portrait = _photos(rs, *FILES_IMAGE[::-1])
+    images = []  # (path, pixels, kind)
+    voc = os.path.join(root, "voc", "VOCdevkit", "VOC2012")
+    for sub in ("ImageSets/Main", "Annotations", "JPEGImages"):
+        os.makedirs(os.path.join(voc, sub))
+    ids = [f"2011_{i:06d}" for i in range(FILES_VOC_TRAIN + FILES_VOC_VAL)]
+    for split, chosen in (("train", ids[:FILES_VOC_TRAIN]), ("val", ids[FILES_VOC_TRAIN:])):
+        with open(os.path.join(voc, "ImageSets", "Main", f"{split}.txt"), "w") as f:
+            f.write("".join(f"{i}\n" for i in chosen))
+    for k, img_id in enumerate(ids):
+        names = rs.choice(VOC_CLASSES, rs.randint(1, 4))
+        with open(os.path.join(voc, "Annotations", f"{img_id}.xml"), "w") as f:
+            f.write(f"<annotation><filename>{img_id}.jpg</filename>" + "".join(
+                f"<object><name>{n}</name></object>" for n in names) + "</annotation>")
+        images.append((os.path.join(voc, "JPEGImages", f"{img_id}.jpg"), next(landscape),
+                       FILES_SPECIAL.get(k, "jpeg")))
+    cub = os.path.join(root, "cub")
+    entries = [(c, n) for c in range(1, FILES_CUB_CLASSES + 1) for n in range(FILES_CUB_TRAIN)]
+    entries += [(100 + c, n) for c in range(1, FILES_CUB_CLASSES + 1)
+                for n in range(FILES_CUB_TEST)]
+    os.makedirs(cub)
+    with open(os.path.join(cub, "images.txt"), "w") as f:
+        f.write("".join(f"{i + 1} {c:03d}.Bird/{c:03d}_{n}.jpg\n"
+                        for i, (c, n) in enumerate(entries)))
+    with open(os.path.join(cub, "image_class_labels.txt"), "w") as f:
+        f.write("".join(f"{i + 1} {c}\n" for i, (c, _) in enumerate(entries)))
+    for c, n in entries:
+        os.makedirs(os.path.join(cub, "images", f"{c:03d}.Bird"), exist_ok=True)
+        images.append((os.path.join(cub, "images", f"{c:03d}.Bird", f"{c:03d}_{n}.jpg"),
+                       next(portrait if n % 2 else landscape), "jpeg"))
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda job: _write_jpeg(*job), images))
+    return os.path.join(root, "voc"), cub
+
+
+class _FileRun(_UnitLaunches):
+    """``_UnitLaunches`` that also keeps the first train batch's images."""
+
+    first_train = None
+
+    def __call__(self, images):
+        import torch
+
+        if self.first_train is None and not torch.is_inference_mode_enabled():
+            self.first_train = np.array(images)
+        return super().__call__(images)
+
+
+def _loader_rate(dataset, host, native: bool) -> float:
+    """img/s of ``EpochLoader`` alone over ``dataset`` through the host stage
+    ``host`` in batches of TRAIN_BATCH, training draws, FILES_LOADER_WORKERS
+    threads, on the native route or the host route."""
+    from irw_tpu_torch.data import EpochLoader
+
+    batches = [np.arange(i, i + TRAIN_BATCH) for i in range(0, len(dataset), TRAIN_BATCH)]
+    loader = EpochLoader(dataset, batches, host, num_workers=FILES_LOADER_WORKERS, native=native)
+    t0 = time.perf_counter()
+    n = sum(len(b["image"]) for b in loader)
+    seconds = time.perf_counter() - t0
+    want = "native" if native else "host"
+    if set(loader.routes.values()) != {want}:
+        raise AssertionError(f"files: the loader took {loader.routes} where {want} was asked")
+    return n / seconds
+
+
+def _file_job(state, label: str, overrides: list, expected_step: tuple, expected_eval: tuple,
+              epochs: int, steps: int, batch: int, prepare=None):
+    """``overrides`` through the port's runner, the device transform wrapped
+    to count every kernel's launches per train step and per inference
+    batch (the first: ``run``'s sample batch, transform only), the model
+    captured (and handed to ``prepare`` once built), every loader batch's
+    route recorded; ``epochs`` of ``steps`` steps of ``batch`` in all.
+    Returns (the wrapped transform, the model, the routes by train/eval, the
+    metrics records)."""
+    import os
+
+    import torch
+
+    from irw_tpu_torch import single_experiment_runner as runner
+    from irw_tpu_torch.config import compose
+    from irw_tpu_torch.data import loader as loader_mod
+    from irw_tpu_torch.getter import Getter
+    from irw_tpu_torch.run import log_dir_of
+
+    kernels = _kernel_wrappers()
+    wrapped, models, routes = [], [], {"train": [], "eval": []}
+    get_transform, get_model = Getter.get_transform, Getter.get_model
+    load_batch = loader_mod.EpochLoader._load_batch
+
+    def counting(self, transform_config, device=None):
+        (h, d), test = get_transform(self, transform_config, device)
+        wrapped.append(_FileRun(d, kernels))
+        return (h, wrapped[-1]), test
+
+    def capturing(self, *args, **kwargs):
+        models.append(get_model(self, *args, **kwargs))
+        if prepare is not None:
+            prepare(models[-1])
+        return models[-1]
+
+    def recording(self, batch_idx, indices):
+        out = load_batch(self, batch_idx, indices)
+        routes["train" if self.train else "eval"].append(self.routes[batch_idx])
+        return out
+
+    Getter.get_transform, Getter.get_model = counting, capturing
+    loader_mod.EpochLoader._load_batch = recording
+    try:
+        torch.cuda.synchronize()
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        if runner.main(overrides) != 0:
+            raise AssertionError(f"files, {label}: the runner returned non-zero")
+        seconds = time.perf_counter() - t0
+    finally:
+        Getter.get_transform, Getter.get_model = get_transform, get_model
+        loader_mod.EpochLoader._load_batch = load_batch
+    (transform,), (model,) = wrapped, models
+    train_units, eval_units = transform.units(False), transform.units(True)
+    key = f"files_{label}"
+    state["launches"][key] = {fn.__name__: sum(u[i] for u in train_units)
+                              for i, fn in enumerate(kernels)}
+    state["launches"][f"{key}_eval"] = {fn.__name__: sum(u[i] for u in eval_units[1:])
+                                        for i, fn in enumerate(kernels)}
+    state[f"{key}_units"] = (len(train_units), len(eval_units) - 1)
+    log("files", f"{label}: the run took {seconds:.1f} s; launches over it: "
+                 f"{_launch_counts(kernels)}")
+    if len(train_units) != steps:
+        raise AssertionError(f"files, {label}: {len(train_units)} train steps, expected {steps}")
+    _check_launches("files", train_units, expected_step, f"train step, {label}")
+    sample = tuple(n if i in (0, 3) else 0 for i, n in enumerate(expected_eval))
+    _check_launches("files", eval_units[:1], sample, f"sample batch, {label} (transform only)")
+    _check_launches("files", eval_units[1:], expected_eval, f"eval batch, {label}")
+
+    log_dir = log_dir_of(compose(runner.CONFIG_DIR, "default", overrides).experience)
+    records = _jsonl(os.path.join(log_dir, "metrics.jsonl"))
+    epoch_records = [r for r in records if "train/train_seconds" in r]
+    if [r["step"] for r in epoch_records] != list(range(1, epochs + 1)):
+        raise AssertionError(f"files, {label}: epoch records {epoch_records}")
+    for r in records:
+        if not all(math.isfinite(v) for v in r.values()):
+            raise AssertionError(f"files, {label}: non-finite metrics {r}")
+    for r in epoch_records:
+        ips = steps // epochs * batch / r["train/train_seconds"]
+        log("files", f"{label}, epoch {r['step']}: {r['train/train_seconds']:.3f} s, {ips:.1f} "
+                     f"trained img/s ({steps // epochs} steps of {batch}); data_seconds "
+                     f"{r['train/data_seconds']:.4f}, step_seconds {r['train/step_seconds']:.4f}, "
+                     f"total_loss {r['train/total_loss']:.5f} | {state['card']}")
+    return transform, model, routes, records
+
+
+def phase_files(state):
+    """Datasets read from files (ROADMAP A8c): the VOC flagship study's
+    first job and the CUB WCNN recipe from JPEG trees written here, through
+    the datasets, ``EpochLoader`` (the host image loader where it builds,
+    else Pillow and the numpy host stage) and the runner; K1-K4 launched
+    from the decoded batches and each held against its plain version."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from irw_tpu_torch import native
+    from irw_tpu_torch import single_experiment_runner as runner
+    from irw_tpu_torch.config import compose
+    from irw_tpu_torch.data import get_dataset
+    from irw_tpu_torch.native import build
+    from irw_tpu_torch.ops.attention import (
+        attention_plain,
+        attention_plain_bwd,
+        fused_attention,
+        fused_attention_bwd,
+    )
+    from irw_tpu_torch.ops.wavelets import (
+        haar_swt2,
+        haar_swt2_plain,
+        lifting_multi_level,
+        lifting_multi_level_plain,
+    )
+    from irw_tpu_torch.studies.run_plan import expand_jobs, load_plan
+    from irw_tpu_torch.transforms import build_transforms
+
+    _release_earlier_phases(state)
+    root = tempfile.mkdtemp(prefix="irw_files_")
+    try:
+        t0 = time.perf_counter()
+        voc_dir, cub_dir = _write_file_trees(root)
+        log("files", f"wrote {FILES_VOC_TRAIN} + {FILES_VOC_VAL} VOC JPEGs and "
+                     f"{FILES_CUB_CLASSES * (FILES_CUB_TRAIN + FILES_CUB_TEST)} CUB JPEGs of "
+                     f"{FILES_IMAGE[0]} x {FILES_IMAGE[1]} in {time.perf_counter() - t0:.1f} s "
+                     f"(VOC train samples {sorted(FILES_SPECIAL)}: {FILES_SPECIAL})")
+
+        t0 = time.perf_counter()
+        if native.available():  # builds it (g++) where it is not built yet
+            log("files", f"host image loader: {build.lib_path()} (g++ "
+                         f"{build.LAST_BUILD.get('seconds', 0.0):.1f} s; built already: "
+                         f"{'seconds' not in build.LAST_BUILD})")
+            route = "native"
+        else:
+            log("files", f"host image loader NOT built ({time.perf_counter() - t0:.1f} s); "
+                         f"the compiler said:\n{build.LAST_BUILD.get('error')}")
+            log("files", "this phase decodes through Pillow (load_image's fallback) and the "
+                         "numpy host stage: the loader's host route")
+            route = "host"
+
+        # the loader alone, the study's train host ops (transform=swt)
+        jobs = expand_jobs(load_plan(os.path.join(os.path.dirname(runner.CONFIG_DIR),
+                                                  FILES_PLAN)))
+        name, job = jobs[0]
+        if FILES_JOB not in job or "dataset=voc" not in job:
+            raise AssertionError(f"files: {FILES_PLAN}'s first job is {job}")
+        overrides = job + FILES_CUTS + [f"dataset.kwargs.data_dir={voc_dir}",
+                                        f"experience.log_dir={root}/runs"]
+        config = compose(runner.CONFIG_DIR, "default", overrides)
+        host, _ = build_transforms(config.transform.train, device="cpu")
+        dataset = get_dataset(config.dataset.name, **config.dataset.kwargs)
+        rates = {"host (Pillow + numpy)": _loader_rate(dataset, host, False)}
+        if route == "native":
+            rates["native, fast_scale"] = _loader_rate(dataset, host, True)
+        else:
+            rates["native, fast_scale"] = "not measured (library not built)"
+        log("files", f"EpochLoader alone, {host.ops}, batches of {TRAIN_BATCH}, "
+                     f"{FILES_LOADER_WORKERS} threads on {os.cpu_count()} CPUs, the files just "
+                     f"written (warm): "
+                     + ", ".join(f"{k} {v if isinstance(v, str) else f'{v:.1f} img/s'}"
+                                 for k, v in rates.items()) + f" | {state['card']}")
+        del dataset
+
+        # the VOC study job through the runner: K1, K2, K3; block 0's q, k, v
+        # of the first train step kept
+        captured = {}
+
+        def keep_qkv(model):
+            attn = model.backbone.vit.blocks[0].attn
+            core = attn.core
+
+            def core_fn(q, k, v):
+                if "qkv" not in captured and torch.is_grad_enabled():
+                    captured["qkv"] = tuple(t.detach().clone() for t in (q, k, v))
+                return core(q, k, v)
+            attn.core = core_fn
+
+        log("files", f"{name}: {job}; cut: {FILES_CUTS}, and {FILES_VOC_TRAIN} train (= "
+                     f"gallery) and {FILES_VOC_VAL} val (= query) images in place of "
+                     "VOC2012's splits")
+        transform, model, routes, records = _file_job(
+            state, "voc", overrides, (1, 24, 12, 0, 0, 0, 0), (1, 12, 0, 0, 0, 0, 0),
+            FILES_EPOCHS, FILES_EPOCHS * FILES_STEPS, TRAIN_BATCH, prepare=keep_qkv)
+        log("files", f"voc decode routes: train batches {routes['train']}, eval batches "
+                     f"{routes['eval']}")
+        if set(routes["train"] + routes["eval"]) != {route}:
+            raise AssertionError(f"files: batches took {routes}, expected every one {route}")
+        evaluated = [r for r in records if "test/map_level0" in r]
+        if [r["step"] for r in evaluated] != [FILES_EPOCHS] or not (
+                0.0 <= evaluated[0]["test/map_level0"] <= 1.0):
+            raise AssertionError(f"files: voc eval records {evaluated}")
+        log("files", f"voc eval at epoch {FILES_EPOCHS}: {evaluated[0]['test/eval_seconds']:.3f} s "
+                     f"({FILES_VOC_VAL} queries against {FILES_VOC_TRAIN}); map_level0 "
+                     f"{evaluated[0]['test/map_level0']:.4f}")
+        del model
+
+        # K1 on the first decoded train batch; K2, K3 on block 0's q, k, v of
+        # the first train step
+        images = torch.from_numpy(transform.first_train).cuda().float() / 255.0
+        b, h, w, c = images.shape
+        planes = images.permute(0, 3, 1, 2).reshape(b * c, h, w).contiguous()
+        err1 = (haar_swt2(planes) - haar_swt2_plain(planes)).abs().max().item()
+        q, k, v = captured["qkv"]
+        with torch.no_grad():
+            ref2 = attention_plain(q, k, v).float()
+            err2 = (fused_attention(q, k, v).float() - ref2).abs().max().item()
+        # K2_TOL is one bf16 ulp for |o| < 2: here one ulp at the largest |o|
+        peak2 = ref2.abs().max().item()
+        tol2 = K2_TOL["bfloat16"] * 2.0 ** max(0, math.floor(math.log2(peak2)))
+        g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda").to(q.dtype)
+        errs3 = []
+        for out, ref in zip(fused_attention_bwd(q, k, v, g), attention_plain_bwd(q, k, v, g)):
+            errs3.append(((out.float() - ref.float()).abs().max().item(),
+                          K3_TOL_BF16 * ref.float().abs().max().item()))
+        torch.cuda.synchronize()
+        log("files", f"K1 on the first decoded train batch {tuple(planes.shape)}: max|kernel - "
+                     f"plain| = {err1:.3e} (limit {K1_TOL}); K2 on block 0's q, k, v "
+                     f"{tuple(q.shape)} {q.dtype}: {err2:.3e} (limit {tol2:.3e}, one bf16 ulp at "
+                     f"max|o| {peak2:.3f}); "
+                     "K3 dq, dk, dv: " + ", ".join(f"{e:.3e} (limit {t:.3e})" for e, t in errs3))
+        if not (err1 <= K1_TOL and q.dtype == torch.bfloat16 and err2 <= tol2
+                and all(e <= t for e, t in errs3)):
+            raise AssertionError("files: a kernel disagrees with its plain version on the "
+                                 "decoded batches")
+        state["files_errors"] = {"haar_swt2": err1, "fused_attention": err2,
+                                 "fused_attention_bwd": max(e for e, _ in errs3)}
+        _release_earlier_phases(state)
+
+        # the CUB WCNN recipe from files: K4
+        overrides = FILES_CUB_JOB + [f"dataset.kwargs.data_dir={cub_dir}",
+                                     "experience.experiment_name=files_cub",
+                                     f"experience.log_dir={root}/runs"]
+        log("files", f"cub job: {FILES_CUB_JOB[:5]}; cut: {FILES_CUB_JOB[5:]}, and "
+                     f"{FILES_CUB_CLASSES} train classes of {FILES_CUB_TRAIN} images and "
+                     f"{FILES_CUB_CLASSES} test classes of {FILES_CUB_TEST} in place of "
+                     "CUB-200-2011's 100 and 100 classes")
+        transform, model, routes, records = _file_job(
+            state, "cub", overrides, (0, 0, 0, 1, 0, 0, 0), (0, 0, 0, 1, 0, 0, 0), 1,
+            FILES_CUB_STEPS, CUB_BATCH)
+        del model
+        log("files", f"cub decode routes: train batches {routes['train']}, eval batches "
+                     f"{routes['eval']}")
+        if set(routes["train"] + routes["eval"]) != {route}:
+            raise AssertionError(f"files: batches took {routes}, expected every one {route}")
+        evaluated = [r for r in records if "test/map_level0" in r]
+        if len(evaluated) != 1 or not 0.0 <= evaluated[0]["test/map_level0"] <= 1.0:
+            raise AssertionError(f"files: cub eval records {evaluated}")
+        log("files", f"cub eval: {FILES_CUB_CLASSES * FILES_CUB_TEST} test images, cosine, "
+                     f"map_level0 {evaluated[0]['test/map_level0']:.4f}")
+        x = torch.from_numpy(transform.first_train).cuda().float() / 255.0
+        mean = torch.tensor(DWT_OPS[0][1]["mean"], device="cuda")
+        std = torch.tensor(DWT_OPS[0][1]["std"], device="cuda")
+        x = (x - mean) / std
+        b, h, w, c = x.shape
+        planes = x.permute(0, 3, 1, 2).reshape(b * c, h, w).contiguous()
+        out, ref = lifting_multi_level(planes, 1, "haar"), lifting_multi_level_plain(planes, 1,
+                                                                                     "haar")
+        torch.cuda.synchronize()
+        err4 = (out - ref).abs().max().item()
+        tol4 = K4_TOL["haar"] * max(1.0, ref.abs().max().item())
+        log("files", f"K4 on the first decoded CUB train batch {tuple(planes.shape)}: "
+                     f"max|kernel - plain| = {err4:.3e} (limit {tol4:.3e})")
+        if not err4 <= tol4:
+            raise AssertionError("files: K4 disagrees with its plain version on decoded batches")
+        state["files_errors"]["lifting_multi_level"] = err4
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _release_earlier_phases(state)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -3749,7 +4173,7 @@ def main(argv=None) -> int:
                "flash": phase_flash,
                "flash_serve": phase_flash_serve, "flash_train": phase_flash_train,
                "qkv": phase_qkv, "qkv_micro": phase_qkv_micro, "variants": phase_variants,
-               "siblings": phase_siblings, "trunks": phase_trunks}
+               "siblings": phase_siblings, "trunks": phase_trunks, "files": phase_files}
     for name in phases:
         if name != "card":
             t0 = time.perf_counter()
@@ -3779,6 +4203,11 @@ def main(argv=None) -> int:
     if "default_units" in state:  # the default composition's run (trunks)
         trained["default"] = ("trunks_default", state["default_units"][0])
         served["default_eval"] = ("trunks_default_eval", state["default_units"][1])
+    for label in ("voc", "cub"):  # the runs from files
+        if f"files_{label}_units" in state:
+            n_steps, n_evals = state[f"files_{label}_units"]
+            trained[f"files_{label}"] = (f"files_{label}", n_steps)
+            served[f"files_{label}_eval"] = (f"files_{label}_eval", n_evals)
 
     def per_run(paths, name):
         return {path: runs[key].get(name, 0) / n for path, (key, n) in paths.items() if key in runs}

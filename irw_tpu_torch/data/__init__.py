@@ -1,5 +1,7 @@
-"""In-memory datasets, their registry and the epoch loader."""
+"""The datasets (in memory and read from files), their registry and the
+epoch loader."""
 
+from irw_tpu_torch.data.base import BaseDataset, InMemoryDataset, subset
 from irw_tpu_torch.data.loader import EpochLoader
 from irw_tpu_torch.data.registry import (
     DATASET_REGISTRY,
@@ -8,12 +10,11 @@ from irw_tpu_torch.data.registry import (
     get_eval_datasets,
 )
 from irw_tpu_torch.data.synthetic import (
-    InMemoryDataset,
     SyntheticDataset,
     SyntheticHashingDataset,
     SyntheticVOCDataset,
 )
 
-__all__ = ["DATASET_REGISTRY", "EpochLoader", "InMemoryDataset", "QUERY_GALLERY_DATASETS",
-           "SyntheticDataset", "SyntheticHashingDataset", "SyntheticVOCDataset", "get_dataset",
-           "get_eval_datasets"]
+__all__ = ["BaseDataset", "DATASET_REGISTRY", "EpochLoader", "InMemoryDataset",
+           "QUERY_GALLERY_DATASETS", "SyntheticDataset", "SyntheticHashingDataset",
+           "SyntheticVOCDataset", "get_dataset", "get_eval_datasets", "subset"]

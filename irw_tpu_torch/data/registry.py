@@ -1,12 +1,30 @@
-"""Dataset registry (port of ``irw_tpu/data/registry.py:57-92``).
+"""Dataset registry (port of ``irw_tpu/data/registry.py:31-92``).
 
-The synthetic in-memory datasets are ported; the file-backed ones of the
-JAX registry (CUB, SOP, VOC, Cifar, the landmarks ...) read images from
-disk through the native decode path and wait for ROADMAP A8c.
+Every dataset of the JAX registry but the landmarks (``SfM120kDataset``,
+``RevisitedDataset``), which wait for ROADMAP A8c with A12's landmark
+evaluation.
 """
 
 from __future__ import annotations
 
+from irw_tpu_torch.data.cifar import Cifar10Retrieval, Cifar100RetrievalDataset, CifarDataset
+from irw_tpu_torch.data.datasets_image import (
+    Cub200Dataset,
+    Cub200Indomain,
+    ImageFolderDataset,
+    ImageNet100Hashing,
+    INaturalistDataset,
+    InShopDataset,
+    SOPDataset,
+    StanfordDog12Dataset,
+    TexturedDataset,
+)
+from irw_tpu_torch.data.datasets_multilabel import (
+    COCOHashing,
+    MIRFlickrHashing,
+    NUSWIDEHashing,
+    VOC2012Hashing,
+)
 from irw_tpu_torch.data.synthetic import (
     SyntheticDataset,
     SyntheticHashingDataset,
@@ -17,11 +35,24 @@ DATASET_REGISTRY = {
     "SyntheticDataset": SyntheticDataset,
     "SyntheticHashingDataset": SyntheticHashingDataset,
     "SyntheticVOCDataset": SyntheticVOCDataset,
+    "Cub200Dataset": Cub200Dataset,
+    "ImageFolderDataset": ImageFolderDataset,
+    "Cub200Indomain": Cub200Indomain,
+    "SOPDataset": SOPDataset,
+    "InShopDataset": InShopDataset,
+    "INaturalistDataset": INaturalistDataset,
+    "StanfordDog12Dataset": StanfordDog12Dataset,
+    "TexturedDataset": TexturedDataset,
+    "ImageNet100Hashing": ImageNet100Hashing,
+    "VOC2012Hashing": VOC2012Hashing,
+    "MIRFlickrHashing": MIRFlickrHashing,
+    "COCOHashing": COCOHashing,
+    "NUSWIDEHashing": NUSWIDEHashing,
+    "CifarDataset": CifarDataset,
+    "Cifar100RetrievalDataset": Cifar100RetrievalDataset,
+    "Cifar10Retrieval": Cifar10Retrieval,
 }
-_LATER = ("Cub200Dataset", "ImageFolderDataset", "Cub200Indomain", "SOPDataset", "InShopDataset",
-          "INaturalistDataset", "StanfordDog12Dataset", "TexturedDataset", "ImageNet100Hashing",
-          "VOC2012Hashing", "MIRFlickrHashing", "COCOHashing", "NUSWIDEHashing", "CifarDataset",
-          "Cifar100RetrievalDataset", "Cifar10Retrieval", "SfM120kDataset", "RevisitedDataset")
+_LATER = ("SfM120kDataset", "RevisitedDataset")
 
 # datasets whose eval side is an explicit query/gallery pair
 QUERY_GALLERY_DATASETS = {
@@ -40,8 +71,8 @@ QUERY_GALLERY_DATASETS = {
 
 def get_dataset(name: str, mode: str = "train", **kwargs):
     if name in _LATER:
-        raise NotImplementedError(f"dataset {name!r} is read from files, which waits for "
-                                  "ROADMAP A8c")
+        raise NotImplementedError(f"dataset {name!r} (the landmarks) waits for ROADMAP A8c, "
+                                  "with A12's landmark evaluation")
     try:
         ctor = DATASET_REGISTRY[name]
     except KeyError as exc:

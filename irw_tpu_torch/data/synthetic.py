@@ -1,5 +1,4 @@
-"""Deterministic in-memory datasets (port of ``irw_tpu/data/synthetic.py:16-201``
-and of the parts of ``irw_tpu/data/base.py:10-75`` the samplers read).
+"""Deterministic in-memory datasets (port of ``irw_tpu/data/synthetic.py:16-201``).
 
 The images are drawn with numpy exactly as the JAX package draws them, so
 one seed gives the same uint8 arrays and labels in both packages.  They are
@@ -10,49 +9,9 @@ index instead.
 
 from __future__ import annotations
 
-from collections import defaultdict
-
 import numpy as np
 
-
-class InMemoryDataset:
-    """``labels`` (N,) class ids or (N, C) float multi-label vectors,
-    ``super_labels`` (N,) ints, ``images`` (N, H, W, 3) uint8; the class and
-    super-label index maps the samplers draw from."""
-
-    labels: np.ndarray
-    super_labels: np.ndarray | None = None
-    images: np.ndarray
-
-    def __len__(self):
-        return len(self.images)
-
-    @property
-    def instance_dict(self) -> dict:
-        """class → indices; for multi-label, class c → the samples with
-        label c on (base.py:34-48)."""
-        if getattr(self, "_instance_dict", None) is None:
-            d = defaultdict(list)
-            if self.labels.ndim > 1:
-                for c in range(self.labels.shape[1]):
-                    d[c] = np.where(self.labels[:, c] > 0)[0].tolist()
-            else:
-                for i, lbl in enumerate(self.labels):
-                    d[int(lbl)].append(i)
-            self._instance_dict = dict(d)
-        return self._instance_dict
-
-    @property
-    def super_dict(self) -> dict | None:
-        """super → class → indices (base.py:50-60)."""
-        if self.super_labels is None:
-            return None
-        if getattr(self, "_super_dict", None) is None:
-            d = defaultdict(lambda: defaultdict(list))
-            for i, (lbl, sup) in enumerate(zip(self.labels, self.super_labels)):
-                d[int(sup)][int(lbl)].append(i)
-            self._super_dict = {s: dict(c) for s, c in d.items()}
-        return self._super_dict
+from irw_tpu_torch.data.base import InMemoryDataset
 
 
 class SyntheticDataset(InMemoryDataset):

@@ -85,7 +85,7 @@ def run(config, device=None) -> dict:
     # the first batch through the train stages: its size fixes the ViTs'
     # token count, as the JAX init reads it from a sample batch
     first = sampler.batches[0]
-    images = host_train.batch([train_ds.images[i] for i in first],
+    images = host_train.batch([train_ds.load_image(int(i)) for i in first],
                               np.random.RandomState(seed), True)
     with torch.inference_mode():
         sample = device_train(images)

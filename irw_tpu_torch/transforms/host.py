@@ -24,8 +24,12 @@ equal PIL's bit for bit (``tests/test_torch_host_transforms.py``):
 ``plan`` draws one image's steps; ``apply`` runs them on an (H, W, 3)
 uint8 image, computing a resize followed by an in-bounds crop only over
 the crop.  ``HostTransform.batch`` draws every image's plan in
-turn, then runs the pixels.  ``MultiCrop``, ``ColorJitter`` with a hue,
-``RandomGrayscale`` and ``GaussianBlur`` wait for ROADMAP A8c.
+turn, then runs the pixels.  ``native_plan`` gives the same draws as a plan
+the host image loader (``irw_tpu_torch.native``) runs from the file, or
+None where an image needs a crop past its edge, which the loader does not
+fill (port of ``HostTransform.plan``, ``irw_tpu/transforms/pipeline.py:259-344``).
+``MultiCrop``, ``ColorJitter`` with a hue, ``RandomGrayscale`` and
+``GaussianBlur`` wait for ROADMAP A8c.
 """
 
 from __future__ import annotations
@@ -272,6 +276,40 @@ def plan(ops, width: int, height: int, rng: np.random.RandomState, train: bool):
                 steps.append(("resize", new_w, new_h, BICUBIC))
                 w, h = new_w, new_h
     return steps, w, h
+
+
+def native_plannable(ops, train: bool) -> bool:
+    """Whether the host image loader can run ``ops`` (``irw_tpu/transforms/
+    pipeline.py:232-257``): every geometry op and the colour ops, but not
+    ``MultiCrop`` in training (a list of crops) nor, in training,
+    ``ColorJitter`` with a hue (Pillow's HSV round trip)."""
+    for name, kw in ops:
+        if name == "MultiCrop":
+            if train:
+                return False
+        elif name == "ColorJitter":
+            if train and kw.get("hue", 0.0):
+                return False
+        elif name not in _OPS and name not in _LATER:
+            return False
+    return True
+
+
+def native_plan(ops, width: int, height: int, rng: np.random.RandomState, train: bool):
+    """``plan``'s draws as (steps, out_w, out_h) for ``native.pack_plan``,
+    or None where a crop reaches past the image, which only the host stage
+    fills."""
+    steps, out_w, out_h = plan(ops, width, height, rng, train)
+    w, h = width, height
+    for step in steps:
+        if step[0] == "resize":
+            w, h = step[1:3]
+        elif step[0] == "crop":
+            _, left, top, w_crop, h_crop = step
+            if left < 0 or top < 0 or left + w_crop > w or top + h_crop > h:
+                return None
+            w, h = w_crop, h_crop
+    return steps, out_w, out_h
 
 
 def apply(img: np.ndarray, steps) -> np.ndarray:

@@ -74,6 +74,9 @@ def test_port_and_chip_smoke_import_no_jax():
             "irw_tpu_torch.data.registry", "irw_tpu_torch.getter", "irw_tpu_torch.run",
             "irw_tpu_torch.single_experiment_runner", "irw_tpu_torch.studies",
             "irw_tpu_torch.studies.run_plan"} <= set(modules)
+    assert {"irw_tpu_torch.native", "irw_tpu_torch.native.build", "irw_tpu_torch.data.base",
+            "irw_tpu_torch.data.cifar", "irw_tpu_torch.data.datasets_image",
+            "irw_tpu_torch.data.datasets_multilabel"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r} + ['irw_tpu_torch', 'chip_smoke']:\n"
@@ -84,6 +87,31 @@ def test_port_and_chip_smoke_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True, timeout=300)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_files_load_through_the_library_without_pillow(tmp_path):
+    """A VOC tree of baseline JPEGs loads through the port with its library
+    built, and Pillow never loads: it is the fallback's alone."""
+    from test_torch_native_loader import write_voc_tree
+
+    data_dir = write_voc_tree(tmp_path, n_train=8, n_val=2, special={})
+    code = (
+        "import json, sys\n"
+        "from irw_tpu_torch.data import EpochLoader, get_dataset\n"
+        "from irw_tpu_torch.transforms import HostTransform\n"
+        f"ds = get_dataset('VOC2012Hashing', data_dir={data_dir!r})\n"
+        "ops = [('Resize', {'size': 40}), ('RandomResizedCrop', {'size': 32}),\n"
+        "       ('ColorJitter', {'brightness': 0.25, 'contrast': 0.25, 'saturation': 0.25}),\n"
+        "       ('RandomHorizontalFlip', {})]\n"
+        "loader = EpochLoader(ds, [[0, 1, 2, 3], [4, 5, 6, 7]], HostTransform(ops),\n"
+        "                     num_workers=2)\n"
+        "shapes = [b['image'].shape for b in loader]\n"
+        "shapes.append(ds.load_image(5).shape)\n"
+        "print(json.dumps([sorted(set(loader.routes.values())), 'PIL' in sys.modules,\n"
+        "                  len(shapes)]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         check=True, timeout=300)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [["native"], False, 3]
 
 
 @pytest.fixture()
