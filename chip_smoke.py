@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases card,build,siblings
     python3 chip_smoke.py --phases card,build,trunks
     python3 chip_smoke.py --phases card,build,files
+    python3 chip_smoke.py --phases card,build,wavenets
 
 Drives the port's serving path — uint8 images → DeviceTransform (/255, Haar
 SWT: kernel K1) → the flagship MultiDinoHashing (4 × DINOv2 ViT-S/14 at
@@ -190,7 +191,21 @@ configuration of the family — and prints one line per phase:
    (2 steps of 128, one cosine eval; K4 = 1 a step), each batch's decode
    route, trained img/s; K1 and K4 on the first decoded train batches and
    K2 and K3 on block 0's q, k, v of the first step, each against its plain
-   version.
+   version;
+24. wavenets: the wavelet CNNs (ROADMAP A10b), each from its ``configs/model``
+   file through ``compose`` and the ``Getter`` at full width.
+   ``wresnet_sdd_ce`` + ``sdd`` (the in-model DWT on K4, 4 x ResNet-50 with
+   the 1 x 1 stem at 112², per-band CE over 120 classes) and ``mtwavenet50``
+   + ``cub_dwt`` (K4 in ``CustomTransform``, 4 staged ResNet-50s with a
+   cross-band attention after each stage, 272 M parameters, an embedding
+   loss, ``model.freeze_batch_norm``) each serve 3 warm-up and 20 timed
+   batches of 64 (K4 = 1 a batch, img/s, peak memory, each distinct batch
+   against K4's plain route) and train 3 warm-up and 10 timed steps
+   (``multi_ce`` at batch 16, ``pair_loss`` at cub.yaml's 128;
+   ``basic.yaml``'s AdamW; K4 = 1 a step; for ``wresnet_sdd_ce`` one step's
+   K4 route against its plain route); each other A10b config serves a batch
+   of 8 and takes one train step of 8 (K4 = 1 each; ``mtwavenet_fusion_dml``'s
+   training raises, as its JAX init does).
 
 Then a JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -200,6 +215,7 @@ is non-zero and the last line is not printed.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -213,7 +229,7 @@ import numpy as np
 PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train", "loop",
           "runner", "dwt", "wcnn", "wavelets", "wcnn_train", "wcnn_xbm", "losses", "flash",
           "flash_serve", "flash_train", "qkv", "qkv_micro", "variants", "siblings", "trunks",
-          "files")
+          "files", "wavenets")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -462,6 +478,36 @@ FILES_CUB_JOB = ["dataset=cub", "transform=cub_dwt", "model=wcnn_attention_ce",
                  f"experience.evaluation.top_k={FILES_CUB_CLASSES * FILES_CUB_TEST}"]
 FILES_SPECIAL = {3: "cmyk", 4: "gray", 5: "png", 6: "truncated"}
 FILES_LOADER_WORKERS = 8   # configs/experience/default.yaml's num_workers
+# the wavenets phase: every wavelet-CNN config of configs/model (ROADMAP A10b)
+# with a transform whose test split fits its input (images for the in-model
+# DWT, CustomTransform's band stack for the others) and a loss file of
+# configs/loss (None: the config trains in neither package); the two paths of
+# WAVENET_MAIN are served and trained at full width and timed: (transform,
+# loss, train batch).  wresnet_sdd_ce trains at 16, not sdd.yaml's 128: one
+# image holds ~2-4 GB of activations there (4 x ResNet-50 at 112² past the
+# 1 x 1 stem); mtwavenet50 at cub.yaml's 128.  The JAX factory builds
+# mtwavenet50 without classes, so it trains an embedding loss.
+# tests/test_torch_wavenet_configs.py holds these to the files
+WAVENET_CONFIGS = {
+    "wresnet": ("sdd", "pair_loss.yaml"),
+    "wresnet_cifar": ("cifar", "pair_loss.yaml"),
+    "wresnet_cifar_ce": ("cifar", "multi_ce.yaml"),
+    "wresnet_sdd": ("sdd", "pair_loss.yaml"),
+    "wresnet_sdd_ce": ("sdd", "multi_ce.yaml"),
+    "mtwavenet": ("cub_dwt", "multi_ce.yaml"),
+    "mtwavenet50": ("cub_dwt", "pair_loss.yaml"),
+    "mtwavenet50_fusion": ("cub_dwt", "multi_ce_fusionloss.yaml"),
+    "mtwavenet_fusion": ("cub_dwt", "multi_ce_fusionloss.yaml"),
+    "mtwavenet_fusion_dml": ("cub_dwt", None),
+    "mtwavenet_tuned": ("cub_dwt", "multi_ce.yaml"),
+    "hybrid_wavenet": ("cub_dwt", "celoss.yaml"),
+    "hybrid_wavenet_v2": ("cub_dwt", "celoss.yaml"),
+}
+WAVENET_MAIN = {"wresnet_sdd_ce": ("sdd", "multi_ce.yaml", 16),
+                "mtwavenet50": ("cub_dwt", "pair_loss.yaml", CUB_BATCH)}
+WAVENET_OPTIMIZER = OPTIMIZER      # configs/optimizer/basic.yaml
+WAVENET_STEPS = 10
+WAVENET_SMALL = 8                  # the other configs' served batch and train step
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -2223,27 +2269,41 @@ def _cub_batches(n: int, seed: int, memory: int | None = None) -> list:
     return batches
 
 
-def _wcnn_route_step(tstate, step, batch, hyper, snapshot, plain: bool):
-    """One step from the ``snapshot`` weights with CustomTransform on K4 or
-    on its plain version; (total_loss, flattened gradient per top-level
-    module)."""
+def _k4_route_step(tstate, step, batch, hyper, snapshot, plain: bool):
+    """One step from the ``snapshot`` weights with K4 or with its plain
+    version at both call sites; (total_loss, the gradient of each top-level
+    module, flattened, frozen parameters left out)."""
     import torch
-
-    from irw_tpu_torch.ops.wavelets import lifting_multi_level_plain
-    from irw_tpu_torch.transforms import pipeline
 
     model = tstate.model
     model.load_state_dict(snapshot)
-    kernel_fn = pipeline.lifting_multi_level
-    if plain:
-        pipeline.lifting_multi_level = lifting_multi_level_plain
-    try:
+    with _k4_plain() if plain else contextlib.nullcontext():
         metrics = step(tstate, batch, hyper)
-    finally:
-        pipeline.lifting_multi_level = kernel_fn
-    grads = {name: torch.cat([p.grad.flatten() for p in child.parameters()])
+    grads = {name: torch.cat([p.grad.flatten() for p in child.parameters()
+                              if p.grad is not None])
              for name, child in model.named_children()}
     return float(metrics["total_loss"]), grads
+
+
+def _hold_k4_route(phase: str, tstate, step, batch, hyper):
+    """The same train step from the same weights on K4's route and on its
+    plain route: total_loss within ROUTE_LOSS_TOL, the gradient of each
+    top-level module at cosine ROUTE_COSINE or more."""
+    import torch
+
+    snapshot = {k: v.clone() for k, v in tstate.model.state_dict().items()}
+    loss_k, grads_k = _k4_route_step(tstate, step, batch, hyper(), snapshot, plain=False)
+    loss_p, grads_p = _k4_route_step(tstate, step, batch, hyper(), snapshot, plain=True)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cosines = {m: float(torch.nn.functional.cosine_similarity(grads_k[m], grads_p[m], dim=0))
+               for m in grads_k}
+    log(phase, f"K4 vs plain route: total_loss {loss_k:.6f} vs {loss_p:.6f} (rel {rel:.2e}, "
+               f"limit {ROUTE_LOSS_TOL}); gradient cosine per module "
+               + ", ".join(f"{m} {c:.6f}" for m, c in cosines.items())
+               + f" (limit {ROUTE_COSINE})")
+    if not (rel <= ROUTE_LOSS_TOL and all(c >= ROUTE_COSINE for c in cosines.values())):
+        raise AssertionError(f"{phase}: the K4 route disagrees with the plain route: {rel}, "
+                             f"{cosines}")
 
 
 def phase_wcnn_train(state):
@@ -2251,8 +2311,6 @@ def phase_wcnn_train(state):
     WCNN_TRAIN_STEPS timed ones at CUB's batch (K4 once a step); the K4
     route against the plain route from identical weights; one step
     profiled."""
-    import torch
-
     from irw_tpu_torch.engine import build_train_step, init_train_state
     from irw_tpu_torch.engine.train import _build_hyper
     from irw_tpu_torch.losses import build_losses
@@ -2276,18 +2334,7 @@ def phase_wcnn_train(state):
         "host stage is outside the window, ROADMAP M0")
     _check_finite("wcnn_train", metrics, WCNN_TRAIN_METRICS)
 
-    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
-    loss_k, grads_k = _wcnn_route_step(tstate, step, batches[0], hyper(), snapshot, plain=False)
-    loss_p, grads_p = _wcnn_route_step(tstate, step, batches[0], hyper(), snapshot, plain=True)
-    rel = abs(loss_k - loss_p) / abs(loss_p)
-    cosines = {m: float(torch.nn.functional.cosine_similarity(grads_k[m], grads_p[m], dim=0))
-               for m in grads_k}
-    log("wcnn_train", f"K4 vs plain route: total_loss {loss_k:.6f} vs {loss_p:.6f} (rel "
-                      f"{rel:.2e}, limit {ROUTE_LOSS_TOL}); gradient cosine per module "
-                      + ", ".join(f"{m} {c:.6f}" for m, c in cosines.items())
-                      + f" (limit {ROUTE_COSINE})")
-    if not (rel <= ROUTE_LOSS_TOL and all(c >= ROUTE_COSINE for c in cosines.values())):
-        raise AssertionError(f"the K4 route disagrees with the plain route: {rel}, {cosines}")
+    _hold_k4_route("wcnn_train", tstate, step, batches[0], hyper)
 
     busy_ms = _device_profile("wcnn_train", lambda: step(tstate, batches[1], hyper()),
                               f"one train step of {CUB_BATCH}", state, _WCNN_GROUPS)
@@ -4140,6 +4187,242 @@ def phase_files(state):
     _release_earlier_phases(state)
 
 
+@contextlib.contextmanager
+def _k4_plain():
+    """K4's plain version in both of its call sites: ``CustomTransform``'s
+    route 1 and the in-model DWT of ``WaveResNet(CE)``."""
+    from irw_tpu_torch.models import wresnet
+    from irw_tpu_torch.ops.wavelets import lifting_multi_level_plain
+    from irw_tpu_torch.transforms import pipeline
+
+    saved = wresnet.lifting_multi_level, pipeline.lifting_multi_level
+    wresnet.lifting_multi_level = pipeline.lifting_multi_level = lifting_multi_level_plain
+    try:
+        yield
+    finally:
+        wresnet.lifting_multi_level, pipeline.lifting_multi_level = saved
+
+
+def _wavenet_model(config: str, transform: str):
+    """``configs/model/<config>.yaml`` with ``transform=<transform>`` composed
+    over ``configs/default.yaml`` and built by the ``Getter`` at full width,
+    seed 0, on the card; (config, model, the test split's and the train
+    split's device stage, build seconds)."""
+    from irw_tpu_torch import single_experiment_runner as runner
+    from irw_tpu_torch.config import compose
+    from irw_tpu_torch.getter import Getter
+    from irw_tpu_torch.transforms import build_transforms
+
+    cfg = compose(runner.CONFIG_DIR, "default", [f"model={config}", f"transform={transform}"])
+    t0 = time.perf_counter()
+    model = Getter().get_model(cfg.model, seed=0)
+    build_s = time.perf_counter() - t0
+    return (cfg, model, build_transforms(cfg.transform.test)[1],
+            build_transforms(cfg.transform.train)[1], build_s)
+
+
+def _wavenet_batches(n: int, batch: int, size: int, classes: int, seed: int) -> list:
+    """``n`` batches of uint8 ``size``² images and labels in [0, classes),
+    made on the card (the host stage's geometry is outside the path)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [{"image": torch.randint(0, 256, (batch, size, size, 3), generator=gen,
+                                    device="cuda", dtype=torch.uint8),
+             "label": torch.randint(0, classes, (batch,), generator=gen, device="cuda",
+                                    dtype=torch.int32)} for _ in range(n)]
+
+
+def _wavenet_step(cfg, model, train_dev, loss_file: str):
+    """The train state and step of ``model`` with ``configs/loss/<loss_file>``
+    and ``configs/optimizer/basic.yaml``'s AdamW, the config's freezing set
+    applied; (state, step, hyper, freezing set)."""
+    import os
+
+    from irw_tpu_torch import single_experiment_runner as runner
+    from irw_tpu_torch.config import yaml_lite
+    from irw_tpu_torch.engine import build_train_step, init_train_state
+    from irw_tpu_torch.engine.train import _build_hyper
+    from irw_tpu_torch.losses import build_losses
+    from irw_tpu_torch.utils.freezing import config_freeze_set
+
+    loss_cfg = yaml_lite.load(os.path.join(runner.CONFIG_DIR, "loss", loss_file))
+    frozen = config_freeze_set(model, cfg.model)
+    tstate = init_train_state(model, build_losses(loss_cfg), WAVENET_OPTIMIZER, loss_cfg,
+                              seed=0, frozen_collections=frozen)
+    step = build_train_step(train_dev, frozen_collections=frozen)
+
+    def hyper():
+        return _build_hyper(tstate.optimizer_entries, 1, tstate.step, 0, None)
+
+    return tstate, step, hyper, frozen
+
+
+def _serve_wavenet(state, config: str, model, device, size: int, classes: int, held: int):
+    """WARMUP_CALLS and SERVE_BATCHES timed batches of BATCH through the test
+    split's device stage and ``model`` (K4 once a batch), then each distinct
+    batch held against the same model with K4's plain version."""
+    import torch
+
+    batches = [b["image"] for b in _wavenet_batches(SERVE_DISTINCT, BATCH, size, classes, 20)]
+    kernels = _kernel_wrappers()
+    with torch.inference_mode():
+        for i in range(WARMUP_CALLS):
+            model(device(batches[i % SERVE_DISTINCT]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels:
+            fn.launches = 0
+        per_batch, outs = [], []
+        t0 = time.perf_counter()
+        for i in range(SERVE_BATCHES):
+            before = [fn.launches for fn in kernels]
+            out = model(device(batches[i % SERVE_DISTINCT]))[0]
+            if i < SERVE_DISTINCT:
+                outs.append(out)
+            per_batch.append(tuple(fn.launches - b for fn, b in zip(kernels, before)))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        counts = _launch_counts(kernels)
+        state["launches"][f"wavenets_{config}_serve"] = counts
+        _check_launches("wavenets", per_batch, (0, 0, 0, 1, 0, 0, 0), f"batch, {config}")
+        ips = SERVE_BATCHES * BATCH / seconds
+        log("wavenets", f"{config}: {ips:.1f} img/s, {seconds / SERVE_BATCHES * 1e3:.1f} ms per "
+                        f"batch of {BATCH} ({SERVE_BATCHES} timed after {WARMUP_CALLS}; device "
+                        f"stage + model), output {tuple(outs[0].shape)} | the path's own peak "
+                        f"memory {peak / 2 ** 30:.2f} GiB | {state['card']}")
+        batch_ms = seconds / SERVE_BATCHES * 1e3
+        busy_ms = _device_profile("wavenets", lambda: model(device(batches[0])),
+                                  f"{config}: one served batch of {BATCH}", state, _WCNN_GROUPS)
+        if busy_ms is not None:
+            log("wavenets", f"{config}: idle share against the timed batches' {batch_ms:.1f} "
+                            f"ms: {1 - busy_ms / batch_ms:.3f}")
+        with _k4_plain():
+            for i, (images, out) in enumerate(zip(batches, outs)):
+                ref = model(device(images))[0]
+                dmax = (out - ref).abs().max().item()
+                log("wavenets", f"{config}, batch {i}: max|emb - K4's plain route| = {dmax:.3e} "
+                                f"(limit {WCNN_EMB_TOL})")
+                unit = torch.allclose(out.norm(dim=-1), torch.ones_like(out[:, 0]), atol=1e-5)
+                if not (torch.isfinite(out).all() and unit and dmax <= WCNN_EMB_TOL):
+                    raise AssertionError(f"wavenets: {config}'s batch {i} is not finite and unit "
+                                         f"or strays {dmax} from K4's plain route")
+    return ips
+
+
+def _train_wavenet(state, config: str, cfg, model, train_dev, loss_file: str, batch: int,
+                   held: int):
+    """WARMUP_CALLS steps, then WAVENET_STEPS timed ones at ``batch`` of 224²
+    images (K4 once a step); finite metrics; returns (state, step, hyper,
+    batches, mean ms a step)."""
+    classes = cfg.model.kwargs.to_dict().get("num_classes") or 100
+    tstate, step, hyper, frozen = _wavenet_step(cfg, model, train_dev, loss_file)
+    batches = _wavenet_batches(2, batch, 224, classes, 21)
+    metrics, step_ms = _timed_steps(
+        "wavenets", state, tstate, step, batches, hyper, WARMUP_CALLS, WAVENET_STEPS,
+        (0, 0, 0, 1, 0, 0, 0), held, batch,
+        f"{config} with {loss_file}, basic.yaml's AdamW, freezing set {frozen}, f32 with "
+        "TF32 convs; images made on the card")
+    state["launches"][f"wavenets_{config}_train"] = state["launches"].pop("wavenets")
+    _check_finite("wavenets", metrics, ("total_loss", "grad_norm"))
+    return tstate, step, hyper, batches, step_ms
+
+
+def phase_wavenets(state):
+    """The wavelet CNNs (ROADMAP A10b) at full width through ``compose``,
+    the ``Getter`` and ``build_train_step``: ``wresnet_sdd_ce`` + ``sdd``
+    (the in-model DWT on K4, 4 x ResNet-50 with the 1 x 1 stem at 112²) and
+    ``mtwavenet50`` + ``cub_dwt`` (K4 in ``CustomTransform``, 4 staged
+    ResNet-50s with the cross-band attention) served and trained, K4's
+    route held against its plain route; every other A10b config serves a
+    batch and takes a train step (``mtwavenet_fusion_dml``'s raises, as in
+    JAX)."""
+    import torch
+
+    precision = (f"cuDNN TF32 {torch.backends.cudnn.allow_tf32}, matmul TF32 "
+                 f"{torch.backends.cuda.matmul.allow_tf32}")
+    results = {}
+    for config, (transform, loss_file, batch) in WAVENET_MAIN.items():
+        held = _release_earlier_phases(state)
+        cfg, model, serve_dev, train_dev, build_s = _wavenet_model(config, transform)
+        n_params = sum(p.numel() for p in model.parameters())
+        classes = cfg.model.kwargs.to_dict().get("num_classes") or 100
+        log("wavenets", f"{config} + {transform}: {type(model).__name__}, {n_params / 1e6:.1f} M "
+                        f"parameters, f32, built in {build_s:.1f} s; device stage "
+                        f"{[n for n, _ in serve_dev.ops]}; {precision}")
+        ips = _serve_wavenet(state, config, model, serve_dev, 224, classes, held)
+        tstate, step, hyper, batches, step_ms = _train_wavenet(
+            state, config, cfg, model, train_dev, loss_file, batch, held)
+        busy_ms = _device_profile("wavenets", lambda: step(tstate, batches[1], hyper()),
+                                  f"{config}: one train step of {batch}", state, _WCNN_GROUPS)
+        if busy_ms is not None:
+            log("wavenets", f"{config}: idle share against the timed steps' {step_ms:.1f} ms: "
+                            f"{1 - busy_ms / step_ms:.3f}")
+        frozen_bn = [m for m in model.modules() if getattr(m, "frozen_bn", False)]
+        log("wavenets", f"{config}: model.freeze_batch_norm {cfg.model.freeze_batch_norm} (the "
+                        f"freezing set: every BatchNorm's scale and bias); trunks with frozen_bn "
+                        f"(statistics pinned) {len(frozen_bn)}, as the JAX factory builds it")
+        results[config] = (ips, step_ms, torch.cuda.max_memory_allocated() - held)
+        if config.startswith("wresnet"):  # the new call site of K4: its training route
+            _hold_k4_route("wavenets", tstate, step, batches[0], hyper)
+        del model, tstate, step, batches
+
+    kernels = _kernel_wrappers()
+    for config, (transform, loss_file) in WAVENET_CONFIGS.items():
+        if config in WAVENET_MAIN:
+            continue
+        _release_earlier_phases(state)
+        cfg, model, serve_dev, train_dev, build_s = _wavenet_model(config, transform)
+        size = 32 if transform == "cifar" else 224
+        classes = cfg.model.kwargs.to_dict().get("num_classes") or 100
+        batches = _wavenet_batches(1, WAVENET_SMALL, size, classes, 22)
+        for fn in kernels:
+            fn.launches = 0
+        with torch.inference_mode():
+            out = model(serve_dev(batches[0]["image"]))[0]
+        _check_launches("wavenets", [tuple(fn.launches for fn in kernels)],
+                        (0, 0, 0, 1, 0, 0, 0), f"served batch, {config}")
+        unit = bool(torch.allclose(out.norm(dim=-1), torch.ones_like(out[:, 0]), atol=1e-5))
+        if not (out.shape[0] == WAVENET_SMALL and out.dim() == 2 and torch.isfinite(out).all()
+                and unit == (type(model).__name__ != "WaveResNet")):
+            raise AssertionError(f"wavenets: {config} served {tuple(out.shape)}, unit {unit}")
+        if loss_file is None:
+            model.train()
+            try:
+                model(serve_dev(batches[0]["image"]))
+            except TypeError as exc:
+                trained = f"training raises as in JAX ({str(exc)[:60]}...)"
+            else:
+                raise AssertionError(f"wavenets: {config} trained without classes")
+        else:
+            tstate, step, hyper, frozen = _wavenet_step(cfg, model, train_dev, loss_file)
+            for fn in kernels:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(tstate, batches[0], hyper())
+            torch.cuda.synchronize()
+            _check_launches("wavenets", [tuple(fn.launches for fn in kernels)],
+                            (0, 0, 0, 1, 0, 0, 0), f"train step, {config}")
+            _check_finite("wavenets", [metrics], ("total_loss", "grad_norm"))
+            trained = (f"one step of {WAVENET_SMALL} with {loss_file} in "
+                       f"{time.perf_counter() - t0:.2f} s (its first: plans and allocations), "
+                       f"freezing set {frozen}")
+            del tstate, step
+        n_params = sum(p.numel() for p in model.parameters())
+        log("wavenets", f"{config} + {transform}: {type(model).__name__}, {n_params / 1e6:.1f} M "
+                        f"parameters, built in {build_s:.1f} s; served {tuple(out.shape)} "
+                        f"(unit {unit}); {trained} | {state['card']}")
+        del model
+    _release_earlier_phases(state)
+    for config, (ips, step_ms, peak) in results.items():
+        log("wavenets", f"summary {config}: {ips:.1f} img/s served at batch {BATCH}, "
+                        f"{step_ms:.1f} ms a train step at batch {WAVENET_MAIN[config][2]}, "
+                        f"training's peak memory {peak / 2 ** 30:.2f} GiB above what was held "
+                        f"before the model | {state['card']}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -4173,7 +4456,8 @@ def main(argv=None) -> int:
                "flash": phase_flash,
                "flash_serve": phase_flash_serve, "flash_train": phase_flash_train,
                "qkv": phase_qkv, "qkv_micro": phase_qkv_micro, "variants": phase_variants,
-               "siblings": phase_siblings, "trunks": phase_trunks, "files": phase_files}
+               "siblings": phase_siblings, "trunks": phase_trunks, "files": phase_files,
+               "wavenets": phase_wavenets}
     for name in phases:
         if name != "card":
             t0 = time.perf_counter()
@@ -4191,7 +4475,8 @@ def main(argv=None) -> int:
                "loop": ("loop", LOOP_EPOCHS * LOOP_STEPS),
                "runner": ("runner", RUNNER_EPOCHS * RUNNER_STEPS),
                "wcnn": ("wcnn_train", WCNN_TRAIN_STEPS), "wcnn_xbm": ("wcnn_xbm", XBM_STEPS),
-               "shared": ("siblings_train", TRAIN_STEPS)}
+               "shared": ("siblings_train", TRAIN_STEPS),
+               **{config: (f"wavenets_{config}_train", WAVENET_STEPS) for config in WAVENET_MAIN}}
     served = {"flagship": ("serve", SERVE_BATCHES), "wcnn": ("wcnn", WCNN_BATCHES),
               "flash": ("flash_serve", SERVE_BATCHES),
               "loop_eval": ("loop_eval", LOOP_EVAL_BATCHES),
@@ -4199,7 +4484,8 @@ def main(argv=None) -> int:
               "wavelets_A": ("wavelets_A", SERVE_BATCHES),
               "wavelets_B": ("wavelets_B", SERVE_BATCHES),
               "shared": ("siblings_serve", SERVE_BATCHES),
-              **{config: (f"trunks_{config}", TRUNK_TIMED) for config in TRUNK_SWT}}
+              **{config: (f"trunks_{config}", TRUNK_TIMED) for config in TRUNK_SWT},
+              **{config: (f"wavenets_{config}_serve", SERVE_BATCHES) for config in WAVENET_MAIN}}
     if "default_units" in state:  # the default composition's run (trunks)
         trained["default"] = ("trunks_default", state["default_units"][0])
         served["default_eval"] = ("trunks_default_eval", state["default_units"][1])

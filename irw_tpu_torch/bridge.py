@@ -16,11 +16,19 @@ are read with ``np.asarray``.  Handled layouts:
   ``prompts`` too);
 - a LayerNorm as ``LayerNorm_0/{scale,bias}``, or a DSLN's per-domain
   ``scale``/``bias`` of shape (num_domains, D);
-- ``BandedResNet_0/VmapResNet_0/…`` with the band axis leading (a ``WCNN``
-  or ``WCNNAttention``; the subband gate's Dense or ECA conv and the
-  classifiers ``DenseGeneral_0`` and ``Dense_0`` beside it), or a bare
-  ``ResNet`` tree (``Conv_0``, ``BatchNorm_0``, ``Bottleneck_i`` or
-  ``BasicBlock_i``), or a bare subband gate;
+- ``BandedResNet_0/VmapResNet_0/…`` with the band axis leading (a ``WCNN``,
+  ``WCNNAttention``, ``WaveResNet`` or ``WaveResNetCE``, whose 1×1 stem
+  kernel is (1, 1, 3, 64); the subband gate's Dense or ECA conv and the
+  classifiers ``DenseGeneral_0`` (``branch_classifiers``) and ``Dense_0``
+  beside it), or a bare ``ResNet`` tree (``Conv_0``, ``BatchNorm_0``,
+  ``Bottleneck_i`` or ``BasicBlock_i``), or a bare subband gate;
+- the mtwavenet family: ``_BandedStagedResNet_0`` with ``VmapStem_0``,
+  ``VmapStage_0..3`` (their blocks numbered per stage, the band axis
+  leading), ``att_block1..4`` (``CrossBandAttention``: ``Dense_0``,
+  ``Dense_1``, and with its spatial gate ``Conv_0`` and ``BatchNorm_0``) and
+  ``branch_ln``; beside it ``DenseGeneral_0``, ``ChannelGate1D_0`` and
+  ``Dense_0``; ``HybridMultiBranch``'s ``ResNet_0``, ``VmapDenseNet_0`` and
+  ``Dense_0``; a bare ``ChannelGate1D`` or ``CrossBandAttention``;
 - the single-trunk models: the baselines' ``VisionTransformer_0`` (or
   ``BandedViT_0``) with its ``HashHead_0`` or classifier ``Dense_0``
   (``DINOHashBaseline``, ``SingleBandNet``, ``DinoModelCE``,
@@ -229,24 +237,97 @@ def _gate(tree) -> dict:
 _GATES = ("SubbandCBAM_0", "SubbandEca_0", "SubbandChannelGate_0")
 
 
+def _take(tree, s: int):
+    """Band ``s`` of a tree whose leaves lead with the band axis."""
+    return _map_leaves(lambda x: x[s], tree)
+
+
 def _wcnn(variables) -> dict:
-    """``WCNN`` / ``WCNNAttention``: per-band ResNets, gate, classifiers."""
+    """``WCNN`` / ``WCNNAttention`` / ``WaveResNet(CE)``: per-band ResNets,
+    gate, classifiers."""
     params = variables["params"]
     tree = params["BandedResNet_0"]["VmapResNet_0"]
     stats = variables["batch_stats"]["BandedResNet_0"]["VmapResNet_0"]
     bands = _a(tree["Conv_0"]["kernel"]).shape[0]
     sd = {}
     for s in range(bands):
-        take = (lambda t, s=s: _map_leaves(lambda x: x[s], t))
-        sd.update(_prefixed(f"backbone.branches.{s}", _resnet(take(tree), take(stats))))
-    for name in _GATES:
+        sd.update(_prefixed(f"backbone.branches.{s}",
+                            _resnet(_take(tree, s), _take(stats, s))))
+    return {**sd, **_heads(params)}
+
+
+def _heads(params) -> dict:
+    """The heads beside a wavelet CNN's trunk: a subband gate or
+    ``ChannelGate1D_0`` → ``gate``, the per-band classifier
+    (``DenseGeneral_0``, or ``branch_classifiers``) → ``branch_classifier``,
+    ``Dense_0`` → ``classifier``."""
+    sd = {}
+    for name in (*_GATES, "ChannelGate1D_0"):
         if name in params:
             sd.update(_prefixed("gate", _gate(params[name])))
-    if "DenseGeneral_0" in params:
-        sd.update(_prefixed("branch_classifier", _dense(params["DenseGeneral_0"])))
+    for name in ("DenseGeneral_0", "branch_classifiers"):
+        if name in params:
+            sd.update(_prefixed("branch_classifier", _dense(params[name])))
     if "Dense_0" in params:
         sd.update(_prefixed("classifier", _dense(params["Dense_0"])))
     return sd
+
+
+def _cross_band(params, stats) -> dict:
+    """A ``CrossBandAttention``: its MLP, and the spatial gate's conv and
+    BatchNorm where it has them."""
+    sd = {**_prefixed("fc1", _dense(params["Dense_0"])),
+          **_prefixed("fc2", _dense(params["Dense_1"]))}
+    if "Conv_0" in params:
+        sd["spatial.weight"] = _conv(params["Conv_0"]["kernel"])
+        sd.update(_prefixed("spatial_norm", _batch_norm(params["BatchNorm_0"],
+                                                        stats["BatchNorm_0"])))
+    return sd
+
+
+def _staged(params, stats) -> dict:
+    """``_BandedStagedResNet_0`` → ``BandedStagedResNet``: each band's stem
+    and stages gathered into one ``ResNet`` tree (blocks numbered across the
+    stages), the stage attentions and the LayerNorm."""
+    bands = _a(params["VmapStem_0"]["Conv_0"]["kernel"]).shape[0]
+    flat_p, flat_s = dict(params["VmapStem_0"]), dict(stats["VmapStem_0"])
+    stage = block = 0
+    while f"VmapStage_{stage}" in params:
+        p, st = params[f"VmapStage_{stage}"], stats[f"VmapStage_{stage}"]
+        name = "Bottleneck" if "Bottleneck_0" in p else "BasicBlock"
+        j = 0
+        while f"{name}_{j}" in p:
+            flat_p[f"{name}_{block}"] = p[f"{name}_{j}"]
+            flat_s[f"{name}_{block}"] = st[f"{name}_{j}"]
+            j, block = j + 1, block + 1
+        stage += 1
+    sd = {}
+    for s in range(bands):
+        sd.update(_prefixed(f"branches.{s}", _resnet(_take(flat_p, s), _take(flat_s, s))))
+    for i in range(stage):
+        sd.update(_prefixed(f"att_blocks.{i}", _cross_band(params[f"att_block{i + 1}"],
+                                                           stats.get(f"att_block{i + 1}", {}))))
+    if "branch_ln" in params:
+        sd.update(_prefixed("branch_ln", _ln(params["branch_ln"])))
+    return sd
+
+
+def _mtwavenet(params, stats) -> dict:
+    """``FourBranchResNet(50)`` / ``FourBranchResNet50Fusion``."""
+    sd = _prefixed("backbone", _staged(params["_BandedStagedResNet_0"],
+                                       stats["_BandedStagedResNet_0"]))
+    return {**sd, **_heads(params)}
+
+
+def _hybrid(params, stats) -> dict:
+    """``HybridMultiBranch``: the LL ResNet, the per-band DenseNets, the
+    classifier."""
+    sd = _prefixed("ll_trunk", _resnet(params["ResNet_0"], stats["ResNet_0"]))
+    dense_p, dense_s = params["VmapDenseNet_0"], stats["VmapDenseNet_0"]
+    for s in range(_a(dense_p["Conv_0"]["kernel"]).shape[0]):
+        sd.update(_prefixed(f"detail_trunks.{s}", _densenet(_take(dense_p, s),
+                                                            _take(dense_s, s))))
+    return {**sd, **_heads(params)}
 
 
 def _densenet(params, stats) -> dict:
@@ -357,14 +438,25 @@ def _hash_head(params, stats) -> dict:
 def from_jax_variables(variables) -> dict:
     """flax variables of a model of the multi-band ViT family, a baseline, a
     single-trunk model, a ``VisionTransformer``, ``ResNet``, ``DenseNet`` or
-    ``ConvNeXt``, a fusion head, ``WCNN``, ``WCNNAttention`` or subband gate
-    → the port module's state dict (numpy arrays)."""
+    ``ConvNeXt``, a fusion head, a wavelet CNN (``WCNN``, ``WCNNAttention``,
+    ``WaveResNet(CE)``, the mtwavenet family, ``HybridMultiBranch``), a
+    subband gate, ``ChannelGate1D`` or ``CrossBandAttention`` → the port
+    module's state dict (numpy arrays).  A bare ``ChannelGate1D`` or
+    ``CrossBandAttention`` without its spatial gate is the subband gate's
+    tree (``fc1``, ``fc2``)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     if "norm2" in params or ("BatchNorm_0" in params and any(g in params for g in _GATES)):
         return _fusion_head(params, stats)
     if "BandedResNet_0" in params:
         return _wcnn(variables)
+    if "_BandedStagedResNet_0" in params:
+        return _mtwavenet(params, stats)
+    if "VmapDenseNet_0" in params:
+        return _hybrid(params, stats)
+    if {"Dense_0", "Dense_1", "Conv_0"} <= set(params) <= {"Dense_0", "Dense_1", "Conv_0",
+                                                          "BatchNorm_0"}:
+        return _cross_band(params, stats)   # with its spatial gate
     if "PatchEmbed_0" in params or ("Conv_0" in params and ("BatchNorm_0" in params
                                                             or "LayerNorm_0" in params)):
         return _trunk(params, stats)
@@ -387,8 +479,8 @@ def from_jax_variables(variables) -> dict:
     else:
         raise ValueError(f"no bridge for a tree with {sorted(params)}; the port carries the "
                          "multi-band ViT family, the baselines, the single-trunk models, "
-                         "VisionTransformer, ResNet, DenseNet, ConvNeXt, WCNN, WCNNAttention "
-                         "and the subband gates")
+                         "VisionTransformer, ResNet, DenseNet, ConvNeXt, the wavelet CNNs "
+                         "and the gates")
     if heads:
         sd.update(_prefixed("head", _fusion_head(params[heads[0]], stats.get(heads[0], {}))))
     elif "Dense_0" in params:  # DinoModelCE's classifier

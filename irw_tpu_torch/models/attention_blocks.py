@@ -1,12 +1,14 @@
-"""Subband gates over the branch-embedding stack (port of
-``irw_tpu/models/attention_blocks.py:19-83``).
+"""Subband gates and the cross-band stage attention (port of
+``irw_tpu/models/attention_blocks.py``).
 
-Each gate takes (B, S, D) and returns the gate-weighted MEAN over subbands,
-einsum('bsd,bs->bd') / S, with the (B, S) gate.  The pools over D are taken
-in the input's dtype (a bf16 backbone's, for the ViT fusion heads) and the
-gate and the weighted mean in f32, as the JAX gates (``dtype=float32``)
-promote them.  ``ChannelGate1D`` and ``CrossBandAttention`` belong to
-mtwavenet and wait for ROADMAP A10b.
+Each subband gate takes (B, S, D) and returns the gate-weighted MEAN over
+subbands, einsum('bsd,bs->bd') / S, with the (B, S) gate.  The pools over D
+are taken in the input's dtype (a bf16 backbone's, for the ViT fusion heads)
+and the gate and the weighted mean in f32, as the JAX gates
+(``dtype=float32``) promote them.  ``ChannelGate1D`` (mtwavenet's fusion) is
+the same gate with the weighted SUM, no ``/ S`` (attention_blocks.py:86-105).
+``CrossBandAttention`` gates the stage maps of every band over their S·C
+channels, band-major (attention_blocks.py:108-152).
 """
 
 from __future__ import annotations
@@ -76,3 +78,69 @@ class SubbandCBAM(nn.Module):
 
 
 SUBBAND_GATES = {"cbam": SubbandCBAM, "eca": SubbandEca, "channel": SubbandChannelGate}
+
+
+class ChannelGate1D(nn.Module):
+    """mtwavenet's fusion gate: ``SubbandChannelGate``'s MLP and sigmoid,
+    returning the gate-weighted SUM over subbands (no ``/ S``)."""
+
+    def __init__(self, num_subbands: int = 4):
+        super().__init__()
+        self.fc1 = Linear(num_subbands, num_subbands)
+        self.fc2 = Linear(num_subbands, num_subbands)
+
+    def reset_parameters(self, generator=None):
+        self.fc1.reset_parameters(generator)
+        self.fc2.reset_parameters(generator)
+
+    def forward(self, x):
+        att = sum(self.fc2(F.relu(self.fc1(pooled))) for pooled in (x.mean(dim=-1),
+                                                                    x.amax(dim=-1)))
+        scale = torch.sigmoid(att)
+        return torch.einsum("bsd,bs->bd", x.to(scale.dtype), scale), scale
+
+
+class CrossBandAttention(nn.Module):
+    """Channel attention over the S bands' stage maps taken as one map of
+    S·C channels, band-major (channel s·C + c, the JAX module's
+    ``moveaxis(x, 1, -2).reshape(b, h, w, s * c)``): avg- and max-pool over
+    the map, one MLP (S·C → S·C → S·C, reduction ratio 1) shared by both
+    pools, sigmoid of the sum, times the maps.  With ``no_spatial=False`` a
+    spatial gate follows: the channels' max and mean (in that order) → a
+    bias-free 7×7 conv (pad 3) → a BatchNorm on its running statistics in
+    both modes (flax ``use_running_average=True``, eps 1e-5) → sigmoid.
+
+    Takes and returns the bands as a list of S (B, C, H, W) tensors, so
+    each band's memory stays as its trunk left it; returns the (B, S·C)
+    gate beside them."""
+
+    def __init__(self, channels: int, no_spatial: bool = True):
+        super().__init__()
+        self.fc1 = Linear(channels, channels)
+        self.fc2 = Linear(channels, channels)
+        self.no_spatial = no_spatial
+        if not no_spatial:
+            self.spatial = nn.Conv2d(2, 1, 7, padding=3, bias=False)
+            self.spatial_norm = nn.BatchNorm2d(1, eps=1e-5)
+
+    def reset_parameters(self, generator=None):
+        self.fc1.reset_parameters(generator)
+        self.fc2.reset_parameters(generator)
+        if not self.no_spatial:
+            lecun_normal_(self.spatial.weight, generator)
+            self.spatial_norm.reset_parameters()
+
+    def forward(self, bands):
+        avg = torch.cat([y.mean(dim=(2, 3)) for y in bands], dim=-1)     # (B, S·C)
+        mx = torch.cat([y.amax(dim=(2, 3)) for y in bands], dim=-1)
+        scale = torch.sigmoid(self.fc2(F.relu(self.fc1(avg))) + self.fc2(F.relu(self.fc1(mx))))
+        out = [y * w[:, :, None, None] for y, w in zip(bands, scale.chunk(len(bands), dim=-1))]
+        if not self.no_spatial:
+            stacked = torch.cat(out, dim=1)
+            pooled = torch.stack([stacked.amax(dim=1), stacked.mean(dim=1)], dim=1)
+            norm = self.spatial_norm
+            spatial = F.batch_norm(self.spatial(pooled), norm.running_mean, norm.running_var,
+                                   norm.weight, norm.bias, False, 0.0, norm.eps)
+            gate = torch.sigmoid(spatial)
+            out = [y * gate for y in out]
+        return out, scale

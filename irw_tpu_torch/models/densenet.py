@@ -8,8 +8,10 @@ conv to ``bn_size``·growth → BatchNorm → ReLU → 3×3 conv (pad 1) to grow
 concatenated onto its input; each ``Transition`` halves the channels (BN →
 ReLU → 1×1 conv) and average-pools 2×2 with stride 2 over whole windows
 (flax's VALID); a last BatchNorm → ReLU, then the mean.  Convs are
-bias-free.  BatchNorm is ``resnet.BatchNorm`` (flax momentum 0.9).  Inside,
-NCHW views of the NHWC input.
+bias-free.  BatchNorm is ``resnet.BatchNorm`` (flax momentum 0.9);
+``frozen_bn`` (densenet.py:46-70) pins every BatchNorm to its running
+statistics in training, as ``ResNet``'s does.  Inside, NCHW views of the
+NHWC input.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from irw_tpu_torch.models.resnet import BatchNorm, _conv, lecun_normal_
+from irw_tpu_torch.models.resnet import BatchNorm, _conv, freeze_batch_norms, lecun_normal_
 
 
 class DenseLayer(nn.Module):
@@ -47,8 +49,9 @@ class Transition(nn.Module):
 
 class DenseNet(nn.Module):
     def __init__(self, block_sizes=(6, 12, 24, 16), growth_rate: int = 32,
-                 init_features: int = 64):
+                 init_features: int = 64, frozen_bn: bool = False):
         super().__init__()
+        self.frozen_bn = frozen_bn
         self.block_sizes = tuple(block_sizes)
         self.stem = _conv(3, init_features, 7, 2, 3)
         self.stem_norm = BatchNorm(init_features)
@@ -64,6 +67,12 @@ class DenseNet(nn.Module):
         self.transitions = nn.ModuleList(transitions)
         self.norm = BatchNorm(channels)
         self.out_dim = channels
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if self.frozen_bn:
+            freeze_batch_norms(self)
+        return self
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         for mod in self.modules():

@@ -6,11 +6,12 @@ The reference's presets name torch classes with their own kwargs dialect
 …); the adapters accept it verbatim, so the multi-band ViT family's configs
 (``configs/model/multidino_*.yaml``, ``shareddino_*.yaml``), the baselines'
 (``single_band*``, ``detail_tester``, ``dino_hash*``), the wavelet-CNN
-routes of ``RetrievalNet`` and its single-trunk routes (the hashing ResNets,
+routes of ``RetrievalNet`` (``wcnn*``, ``wresnet*``, ``mtwavenet*``,
+``hybrid_mtwavenet*``) and its single-trunk routes (the hashing ResNets,
 ``dino_ce``, ``multi_dino*``, and the embedding trunks it wraps) build their
 models.  Keys the JAX module does not declare are dropped, as the JAX
 factory drops them; a key the JAX module takes and the port's does not
-raises, naming the ROADMAP item that will port it.
+raises.
 
 Traps kept on purpose, as the JAX factory has them:
 
@@ -26,7 +27,15 @@ Traps kept on purpose, as the JAX factory has them:
 - the embedding trunks are built without ``vit_kwargs`` (factory.py:229-249),
   so no ``RetrievalNet`` ViT trunk remats or takes K2/K3;
 - a ResNet trunk returns pooled (B, C) features, so ``pooling`` does nothing
-  (``resnet_max_ln.yaml``'s ``max`` included).
+  (``resnet_max_ln.yaml``'s ``max`` included);
+- ``FourBranchResNet50`` is a function ``(**kw)`` too, so the
+  ``mtwavenet50`` route builds it from no key at all: no classes (training
+  returns the embedding), ``avg`` pooling, BatchNorm not frozen;
+- ``WaveResNetCE`` and the mtwavenet classes declare no ``attention``, and
+  the mtwavenet classes no ``pooling_mode`` (the field is ``pool``) and no
+  ``freeze_batch_norm`` (the field is ``frozen_bn``): the configs' keys are
+  dropped.  ``model.freeze_batch_norm`` at the config's top level is the
+  freezing set (``utils.freezing``), another mechanism.
 """
 
 from __future__ import annotations
@@ -36,7 +45,8 @@ import logging
 
 import torch
 
-from irw_tpu_torch.models import baselines, convnext, hashing_nets, multi_dino, resnet, wresnet
+from irw_tpu_torch.models import (baselines, convnext, hashing_nets, mtwavenet, multi_dino,
+                                  resnet, wresnet)
 from irw_tpu_torch.models.retrieval_net import RetrievalNet
 from irw_tpu_torch.models.vit import make_vit
 
@@ -74,6 +84,17 @@ JAX_FIELDS = {
     "ResNet50DSCH": frozenset({"n_bits", "double_pool", "use_layernorm", "normalize", "frozen_bn",
                                "dtype", "parent", "name"}),
     "ResNet50Mod": frozenset({"n_bits", "dtype", "parent", "name"}),
+    "WaveResNet": frozenset({"decom_level", "wave", "feature_size", "attention", "ll_only",
+                             "frozen_bn", "dtype", "parent", "name"}),
+    "WaveResNetCE": frozenset({"num_classes", "decom_level", "wave", "frozen_bn", "dtype",
+                               "parent", "name"}),
+    "FourBranchResNet": frozenset({"num_classes", "depth", "layernorm", "pool", "frozen_bn",
+                                   "dtype", "parent", "name"}),
+    # a function, as PromptedSharedDinoHashing
+    "FourBranchResNet50": frozenset({"kw"}),
+    "FourBranchResNet50Fusion": frozenset({"num_classes", "pool", "frozen_bn", "dtype",
+                                           "parent", "name"}),
+    "HybridMultiBranch": frozenset({"num_classes", "frozen_bn", "dtype", "parent", "name"}),
 }
 
 
@@ -93,7 +114,7 @@ def _filter_kwargs(ctor, kw: dict, renames: dict | None = None) -> dict:
             missing.append(k2)
     if missing:
         raise NotImplementedError(f"{ctor.__name__}: the JAX model takes {sorted(missing)}, "
-                                  "which the port does not take yet (ROADMAP A10b)")
+                                  "which the port does not take")
     return out
 
 
@@ -215,9 +236,18 @@ _WCNN_ROUTES = {
     "wcnn_attention_ce": (wresnet.WCNNAttention, True, True),
 }
 _HASH_RENAMES = {"num_bits": "nbits", "n_bits": "nbits"}
-# the passthrough trunks of ROADMAP A10b (wresnet.py, mtwavenet.py)
-_A10B_ROUTES = ("wresnet", "wresnet_ce", "mtwavenet", "mtwavenet50", "mtwavenet50_fusion",
-                "hybrid_mtwavenet_ce", "hybrid_mtwavenet_v2_ce")
+# backbone_name → (module, fixed kwargs): the in-model-DWT and staged
+# multi-branch trunks, each given the attention pair as one string
+# (factory.py:190-193, :218-227)
+_WAVENET_ROUTES = {
+    "wresnet": (wresnet.WaveResNet, {}),
+    "wresnet_ce": (wresnet.WaveResNetCE, {}),
+    "mtwavenet": (mtwavenet.FourBranchResNet, {"depth": 18}),
+    "mtwavenet50": (mtwavenet.FourBranchResNet50, {}),
+    "mtwavenet50_fusion": (mtwavenet.FourBranchResNet50Fusion, {}),
+    "hybrid_mtwavenet_ce": (mtwavenet.HybridMultiBranch, {}),
+    "hybrid_mtwavenet_v2_ce": (mtwavenet.HybridMultiBranchV2, {}),
+}
 # the towers of the HF vision wrapper, ROADMAP A10d
 _A10D_ROUTES = ("clip", "siglip2", "metaclip2", "openclip")
 
@@ -232,7 +262,7 @@ def _direct(device, cls, kw, renames=None, **fixed):
 
 def _passthrough(device, name: str, kw: dict):
     """The trunks the reference's forward returns untouched
-    (factory.py:189-227), or None for a wrapped embedding trunk."""
+    (factory.py:184-227), or None for a wrapped embedding trunk."""
     if name in _WCNN_ROUTES:
         cls, attention, ce = _WCNN_ROUTES[name]
         if attention:
@@ -255,8 +285,9 @@ def _passthrough(device, name: str, kw: dict):
             kw["branches"] = tuple(kw["branches"])
         return baselines.MultiDinoModel(**_filter_kwargs(baselines.MultiDinoModel, kw,
                                                          {"dino_backbone": "backbone"}))
-    if name in _A10B_ROUTES:
-        raise ValueError(f"RetrievalNet: backbone_name {name!r} waits for ROADMAP A10b")
+    if name in _WAVENET_ROUTES:
+        cls, fixed = _WAVENET_ROUTES[name]
+        return _direct(device, cls, _attention_kw(kw), **fixed)
     return None
 
 

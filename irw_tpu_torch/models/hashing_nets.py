@@ -19,8 +19,8 @@ images (B, H, W, C):
 - ``ResNet50Mod``: a ``ResNet50DSCH`` with tanh(α·codes) in training and
   sign(codes) in eval (hashing_nets.py:98-112).
 
-The trunk runs in f32; another ``dtype`` raises, naming ROADMAP A10b, which
-ports the ResNet's dtype policy with the wavelet CNNs.
+The trunk runs in f32; another ``dtype`` raises, naming ROADMAP A10e
+(bf16 ResNet/DenseNet trunks; ``resnet.check_f32``).
 """
 
 from __future__ import annotations
@@ -30,13 +30,7 @@ from torch import nn
 
 from irw_tpu_torch.models.layers import (LayerNorm, Linear, global_pool, l2_normalize,
                                          zero_aux)
-from irw_tpu_torch.models.resnet import ResNet
-
-
-def _f32(dtype) -> None:
-    if dtype not in ("float32", torch.float32):
-        raise NotImplementedError(f"a ResNet trunk in {dtype} waits for ROADMAP A10b; "
-                                  "the port's ResNet runs in float32")
+from irw_tpu_torch.models.resnet import ResNet, check_f32
 
 
 def _trunk(depth: int, frozen_bn: bool) -> ResNet:
@@ -53,7 +47,7 @@ class ResNetCE(nn.Module):
     def __init__(self, num_classes: int = 100, depth: int = 50, frozen_bn: bool = True,
                  dtype="float32"):
         super().__init__()
-        _f32(dtype)
+        check_f32(dtype)
         self.trunk = _trunk(depth, frozen_bn)
         self.fc = Linear(self.trunk.out_dim, num_classes)
 
@@ -74,7 +68,7 @@ class ResNetHashing(nn.Module):
     def __init__(self, nbits: int = 64, depth: int = 50, frozen_bn: bool = True,
                  dtype="float32"):
         super().__init__()
-        _f32(dtype)
+        check_f32(dtype)
         self.trunk = _trunk(depth, frozen_bn)
         self.fc = Linear(self.trunk.out_dim, nbits)
 
@@ -100,7 +94,7 @@ class ResNet50DSCH(nn.Module):
                  use_layernorm: bool = False, normalize: bool = False, frozen_bn: bool = False,
                  dtype="float32"):
         super().__init__()
-        _f32(dtype)
+        check_f32(dtype)
         self.double_pool = double_pool
         self.normalize = normalize
         self.trunk = ResNet((3, 4, 6, 3), "bottleneck", frozen_bn=frozen_bn)

@@ -1,7 +1,8 @@
 """Model registry: name → constructor (port of
 ``irw_tpu/models/registry.py:23-93, 109-135`` for the models the port
-serves: the multi-band ViT family, the wavelet-CNN family, the baselines and
-the single-trunk models, and the bare trunks).  A bare trunk (``resnet50``,
+serves: the multi-band ViT family, the wavelet CNNs (WCNN, WaveResNet, the mtwavenet
+family and the hybrid), the baselines and the single-trunk models, and the
+bare trunks).  A bare trunk (``resnet50``,
 ``densenet121``, ``convnext``, ``vit_small``, …) returns its pooled (B, D)
 features without an aux dict, as the JAX registry's.
 
@@ -16,8 +17,8 @@ from __future__ import annotations
 import torch
 
 from irw_tpu_torch.device import resolve_device
-from irw_tpu_torch.models import baselines, convnext, densenet, hashing_nets, multi_dino, resnet
-from irw_tpu_torch.models import wresnet
+from irw_tpu_torch.models import (baselines, convnext, densenet, hashing_nets, mtwavenet,
+                                  multi_dino, resnet, wresnet)
 from irw_tpu_torch.models.factory import REFERENCE_ENTRIES, build_retrieval_net
 from irw_tpu_torch.models.vit import VisionTransformer, make_vit
 
@@ -76,15 +77,19 @@ MODEL_REGISTRY = {
     "wcnn_all_subs": _direct(wresnet.WCNN_ALL),
     "wcnn_attention": _direct(wresnet.WCNNAttention, ce=False),
     "wcnn_attention_ce": _direct(wresnet.WCNNAttention, ce=True),
+    "wresnet": _direct(wresnet.WaveResNet),
+    "wresnet_ce": _direct(wresnet.WaveResNetCE),
+    "mtwavenet": _direct(mtwavenet.FourBranchResNet, depth=18),
+    "mtwavenet50": _direct(mtwavenet.FourBranchResNet50),
+    "mtwavenet50_fusion": _direct(mtwavenet.FourBranchResNet50Fusion),
+    "hybrid_mtwavenet_ce": _direct(mtwavenet.HybridMultiBranch),
+    "hybrid_mtwavenet_v2_ce": _direct(mtwavenet.HybridMultiBranchV2),
 }
 
-# the JAX registry's names still to port, by ROADMAP item: the wavelet CNNs
-# (A10b) and the HF vision wrapper's towers (A10d)
-LATER = {**dict.fromkeys(("wresnet", "wresnet_ce", "mtwavenet", "mtwavenet50",
-                          "mtwavenet50_fusion", "hybrid_mtwavenet_ce", "hybrid_mtwavenet_v2_ce"),
-                         "A10b"),
-         **dict.fromkeys(("clip", "openclip", "clip_vit_b32", "clip_vit_b16", "vit_b16_hf",
-                          "siglip2", "metaclip2"), "A10d")}
+# the JAX registry's names still to port, by ROADMAP item: the HF vision
+# wrapper's towers (A10d)
+LATER = dict.fromkeys(("clip", "openclip", "clip_vit_b32", "clip_vit_b16", "vit_b16_hf",
+                       "siglip2", "metaclip2"), "A10d")
 
 
 def get_model(name: str, device: str | torch.device | None = None, seed: int = 0,

@@ -12,15 +12,21 @@ throughout.  flax semantics kept:
   statistics as flax computes them and updates the running variance with
   the BIASED batch variance (torch's own module would store the unbiased
   one);
-- 3×3 convs pad 1, the 7×7 stride-2 stem pads 3; the 1×1 projections of
-  ``padding='SAME'`` pad nothing at any size;
-- the stem's 3×3 stride-2 max-pool pads with −inf (the 1×1 stem without
-  it belongs to ``WaveResNet``, ROADMAP A10b);
+- 3×3 convs pad 1, the stem (``stem_kernel`` × ``stem_kernel``, stride
+  ``stem_stride``; 7 and 2 by default) pads ``stem_kernel // 2``; the 1×1
+  projections of ``padding='SAME'`` pad nothing at any size;
+- the stem's 3×3 stride-2 max-pool pads with −inf; a 1×1 stem has none
+  (resnet.py:80-98, ``WaveResNet``'s stem over half-resolution bands);
 - convs are bias-free; parameters start from flax's initialisers
   (lecun-normal kernels, BatchNorm scale 1 and bias 0);
 - ``frozen_bn`` (resnet.py:85-87): in training every BatchNorm normalises
   with its running statistics and leaves them untouched, as flax's
   ``use_running_average``; the gradient still reaches scale and bias.
+
+``stem`` and ``stage`` run the trunk piece by piece on NCHW views, as the
+stage-interleaved trunk of ``mtwavenet`` drives it; ``forward`` is the two
+in order.  ``check_f32`` is the trunks' dtype policy: float32, the only
+dtype a config reaches (bf16 trunks are ROADMAP A10e).
 
 ``convs`` and ``norms`` of a block follow flax's auto-naming order
 (``Conv_i``/``BatchNorm_i``; a projection comes last), which is all the
@@ -70,6 +76,21 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.mul_(m).add_((1.0 - m) * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+
+
+def check_f32(dtype) -> None:
+    """The ResNet and DenseNet trunks run in float32; another ``dtype``
+    raises (the JAX modules take one, but no config reaches another)."""
+    if dtype not in (None, "float32", torch.float32):
+        raise NotImplementedError(f"a ResNet/DenseNet trunk in {dtype} waits for ROADMAP "
+                                  "A10e; the port's trunks run in float32")
+
+
+def freeze_batch_norms(module: nn.Module) -> None:
+    """Every ``BatchNorm`` of ``module`` back in eval mode (``frozen_bn``)."""
+    for mod in module.modules():
+        if isinstance(mod, BatchNorm):
+            mod.train(False)
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0) -> nn.Conv2d:
@@ -123,18 +144,20 @@ class ResNet(nn.Module):
     """Stage-structured ResNet: (B, H, W, C) → globally average-pooled (B, D)."""
 
     def __init__(self, stage_sizes=(3, 4, 6, 3), block: str = "bottleneck", width: int = 64,
-                 frozen_bn: bool = False):
+                 frozen_bn: bool = False, stem_kernel: int = 7, stem_stride: int = 2):
         super().__init__()
         cls = BLOCKS[block]
         self.frozen_bn = frozen_bn
-        self.stem = _conv(3, width, 7, 2, 3)
+        self.stem_pool = stem_kernel > 1
+        self.stem = _conv(3, width, stem_kernel, stem_stride, stem_kernel // 2)
         self.stem_norm = BatchNorm(width)
-        blocks, cin = [], width
+        blocks, cin, self.stage_dims = [], width, []
         for stage, num_blocks in enumerate(stage_sizes):
             filters = width * 2 ** stage
             for i in range(num_blocks):
                 blocks.append(cls(cin, filters, 2 if stage > 0 and i == 0 else 1))
                 cin = filters * cls.expansion
+            self.stage_dims.append(cin)
         self.blocks = nn.ModuleList(blocks)
         self.stage_ends = [sum(stage_sizes[:i + 1]) for i in range(len(stage_sizes))]
         self.out_dim = cin
@@ -142,9 +165,7 @@ class ResNet(nn.Module):
     def train(self, mode: bool = True):
         super().train(mode)
         if self.frozen_bn:
-            for mod in self.modules():
-                if isinstance(mod, BatchNorm):
-                    mod.train(False)
+            freeze_batch_norms(self)
         return self
 
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -154,15 +175,25 @@ class ResNet(nn.Module):
             elif isinstance(mod, BatchNorm):
                 mod.reset_parameters()
 
+    def stem_forward(self, x):
+        """The stem on an NCHW view: conv → BatchNorm → ReLU (→ max-pool)."""
+        x = F.relu(self.stem_norm(self.stem(x)))
+        return F.max_pool2d(x, 3, 2, padding=1) if self.stem_pool else x
+
+    def stage_forward(self, stage: int, x):
+        """Stage ``stage``'s blocks on an NCHW view."""
+        start = self.stage_ends[stage - 1] if stage else 0
+        for blk in self.blocks[start:self.stage_ends[stage]]:
+            x = blk(x)
+        return x
+
     def forward(self, x, rngs: dict | None = None, *, return_stages: bool = False):
         """``rngs`` is unused: a bare trunk takes the models' call."""
-        x = x.permute(0, 3, 1, 2)  # NHWC memory as an NCHW view (channels last)
-        x = F.max_pool2d(F.relu(self.stem_norm(self.stem(x))), 3, 2, padding=1)
+        x = self.stem_forward(x.permute(0, 3, 1, 2))  # NHWC memory as an NCHW view
         stages = []
-        for i, blk in enumerate(self.blocks):
-            x = blk(x)
-            if i + 1 in self.stage_ends:
-                stages.append(x.permute(0, 2, 3, 1))
+        for stage in range(len(self.stage_ends)):
+            x = self.stage_forward(stage, x)
+            stages.append(x.permute(0, 2, 3, 1))
         if return_stages:
             return stages
         return x.mean(dim=(2, 3))
@@ -178,7 +209,6 @@ def resnet34(**kw) -> ResNet:
 
 def resnet50(**kw) -> ResNet:
     return ResNet(stage_sizes=(3, 4, 6, 3), block="bottleneck", **kw)
-
 
 
 def resnet101(**kw) -> ResNet:

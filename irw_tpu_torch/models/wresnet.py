@@ -1,9 +1,22 @@
-"""Wavelet-CNN family: ResNet branches over externally supplied subbands
-(port of ``irw_tpu/models/wresnet.py:33-82, 150-205``).
+"""Wavelet-CNN family: ResNet branches over wavelet subbands (port of
+``irw_tpu/models/wresnet.py``).
 
 - ``BandedResNet``: one ResNet per band, (B, S, H, W, C) → (B, S, D).  The
   JAX package vmaps one ResNet over the band axis with per-band parameters;
   here the S ResNets run one after another (batching them is ROADMAP B6).
+- ``decompose_to_bands``: the in-model DWT, (B, H, W, C) images → the
+  coarsest level's (B, 4, h, w, C) [LL, LH, HL, HH] stack of the lifting
+  DWT (wresnet.py:65-71); on the card through kernel K4.
+- ``WaveResNet``: the in-model DWT → 4 ResNet-50 branches with a 1×1
+  stride-1 stem and no max-pool → optionally a subband gate (``attention``:
+  cbam, eca or channel; none with ``ll_only``, which keeps the LL band
+  alone).  The output is NOT normalised: the gate's fused (B, 2048), else
+  the flat (B, S·2048), in both modes (wresnet.py:85-114).  ``feature_size``
+  is taken and unused, as in JAX.
+- ``WaveResNetCE``: the same trunk; per-band logits of one zero-initialised
+  classifier shared by the bands in training, else the per-band
+  L2-normalised features, concatenated and L2-normalised again
+  (wresnet.py:117-147).
 - ``WCNN``: per-band classifier logits in training with ``ce``, else the
   per-band L2-normalised features, concatenated and L2-normalised again
   (wresnet.py:405-445); ``WCNN_ALL`` is the same module over 7 bands.
@@ -12,13 +25,13 @@
   logits and the fused logits (wresnet.py:485-546).
 
 Every forward takes ``(x, rngs=None)`` as the train step calls a model (no
-module here draws a mask) and returns ``(out, aux)`` with ``aux["ortho_loss"] = 0`` (and
-``aux["gate"]``, (B, S), for ``WCNNAttention``).  The JAX modules' options
-that no config sets (``frozen_bn``, the gates' reduction ratio, pool types
-and ECA width) are the JAX defaults here.  The branches use the 7×7
-stride-2 stem with max-pool; the 1×1 stem belongs to ``WaveResNet``, which
-waits for ROADMAP A10b.  f32 throughout: the JAX factory's ``with_autocast``
-reaches only ``vit_kwargs``, which these modules do not take.
+module here draws a mask) and returns ``(out, aux)`` with
+``aux["ortho_loss"] = 0`` (and ``aux["gate"]``, (B, S), with a gate).
+``frozen_bn`` pins every branch BatchNorm to its running statistics in
+training.  The gates' options that no config sets (reduction ratio, pool
+types, ECA width) are the JAX defaults.  f32 throughout: the JAX factory's
+``with_autocast`` reaches only ``vit_kwargs``, and another ``dtype`` raises
+(ROADMAP A10e).
 """
 
 from __future__ import annotations
@@ -27,8 +40,10 @@ import torch
 from torch import nn
 
 from irw_tpu_torch.models.attention_blocks import SUBBAND_GATES
-from irw_tpu_torch.models.layers import Linear, l2_normalize
-from irw_tpu_torch.models.resnet import ResNet
+from irw_tpu_torch.models.layers import Linear, l2_normalize, zero_aux
+from irw_tpu_torch.models.resnet import ResNet, check_f32
+from irw_tpu_torch.ops.wavelets.lifting import lifting_decompose
+from irw_tpu_torch.ops.wavelets.lifting_dwt import lifting_multi_level
 
 _BRANCHES = {"resnet18": ((2, 2, 2, 2), "basic"), "resnet50": ((3, 4, 6, 3), "bottleneck")}
 
@@ -36,9 +51,13 @@ _BRANCHES = {"resnet18": ((2, 2, 2, 2), "basic"), "resnet50": ((3, 4, 6, 3), "bo
 class BandedResNet(nn.Module):
     """S independent ResNets, one per band: (B, S, H, W, C) → (B, S, D)."""
 
-    def __init__(self, num_bands: int = 4, stage_sizes=(3, 4, 6, 3), block: str = "bottleneck"):
+    def __init__(self, num_bands: int = 4, stage_sizes=(3, 4, 6, 3), block: str = "bottleneck",
+                 stem_kernel: int = 7, stem_stride: int = 2, frozen_bn: bool = False,
+                 width: int = 64):
         super().__init__()
-        self.branches = nn.ModuleList(ResNet(stage_sizes, block) for _ in range(num_bands))
+        self.branches = nn.ModuleList(
+            ResNet(stage_sizes, block, width, frozen_bn, stem_kernel, stem_stride)
+            for _ in range(num_bands))
         self.out_dim = self.branches[0].out_dim
 
     def reset_parameters(self, generator=None):
@@ -52,13 +71,95 @@ class BandedResNet(nn.Module):
         return torch.stack([branch(x[:, s]) for s, branch in enumerate(self.branches)], dim=1)
 
 
-def _branches(backbone: str, num_bands: int) -> BandedResNet:
+def _branches(backbone: str, num_bands: int, frozen_bn: bool) -> BandedResNet:
     """``_wcnn_branch_feats``: resnet18 branches, or resnet50 for any other name."""
-    return BandedResNet(num_bands, *_BRANCHES.get(backbone, _BRANCHES["resnet50"]))
+    return BandedResNet(num_bands, *_BRANCHES.get(backbone, _BRANCHES["resnet50"]),
+                        frozen_bn=frozen_bn)
 
 
-def _zero_aux(x) -> dict:
-    return {"ortho_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
+def decompose_to_bands(x: torch.Tensor, levels: int, basis: str) -> torch.Tensor:
+    """(B, H, W, C) images → (B, 4, H/2ˡ, W/2ˡ, C), the coarsest level's
+    [LL, LH, HL, HH] of the lifting DWT.  H and W divisible by 2ˡ: one call
+    of ``lifting_multi_level`` over the B·C planes (kernel K4 on the card,
+    its plain version on the CPU); K4 has no backward, so a CUDA input that
+    requires grad raises.  Any other size: the plain ``lifting_decompose``,
+    as ``CustomTransform`` dispatches (the JAX module runs that lifting on
+    every size)."""
+    b, h, w, c = x.shape
+    if h % 2 ** levels or w % 2 ** levels:
+        approx, details = lifting_decompose(x.movedim(-1, 1), levels=levels, basis=basis)
+        return torch.stack([approx[-1], *details[-1]], dim=1).movedim(2, -1)
+    if x.device.type == "cuda" and x.requires_grad:
+        raise NotImplementedError("decompose_to_bands: kernel K4 has no backward; the images "
+                                  "of the in-model DWT must not require grad on the card")
+    flat = lifting_multi_level(x.permute(0, 3, 1, 2).reshape(b * c, h, w), levels, basis)
+    ho, wo = flat.shape[-2:]
+    return flat.reshape(b, c, 4, ho, wo).permute(0, 2, 3, 4, 1)
+
+
+def _wave_trunk(num_bands: int, frozen_bn: bool) -> BandedResNet:
+    """The ResNet-50 branches of ``WaveResNet``: a 1×1 stride-1 stem, no
+    max-pool (wresnet.py:260-261's stem surgery)."""
+    return BandedResNet(num_bands, (3, 4, 6, 3), "bottleneck", stem_kernel=1, stem_stride=1,
+                        frozen_bn=frozen_bn)
+
+
+class WaveResNet(nn.Module):
+    """The in-model DWT → ResNet-50 branches → an optional subband gate."""
+
+    def __init__(self, decom_level: int = 1, wave: str = "haar", feature_size: int = 2048,
+                 attention: str | None = None, ll_only: bool = False, frozen_bn: bool = False,
+                 dtype="float32"):
+        super().__init__()
+        check_f32(dtype)
+        self.decom_level, self.wave, self.ll_only = int(decom_level), wave, ll_only
+        num_bands = 1 if ll_only else 4
+        self.backbone = _wave_trunk(num_bands, frozen_bn)
+        gated = attention in SUBBAND_GATES and not ll_only
+        self.gate = SUBBAND_GATES[attention](num_subbands=num_bands) if gated else None
+
+    def reset_parameters(self, generator=None):
+        self.backbone.reset_parameters(generator)
+        if self.gate is not None:
+            self.gate.reset_parameters(generator)
+
+    def forward(self, x, rngs: dict | None = None):
+        bands = decompose_to_bands(x, self.decom_level, self.wave)
+        if self.ll_only:
+            bands = bands[:, :1]
+        feats = self.backbone(bands)
+        aux = zero_aux(x)
+        if self.gate is not None:
+            fused, alphas = self.gate(feats)
+            return fused, dict(aux, gate=alphas)
+        return feats.reshape(feats.shape[0], -1), aux
+
+
+class WaveResNetCE(nn.Module):
+    """The in-model DWT → ResNet-50 branches; per-band logits in training
+    (``branch_classifier``, zero-initialised, shared by the bands)."""
+
+    def __init__(self, num_classes: int = 100, decom_level: int = 1, wave: str = "haar",
+                 frozen_bn: bool = False, dtype="float32"):
+        super().__init__()
+        check_f32(dtype)
+        self.decom_level, self.wave = int(decom_level), wave
+        self.backbone = _wave_trunk(4, frozen_bn)
+        self.branch_classifier = Linear(self.backbone.out_dim, num_classes)
+
+    def reset_parameters(self, generator=None):
+        self.backbone.reset_parameters(generator)
+        nn.init.zeros_(self.branch_classifier.weight)
+        nn.init.zeros_(self.branch_classifier.bias)
+
+    def forward(self, x, rngs: dict | None = None):
+        feats = self.backbone(decompose_to_bands(x, self.decom_level, self.wave))
+        aux = zero_aux(x)
+        if self.training:
+            logits = self.branch_classifier(feats)
+            return [logits[:, i] for i in range(logits.shape[1])], aux
+        emb = l2_normalize(feats, dim=-1).reshape(feats.shape[0], -1)
+        return l2_normalize(emb), aux
 
 
 class WCNN(nn.Module):
@@ -66,9 +167,10 @@ class WCNN(nn.Module):
     Dense shared by the bands, zero-initialised) when ``ce``."""
 
     def __init__(self, num_classes: int = 100, backbone: str = "resnet50", ce: bool = True,
-                 num_bands: int = 4):
+                 frozen_bn: bool = False, dtype="float32", num_bands: int = 4):
         super().__init__()
-        self.backbone = _branches(backbone, num_bands)
+        check_f32(dtype)
+        self.backbone = _branches(backbone, num_bands, frozen_bn)
         self.ce = ce
         self.branch_classifier = Linear(self.backbone.out_dim, num_classes) if ce else None
 
@@ -80,7 +182,7 @@ class WCNN(nn.Module):
 
     def forward(self, x, rngs: dict | None = None):
         feats = self.backbone(x)
-        aux = _zero_aux(x)
+        aux = zero_aux(x)
         if self.training and self.ce:
             logits = self.branch_classifier(feats)
             return [logits[:, i] for i in range(logits.shape[1])], aux
@@ -101,9 +203,11 @@ class WCNNAttention(nn.Module):
     logits..., fused logits] (both classifiers zero-initialised)."""
 
     def __init__(self, num_classes: int = 100, attention: str = "cbam", ce: bool = False,
-                 backbone: str = "resnet50", num_bands: int = 4):
+                 backbone: str = "resnet50", frozen_bn: bool = False, dtype="float32",
+                 num_bands: int = 4):
         super().__init__()
-        self.backbone = _branches(backbone, num_bands)
+        check_f32(dtype)
+        self.backbone = _branches(backbone, num_bands, frozen_bn)
         self.gate = SUBBAND_GATES[attention](num_subbands=num_bands)
         self.ce = ce
         dim = self.backbone.out_dim
@@ -121,7 +225,7 @@ class WCNNAttention(nn.Module):
     def forward(self, x, rngs: dict | None = None):
         feats = self.backbone(x)
         fused, alphas = self.gate(feats)
-        aux = dict(_zero_aux(x), gate=alphas)
+        aux = dict(zero_aux(x), gate=alphas)
         if self.training and self.ce:
             logits = self.branch_classifier(feats)
             return [logits[:, i] for i in range(logits.shape[1])] + [self.classifier(fused)], aux

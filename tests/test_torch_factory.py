@@ -15,9 +15,9 @@ drop of every key but ``num_prompts`` included (C9); a
 for ``MultiDinoHashing`` (C8).
 
 Every file of ``configs/model/`` composes through the port's ``compose``
-over ``configs/default.yaml``: 42 build (the port's parameters on the meta
-device), and each of the other 16 raises, naming ROADMAP A10b (the wavelet
-CNNs) or A10d (the HF towers).  The 22 files of the single-trunk models
+over ``configs/default.yaml``: 55 build (the port's parameters on the meta
+device), and each of the other 3 raises, naming ROADMAP A10d (the HF
+towers).  The 22 files of the single-trunk models
 (the baselines, the hashing ResNets, ``RetrievalNet``'s ``dino_ce``,
 ``multi_dino*`` and wrapped trunks) build the same resolved fields in both
 factories: the tower's width, depth, patch, dtype, remat and K2 route, the
@@ -36,6 +36,7 @@ import yaml
 from irw_tpu.models import baselines as jax_baselines
 from irw_tpu.models import get_model as jax_get_model
 from irw_tpu.models import hashing_nets as jax_hashing_nets
+from irw_tpu.models import mtwavenet as jax_mtwavenet
 from irw_tpu.models import multi_dino as jax_multi_dino
 from irw_tpu.models import wresnet as jax_wresnet
 from irw_tpu.models.factory import _accepted as jax_accepted
@@ -83,7 +84,11 @@ def test_jax_fields_copy_matches_irw_tpu():
                **{name: getattr(jax_baselines, name) for name in
                   ("DINOHashBaseline", "SingleBandNet", "DinoModelCE", "MultiDinoModel")},
                **{name: getattr(jax_hashing_nets, name) for name in
-                  ("ResNetCE", "ResNetHashing", "ResNet50DSCH", "ResNet50Mod")}}
+                  ("ResNetCE", "ResNetHashing", "ResNet50DSCH", "ResNet50Mod")},
+               "WaveResNet": jax_wresnet.WaveResNet, "WaveResNetCE": jax_wresnet.WaveResNetCE,
+               **{name: getattr(jax_mtwavenet, name) for name in
+                  ("FourBranchResNet", "FourBranchResNet50", "FourBranchResNet50Fusion",
+                   "HybridMultiBranch")}}
     assert set(JAX_FIELDS) == set(modules)
     for name, cls in modules.items():
         assert JAX_FIELDS[name] == jax_accepted(cls), name
@@ -118,12 +123,18 @@ def test_factory_drops_only_what_the_jax_factory_drops():
     # a key no JAX module declares: dropped by both factories
     model = get_model("RetrievalNet", device="cpu", **base, feature_size=512, wave="haar")
     assert len(model.backbone.branches) == 4
-    # a key the JAX WCNN takes and the port's does not: no silent drop
-    with pytest.raises(NotImplementedError, match="frozen_bn.*A10"):
-        get_model("RetrievalNet", device="cpu", **base, frozen_bn=True)
-    with pytest.raises(NotImplementedError, match="dtype.*A10"):
-        get_model("RetrievalNet", device="cpu", **dict(base, backbone_name="wcnn_attention"),
-                  dtype="float32")
+    # keys the JAX WCNN takes reach the port's: frozen_bn, and dtype in f32;
+    # a bf16 trunk raises, naming its ROADMAP item
+    model = get_model("RetrievalNet", device="cpu", **base, frozen_bn=True)
+    assert model.backbone.branches[0].frozen_bn
+    model = get_model("RetrievalNet", device="cpu", **dict(base, backbone_name="wcnn_attention"),
+                      dtype="float32")
+    assert not model.backbone.branches[0].frozen_bn
+    with pytest.raises(NotImplementedError, match="A10e"):
+        get_model("RetrievalNet", device="cpu", **base, dtype="bfloat16")
+    # a key the JAX module takes and the port's does not: no silent drop
+    with pytest.raises(NotImplementedError, match="takes \\['parent'\\]"):
+        get_model("RetrievalNet", device="cpu", **base, parent=None)
 
 
 @pytest.mark.parametrize("name", ["MultiDinoHashingTF", "MultiDinoHashing"])
@@ -254,18 +265,19 @@ SINGLE_TRUNK = ("single_band_tiny", "single_band", "detail_tester", "dino_hash_b
                 "ibot", "convnext")
 WCNN_FAMILY = ("wcnn", "wcnn_all_subs", "wcnn_attention", "wcnn_attention_ce",
                "wcnn_attention_wo_dwt", "wresnet_text", "wcnn_attention_all_subs")
+# the in-model-DWT and staged multi-branch wavelet CNNs (ROADMAP A10b;
+# tests/test_torch_wavenet_configs.py holds them to the JAX factory)
+WAVENETS = ("wresnet", "wresnet_cifar", "wresnet_cifar_ce", "wresnet_sdd", "wresnet_sdd_ce",
+            "mtwavenet", "mtwavenet50", "mtwavenet50_fusion", "mtwavenet_fusion",
+            "mtwavenet_fusion_dml", "mtwavenet_tuned", "hybrid_wavenet", "hybrid_wavenet_v2")
 # the configs still to port, by the ROADMAP item their raise names
-LATER = {**dict.fromkeys(("wresnet", "wresnet_cifar", "wresnet_cifar_ce", "wresnet_sdd",
-                          "wresnet_sdd_ce", "mtwavenet", "mtwavenet50", "mtwavenet50_fusion",
-                          "mtwavenet_fusion", "mtwavenet_fusion_dml", "mtwavenet_tuned",
-                          "hybrid_wavenet", "hybrid_wavenet_v2"), "A10b"),
-         **dict.fromkeys(("openclip", "metaclip2", "siglip2"), "A10d")}
+LATER = dict.fromkeys(("openclip", "metaclip2", "siglip2"), "A10d")
 MODEL_CONFIGS = sorted(p.stem for p in (REPO / "configs/model").glob("*.yaml"))
 
 
 def test_model_configs_split_into_built_and_later():
-    built = set(FAMILY) | set(SINGLE_TRUNK) | set(WCNN_FAMILY)
-    assert len(MODEL_CONFIGS) == 58 and len(built) == 42 and len(LATER) == 16
+    built = set(FAMILY) | set(SINGLE_TRUNK) | set(WCNN_FAMILY) | set(WAVENETS)
+    assert len(MODEL_CONFIGS) == 58 and len(built) == 55 and len(LATER) == 3
     assert built | set(LATER) == set(MODEL_CONFIGS) and not built & set(LATER)
 
 

@@ -60,7 +60,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert {"irw_tpu_torch.ops.wavelets.lifting", "irw_tpu_torch.ops.wavelets.lifting_families",
             "irw_tpu_torch.ops.wavelets.lifting_dwt", "irw_tpu_torch.models.resnet",
             "irw_tpu_torch.models.attention_blocks", "irw_tpu_torch.models.wresnet",
-            "irw_tpu_torch.ops.flash_attention"} <= set(modules)
+            "irw_tpu_torch.models.mtwavenet", "irw_tpu_torch.ops.flash_attention"} <= set(modules)
     assert {"irw_tpu_torch.ops.qkv_attention", "irw_tpu_torch.ops.fused_ln",
             "irw_tpu_torch.utils.flops", "irw_tpu_torch.benchmarks",
             "irw_tpu_torch.benchmarks.vmem_qkv_micro", "irw_tpu_torch.benchmarks.vmem_attn_micro",
@@ -293,15 +293,18 @@ def test_lifting_kernel_refuses_other_dtypes_on_the_card():
 
 
 def test_unported_models_and_heads_name_their_roadmap_item():
-    # the wavelet CNNs still to port (A10b) and the HF towers (A10d)
-    for name, item in (("wresnet", "A10b"), ("mtwavenet", "A10b"),
-                       ("hybrid_mtwavenet_v2_ce", "A10b"), ("siglip2", "A10d"),
-                       ("openclip", "A10d")):
-        with pytest.raises(ValueError, match=item):
+    # the HF towers still to port (A10d)
+    for name in ("siglip2", "openclip"):
+        with pytest.raises(ValueError, match="A10d"):
             get_model("RetrievalNet", device="cpu", backbone_name=name)
-    for name, item in (("wresnet", "A10b"), ("mtwavenet50_fusion", "A10b"), ("clip", "A10d")):
-        with pytest.raises(ValueError, match=item):
-            get_model(name, device="cpu")
+    with pytest.raises(ValueError, match="A10d"):
+        get_model("clip", device="cpu")
+    # the ResNet/DenseNet trunks in another dtype than float32 (A10e)
+    for name, kw in (("wresnet", {}), ("mtwavenet50_fusion", {}),
+                     ("hybrid_mtwavenet_v2_ce", {}), ("wcnn", {}),
+                     ("resnet_ce", {"depth": 18})):
+        with pytest.raises(NotImplementedError, match="A10e"):
+            get_model(name, device="cpu", dtype="bfloat16", **kw)
     # the one ViT Block variant of irw_tpu/models/vit.py:326-334 still to
     # port; the scanned layouts are only parameter layouts, accepted and ignored
     with pytest.raises(NotImplementedError, match="A14"):
