@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases card,build,trunks
     python3 chip_smoke.py --phases card,build,files
     python3 chip_smoke.py --phases card,build,wavenets
+    python3 chip_smoke.py --phases card,build,landmarks
 
 Drives the port's serving path — uint8 images → DeviceTransform (/255, Haar
 SWT: kernel K1) → the flagship MultiDinoHashing (4 × DINOv2 ViT-S/14 at
@@ -205,7 +206,24 @@ configuration of the family — and prints one line per phase:
    ``basic.yaml``'s AdamW; K4 = 1 a step; for ``wresnet_sdd_ce`` one step's
    K4 route against its plain route); each other A10b config serves a batch
    of 8 and takes one train step of 8 (K4 = 1 each; ``mtwavenet_fusion_dml``'s
-   training raises, as its JAX init does).
+   training raises, as its JAX init does);
+25. landmarks: landmark retrieval (ROADMAP A8c, A12's eval protocols).  A
+   roxford5k tree (its 70 queries and 4993 gallery images, gnd of 120 easy,
+   130 hard and 150 junk a query drawn from a seed, JPEGs of 384 x 288 in
+   place of ~1024 x 768) and an SfM-120k tree (1024 images in 256 clusters)
+   written with Pillow; ``dataset=roxford`` through ``compose`` and the
+   ``Getter``, the full-width flagship embedding both sides with voc_swt's
+   test ops through ``evaluate`` → ``landmark_evaluation`` (K1 = 1, K2 = 12
+   an eval batch; K1 and K2 on the first decoded batch against their plain
+   versions; map_medium and map_hard against the float64 scalar oracle on the
+   card's embeddings; embed seconds, map ms, peak memory);
+   ``landmark_bench.run()`` at roxford5k's and rparis6k's 70 x 4993 | 6322 x
+   2048; the SfM recipe (``dataset=sfm120k transform=sfm120k model=deit
+   optimizer=sfm120k_deit loss=roadmap experience=landmarks``) through the
+   runner, one epoch of 8 steps of 128 and its eval (no kernel: a stock f32
+   DeiT-S/16); ``EpochLoader`` alone with ``multicrop.yaml``'s train ops and
+   with a hue, grayscale and blur; the numpy host ops against the machine's
+   Pillow.
 
 Then a JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -229,7 +247,7 @@ import numpy as np
 PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train", "loop",
           "runner", "dwt", "wcnn", "wavelets", "wcnn_train", "wcnn_xbm", "losses", "flash",
           "flash_serve", "flash_train", "qkv", "qkv_micro", "variants", "siblings", "trunks",
-          "files", "wavenets")
+          "files", "wavenets", "landmarks")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -478,6 +496,30 @@ FILES_CUB_JOB = ["dataset=cub", "transform=cub_dwt", "model=wcnn_attention_ce",
                  f"experience.evaluation.top_k={FILES_CUB_CLASSES * FILES_CUB_TEST}"]
 FILES_SPECIAL = {3: "cmyk", 4: "gray", 5: "png", 6: "truncated"}
 FILES_LOADER_WORKERS = 8   # configs/experience/default.yaml's num_workers
+# the landmarks phase (ROADMAP A8c, A12's eval protocols): a roxford5k tree of
+# its 70 queries and 4993 gallery images, each query's gnd at landmark_bench's
+# density, the JPEGs cut from the dataset's ~1024 x 768 to LANDMARK_IMAGE; the
+# flagship embeds both sides through evaluate (voc_swt's test ops) and the
+# revisited protocol scores them.  Then landmark_bench at roxford5k's and
+# rparis6k's gallery sizes, the SfM recipe through the runner on an SfM tree
+# (LANDMARK_SFM_TRAIN images in 4-image clusters: 8 steps of sfm120k.yaml's
+# batch of 128, one eval of the train split as the config gives it), and the
+# host ops alone
+LANDMARK_CITY = "roxford5k"
+LANDMARK_COUNTS = (70, 4993)          # roxford5k's queries and gallery
+LANDMARK_GND = (120, 130, 150)        # easy, hard, junk a query
+LANDMARK_IMAGE = (384, 288)
+LANDMARK_EVAL_BS = 256
+LANDMARK_MAP_TOL = 1e-5               # the card's mAP against the float64 oracle
+LANDMARK_BENCH_GALLERIES = {"roxford5k": 4993, "rparis6k": 6322}
+LANDMARK_SFM_TRAIN, LANDMARK_SFM_CLUSTERS = 1024, 256
+LANDMARK_SFM_JOB = ["dataset=sfm120k", "transform=sfm120k", "model=deit",
+                    "optimizer=sfm120k_deit", "loss=roadmap", "experience=landmarks",
+                    "experience.max_iter=1"]
+LANDMARK_SFM_BATCH = 128              # configs/dataset/sfm120k.yaml
+LANDMARK_SFM_STEPS = LANDMARK_SFM_TRAIN // LANDMARK_SFM_BATCH
+LANDMARK_HOST_IMAGES = 256            # images through EpochLoader per host-op list
+LANDMARK_PILLOW_IMAGES = 4
 # the wavenets phase: every wavelet-CNN config of configs/model (ROADMAP A10b)
 # with a transform whose test split fits its input (images for the in-model
 # DWT, CustomTransform's band stack for the others) and a loss file of
@@ -3884,6 +3926,69 @@ def _write_file_trees(root) -> tuple[str, str]:
     return os.path.join(root, "voc"), cub
 
 
+def _write_jpegs(jobs, threads: int = 8) -> None:
+    """(path, pixels) pairs written as baseline JPEGs on ``threads`` threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(lambda job: _write_jpeg(*job), jobs))
+
+
+def write_revisited_tree(root, city: str, n_query: int, n_gallery: int, gnd_counts: tuple,
+                         size: tuple, seed: int = 0) -> str:
+    """A revisited Oxford/Paris tree under ``root``: ``<city>/gnd_<city>.pkl``
+    ({"imlist", "qimlist", "gnd"}: each query's easy, hard and junk gallery
+    positions, ``gnd_counts`` of them from one permutation of the gallery,
+    and a bbx) and ``<city>/jpg/<name>.jpg`` of ``size`` (w, h); returns
+    ``root``."""
+    import os
+    import pickle
+
+    rs = np.random.RandomState(seed)
+    jpg = os.path.join(root, city, "jpg")
+    os.makedirs(jpg, exist_ok=True)
+    imlist = [f"{city}_{i:06d}" for i in range(n_gallery)]
+    qimlist = [f"{city}_query_{i:03d}" for i in range(n_query)]
+    n_easy, n_hard, n_junk = gnd_counts
+    gnd = []
+    for _ in range(n_query):
+        perm = rs.permutation(n_gallery)
+        gnd.append({"easy": perm[:n_easy], "hard": perm[n_easy:n_easy + n_hard],
+                    "junk": perm[n_easy + n_hard:n_easy + n_hard + n_junk],
+                    "bbx": [float(v) for v in np.sort(rs.uniform(0, min(size), 4))]})
+    with open(os.path.join(root, city, f"gnd_{city}.pkl"), "wb") as f:
+        pickle.dump({"imlist": imlist, "qimlist": qimlist, "gnd": gnd}, f)
+    photos = _photos(rs, *size)
+    _write_jpegs([(os.path.join(jpg, f"{name}.jpg"), next(photos)) for name in qimlist + imlist])
+    return str(root)
+
+
+def write_sfm_tree(root, n_train: int, n_clusters: int, size: tuple, n_val: int = 0,
+                   seed: int = 0) -> str:
+    """An SfM-120k tree under ``root``: ``retrieval-SfM-120k.pkl`` ({"train",
+    "val"}: "cids", "cluster" = position mod ``n_clusters``, empty "qidxs"
+    and "pidxs") and ``ims/<cid[-2:]>/<cid[-4:-2]>/<cid[-6:-4]>/<cid>`` JPEGs of
+    ``size`` (w, h); returns ``root``."""
+    import os
+    import pickle
+
+    rs = np.random.RandomState(seed)
+    photos = _photos(rs, *size)
+    db, jobs = {}, []
+    for split, n in (("train", n_train), ("val", n_val)):
+        cids = [rs.bytes(16).hex() for _ in range(n)]
+        db[split] = {"cids": cids, "cluster": [i % n_clusters for i in range(n)],
+                     "qidxs": [], "pidxs": []}
+        for cid in cids:
+            folder = os.path.join(root, "ims", cid[-2:], cid[-4:-2], cid[-6:-4])
+            os.makedirs(folder, exist_ok=True)
+            jobs.append((os.path.join(folder, cid), next(photos)))
+    with open(os.path.join(root, "retrieval-SfM-120k.pkl"), "wb") as f:
+        pickle.dump(db, f)
+    _write_jpegs(jobs)
+    return str(root)
+
+
 class _FileRun(_UnitLaunches):
     """``_UnitLaunches`` that also keeps the first train batch's images."""
 
@@ -3915,14 +4020,14 @@ def _loader_rate(dataset, host, native: bool) -> float:
 
 
 def _file_job(state, label: str, overrides: list, expected_step: tuple, expected_eval: tuple,
-              epochs: int, steps: int, batch: int, prepare=None):
+              epochs: int, steps: int, batch: int, prepare=None, phase: str = "files"):
     """``overrides`` through the port's runner, the device transform wrapped
     to count every kernel's launches per train step and per inference
     batch (the first: ``run``'s sample batch, transform only), the model
     captured (and handed to ``prepare`` once built), every loader batch's
     route recorded; ``epochs`` of ``steps`` steps of ``batch`` in all.
     Returns (the wrapped transform, the model, the routes by train/eval, the
-    metrics records)."""
+    metrics records); the counts are kept under ``<phase>_<label>``."""
     import os
 
     import torch
@@ -3962,39 +4067,39 @@ def _file_job(state, label: str, overrides: list, expected_step: tuple, expected
             fn.launches = 0
         t0 = time.perf_counter()
         if runner.main(overrides) != 0:
-            raise AssertionError(f"files, {label}: the runner returned non-zero")
+            raise AssertionError(f"{phase}, {label}: the runner returned non-zero")
         seconds = time.perf_counter() - t0
     finally:
         Getter.get_transform, Getter.get_model = get_transform, get_model
         loader_mod.EpochLoader._load_batch = load_batch
     (transform,), (model,) = wrapped, models
     train_units, eval_units = transform.units(False), transform.units(True)
-    key = f"files_{label}"
+    key = f"{phase}_{label}"
     state["launches"][key] = {fn.__name__: sum(u[i] for u in train_units)
                               for i, fn in enumerate(kernels)}
     state["launches"][f"{key}_eval"] = {fn.__name__: sum(u[i] for u in eval_units[1:])
                                         for i, fn in enumerate(kernels)}
     state[f"{key}_units"] = (len(train_units), len(eval_units) - 1)
-    log("files", f"{label}: the run took {seconds:.1f} s; launches over it: "
+    log(phase, f"{label}: the run took {seconds:.1f} s; launches over it: "
                  f"{_launch_counts(kernels)}")
     if len(train_units) != steps:
-        raise AssertionError(f"files, {label}: {len(train_units)} train steps, expected {steps}")
-    _check_launches("files", train_units, expected_step, f"train step, {label}")
+        raise AssertionError(f"{phase}, {label}: {len(train_units)} train steps, expected {steps}")
+    _check_launches(phase, train_units, expected_step, f"train step, {label}")
     sample = tuple(n if i in (0, 3) else 0 for i, n in enumerate(expected_eval))
-    _check_launches("files", eval_units[:1], sample, f"sample batch, {label} (transform only)")
-    _check_launches("files", eval_units[1:], expected_eval, f"eval batch, {label}")
+    _check_launches(phase, eval_units[:1], sample, f"sample batch, {label} (transform only)")
+    _check_launches(phase, eval_units[1:], expected_eval, f"eval batch, {label}")
 
     log_dir = log_dir_of(compose(runner.CONFIG_DIR, "default", overrides).experience)
     records = _jsonl(os.path.join(log_dir, "metrics.jsonl"))
     epoch_records = [r for r in records if "train/train_seconds" in r]
     if [r["step"] for r in epoch_records] != list(range(1, epochs + 1)):
-        raise AssertionError(f"files, {label}: epoch records {epoch_records}")
+        raise AssertionError(f"{phase}, {label}: epoch records {epoch_records}")
     for r in records:
         if not all(math.isfinite(v) for v in r.values()):
-            raise AssertionError(f"files, {label}: non-finite metrics {r}")
+            raise AssertionError(f"{phase}, {label}: non-finite metrics {r}")
     for r in epoch_records:
         ips = steps // epochs * batch / r["train/train_seconds"]
-        log("files", f"{label}, epoch {r['step']}: {r['train/train_seconds']:.3f} s, {ips:.1f} "
+        log(phase, f"{label}, epoch {r['step']}: {r['train/train_seconds']:.3f} s, {ips:.1f} "
                      f"trained img/s ({steps // epochs} steps of {batch}); data_seconds "
                      f"{r['train/data_seconds']:.4f}, step_seconds {r['train/step_seconds']:.4f}, "
                      f"total_loss {r['train/total_loss']:.5f} | {state['card']}")
@@ -4182,6 +4287,283 @@ def phase_files(state):
         if not err4 <= tol4:
             raise AssertionError("files: K4 disagrees with its plain version on decoded batches")
         state["files_errors"]["lifting_multi_level"] = err4
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _release_earlier_phases(state)
+
+
+class _EvalRun(_UnitLaunches):
+    """``_UnitLaunches`` that also keeps the first batch's images."""
+
+    first = None
+
+    def __call__(self, images):
+        if self.first is None:
+            self.first = np.array(images)
+        return super().__call__(images)
+
+
+def _map_oracle(query, gallery, gnd, protocol: str) -> float:
+    """The float64 scalar oracle of the revisited protocol: the cosine of
+    the embeddings in float64, a stable ranking, each query's positive and
+    junk sets straight from its gnd entry (medium: easy | hard and junk;
+    hard: hard and junk | easy), its AP by ``engine.landmark._ap_for_query``,
+    the mean over queries with positives."""
+    from irw_tpu_torch.engine.landmark import _ap_for_query
+
+    q, g = query.astype(np.float64), gallery.astype(np.float64)
+    q /= np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+    g /= np.maximum(np.linalg.norm(g, axis=1, keepdims=True), 1e-12)
+    orders = np.argsort(-(q @ g.T), axis=1, kind="stable")
+    aps = []
+    for order, entry in zip(orders.tolist(), gnd):
+        easy, hard, junk = ({int(i) for i in np.atleast_1d(entry.get(key, []))}
+                            for key in ("easy", "hard", "junk"))
+        positives, junk = (easy | hard, junk) if protocol == "medium" else (hard, junk | easy)
+        if positives:
+            aps.append(_ap_for_query(order, positives, junk))
+    return float(np.mean(aps)) if aps else 0.0
+
+
+def _pillow_differences(images) -> dict:
+    """The largest |numpy - Pillow| of the host stage's blur (radii 0.1 to
+    2), hue round trip (shifts -26, +13, +77, 0) and grayscale over
+    ``images``, against this machine's Pillow."""
+    from PIL import Image, ImageFilter
+
+    from irw_tpu_torch.transforms.host import gaussian_blur, grayscale, hue_shift
+
+    worst = {"blur": 0, "hue": 0, "grayscale": 0}
+    for k, img in enumerate(images):
+        pil = Image.fromarray(img)
+        radius = 0.1 + 1.9 * k / max(len(images) - 1, 1)
+        factor = (-0.1, 0.05, 0.3, 0.0)[k % 4]
+        hsv = np.asarray(pil.convert("HSV"), dtype=np.int16)
+        hsv[..., 0] = (hsv[..., 0] + int(round(factor * 255))) % 256
+        refs = {"blur": (gaussian_blur(img, radius), pil.filter(ImageFilter.GaussianBlur(radius))),
+                "hue": (hue_shift(img, factor),
+                        Image.fromarray(hsv.astype(np.uint8), mode="HSV").convert("RGB")),
+                "grayscale": (grayscale(img), pil.convert("L").convert("RGB"))}
+        for op, (ours, ref) in refs.items():
+            worst[op] = max(worst[op], int(np.abs(ours.astype(int) - np.asarray(ref)).max()))
+    return worst
+
+
+def phase_landmarks(state):
+    """Landmark retrieval (ROADMAP A8c, A12's eval protocols): the revisited
+    Oxford protocol at roxford5k's scale with the full-width flagship
+    through ``compose``, the ``Getter`` and ``evaluate`` (K1 and K2 on every
+    eval batch, each held against its plain version; the mAPs against the
+    float64 oracle on the card's embeddings), ``landmark_bench`` at roxford5k
+    and rparis6k scale, the SfM recipe through the runner, and the host ops
+    alone."""
+    import os
+    import shutil
+    import tempfile
+
+    import PIL
+    import torch
+
+    from irw_tpu_torch import native
+    from irw_tpu_torch import single_experiment_runner as runner
+    from irw_tpu_torch.benchmarks import landmark_bench
+    from irw_tpu_torch.config import compose
+    from irw_tpu_torch.data import EpochLoader, get_dataset, subset
+    from irw_tpu_torch.engine import evaluate
+    from irw_tpu_torch.engine import landmark as landmark_mod
+    from irw_tpu_torch.getter import Getter
+    from irw_tpu_torch.ops.attention import attention_plain, fused_attention
+    from irw_tpu_torch.ops.wavelets import haar_swt2, haar_swt2_plain
+    from irw_tpu_torch.transforms import HostTransform, build_transforms
+
+    _release_earlier_phases(state)
+    root = tempfile.mkdtemp(prefix="irw_landmarks_")
+    try:
+        nq, ng = LANDMARK_COUNTS
+        t0 = time.perf_counter()
+        write_revisited_tree(os.path.join(root, "revisitop"), LANDMARK_CITY, nq, ng, LANDMARK_GND,
+                             LANDMARK_IMAGE, seed=19)
+        write_sfm_tree(os.path.join(root, "sfm"), LANDMARK_SFM_TRAIN, LANDMARK_SFM_CLUSTERS,
+                       LANDMARK_IMAGE, seed=23)
+        log("landmarks", f"wrote {nq} + {ng} {LANDMARK_CITY} JPEGs (gnd {LANDMARK_GND} easy, "
+                         f"hard, junk a query) and {LANDMARK_SFM_TRAIN} SfM JPEGs in "
+                         f"{LANDMARK_SFM_CLUSTERS} clusters, {LANDMARK_IMAGE[0]} x "
+                         f"{LANDMARK_IMAGE[1]} (cut from the datasets' ~1024 x 768), in "
+                         f"{time.perf_counter() - t0:.1f} s; decode route: "
+                         f"{'native' if native.available() else 'Pillow (no host image loader)'}")
+
+        # 1. the revisited protocol with the flagship, through the getter
+        cfg = compose(runner.CONFIG_DIR, "default", [
+            "dataset=roxford", f"dataset.kwargs.data_dir={root}/revisitop", "transform=voc_swt"])
+        _, evals = Getter().get_dataset(cfg.dataset)
+        sides = evals["test"]
+        if (len(sides["query"]), len(sides["gallery"]), len(sides["query"].gnd)) != (nq, ng, nq):
+            raise AssertionError(f"landmarks: the getter built {sides}")
+        _, (host, dev) = Getter().get_transform(cfg.transform, "cuda")
+        kernels = _kernel_wrappers()
+        transform = _EvalRun(dev, kernels)
+        model = _flagship_model()
+        attn = model.backbone.vit.blocks[0].attn
+        core, captured, seen = attn.core, {}, {}
+
+        def core_fn(q, k, v):
+            if "qkv" not in captured:
+                captured["qkv"] = tuple(t.detach().clone() for t in (q, k, v))
+            return core(q, k, v)
+
+        real_map = landmark_mod.landmark_evaluation
+
+        def timed_map(query, gallery, gnd, **kw):
+            torch.cuda.synchronize()
+            t_map = time.perf_counter()
+            out = real_map(query, gallery, gnd, **kw)
+            seen.update(ms=(time.perf_counter() - t_map) * 1e3, device=query.device,
+                        on_card=(query, gallery))
+            return out
+
+        attn.core, landmark_mod.landmark_evaluation = core_fn, timed_map
+        try:
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in kernels:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            maps = evaluate(model, sides, transform, batch_size=LANDMARK_EVAL_BS,
+                            host_transform=host, num_workers=8)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            attn.core, landmark_mod.landmark_evaluation = core, real_map
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        units = transform.units(True)
+        batches = -(-nq // LANDMARK_EVAL_BS) + -(-ng // LANDMARK_EVAL_BS)
+        state["launches"]["landmarks_eval"] = {fn.__name__: sum(u[i] for u in units)
+                                               for i, fn in enumerate(kernels)}
+        state["landmarks_units"] = len(units)
+        if len(units) != batches:
+            raise AssertionError(f"landmarks: {len(units)} eval batches, expected {batches}")
+        _check_launches("landmarks", units, (1, 12, 0, 0, 0, 0, 0), "eval batch")
+        if seen.get("device") is None or seen["device"].type != "cuda":
+            raise AssertionError(f"landmarks: the map ran on {seen.get('device')}")
+        query, gallery = seen.pop("on_card")
+        warm = []
+        for _ in range(5):  # the same call again, its kernels loaded
+            torch.cuda.synchronize()
+            t_map = time.perf_counter()
+            again = real_map(query, gallery, sides["query"].gnd)
+            warm.append((time.perf_counter() - t_map) * 1e3)
+        if again != maps:
+            raise AssertionError(f"landmarks: the map gave {maps}, then {again}")
+        embed = seconds - seen["ms"] / 1e3
+        log("landmarks", f"{LANDMARK_CITY} revisited protocol, flagship (4 x ViT-S/14 bf16, 64 "
+                         f"bits), voc_swt's test ops, {batches} eval batches of "
+                         f"{LANDMARK_EVAL_BS}: {seconds:.3f} s in all, embedding {embed:.3f} s "
+                         f"({(nq + ng) / embed:.1f} img/s), map {seen['ms']:.2f} ms inside "
+                         f"evaluate (its first call: kernels loading), "
+                         f"{statistics.median(warm):.2f} ms warm (median of 5), peak "
+                         f"{peak:.2f} GiB | {state['card']}")
+        state["landmarks_map_ms"] = (seen["ms"], statistics.median(warm))
+        query, gallery = query.float().cpu().numpy(), gallery.float().cpu().numpy()
+        for protocol in ("medium", "hard"):
+            value = maps[f"map_{protocol}"]
+            oracle = _map_oracle(query, gallery, sides["query"].gnd, protocol)
+            log("landmarks", f"map_{protocol} {value:.6f}; float64 scalar oracle on the card's "
+                             f"embeddings {oracle:.6f} (|diff| {abs(value - oracle):.2e}, limit "
+                             f"{LANDMARK_MAP_TOL})")
+            if not (0.0 <= value <= 1.0 and abs(value - oracle) <= LANDMARK_MAP_TOL):
+                raise AssertionError(f"landmarks: map_{protocol} {value} against {oracle}")
+        state["landmarks_maps"] = maps
+
+        # K1 on the first decoded batch, K2 on block 0's q, k, v of that batch
+        images = torch.from_numpy(transform.first).cuda().float() / 255.0
+        b, h, w, c = images.shape
+        planes = images.permute(0, 3, 1, 2).reshape(b * c, h, w).contiguous()
+        err1 = (haar_swt2(planes) - haar_swt2_plain(planes)).abs().max().item()
+        q, k, v = captured["qkv"]
+        with torch.no_grad():
+            ref2 = attention_plain(q, k, v).float()
+            err2 = (fused_attention(q, k, v).float() - ref2).abs().max().item()
+        peak2 = ref2.abs().max().item()
+        tol2 = K2_TOL["bfloat16"] * 2.0 ** max(0, math.floor(math.log2(peak2)))
+        torch.cuda.synchronize()
+        log("landmarks", f"K1 on the first decoded eval batch {tuple(planes.shape)}: max|kernel - "
+                         f"plain| = {err1:.3e} (limit {K1_TOL}); K2 on block 0's q, k, v "
+                         f"{tuple(q.shape)} {q.dtype}: {err2:.3e} (limit {tol2:.3e}, one bf16 ulp "
+                         f"at max|o| {peak2:.3f})")
+        if not (err1 <= K1_TOL and q.dtype == torch.bfloat16 and err2 <= tol2):
+            raise AssertionError("landmarks: a kernel disagrees with its plain version on the "
+                                 "decoded eval batch")
+        state["landmarks_errors"] = {"haar_swt2": err1, "fused_attention": err2}
+        del model, transform, captured, images, planes, q, k, v, ref2
+        _release_earlier_phases(state)
+
+        # 2. the map alone at roxford5k's and rparis6k's scale
+        for city, gallery in LANDMARK_BENCH_GALLERIES.items():
+            out = landmark_bench.run(nq=nq, ng=gallery, d=2048, iters=5)
+            log("landmarks", f"landmark_bench at {city} scale {out['shape']}: {out['ms']:.2f} ms a "
+                             f"call (medium + hard, host masks and copies included, mean of 5 "
+                             f"after a warm-up); map_medium {out['map_medium']:.4f}, map_hard "
+                             f"{out['map_hard']:.4f} | {state['card']}")
+            if not (out["device"] == torch.cuda.get_device_name(0) and 0 <= out["map_hard"] <= 1
+                    and 0 <= out["map_medium"] <= 1):
+                raise AssertionError(f"landmarks: landmark_bench gave {out}")
+            state[f"landmarks_bench_{city}"] = out["ms"]
+
+        # 3. the SfM recipe through the runner
+        overrides = LANDMARK_SFM_JOB + [f"dataset.kwargs.data_dir={root}/sfm",
+                                        f"experience.log_dir={root}/runs"]
+        log("landmarks", f"sfm job: {LANDMARK_SFM_JOB}; {LANDMARK_SFM_TRAIN} train images in "
+                         f"{LANDMARK_SFM_CLUSTERS} clusters of 4 in place of SfM-120k's")
+        route = "native" if native.available() else "host"
+        _, model, routes, records = _file_job(
+            state, "sfm", overrides, (0, 0, 0, 0, 0, 0, 0), (0, 0, 0, 0, 0, 0, 0), 1,
+            LANDMARK_SFM_STEPS, LANDMARK_SFM_BATCH, phase="landmarks")
+        del model
+        log("landmarks", f"sfm decode routes: train batches {routes['train']}, eval batches "
+                         f"{routes['eval']}")
+        if set(routes["train"] + routes["eval"]) != {route}:
+            raise AssertionError(f"landmarks: batches took {routes}, expected every one {route}")
+        evaluated = [r for r in records if "test/map_level0" in r]
+        if len(evaluated) != 1 or not 0.0 <= evaluated[0]["test/map_level0"] <= 1.0:
+            raise AssertionError(f"landmarks: sfm eval records {evaluated}")
+        log("landmarks", f"sfm eval of the train split (drop-self, cosine): "
+                         f"{evaluated[0]['test/eval_seconds']:.3f} s, map_level0 "
+                         f"{evaluated[0]['test/map_level0']:.4f}")
+        _release_earlier_phases(state)
+
+        # 4. the host ops alone, and against this machine's Pillow
+        sfm = get_dataset("SfM120kDataset", data_dir=f"{root}/sfm")
+        sub = subset(sfm, np.arange(LANDMARK_HOST_IMAGES))
+        multicrop, _ = build_transforms(compose(runner.CONFIG_DIR, "default", [
+            "transform=multicrop"]).transform.train, device="cpu")
+        pixel = HostTransform([
+            ("RandomResizedCrop", {"size": 224}),
+            ("ColorJitter", {"brightness": 0.4, "contrast": 0.4, "saturation": 0.4, "hue": 0.1}),
+            ("RandomGrayscale", {"p": 0.2}), ("GaussianBlur", {"sigma": [0.1, 2.0], "p": 0.5}),
+            ("RandomHorizontalFlip", {})])
+        batches = [np.arange(i, i + 128) for i in range(0, LANDMARK_HOST_IMAGES, 128)]
+        for label, host in (("multicrop.yaml's train ops (2 x 224 + 6 x 96)", multicrop),
+                            ("RandomResizedCrop 224, ColorJitter(hue=0.1), RandomGrayscale, "
+                             "GaussianBlur, flip", pixel)):
+            loader = EpochLoader(sub, batches, host, num_workers=8)
+            t0 = time.perf_counter()
+            out = list(loader)
+            rate = LANDMARK_HOST_IMAGES / (time.perf_counter() - t0)
+            keys = sorted(k for k in out[0] if k.startswith("crop_"))
+            shapes = [out[0][k].shape[1:3] for k in keys] or [out[0]["image"].shape[1:3]]
+            log("landmarks", f"EpochLoader alone, {label}: {rate:.1f} img/s over "
+                             f"{LANDMARK_HOST_IMAGES} images in batches of 128, 8 threads on "
+                             f"{os.cpu_count()} CPUs, routes {sorted(set(loader.routes.values()))}, "
+                             f"outputs {shapes} | {state['card']}")
+            if set(loader.routes.values()) != {"host"} or (host is multicrop and shapes != [
+                    (224, 224)] * 2 + [(96, 96)] * 6):
+                raise AssertionError(f"landmarks: host ops gave {loader.routes}, {shapes}")
+        worst = _pillow_differences([sfm.load_image(i) for i in range(LANDMARK_PILLOW_IMAGES)])
+        log("landmarks", f"numpy host ops against this machine's Pillow {PIL.__version__} on "
+                         f"{LANDMARK_PILLOW_IMAGES} decoded images: largest |diff| {worst} "
+                         "(limit 1)")
+        if max(worst.values()) > 1:
+            raise AssertionError(f"landmarks: the host ops stray from Pillow by {worst}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     _release_earlier_phases(state)
@@ -4457,7 +4839,7 @@ def main(argv=None) -> int:
                "flash_serve": phase_flash_serve, "flash_train": phase_flash_train,
                "qkv": phase_qkv, "qkv_micro": phase_qkv_micro, "variants": phase_variants,
                "siblings": phase_siblings, "trunks": phase_trunks, "files": phase_files,
-               "wavenets": phase_wavenets}
+               "wavenets": phase_wavenets, "landmarks": phase_landmarks}
     for name in phases:
         if name != "card":
             t0 = time.perf_counter()
@@ -4489,11 +4871,13 @@ def main(argv=None) -> int:
     if "default_units" in state:  # the default composition's run (trunks)
         trained["default"] = ("trunks_default", state["default_units"][0])
         served["default_eval"] = ("trunks_default_eval", state["default_units"][1])
-    for label in ("voc", "cub"):  # the runs from files
-        if f"files_{label}_units" in state:
-            n_steps, n_evals = state[f"files_{label}_units"]
-            trained[f"files_{label}"] = (f"files_{label}", n_steps)
-            served[f"files_{label}_eval"] = (f"files_{label}_eval", n_evals)
+    for key in ("files_voc", "files_cub", "landmarks_sfm"):  # the runs from files
+        if f"{key}_units" in state:
+            n_steps, n_evals = state[f"{key}_units"]
+            trained[key] = (key, n_steps)
+            served[f"{key}_eval"] = (f"{key}_eval", n_evals)
+    if "landmarks_units" in state:  # the revisited protocol's eval batches
+        served["landmarks"] = ("landmarks_eval", state["landmarks_units"])
 
     def per_run(paths, name):
         return {path: runs[key].get(name, 0) / n for path, (key, n) in paths.items() if key in runs}

@@ -2,7 +2,9 @@
 
 Iterates the sampler's batch index lists; each batch is ``{"image": (B, H,
 W, 3) uint8, "label", "index"}``, ``index`` being the dataset positions the
-XBM memory is keyed on.  Batch ``b`` draws its augmentations from
+XBM memory is keyed on.  A training host stage with ``MultiCrop`` adds
+``crop_0`` … ``crop_{n-1}``, each crop's images stacked, and ``image`` is
+``crop_0``.  Batch ``b`` draws its augmentations from
 ``np.random.RandomState(seed * 100003 + b)`` (``train`` selects them).
 With ``num_workers`` > 0 the batches are made up to ``prefetch`` ahead on
 that many threads and come out in the sampler's order; with 0 each is made
@@ -105,27 +107,40 @@ class EpochLoader:
             images[j] = apply(self.dataset.load_image(int(indices[j])), plans[j])
         return images
 
-    def _images(self, batch_idx: int, indices) -> tuple[np.ndarray, str]:
+    def _host(self, images, rng):
+        """The host stage over ``images``: (B, H, W, 3), or in training with
+        ``MultiCrop`` one list of crops an image."""
+        host = self.host_transform
+        if self.train and host.multi_crop is not None:
+            return [host.crops(img, rng) for img in images]
+        return host.batch(images, rng, self.train)
+
+    def _images(self, batch_idx: int, indices):
         if self.in_memory and self.host_transform is None:
             return self.dataset.images[indices], "memory"
         if self.in_memory:
             rng = np.random.RandomState(self.seed * 100003 + batch_idx)
-            return self.host_transform.batch([self.dataset.images[i] for i in indices], rng,
-                                             self.train), "memory"
+            return self._host([self.dataset.images[i] for i in indices], rng), "memory"
         if self._native_eligible():
             images = self._native_batch(indices, np.random.RandomState(
                 self.seed * 100003 + batch_idx))
             if images is not None:
                 return images, "native"
         rng = np.random.RandomState(self.seed * 100003 + batch_idx)
-        return self.host_transform.batch([self.dataset.load_image(int(i)) for i in indices],
-                                         rng, self.train), "host"
+        return self._host([self.dataset.load_image(int(i)) for i in indices], rng), "host"
 
     def _load_batch(self, batch_idx: int, indices) -> dict:
         indices = np.asarray(indices)
         images, route = self._images(batch_idx, indices)
         self.routes[batch_idx] = route
-        return {"image": images, "label": self.dataset.labels[indices], "index": indices}
+        out = {"label": self.dataset.labels[indices], "index": indices}
+        if isinstance(images, list):  # multi-crop: same-shaped crops stacked
+            for c in range(len(images[0])):
+                out[f"crop_{c}"] = np.stack([crops[c] for crops in images])
+            out["image"] = out["crop_0"]
+        else:
+            out["image"] = images
+        return out
 
     def __iter__(self):
         self.routes = {}

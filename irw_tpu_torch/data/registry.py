@@ -1,9 +1,5 @@
-"""Dataset registry (port of ``irw_tpu/data/registry.py:31-92``).
-
-Every dataset of the JAX registry but the landmarks (``SfM120kDataset``,
-``RevisitedDataset``), which wait for ROADMAP A8c with A12's landmark
-evaluation.
-"""
+"""Dataset registry (port of ``irw_tpu/data/registry.py:31-92``): every
+dataset of the JAX registry."""
 
 from __future__ import annotations
 
@@ -25,6 +21,7 @@ from irw_tpu_torch.data.datasets_multilabel import (
     NUSWIDEHashing,
     VOC2012Hashing,
 )
+from irw_tpu_torch.data.landmarks import RevisitedDataset, SfM120kDataset
 from irw_tpu_torch.data.synthetic import (
     SyntheticDataset,
     SyntheticHashingDataset,
@@ -51,8 +48,9 @@ DATASET_REGISTRY = {
     "CifarDataset": CifarDataset,
     "Cifar100RetrievalDataset": Cifar100RetrievalDataset,
     "Cifar10Retrieval": Cifar10Retrieval,
+    "SfM120kDataset": SfM120kDataset,
+    "RevisitedDataset": RevisitedDataset,
 }
-_LATER = ("SfM120kDataset", "RevisitedDataset")
 
 # datasets whose eval side is an explicit query/gallery pair
 QUERY_GALLERY_DATASETS = {
@@ -70,9 +68,6 @@ QUERY_GALLERY_DATASETS = {
 
 
 def get_dataset(name: str, mode: str = "train", **kwargs):
-    if name in _LATER:
-        raise NotImplementedError(f"dataset {name!r} (the landmarks) waits for ROADMAP A8c, "
-                                  "with A12's landmark evaluation")
     try:
         ctor = DATASET_REGISTRY[name]
     except KeyError as exc:

@@ -1,16 +1,21 @@
 """Retrieval evaluation on one device (port of
-``irw_tpu/engine/evaluate.py:26-82, 85-150, 196-274``).
+``irw_tpu/engine/evaluate.py:26-82, 85-150, 153-274``).
 
 ``compute_embeddings`` runs the eval-mode forward over a dataset in
 batches, walking it in order through ``EpochLoader(train=False)`` (the host
 stage with its eval ops, or the stored images with ``host_transform=None``),
-padding the tail batch to keep one shape.  ``evaluate`` ranks and scores the embeddings with
-``ops.metrics.compute_retrieval_metrics``.  The out-of-memory retry, the
-distractor and landmark protocols and the multi-device paths wait for
-ROADMAP A12/A13.
+padding the tail batch to keep one shape.  ``evaluate`` ranks and scores the
+embeddings with ``ops.metrics.compute_retrieval_metrics``; a query set that
+carries ``gnd`` (revisited Oxford/Paris) is scored by
+``engine.landmark.landmark_evaluation`` instead, and a ``distractor``
+dataset joins the gallery with labels no query matches.  A card that runs
+out of memory gets one retry at half the batch (at least 32) and a query
+chunk of 256.  The multi-device paths wait for ROADMAP A13.
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -18,6 +23,9 @@ import torch
 from irw_tpu_torch.data.loader import EpochLoader
 from irw_tpu_torch.device import resolve_device
 from irw_tpu_torch.ops.metrics import compute_retrieval_metrics
+
+LOGGER = logging.getLogger(__name__)
+DISTRACTOR_LABEL = -424242  # a class id no query holds
 
 
 def compute_embeddings(model, dataset, device_transform=None, batch_size: int = 256,
@@ -81,31 +89,61 @@ def evaluate(model, datasets, device_transform=None, batch_size: int = 256, top_
     """Evaluate retrieval quality; returns a flat dict of metrics.
 
     ``datasets`` is one dataset (self-retrieval, drop-self) or
-    ``{"query": ds, "gallery": ds}``.  ``device=None`` means the card: the
-    model (and the transform) must live there.
+    ``{"query": ds, "gallery": ds}``, with an optional ``"distractor"``
+    dataset.  ``device=None`` means the card: the model (and the transform)
+    must live there.  Out of memory on the card, it retries once at
+    ``max(batch_size // 2, 32)`` and a query chunk of 256; a second
+    out-of-memory error propagates.
     """
     device = resolve_device(device)
+    args = (model, datasets, device_transform, top_k, distance_metric, multi_label, device,
+            host_transform, num_workers)
+    try:
+        return _evaluate_once(*args, batch_size=batch_size, query_chunk=query_chunk)
+    except torch.cuda.OutOfMemoryError:
+        pass  # retried outside the handler: its traceback holds the failed pass's tensors
+    small = max(batch_size // 2, 32)
+    LOGGER.warning(f"eval out of memory at batch {batch_size}; retrying once at batch {small} "
+                   "/ query_chunk 256")
+    return _evaluate_once(*args, batch_size=small, query_chunk=256)
+
+
+def _evaluate_once(model, datasets, device_transform, top_k, distance_metric, multi_label,
+                   device, host_transform, num_workers, batch_size, query_chunk) -> dict:
     cfg = {"top_k": top_k, "distance_metric": distance_metric, "query_chunk": query_chunk}
     if multi_label is not None:
         cfg["multi_label"] = multi_label
-    if isinstance(datasets, dict):
-        if set(datasets) != {"query", "gallery"}:
-            raise NotImplementedError("distractor and landmark protocols wait for ROADMAP A12")
-        if getattr(datasets["query"], "gnd", None) is not None:
-            # the JAX package scores such a query set with landmark_evaluation
-            # (irw_tpu/engine/evaluate.py:257-261), not the metric suite
-            raise NotImplementedError("a query set with gnd (the revisited Oxford/Paris "
-                                      "landmark protocol) waits for ROADMAP A12")
-        q_emb, q_labels = compute_embeddings(model, datasets["query"], device_transform,
-                                             batch_size, device, host_transform, num_workers)
-        if datasets["gallery"] is datasets["query"]:
-            g_emb, g_labels = q_emb, q_labels
-        else:
-            g_emb, g_labels = compute_embeddings(model, datasets["gallery"], device_transform,
-                                                 batch_size, device, host_transform, num_workers)
-        cfg["same_source"] = datasets["query"] is datasets["gallery"]
-        return _metric_suite(q_emb, q_labels, g_emb, g_labels, cfg, device)
-    emb, labels = compute_embeddings(model, datasets, device_transform, batch_size, device,
-                                     host_transform, num_workers)
-    cfg["same_source"] = True
-    return _metric_suite(emb, labels, emb, labels, cfg, device)
+
+    def embed(dataset):
+        return compute_embeddings(model, dataset, device_transform, batch_size, device,
+                                  host_transform, num_workers)
+
+    if not isinstance(datasets, dict):
+        emb, labels = embed(datasets)
+        cfg["same_source"] = True
+        return _metric_suite(emb, labels, emb, labels, cfg, device)
+    q_emb, q_labels = embed(datasets["query"])
+    if datasets["gallery"] is datasets["query"]:
+        g_emb, g_labels = q_emb, q_labels
+    else:
+        g_emb, g_labels = embed(datasets["gallery"])
+    if "distractor" in datasets:
+        d_emb, _ = embed(datasets["distractor"])
+        g_emb = torch.cat([g_emb, d_emb])
+        gl = np.asarray(g_labels)
+        if gl.ndim == 1:
+            d_labels = np.full(d_emb.shape[0], DISTRACTOR_LABEL, gl.dtype)
+        elif cfg.get("multi_label", _looks_multilabel(gl)):
+            # all-zero indicator rows: relevant to no query
+            d_labels = np.zeros((d_emb.shape[0], gl.shape[1]), gl.dtype)
+        else:  # class ids per level: 0 is a class, so an impossible id
+            d_labels = np.full((d_emb.shape[0], gl.shape[1]), DISTRACTOR_LABEL, gl.dtype)
+        g_labels = np.concatenate([gl, d_labels])
+    gnd = getattr(datasets["query"], "gnd", None)
+    if gnd is not None:
+        from irw_tpu_torch.engine.landmark import landmark_evaluation
+
+        return landmark_evaluation(q_emb, g_emb, gnd, device=device)
+    # one dataset wrapped as query and gallery (a distractor split): drop-self
+    cfg["same_source"] = datasets["query"] is datasets["gallery"]
+    return _metric_suite(q_emb, q_labels, g_emb, g_labels, cfg, device)

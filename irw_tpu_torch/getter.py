@@ -5,8 +5,7 @@ has — ``transforms.build_transforms``, ``data.get_dataset``,
 ``engine.optimizers`` and ``engine.get_memory``.
 
 The JAX ``init_train_state`` of the same module is
-``engine.init_train_state`` in the port.  A ``distractor`` gallery
-(``evaluate.py:101-135``) waits for ROADMAP A12.
+``engine.init_train_state`` in the port.
 """
 
 from __future__ import annotations
@@ -38,7 +37,9 @@ class Getter:
     def get_dataset(self, dataset_config):
         """(train dataset, {"test": eval side}): a {query, gallery} dict for
         the query/gallery families, else the test split (the train set if
-        the family has none)."""
+        the family has none); a ``distractor`` entry ({name, mode, kwargs})
+        adds that dataset to the eval side as ``"distractor"``, one test
+        split becoming its own query and gallery."""
         name = dataset_config["name"]
         kwargs = dict(dataset_config.get("kwargs") or {})
         kwargs.pop("mode", None)
@@ -51,8 +52,13 @@ class Getter:
                 test = get_dataset(name, mode="test", **kwargs)
             except Exception:  # the JAX getter's rule: no test split, eval on train
                 test = train_ds
-        if dataset_config.get("distractor"):
-            raise NotImplementedError("a distractor gallery waits for ROADMAP A12")
+        distractor = dataset_config.get("distractor")
+        if distractor:  # extra gallery items that match no query
+            if not isinstance(test, dict):
+                test = {"query": test, "gallery": test}
+            test["distractor"] = get_dataset(distractor["name"],
+                                             mode=distractor.get("mode", "gallery"),
+                                             **dict(distractor.get("kwargs") or {}))
         return train_ds, {"test": test}
 
     def get_sampler(self, dataset, sampler_config):

@@ -21,6 +21,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import chip_smoke
 from irw_tpu.config import compose as jax_compose
 from irw_tpu.data import base as jax_base
 from irw_tpu.data.registry import DATASET_REGISTRY as JAX_REGISTRY
@@ -38,7 +39,6 @@ from irw_tpu_torch.getter import Getter
 from irw_tpu_torch.single_experiment_runner import CONFIG_DIR
 from test_torch_native_loader import pattern, write_image, write_voc_tree
 
-LANDMARKS = ("SfM120kDataset", "RevisitedDataset")
 ALL_MODES = ("train", "query", "test", "gallery", "database")
 
 
@@ -182,6 +182,9 @@ def trees(tmp_path_factory):
     out["imagenet100"] = str(base / "imagenet100")
     out["cifar10"] = write_cifar10(base / "cifar10")
     out["cifar100"] = write_cifar100(base / "cifar100")
+    out["sfm"] = chip_smoke.write_sfm_tree(base / "sfm", 8, 2, (40, 32), n_val=2, seed=3)
+    out["revisited"] = chip_smoke.write_revisited_tree(base / "revisitop", "roxford5k", 3, 10,
+                                                       (2, 2, 2), (40, 32), seed=4)
     return out
 
 
@@ -308,12 +311,10 @@ def test_remap_labels_as_jax():
 
 
 def test_registry_holds_every_jax_dataset_but_the_landmarks():
-    assert set(DATASET_REGISTRY) == set(JAX_REGISTRY) - set(LANDMARKS)
+    """Every dataset of the JAX registry, the landmarks too (ROADMAP A8c)."""
+    assert set(DATASET_REGISTRY) == set(JAX_REGISTRY)
     for name, cls in DATASET_REGISTRY.items():
         assert cls.__name__ == JAX_REGISTRY[name].__name__
-    for name in LANDMARKS:
-        with pytest.raises(NotImplementedError, match="A8c"):
-            get_dataset(name, data_dir="data")
 
 
 CONFIG_TREES = {
@@ -322,7 +323,7 @@ CONFIG_TREES = {
     "image_folder": "folders", "imagenet100": "imagenet100", "inaturalist": "inat",
     "inshop": "inshop", "mflickr": "mirflickr", "mirflickr": "mirflickr", "nuswide": "nuswide",
     "sdd": "folders", "sop": "sop", "stanforddogs": "folders", "textured": "folders",
-    "textured_rdm": "folders", "voc": "voc"}
+    "textured_rdm": "folders", "voc": "voc", "sfm120k": "sfm", "roxford": "revisited"}
 SYNTHETIC_CUTS = {
     "synthetic": ["dataset.kwargs.num_samples=30", "dataset.kwargs.image_size=16"],
     "synthetic_hashing": ["dataset.kwargs.num_samples=40", "dataset.kwargs.image_size=16"],
@@ -334,18 +335,13 @@ DATASET_CONFIGS = sorted(p.stem for p in (Path(CONFIG_DIR) / "dataset").glob("*.
 
 def test_dataset_configs_are_counted():
     assert len(DATASET_CONFIGS) == 28
-    assert set(DATASET_CONFIGS) == set(CONFIG_TREES) | set(SYNTHETIC_CUTS) | {"sfm120k", "roxford"}
+    assert set(DATASET_CONFIGS) == set(CONFIG_TREES) | set(SYNTHETIC_CUTS)
 
 
 @pytest.mark.parametrize("config", DATASET_CONFIGS)
 def test_dataset_config_composes_and_builds_as_jax(trees, config):
-    """26 of the 28 files build through ``compose`` and ``Getter`` (the train
-    set and the eval side) as irw_tpu's; the landmarks name A8c."""
-    if config in ("sfm120k", "roxford"):
-        cfg = compose(CONFIG_DIR, "default", [f"dataset={config}"])
-        with pytest.raises(NotImplementedError, match="A8c"):
-            Getter().get_dataset(cfg.dataset)
-        return
+    """Every one of the 28 files builds through ``compose`` and ``Getter``
+    (the train set and the eval side) as irw_tpu's."""
     overrides = [f"dataset={config}"] + SYNTHETIC_CUTS.get(
         config, [f"dataset.kwargs.data_dir={trees.get(CONFIG_TREES.get(config))}"])
     cfg = compose(CONFIG_DIR, "default", overrides).dataset

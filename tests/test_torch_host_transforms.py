@@ -160,19 +160,9 @@ def test_loader_matches_jax(num_workers):
                 np.testing.assert_array_equal(a[key], b[key], err_msg=f"{key} {train}")
 
 
-@pytest.mark.parametrize("ops", [
-    [("MultiCrop", {})], [("ColorJitter", dict(JITTER, hue=0.1))],
-    [("RandomGrayscale", {"p": 0.1})], [("GaussianBlur", {"sigma": [0.1, 2.0]})]],
-    ids=["MultiCrop", "ColorJitter_hue", "RandomGrayscale", "GaussianBlur"])
-def test_unported_host_ops_name_a8c(ops):
-    with pytest.raises(NotImplementedError, match="A8c"):
-        HostTransform(ops)
-
-
 def test_file_backed_datasets_name_a8c():
-    """Of the file-backed datasets only the landmarks still wait."""
-    for name in ("SfM120kDataset", "RevisitedDataset"):
-        with pytest.raises(NotImplementedError, match="A8c"):
-            get_dataset(name, data_dir="data")
+    """Every file-backed dataset of the JAX registry is ported (the landmarks
+    are held in ``tests/test_torch_landmarks.py``); an unknown name still
+    raises."""
     with pytest.raises(ValueError, match="unknown dataset"):
         get_dataset("NoSuchDataset")

@@ -59,7 +59,6 @@ from irw_tpu_torch.losses import CalibrationLoss, build_losses
 from irw_tpu_torch.models import get_model
 from irw_tpu_torch.samplers import RandomSampler
 from irw_tpu_torch.transforms import DeviceTransform
-from irw_tpu_torch.transforms.host import HostTransform as PortHostTransform
 from test_torch_multi_dino import YAML, flagship_yaml
 from test_torch_shared_dino import CONFIGS
 from test_torch_train_model import EXACT_ZEROS
@@ -393,8 +392,6 @@ REFUSALS = {
     "model_parallel": ({"model_parallel": 2}, {}, "A13"),
     "band_parallel": ({"band_parallel": 2}, {}, "A13"),
     "pipeline_parallel": ({"pipeline_parallel": 4}, {}, "A13"),
-    # a host stage with MultiCrop (the SwAV branch)
-    "host_transform": ({}, {"host_ops": [("MultiCrop", {})]}, "A8c"),
 }
 
 
@@ -406,8 +403,7 @@ def test_unported_loop_options_name_their_roadmap_item(option, tmp_path):
     state = _tiny_state()
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
     with pytest.raises(NotImplementedError, match=item):
-        train(state, ds, RandomSampler(ds, BATCH, seed=0), {},
-              PortHostTransform(extra["host_ops"]) if "host_ops" in extra else None,
+        train(state, ds, RandomSampler(ds, BATCH, seed=0), {}, None,
               DeviceTransform(OPS, device="cpu"), config, str(tmp_path),
               instrumentor=extra.get("instrumentor"))
     assert state.step == 0 and all(torch.equal(v, before[k])

@@ -103,17 +103,3 @@ def test_voc_anchor_map():
                                     same_source=True, with_hashing_stats=True)
     assert res["num_k"] == n - 1
     assert round(res["map"], 4) == 0.3865
-
-
-def test_evaluate_refuses_a_query_set_with_gnd():
-    """irw_tpu's evaluate scores a query set that carries ``gnd`` (revisited
-    Oxford/Paris) with landmark_evaluation; the port raises naming ROADMAP
-    A12 instead of scoring it with the plain suite."""
-    from irw_tpu_torch.data import SyntheticVOCDataset
-    from irw_tpu_torch.engine import evaluate
-
-    query = SyntheticVOCDataset(num_train=4, image_size=16, seed=0)
-    gallery = SyntheticVOCDataset(num_train=6, image_size=16, seed=1)
-    query.gnd = [{"easy": [0], "hard": [1], "junk": []}] * 4
-    with pytest.raises(NotImplementedError, match="A12"):
-        evaluate(torch.nn.Identity(), {"query": query, "gallery": gallery}, device="cpu")

@@ -18,6 +18,7 @@ import torch
 import irw_tpu_torch
 from irw_tpu_torch.data import SyntheticVOCDataset
 from irw_tpu_torch.engine import compute_embeddings, evaluate
+from irw_tpu_torch.engine.landmark import landmark_evaluation
 from irw_tpu_torch.models import get_model
 from irw_tpu_torch.models.vit import make_vit
 from irw_tpu_torch.ops.attention import (
@@ -46,6 +47,7 @@ REPO = Path(__file__).resolve().parents[1]
 TINY = {"backbone": "test_tiny", "fusion_config": {"type": "cross_attention_advanced",
                                                     "output_dim": 64, "num_heads": 2},
         "vit_kwargs": {"img_size": 16}}
+GND = [{"easy": [0], "hard": [], "junk": []}, {"easy": [1], "hard": [], "junk": []}]
 # configs/model/wcnn_attention_ce.yaml's dialect on resnet18 branches
 WCNN_KW = {"backbone_name": "wcnn_attention_ce", "attention": True, "attention_type": "cbam",
            "num_classes": 4, "with_autocast": True, "backbone": "resnet18"}
@@ -77,6 +79,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert {"irw_tpu_torch.native", "irw_tpu_torch.native.build", "irw_tpu_torch.data.base",
             "irw_tpu_torch.data.cifar", "irw_tpu_torch.data.datasets_image",
             "irw_tpu_torch.data.datasets_multilabel"} <= set(modules)
+    assert {"irw_tpu_torch.data.landmarks", "irw_tpu_torch.engine.landmark",
+            "irw_tpu_torch.benchmarks.landmark_bench"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r} + ['irw_tpu_torch', 'chip_smoke']:\n"
@@ -130,6 +134,8 @@ def test_entry_points_raise_without_a_card(no_card):
         evaluate(model, ds, distance_metric="hamming")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         compute_embeddings(model, ds)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        landmark_evaluation(np.eye(2, dtype=np.float32), np.eye(2, dtype=np.float32), GND)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         get_model("multidino_attention_hashing", device="cuda", **TINY)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -144,6 +150,9 @@ def test_entry_points_run_on_cpu_when_asked(no_card):
     res = evaluate(model, ds, DeviceTransform([("SWTTransform", {})], device="cpu"),
                    batch_size=4, distance_metric="hamming", device="cpu")
     assert res["num_k_level0"] == 5 and np.isfinite(list(res.values())).all()
+    maps = landmark_evaluation(np.eye(2, dtype=np.float32), np.eye(2, dtype=np.float32), GND,
+                               device="cpu")
+    assert maps == {"map_medium": 1.0, "map_hard": 0.0}
 
 
 def test_wcnn_entry_points_run_on_cpu_when_asked(no_card):

@@ -264,8 +264,6 @@ REFUSALS = {
     "kfold": (["experience.kfold.use_kfold=true"], NotImplementedError, "A12"),
     "dsch_train": (["experience.dsch_train=true"], NotImplementedError, "A12"),
     "hooks": (["experience.hooks_configs.active=true"], NotImplementedError, "A12"),
-    "multicrop": (["transform=multicrop"], NotImplementedError, "A8c"),
-    "file_dataset": (["dataset=sfm120k"], NotImplementedError, "A8c"),
 }
 
 
