@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases card,build,files
     python3 chip_smoke.py --phases card,build,wavenets
     python3 chip_smoke.py --phases card,build,landmarks
+    python3 chip_smoke.py --phases card,build,hf_towers
 
 Drives the port's serving path — uint8 images → DeviceTransform (/255, Haar
 SWT: kernel K1) → the flagship MultiDinoHashing (4 × DINOv2 ViT-S/14 at
@@ -223,7 +224,17 @@ configuration of the family — and prints one line per phase:
    runner, one epoch of 8 steps of 128 and its eval (no kernel: a stock f32
    DeiT-S/16); ``EpochLoader`` alone with ``multicrop.yaml``'s train ops and
    with a hue, grayscale and blur; the numpy host ops against the machine's
-   Pillow.
+   Pillow;
+26. hf_towers: the HF vision wrapper's towers (ROADMAP A10d) at full width,
+   f32, 224², no kernel on the path.  ``openclip`` and ``metaclip2`` (CLIP
+   ViT-B/16) and ``siglip2`` (SigLIP B/16) through ``RetrievalNet`` from
+   their ``configs/model`` files, each served as ``trunks`` serves (3 warm-up
+   and 10 timed batches of 64: img/s, ms a batch, peak memory, launches,
+   the first 4 images against a CPU copy with TF32 off); the registry's
+   ``clip_vit_b32`` and ``vit_b16_hf`` one batch each, also against the CPU;
+   ``openclip`` and ``siglip2`` trained 3 steps of 64 (``pair_loss.yaml``,
+   ``basic.yaml``'s AdamW: the loss, ms a step, peak memory, every tower
+   tensor moved).
 
 Then a JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -247,7 +258,7 @@ import numpy as np
 PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train", "loop",
           "runner", "dwt", "wcnn", "wavelets", "wcnn_train", "wcnn_xbm", "losses", "flash",
           "flash_serve", "flash_train", "qkv", "qkv_micro", "variants", "siblings", "trunks",
-          "files", "wavenets", "landmarks")
+          "files", "wavenets", "landmarks", "hf_towers")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -473,6 +484,13 @@ TRUNK_PLAIN = ("dino_hashing", "dino_default", "dino", "dino_v3", "deit", "ibot"
 TRUNK_PLAIN_OPS = [("Normalize", {})]
 TRUNK_TIMED = 10         # timed served batches per config, after WARMUP_CALLS
 TRUNK_STEPS = 3
+# the hf_towers phase: the HF vision wrapper's towers (ROADMAP A10d) at full
+# width (ViT-B/16 or B/32, 224², f32): the configs of HF_SERVE served as the
+# trunks are, HF_REGISTRY's presets one batch each from the registry, and
+# HF_TRAIN trained TRUNK_STEPS steps with pair_loss.yaml and basic.yaml's AdamW
+HF_SERVE = ("openclip", "metaclip2", "siglip2")
+HF_REGISTRY = ("clip_vit_b32", "vit_b16_hf")
+HF_TRAIN = ("openclip", "siglip2")
 # the files phase: VOC and CUB-200 trees written as JPEG files (VOC's usual
 # 500 x 375), read back through the datasets, the loader and the runner.
 # studies/voc_lambda_ablation.yaml's first job (ortho_weight 0) at full width
@@ -3206,7 +3224,7 @@ def _trunk_outputs(model, x):
     return out.float(), None if logits is None else logits.float()
 
 
-def _hold_trunk(label: str, what: str, card, ref, bf16: bool) -> None:
+def _hold_trunk(label: str, what: str, card, ref, bf16: bool, phase: str = "trunks") -> None:
     """``card`` against ``ref``, each (output, logits or None): codes equal
     past the margin (LOGIT_MARGIN in bf16, 1e-3 in f32) and the logits within
     it (CPU_F32_TOL in f32); unit embeddings at cosine CPU_EMB_COSINE (bf16)
@@ -3230,18 +3248,21 @@ def _hold_trunk(label: str, what: str, card, ref, bf16: bool) -> None:
         dmax = (out - out_ref).abs().max().item()
         ok = dmax <= CPU_F32_TOL
         verdict = f"max|out - {what}| = {dmax:.3e} (limit {CPU_F32_TOL})"
-    log("trunks", f"{label}: {verdict}")
+    log(phase, f"{label}: {verdict}")
     if not ok:
-        raise AssertionError(f"trunks: {label} disagrees with {what}")
+        raise AssertionError(f"{phase}: {label} disagrees with {what}")
 
 
-def _serve_trunk(state, config: str, images) -> None:
-    """TRUNK_WARMUP batches, then TRUNK_TIMED timed batches of BATCH through
-    the device transform (the SWT stack, kernel K1, for the band models;
-    Normalize for the others) and the model: launches per batch, img/s; then
-    the first batch held against the plain route (K1's plain version, on the
-    card) or, with no kernel on the path, against a CPU copy of the model
-    on CPU_IMAGES images (TF32 off on the card)."""
+def _serve_trunk(state, config: str, images, phase: str = "trunks", model=None,
+                 warmup: int = WARMUP_CALLS, timed: int = TRUNK_TIMED) -> None:
+    """``warmup`` batches, then ``timed`` timed batches of BATCH through the
+    device transform (the SWT stack, kernel K1, for the band models;
+    Normalize for the others) and the model (``config``'s, or ``model`` when
+    given, ``config`` then being its label): launches per batch, img/s, the
+    path's own peak memory; then the first batch held against the plain
+    route (K1's plain version, on the card) or, with no kernel on the path,
+    against a CPU copy of the model on CPU_IMAGES images (TF32 off on the
+    card)."""
     import copy
 
     import torch
@@ -3249,44 +3270,49 @@ def _serve_trunk(state, config: str, images) -> None:
     from irw_tpu_torch.ops.wavelets import haar_swt2_plain
     from irw_tpu_torch.transforms import DeviceTransform
 
-    _release_earlier_phases(state)
-    cfg, model = _trunk_model(config)
+    held = _release_earlier_phases(state)
+    torch.cuda.reset_peak_memory_stats()
+    name = config
+    if model is None:
+        cfg, model = _trunk_model(config)
+        name = cfg.model.name
     swt = config in TRUNK_SWT
     bf16 = _trunk_bf16(model)
     transform = DeviceTransform(SWT_OPS if swt else TRUNK_PLAIN_OPS)
     kernels = _kernel_wrappers()
     with torch.inference_mode():
-        for i in range(WARMUP_CALLS):
+        for i in range(warmup):
             model(transform(images[i % len(images)]))
         torch.cuda.synchronize()
         for fn in kernels:
             fn.launches = 0
         per_batch = []
         t0 = time.perf_counter()
-        for i in range(TRUNK_TIMED):
+        for i in range(timed):
             before = [fn.launches for fn in kernels]
             out = model(transform(images[i % len(images)]))[0]
             per_batch.append(tuple(fn.launches - b for fn, b in zip(kernels, before)))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        state["launches"][f"trunks_{config}"] = _launch_counts(kernels)
-        _check_launches("trunks", per_batch, (1 if swt else 0,) + (0,) * 6, f"batch, {config}")
-        ips = TRUNK_TIMED * BATCH / seconds
-        log("trunks", f"{config}: {cfg.model.name} → {type(model).__name__}, "
-                      f"{'bf16' if bf16 else 'f32'}, output {tuple(out.shape)}; {ips:.1f} img/s, "
-                      f"{seconds / TRUNK_TIMED * 1e3:.2f} ms per batch of {BATCH} "
-                      f"({TRUNK_TIMED} timed after {WARMUP_CALLS}) | {state['card']}")
+        state["launches"][f"{phase}_{config}"] = _launch_counts(kernels)
+        _check_launches(phase, per_batch, (1 if swt else 0,) + (0,) * 6, f"batch, {config}")
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        log(phase, f"{config}: {name} → {type(model).__name__}, "
+                   f"{'bf16' if bf16 else 'f32'}, output {tuple(out.shape)}; "
+                   f"{timed * BATCH / seconds:.1f} img/s, {seconds / timed * 1e3:.2f} ms per "
+                   f"batch of {BATCH} ({timed} timed after {warmup}), peak {peak:.2f} GiB "
+                   f"| {state['card']}")
 
         x = transform(images[0])
         if not torch.isfinite(_trunk_outputs(model, x)[0]).all():
-            raise AssertionError(f"trunks: {config}'s output is not finite")
+            raise AssertionError(f"{phase}: {config}'s output is not finite")
         if swt:
             raw = torch.from_numpy(images[0]).cuda().float() / 255.0
             b, h, w, c = raw.shape
             flat = haar_swt2_plain(raw.permute(0, 3, 1, 2).reshape(b * c, h, w))
             plain = flat.reshape(b, c, 4, h, w).permute(0, 2, 3, 4, 1)
             _hold_trunk(config, "the plain route", _trunk_outputs(model, x),
-                        _trunk_outputs(model, plain), bf16)
+                        _trunk_outputs(model, plain), bf16, phase)
         else:
             cpu = copy.deepcopy(model).cpu()
             flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
@@ -3297,18 +3323,20 @@ def _serve_trunk(state, config: str, images) -> None:
                 torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
             ref = _trunk_outputs(cpu, x[:CPU_IMAGES].cpu())
             _hold_trunk(config, "the CPU", tuple(None if t is None else t.cpu() for t in card),
-                        ref, bf16)
+                        ref, bf16, phase)
             del cpu
     del model
 
 
-def _train_trunk(state, config: str, loss_file: str, batches, alpha: float = 1.0):
+def _train_trunk(state, config: str, loss_file: str, batches, alpha: float = 1.0,
+                 phase: str = "trunks"):
     """TRUNK_STEPS train steps of ``config``'s model at BATCH with the loss
     of ``configs/loss/<loss_file>`` and ``configs/optimizer/basic.yaml``'s
     AdamW, the optimizers and the step built with the config's freezing set
     (``model.freeze_*`` and the model's frozen collections), ``model_alpha``
-    ``alpha``.  Returns (model, the parameters before, the last metrics, the
-    first step's loss input)."""
+    ``alpha``; the launches and the path's own peak memory logged.  Returns
+    (model, the parameters before, the last metrics, the first step's loss
+    input, the train state)."""
     import os
 
     import torch
@@ -3321,7 +3349,8 @@ def _train_trunk(state, config: str, loss_file: str, batches, alpha: float = 1.0
     from irw_tpu_torch.transforms import DeviceTransform
     from irw_tpu_torch.utils.freezing import config_freeze_set
 
-    _release_earlier_phases(state)
+    held = _release_earlier_phases(state)
+    torch.cuda.reset_peak_memory_stats()
     cfg, model = _trunk_model(config)
     loss_cfg = yaml_lite.load(os.path.join(runner.CONFIG_DIR, "loss", loss_file))
     frozen = config_freeze_set(model, cfg.model)
@@ -3334,24 +3363,33 @@ def _train_trunk(state, config: str, loss_file: str, batches, alpha: float = 1.0
     hook = tstate.losses[0][0].register_forward_hook(
         lambda mod, args, out: seen.append(args[0]) if not seen else None)
     kernels = _kernel_wrappers()
-    metrics = []
+    metrics, per_step, ends = [], [], [torch.cuda.Event(enable_timing=True)]
     try:
         torch.cuda.synchronize()
+        ends[0].record()
         t0 = time.perf_counter()
+        for fn in kernels:
+            fn.launches = 0
         for i in range(TRUNK_STEPS):
-            for fn in kernels:
-                fn.launches = 0
+            before_step = [fn.launches for fn in kernels]
             metrics.append(step(tstate, batches[i % len(batches)],
                                 _build_hyper(tstate.optimizer_entries, 1, tstate.step, 0, None)))
-            _check_launches("trunks", [tuple(fn.launches for fn in kernels)], (0,) * 7,
-                            f"train step, {config}")
+            per_step.append(tuple(fn.launches - b for fn, b in zip(kernels, before_step)))
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:
         hook.remove()
-    _check_finite("trunks", metrics, ("total_loss", "grad_norm"))
-    log("trunks", f"{config} trained {TRUNK_STEPS} steps of {BATCH} ({loss_file}, freezing set "
-                  f"{frozen}) in {seconds:.2f} s, the first step included | {state['card']}")
+    state["launches"][f"{phase}_{config}_train"] = _launch_counts(kernels)
+    _check_launches(phase, per_step, (0,) * 7, f"train step, {config}")
+    _check_finite(phase, metrics, ("total_loss", "grad_norm"))
+    step_ms = ", ".join(f"{a.elapsed_time(b):.1f}" for a, b in zip(ends[:-1], ends[1:]))
+    losses = ", ".join(f"{float(m['total_loss']):.6f}" for m in metrics)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    log(phase, f"{config} trained {TRUNK_STEPS} steps of {BATCH} ({loss_file}, freezing set "
+               f"{frozen}) in {seconds:.2f} s, the first step included; ms a step (CUDA "
+               f"events) {step_ms}; total_loss {losses}; peak {peak:.2f} GiB | {state['card']}")
     return model, before, metrics[-1], seen[0], tstate
 
 
@@ -3494,6 +3532,41 @@ def phase_trunks(state):
             raise AssertionError(f"trunks: smoke_plan failed {failed} / {scores}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    _release_earlier_phases(state)
+
+
+def phase_hf_towers(state):
+    """The HF vision wrapper's towers at full width (ROADMAP A10d): CLIP
+    (``openclip``, ``metaclip2``), SigLIP (``siglip2``) through
+    ``RetrievalNet`` from their ``configs/model`` files, each served as the
+    trunks are (no kernel on the path: held against a CPU copy); the
+    ``clip_vit_b32`` and ``vit_b16_hf`` presets from the registry, one batch
+    each; ``openclip`` and ``siglip2`` trained, every tower parameter
+    moving."""
+    import torch
+
+    from irw_tpu_torch.data import SyntheticVOCDataset
+    from irw_tpu_torch.models import get_model
+
+    ds = SyntheticVOCDataset(num_train=BATCH * 2, image_size=224, seed=12)
+    images = [ds.images[:BATCH], ds.images[BATCH:]]
+    for config in HF_SERVE:
+        _serve_trunk(state, config, images, phase="hf_towers")
+    for name in HF_REGISTRY:
+        _serve_trunk(state, name, images, phase="hf_towers", model=get_model(name, seed=0),
+                     warmup=0, timed=1)
+    for i, config in enumerate(HF_TRAIN):
+        model, before, _, _, _ = _train_trunk(state, config, "pair_loss.yaml",
+                                              _train_batches(10, False, 5 + i), phase="hf_towers")
+        after = model.state_dict()
+        tower = [k for k in before if k.startswith("backbone.")]
+        still = [k for k in tower if torch.equal(after[k], before[k])]
+        fc = "fc.layers.0.weight"
+        log("hf_towers", f"{config}: {len(tower) - len(still)} of {len(tower)} tower tensors "
+                         f"moved; the projection moved: {not torch.equal(after[fc], before[fc])}")
+        if still or model.frozen_backbone:
+            raise AssertionError(f"hf_towers: {config}'s tower did not train: {still[:3]}")
+        del model, after
     _release_earlier_phases(state)
 
 
@@ -4839,7 +4912,8 @@ def main(argv=None) -> int:
                "flash_serve": phase_flash_serve, "flash_train": phase_flash_train,
                "qkv": phase_qkv, "qkv_micro": phase_qkv_micro, "variants": phase_variants,
                "siblings": phase_siblings, "trunks": phase_trunks, "files": phase_files,
-               "wavenets": phase_wavenets, "landmarks": phase_landmarks}
+               "wavenets": phase_wavenets, "landmarks": phase_landmarks,
+               "hf_towers": phase_hf_towers}
     for name in phases:
         if name != "card":
             t0 = time.perf_counter()
@@ -4858,7 +4932,9 @@ def main(argv=None) -> int:
                "runner": ("runner", RUNNER_EPOCHS * RUNNER_STEPS),
                "wcnn": ("wcnn_train", WCNN_TRAIN_STEPS), "wcnn_xbm": ("wcnn_xbm", XBM_STEPS),
                "shared": ("siblings_train", TRAIN_STEPS),
-               **{config: (f"wavenets_{config}_train", WAVENET_STEPS) for config in WAVENET_MAIN}}
+               **{config: (f"wavenets_{config}_train", WAVENET_STEPS) for config in WAVENET_MAIN},
+               **{f"hf_{config}": (f"hf_towers_{config}_train", TRUNK_STEPS)
+                  for config in HF_TRAIN}}
     served = {"flagship": ("serve", SERVE_BATCHES), "wcnn": ("wcnn", WCNN_BATCHES),
               "flash": ("flash_serve", SERVE_BATCHES),
               "loop_eval": ("loop_eval", LOOP_EVAL_BATCHES),
@@ -4867,7 +4943,9 @@ def main(argv=None) -> int:
               "wavelets_B": ("wavelets_B", SERVE_BATCHES),
               "shared": ("siblings_serve", SERVE_BATCHES),
               **{config: (f"trunks_{config}", TRUNK_TIMED) for config in TRUNK_SWT},
-              **{config: (f"wavenets_{config}_serve", SERVE_BATCHES) for config in WAVENET_MAIN}}
+              **{config: (f"wavenets_{config}_serve", SERVE_BATCHES) for config in WAVENET_MAIN},
+              **{f"hf_{config}": (f"hf_towers_{config}", TRUNK_TIMED) for config in HF_SERVE},
+              **{f"hf_{name}": (f"hf_towers_{name}", 1) for name in HF_REGISTRY}}
     if "default_units" in state:  # the default composition's run (trunks)
         trained["default"] = ("trunks_default", state["default_units"][0])
         served["default_eval"] = ("trunks_default_eval", state["default_units"][1])

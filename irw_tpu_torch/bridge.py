@@ -46,6 +46,13 @@ are read with ``np.asarray``.  Handled layouts:
 - MHA kernels (D, H, hd) and (H, hd, D) → Linear (H·hd, D) and (D, H·hd);
   a ``use_flash`` Block's ``attn_qkv`` kernel (D, 3, H, hd) and bias
   (3, H, hd) → Linear (3·H·hd, D) and (3·H·hd,), its ``attn_out`` as Dense;
+- the HF vision wrapper's ``tower`` (``models/hf_wrapper.py``), alone or as
+  ``RetrievalNet``'s ``backbone``: CLIP's ``vision_model/{embeddings,
+  pre_layrnorm,encoder/layers/<i>,post_layernorm}``, the HF ViT's
+  ``{embeddings,encoder/layer/<i>,layernorm,pooler}`` and SigLIP's
+  ``{patch_embedding,position_embedding,layers_<i>,post_layernorm,head}``,
+  each level named as the port's module; an ``nn.Embed`` table
+  (``embedding``) → ``weight``;
 - Dense (in, out) → Linear (out, in);
 - conv HWIO → OIHW (the inverse of ``convert_torch_weights.py:131-186``);
 - ``batch_stats`` mean/var → BatchNorm ``running_mean``/``running_var``.
@@ -355,7 +362,10 @@ def _densenet(params, stats) -> dict:
 
 
 def _conv_bias(t) -> dict:
-    return {"weight": _conv(t["kernel"]), "bias": _a(t["bias"])}
+    out = {"weight": _conv(t["kernel"])}
+    if "bias" in t:
+        out["bias"] = _a(t["bias"])
+    return out
 
 
 def _convnext(params) -> dict:
@@ -381,8 +391,30 @@ def _convnext(params) -> dict:
     return sd
 
 
+def _hf_tree(t) -> dict:
+    """An HF tower's flax tree → its state dict, level by level: a Dense
+    (2-D ``kernel``), a Conv (4-D ``kernel``), a LayerNorm (``scale``), an
+    ``nn.Embed`` (``embedding``) or a bare parameter."""
+    sd = {}
+    for name, sub in t.items():
+        if not hasattr(sub, "items"):
+            sd[name] = _a(sub)
+        elif "kernel" in sub:
+            sd.update(_prefixed(name, _conv_bias(sub) if _a(sub["kernel"]).ndim == 4
+                                else _dense(sub)))
+        elif "scale" in sub:
+            sd.update(_prefixed(name, _ln(sub)))
+        elif "embedding" in sub:
+            sd[f"{name}.weight"] = _a(sub["embedding"])
+        else:
+            sd.update(_prefixed(name, _hf_tree(sub)))
+    return sd
+
+
 def _trunk(params, stats) -> dict:
-    """A bare trunk: ViT, DenseNet, ConvNeXt or ResNet."""
+    """A bare trunk: ViT, DenseNet, ConvNeXt, ResNet or the HF wrapper."""
+    if "tower" in params:
+        return _hf_tree(params)
     if "PatchEmbed_0" in params:
         return _vit(params, lead=0)
     if "DenseLayer_0" in params:
@@ -439,8 +471,9 @@ def from_jax_variables(variables) -> dict:
     """flax variables of a model of the multi-band ViT family, a baseline, a
     single-trunk model, a ``VisionTransformer``, ``ResNet``, ``DenseNet`` or
     ``ConvNeXt``, a fusion head, a wavelet CNN (``WCNN``, ``WCNNAttention``,
-    ``WaveResNet(CE)``, the mtwavenet family, ``HybridMultiBranch``), a
-    subband gate, ``ChannelGate1D`` or ``CrossBandAttention`` → the port
+    ``WaveResNet(CE)``, the mtwavenet family, ``HybridMultiBranch``), the HF
+    vision wrapper, a subband gate, ``ChannelGate1D`` or
+    ``CrossBandAttention`` → the port
     module's state dict (numpy arrays).  A bare ``ChannelGate1D`` or
     ``CrossBandAttention`` without its spatial gate is the subband gate's
     tree (``fc1``, ``fc2``)."""
@@ -450,6 +483,8 @@ def from_jax_variables(variables) -> dict:
         return _fusion_head(params, stats)
     if "BandedResNet_0" in params:
         return _wcnn(variables)
+    if "tower" in params:
+        return _hf_tree(params)
     if "_BandedStagedResNet_0" in params:
         return _mtwavenet(params, stats)
     if "VmapDenseNet_0" in params:

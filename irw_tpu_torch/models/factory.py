@@ -47,6 +47,7 @@ import torch
 
 from irw_tpu_torch.models import (baselines, convnext, hashing_nets, mtwavenet, multi_dino,
                                   resnet, wresnet)
+from irw_tpu_torch.models.hf_wrapper import HuggingFaceVisionWrapper
 from irw_tpu_torch.models.retrieval_net import RetrievalNet
 from irw_tpu_torch.models.vit import make_vit
 
@@ -248,8 +249,9 @@ _WAVENET_ROUTES = {
     "hybrid_mtwavenet_ce": (mtwavenet.HybridMultiBranch, {}),
     "hybrid_mtwavenet_v2_ce": (mtwavenet.HybridMultiBranchV2, {}),
 }
-# the towers of the HF vision wrapper, ROADMAP A10d
-_A10D_ROUTES = ("clip", "siglip2", "metaclip2", "openclip")
+# backbone_name → the HF vision wrapper's variant (factory.py:250-256)
+_HF_ROUTES = {"clip": "clip_vit_b16", "openclip": "clip_vit_b16", "siglip2": "siglip2",
+              "metaclip2": "metaclip2"}
 
 
 def _direct(device, cls, kw, renames=None, **fixed):
@@ -308,9 +310,8 @@ def _embedding_trunk(name: str, kw: dict):
     if name == "ibot":
         bb = kw.get("bb_name", "vit_small")
         return make_vit("vit_base" if "base" in bb else "vit_small", patch_size=16)
-    if name in _A10D_ROUTES:
-        raise ValueError(f"RetrievalNet: backbone_name {name!r} (the HF vision "
-                                  "wrapper's tower) waits for ROADMAP A10d")
+    if name in _HF_ROUTES:
+        return HuggingFaceVisionWrapper(variant=_HF_ROUTES[name])
     raise ValueError(f"RetrievalNet: unknown backbone_name {name!r} (net.py:20-414 dispatch)")
 
 

@@ -1,8 +1,8 @@
 """Model registry: name → constructor (port of
-``irw_tpu/models/registry.py:23-93, 109-135`` for the models the port
-serves: the multi-band ViT family, the wavelet CNNs (WCNN, WaveResNet, the mtwavenet
-family and the hybrid), the baselines and the single-trunk models, and the
-bare trunks).  A bare trunk (``resnet50``,
+``irw_tpu/models/registry.py``: the multi-band ViT family, the wavelet CNNs
+(WCNN, WaveResNet, the mtwavenet family and the hybrid), the baselines and
+the single-trunk models, the HF vision wrapper's presets, and the bare
+trunks).  A bare trunk (``resnet50``,
 ``densenet121``, ``convnext``, ``vit_small``, …) returns its pooled (B, D)
 features without an aux dict, as the JAX registry's.
 
@@ -20,6 +20,8 @@ from irw_tpu_torch.device import resolve_device
 from irw_tpu_torch.models import (baselines, convnext, densenet, hashing_nets, mtwavenet,
                                   multi_dino, resnet, wresnet)
 from irw_tpu_torch.models.factory import REFERENCE_ENTRIES, build_retrieval_net
+from irw_tpu_torch.models.hf_towers import CLIPVisionTower, ViTTower
+from irw_tpu_torch.models.hf_wrapper import HF_DEFAULT_CONFIGS, HuggingFaceVisionWrapper
 from irw_tpu_torch.models.vit import VisionTransformer, make_vit
 
 
@@ -84,12 +86,12 @@ MODEL_REGISTRY = {
     "mtwavenet50_fusion": _direct(mtwavenet.FourBranchResNet50Fusion),
     "hybrid_mtwavenet_ce": _direct(mtwavenet.HybridMultiBranch),
     "hybrid_mtwavenet_v2_ce": _direct(mtwavenet.HybridMultiBranchV2),
+    # the HF vision wrapper's presets (registry.py:94-106); clip and openclip
+    # alias clip_vit_b16
+    **{variant: _direct(HuggingFaceVisionWrapper, variant=variant)
+       for variant in HF_DEFAULT_CONFIGS},
 }
-
-# the JAX registry's names still to port, by ROADMAP item: the HF vision
-# wrapper's towers (A10d)
-LATER = dict.fromkeys(("clip", "openclip", "clip_vit_b32", "clip_vit_b16", "vit_b16_hf",
-                       "siglip2", "metaclip2"), "A10d")
+MODEL_REGISTRY["clip"] = MODEL_REGISTRY["openclip"] = MODEL_REGISTRY["clip_vit_b16"]
 
 
 def get_model(name: str, device: str | torch.device | None = None, seed: int = 0,
@@ -97,16 +99,15 @@ def get_model(name: str, device: str | torch.device | None = None, seed: int = 0
     """Instantiate a registered model with random weights from ``seed``.
 
     ``vit_kwargs["dtype"]`` may be a string ('bfloat16'/'float32') from YAML
-    configs.  The models of ``LATER`` raise, naming their ROADMAP item.  Weights
-    are drawn on the CPU, then moved: the same seed gives the same model on
-    either device.  ``image_size`` (height, width of the model's input, a
+    configs.  Weights are drawn on the CPU, then moved: the same seed gives the
+    same model on either device.  ``image_size`` (height, width of the model's input, a
     band's for a band stack) sizes every ViT's position embeddings, as the
     JAX init sizes them from its sample input; without it a ViT takes its
-    ``img_size``.
+    ``img_size``; the HF wrapper's SigLIP tower resizes its position table at
+    each call and its CLIP and ViT towers raise on another patch count, as
+    the JAX init does.
     """
     device = resolve_device(device)
-    if name in LATER:
-        raise ValueError(f"model {name!r} waits for ROADMAP {LATER[name]}")
     try:
         ctor = MODEL_REGISTRY[name]
     except KeyError as exc:
@@ -115,7 +116,7 @@ def get_model(name: str, device: str | torch.device | None = None, seed: int = 0
     model = ctor(device, **kwargs)
     if image_size is not None:
         for mod in model.modules():
-            if isinstance(mod, VisionTransformer):
+            if isinstance(mod, (VisionTransformer, CLIPVisionTower, ViTTower)):
                 mod.fit_grid(*image_size)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -6,11 +6,12 @@
 optionally a LayerNorm (``standardize``), the ``ProjectionHead`` ``fc`` of
 one Linear to ``embed_dim`` unless ``without_fc``, and L2 normalisation.
 The port's trunks (``ResNet``, ``VisionTransformer``, ``ConvNeXt``,
-``DenseNet``) return pooled (B, C) features, so ``pooling`` does nothing
-for them, as in JAX (retrieval_net.py:41).  A frozen trunk
-(``frozen_backbone``) runs in eval mode under ``no_grad`` and is named in
-``frozen_param_collections``.  The JAX module's aux is the trunk's (the
-ViT's is empty), so the port returns ``{}``.
+``DenseNet``, ``HuggingFaceVisionWrapper``) return pooled (B, C) features,
+so ``pooling`` does nothing for them, as in JAX (retrieval_net.py:41).  A
+frozen trunk (``frozen_backbone``) runs in eval mode under ``no_grad`` and
+is named in ``frozen_param_collections``.  The aux is the trunk's, as the
+JAX module's: ``{}`` for a trunk that returns features alone, the HF
+wrapper's ``{"ortho_loss": 0}`` (it returns (features, aux)).
 """
 
 from __future__ import annotations
@@ -54,11 +55,12 @@ class RetrievalNet(nn.Module):
 
     def forward(self, x, rngs: dict | None = None):
         with torch.set_grad_enabled(torch.is_grad_enabled() and not self.frozen_backbone):
-            feats = self.backbone(x)
+            out = self.backbone(x)
+        feats, aux = out if isinstance(out, tuple) else (out, {})
         if feats.dim() == 4:
             feats = global_pool(feats, self.pooling)
         if self.norm is not None:
             feats = self.norm(feats)
         if self.fc is not None:
             feats = self.fc(feats)
-        return l2_normalize(feats), {}
+        return l2_normalize(feats), aux

@@ -73,21 +73,24 @@ _LATER_REMAT_POLICIES = ("dots", "dots_no_batch", "dots_no_batch_gelu", "everyth
 
 class PatchEmbed(nn.Module):
     """flax ``Conv`` with a p×p kernel, stride p, VALID padding, as one
-    matmul over flattened patches.  Weight in torch's OIHW layout."""
+    matmul over flattened patches.  Weight in torch's OIHW layout; no bias
+    with ``bias=False`` (CLIP's patch conv)."""
 
     def __init__(self, in_chans: int, embed_dim: int, patch_size: int = 14,
-                 bands: int | None = None, dtype: torch.dtype = torch.float32):
+                 bands: int | None = None, dtype: torch.dtype = torch.float32,
+                 bias: bool = True):
         super().__init__()
         lead = () if bands is None else (bands,)
         self.patch_size = patch_size
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(*lead, embed_dim, in_chans, patch_size, patch_size))
-        self.bias = nn.Parameter(torch.zeros(*lead, embed_dim))
+        self.bias = nn.Parameter(torch.zeros(*lead, embed_dim)) if bias else None
 
     def reset_parameters(self, generator=None):
         fan_in = math.prod(self.weight.shape[-3:])
         trunc_normal_(self.weight, 1.0 / math.sqrt(fan_in) / 0.87962566, generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
         """(…, H, W, C) → (…, Np, D)."""
@@ -101,7 +104,8 @@ class PatchEmbed(nn.Module):
         lead = self.weight.dim() - 4
         perm = list(range(lead)) + [lead, lead + 2, lead + 3, lead + 1]
         wmat = self.weight.permute(*perm).reshape(*self.weight.shape[:lead + 1], -1)
-        wmat, b = wmat.to(self.dtype), self.bias.to(self.dtype)
+        wmat = wmat.to(self.dtype)
+        b = None if self.bias is None else self.bias.to(self.dtype)
         if lead == 0:
             return F.linear(patches, wmat, b)
         s = patches.shape[0]

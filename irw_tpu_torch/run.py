@@ -10,7 +10,7 @@ to ``engine.train``.  ``device=None`` means the card.
 The config's ``model.freeze_batch_norm`` and ``model.freeze_pos_embedding``
 join the model's frozen collections in the freezing set no optimizer holds
 (``run.py:113-130``).  k-fold splits, ``dsch_train`` and
-``hooks_configs.active`` wait for ROADMAP A12; the HF towers for A10d.
+``hooks_configs.active`` wait for ROADMAP A12.
 """
 
 from __future__ import annotations

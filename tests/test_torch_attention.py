@@ -9,6 +9,7 @@ f32 accumulation order can move a ds element by one bf16 ulp, which dq and
 dk carry: 2^-6 of each gradient's max.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import math
 
 import jax

@@ -21,6 +21,7 @@ passes the HashHead's BatchNorm over 6 samples, which magnifies f32
 rounding).
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,7 @@ holds and a restore puts back, bit for bit; the JAX package's layout under
 dies with a save in flight; and the resume probe.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import os
 import subprocess
 import sys

@@ -7,6 +7,7 @@ study plans and these tests pass; ``compose`` gives the JAX ``compose``'s
 tree for the flagship study's jobs.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import importlib.util
 import math
 from pathlib import Path

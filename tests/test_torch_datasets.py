@@ -15,6 +15,7 @@ decoded here but the CUB job's first batch (``load_image`` and the host
 stage against irw_tpu's PIL route, to 1 LSB, and the device stage's bands).
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import pickle
 from pathlib import Path
 

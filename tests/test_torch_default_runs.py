@@ -17,6 +17,7 @@ Tolerances: the train metrics to 1e-5 relative (the step test's), the eval
 metrics to 1e-5 relative (the codes agree).
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import json
 import sys
 

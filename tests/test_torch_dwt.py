@@ -15,6 +15,7 @@ in tap order) and their reconstructions, 1e-6 for the resize (the same f32
 weights; einsum and the port's gathered taps add them in another order).
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,15 +15,16 @@ drop of every key but ``num_prompts`` included (C9); a
 for ``MultiDinoHashing`` (C8).
 
 Every file of ``configs/model/`` composes through the port's ``compose``
-over ``configs/default.yaml``: 55 build (the port's parameters on the meta
-device), and each of the other 3 raises, naming ROADMAP A10d (the HF
-towers).  The 22 files of the single-trunk models
+over ``configs/default.yaml`` and builds (the port's parameters on the meta
+device), the HF wrapper's three included
+(``tests/test_torch_hf_towers.py`` holds them to JAX).  The 22 files of the single-trunk models
 (the baselines, the hashing ResNets, ``RetrievalNet``'s ``dino_ce``,
 ``multi_dino*`` and wrapped trunks) build the same resolved fields in both
 factories: the tower's width, depth, patch, dtype, remat and K2 route, the
 trunk's stages or widths, the head's sizes and flags.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 from pathlib import Path
 
 import jax
@@ -270,15 +271,16 @@ WCNN_FAMILY = ("wcnn", "wcnn_all_subs", "wcnn_attention", "wcnn_attention_ce",
 WAVENETS = ("wresnet", "wresnet_cifar", "wresnet_cifar_ce", "wresnet_sdd", "wresnet_sdd_ce",
             "mtwavenet", "mtwavenet50", "mtwavenet50_fusion", "mtwavenet_fusion",
             "mtwavenet_fusion_dml", "mtwavenet_tuned", "hybrid_wavenet", "hybrid_wavenet_v2")
-# the configs still to port, by the ROADMAP item their raise names
-LATER = dict.fromkeys(("openclip", "metaclip2", "siglip2"), "A10d")
+# the HF vision wrapper's towers (ROADMAP A10d; tests/test_torch_hf_towers.py
+# holds them to the JAX factory)
+HF_TOWERS = ("openclip", "metaclip2", "siglip2")
 MODEL_CONFIGS = sorted(p.stem for p in (REPO / "configs/model").glob("*.yaml"))
 
 
 def test_model_configs_split_into_built_and_later():
-    built = set(FAMILY) | set(SINGLE_TRUNK) | set(WCNN_FAMILY) | set(WAVENETS)
-    assert len(MODEL_CONFIGS) == 58 and len(built) == 55 and len(LATER) == 3
-    assert built | set(LATER) == set(MODEL_CONFIGS) and not built & set(LATER)
+    """Every file of ``configs/model`` is in a built group; none is left for later."""
+    built = set(FAMILY) | set(SINGLE_TRUNK) | set(WCNN_FAMILY) | set(WAVENETS) | set(HF_TOWERS)
+    assert len(MODEL_CONFIGS) == 58 and len(built) == 58 and built == set(MODEL_CONFIGS)
 
 
 def _composed(config):
@@ -289,15 +291,8 @@ def _composed(config):
 @pytest.mark.parametrize("config", MODEL_CONFIGS)
 def test_model_config_composes_and_builds_or_names_its_item(config):
     """The default composition with ``model=<config>``: its model builds on
-    the meta device, or raises naming the ROADMAP item it waits for."""
+    the meta device."""
     name, kwargs = _composed(config)
-    if config in LATER:
-        with pytest.raises(ValueError, match=LATER[config]):
-            if name in MODEL_REGISTRY:
-                MODEL_REGISTRY[name](torch.device("cpu"), **kwargs)
-            else:
-                get_model(name, device="cpu", **kwargs)
-        return
     with torch.device("meta"):
         model = MODEL_REGISTRY[name](torch.device("cpu"), **kwargs)
     assert next(model.parameters()).is_meta

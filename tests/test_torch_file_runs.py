@@ -19,6 +19,7 @@ builds its datasets and first batch in both packages: the host stage's
 images to 1 LSB, the DWT bands to 1e-5.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import jax
 import numpy as np
 import pytest

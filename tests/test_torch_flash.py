@@ -18,6 +18,7 @@ the CLS tokens agree to 0.1 (as ``test_torch_vit``) and each parameter's
 gradient points the same way (cosine ≥ 0.99).
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

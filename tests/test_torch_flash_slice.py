@@ -18,6 +18,7 @@ on the CPU), whose exact arithmetic ``test_torch_flash`` holds to the kernel
 itself in interpret mode.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import pytest
 from jax.experimental.pallas.ops.tpu import flash_attention as jax_flash
 

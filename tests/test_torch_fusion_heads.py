@@ -12,6 +12,7 @@ summation order).  D = 24 against ``output_dim`` 16 runs every per-band
 projection ``proj_i``; one case of equal widths takes the identity.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import math
 
 import jax

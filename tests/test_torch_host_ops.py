@@ -19,6 +19,7 @@ with a hue, ``RandomGrayscale``, ``GaussianBlur`` and ``MultiCrop``.
   ConvNeXt in both factories.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import sys
 from pathlib import Path
 

@@ -10,6 +10,7 @@ pipelines of ``configs/transform/voc_swt.yaml`` go through both packages'
 ``EpochLoader`` at ``num_workers`` 0 and 3.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import numpy as np
 import pytest
 from PIL import Image

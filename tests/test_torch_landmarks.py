@@ -14,6 +14,7 @@ scalar oracle; ``evaluate``'s metrics to 1e-6; the run's metrics to 1e-5
 relative (``test_torch_default_runs.check_runs``).
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import jax
 import numpy as np
 import pytest

@@ -31,6 +31,7 @@ reference is held at ``F16_ULPS`` units in the last place of each band's
 max |ref| (measured: at most 9.0 over these cases and two more seeds).
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import functools
 import re
 

@@ -25,6 +25,7 @@ plus one f32 rounding of the parameter a step.  The BatchNorm statistics to
 resumed run equals the uninterrupted one bit for bit.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import copy
 import dataclasses
 import json
@@ -43,7 +44,6 @@ from irw_tpu.engine import optimizers as jax_optimizers
 from irw_tpu.engine.train import train as jax_train
 from irw_tpu.engine.xbm import XBM as JaxXBM
 from irw_tpu.getter import Getter
-from irw_tpu.getter import init_train_state as jax_init_train_state
 from irw_tpu.losses import build_losses as jax_build_losses
 from irw_tpu.models import get_model as jax_get_model
 from irw_tpu.samplers import RandomSampler as JaxRandomSampler
@@ -63,7 +63,7 @@ from test_torch_multi_dino import YAML, flagship_yaml
 from test_torch_shared_dino import CONFIGS
 from test_torch_train_model import EXACT_ZEROS
 from test_torch_train_step import (CLIP, METRIC_TOL, METRICS, OPS, ORTHO_SCALE, _RefAwareLoss,
-                                   _yaml)
+                                   _yaml, jax_state_from)
 from test_torch_vit import randomize
 
 IMG, BATCH, STEPS_PER_EPOCH, EPOCHS = 28, 6, 2, 2
@@ -148,11 +148,7 @@ def _run_both(root):
     entries = jax_optimizers.build_optimizers(opt_cfg, variables["params"])
     loss_tx = Getter().get_loss_optimizer(loss_cfg)
     jxbm = JaxXBM(size=N_TRAIN, embedding_dim=64, label_shape=(20,))
-    jstate = jax_init_train_state(jmodel, jlosses, entries, loss_tx, batch, jdt, xbm=jxbm,
-                                  seed=0)
-    jstate = jstate.replace(
-        params=jax.tree_util.tree_map(jnp.asarray, variables["params"]),
-        batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]))
+    jstate = jax_state_from(variables, jlosses, entries, loss_tx, xbm=jxbm)
     start = from_jax_variables({"params": jstate.params, "batch_stats": jstate.batch_stats})
     start_proxies = np.array(jstate.loss_params["0"]["proxies"])
     state = _port_state(start, start_proxies)
@@ -446,9 +442,7 @@ def frozen_runs(tmp_path_factory):
     jlosses = jax_build_losses(loss_cfg)
     entries = jax_optimizers.build_optimizers(opt_cfg, params, frozen_collections=frozen)
     loss_tx = Getter().get_loss_optimizer(loss_cfg)
-    jstate = jax_init_train_state(jmodel, jlosses, entries, loss_tx, batch, jdt, seed=0)
-    jstate = jstate.replace(params=params, batch_stats=jax.tree_util.tree_map(
-        jnp.asarray, variables["batch_stats"]))
+    jstate = jax_state_from(variables, jlosses, entries, loss_tx)
     exp = dict(CONFIG["experience"], max_iter=1, step_per_epoch=2, test_eval_freq=-1,
                async_checkpoint=False, clip_grad=None, ortho_scale=None)
     config = {"experience": exp, "model": model_cfg}

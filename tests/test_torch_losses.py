@@ -23,6 +23,7 @@ Dense embedding model (the same in flax and torch) trains two steps with
 filled through its own insert (all slots valid, or 20 of 32).
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import dataclasses
 from pathlib import Path
 

@@ -40,6 +40,7 @@ BatchNorm normalises stage 4's 1×1 (depth 18) or 2² maps over the batch
 ``tests/test_torch_trunks.py`` holds them.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import copy
 
 import jax

@@ -10,6 +10,7 @@ Tolerances: f32 logits and aux to 1e-4.  bf16 backbones (the flagship's
 codes must agree wherever |logit| > 0.05 and the logits to 0.05.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 from pathlib import Path
 
 import jax

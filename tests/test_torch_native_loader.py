@@ -13,6 +13,7 @@ route to 1 LSB (the two decoders; ``test_native_loader.py``'s bound), and
 equal where both decode through Pillow.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import ctypes
 import os
 import subprocess

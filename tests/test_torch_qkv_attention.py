@@ -19,6 +19,7 @@ segment also rounds the SCORES to bf16 before its softmax: a flipped score
 one key dominates, by that fraction: 2^-5 of max|o|.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import importlib.util
 import re
 from pathlib import Path

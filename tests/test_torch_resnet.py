@@ -10,6 +10,7 @@ Tolerance 1e-4 on the f32 features and gates (same math in another
 summation order); in training the BatchNorm running statistics to 1e-5.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ first) decides every metric.  Indices must match exactly; metrics to 1e-6
 (both sum the same f32 terms per query chunk).
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

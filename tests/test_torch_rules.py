@@ -4,6 +4,7 @@ each runs its plain version and counts no launch, on a device that is
 neither CPU nor CUDA it raises), and what is not ported names its ROADMAP
 item."""
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import json
 import os
 import pkgutil
@@ -81,12 +82,15 @@ def test_port_and_chip_smoke_import_no_jax():
             "irw_tpu_torch.data.datasets_multilabel"} <= set(modules)
     assert {"irw_tpu_torch.data.landmarks", "irw_tpu_torch.engine.landmark",
             "irw_tpu_torch.benchmarks.landmark_bench"} <= set(modules)
+    assert {"irw_tpu_torch.models.siglip", "irw_tpu_torch.models.hf_towers",
+            "irw_tpu_torch.models.hf_wrapper"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r} + ['irw_tpu_torch', 'chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'irw_tpu', 'yaml', 'PIL'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'irw_tpu', 'yaml', 'PIL',\n"
+        "                                    'transformers'))\n"
         "print(json.dumps(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True, timeout=300)
@@ -166,6 +170,26 @@ def test_wcnn_entry_points_run_on_cpu_when_asked(no_card):
     transform = DeviceTransform([("CustomTransform", {"decompose_levels": 1})], device="cpu")
     res = evaluate(model, ds, transform, batch_size=4, device="cpu")
     assert res["num_k_level0"] == 5 and np.isfinite(list(res.values())).all()
+
+
+HF_TINY = {"hidden_size": 32, "num_hidden_layers": 1, "num_attention_heads": 2,
+           "image_size": 16, "patch_size": 8, "intermediate_size": 64}
+
+
+@pytest.mark.parametrize("name", ["clip", "vit_b16_hf", "siglip2"])
+def test_hf_towers_run_on_cpu_only_when_asked(no_card, name):
+    """The HF wrapper's presets and the configs that wrap them build on the
+    card by default and raise without one; on the CPU when asked they run."""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model(name, config_overrides=HF_TINY)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model("RetrievalNet", backbone_name="siglip2", embed_dim=8)
+    model = get_model(name, device="cpu", config_overrides=HF_TINY)
+    assert not model.training and all(p.device.type == "cpu" for p in model.parameters())
+    with torch.no_grad():
+        out, aux = model(torch.rand(2, 16, 16, 3))
+    assert out.shape == (2, 32) and torch.allclose(out.norm(dim=-1), torch.ones(2))
+    assert float(aux["ortho_loss"]) == 0.0
 
 
 def test_cpu_tensors_take_the_plain_path_uncounted():
@@ -302,12 +326,6 @@ def test_lifting_kernel_refuses_other_dtypes_on_the_card():
 
 
 def test_unported_models_and_heads_name_their_roadmap_item():
-    # the HF towers still to port (A10d)
-    for name in ("siglip2", "openclip"):
-        with pytest.raises(ValueError, match="A10d"):
-            get_model("RetrievalNet", device="cpu", backbone_name=name)
-    with pytest.raises(ValueError, match="A10d"):
-        get_model("clip", device="cpu")
     # the ResNet/DenseNet trunks in another dtype than float32 (A10e)
     for name, kw in (("wresnet", {}), ("mtwavenet50_fusion", {}),
                      ("hybrid_mtwavenet_v2_ce", {}), ("wcnn", {}),

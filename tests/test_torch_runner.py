@@ -14,6 +14,7 @@ At basic.yaml's LR of 1e-5 the epoch metrics stay within the loop test's
 1e-5 (``tests/test_torch_loop.py``).
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import dataclasses
 import json
 import sys

@@ -6,6 +6,7 @@ same uint8 images, labels and super-labels, and the index maps the samplers
 draw from.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import threading
 
 import numpy as np

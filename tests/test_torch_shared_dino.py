@@ -17,6 +17,7 @@ its gradient) to 1e-5; the frozen tower's parameters, its DSLN rows
 included, unchanged bit for bit in both packages.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 from pathlib import Path
 
 import jax

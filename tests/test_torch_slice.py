@@ -7,6 +7,7 @@ Same weights through the bridge.  The codes agree exactly, so every metric
 agrees to 1e-6.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

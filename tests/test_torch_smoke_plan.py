@@ -10,6 +10,7 @@ the loaders in the main thread; both packages train from the same weights
 Tolerances: the train and eval metrics to 1e-5 relative (the step test's).
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 from pathlib import Path
 
 import pytest

@@ -20,6 +20,7 @@ through the port's ``compose``; ResizeSubBands' size and the images are cut
 to 16² and 32² there.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

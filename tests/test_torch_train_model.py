@@ -13,6 +13,7 @@ In bf16 the two frameworks round at other places: the loss agrees to 1e-2
 relative and the gradients point the same way (cosine ≥ 0.99).
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

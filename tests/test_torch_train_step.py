@@ -18,7 +18,7 @@ bounded by 2·lr·(1 + wd·|p|).  Each step starts both packages from the JAX
 parameters, so that such flips do not carry into the next step.
 """
 
-import dataclasses
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +31,7 @@ from irw_tpu.engine import optimizers as jax_optimizers
 from irw_tpu.engine.train import _build_hyper as jax_build_hyper
 from irw_tpu.engine.train_step import build_train_step as jax_build_train_step
 from irw_tpu.getter import Getter
-from irw_tpu.getter import init_train_state as jax_init_train_state
+from irw_tpu.engine.train_state import TrainState as JaxTrainState
 from irw_tpu.losses import build_losses as jax_build_losses
 from irw_tpu.models import get_model as jax_get_model
 from irw_tpu.transforms.pipeline import DeviceTransform as JaxDeviceTransform
@@ -98,10 +98,7 @@ def run_steps(vit_kwargs):
     jlosses = jax_build_losses(loss_cfg)
     entries = jax_optimizers.build_optimizers(opt_cfg, variables["params"])
     loss_tx = Getter().get_loss_optimizer(loss_cfg)
-    jstate = jax_init_train_state(jmodel, jlosses, entries, loss_tx, batch, jdt, seed=0)
-    jstate = dataclasses.replace(
-        jstate, params=jax.tree_util.tree_map(jnp.asarray, variables["params"]),
-        batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]))
+    jstate = jax_state_from(variables, jlosses, entries, loss_tx)
 
     model = get_model(cfg["name"], device="cpu",
                       **dict(kw, vit_kwargs=dict(vit_kwargs, img_size=IMG)))
@@ -132,6 +129,29 @@ def run_steps(vit_kwargs):
         load_jax_variables(model, jstate_variables(jstate))
         load_jax_loss_params(state.losses, jstate.loss_params)
     return jstates, jmetrics, metrics, state, updated, grads
+
+
+def jax_state_from(variables, losses, entries, loss_tx, xbm=None, seed: int = 0):
+    """The state ``irw_tpu.getter.init_train_state`` returns, with
+    ``variables`` as its parameters and BatchNorm statistics, without
+    compiling the model's init: the same keys split from ``seed`` for the
+    loss parameters and the state's rng, and the optimizer and memory
+    states, which do not read the parameters' values."""
+    _, _, _, l_rng, state_rng = jax.random.split(jax.random.PRNGKey(seed), 5)
+    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    loss_params, loss_states = {}, {}
+    for idx, (loss, _) in enumerate(losses):
+        l_rng, sub = jax.random.split(l_rng)
+        loss_params[str(idx)] = loss.init_params(sub)
+        loss_states[str(idx)] = loss.init_state()
+    return JaxTrainState(
+        params=params,
+        batch_stats=jax.tree_util.tree_map(jnp.asarray, variables.get("batch_stats", {})),
+        opt_states={e.name: e.tx.init(params if e.target is None else params[e.target])
+                    for e in entries},
+        loss_params=loss_params, loss_opt_state=loss_tx.init(loss_params),
+        loss_states=loss_states, xbm=None if xbm is None else xbm.init(), rng=state_rng,
+        step=jnp.int32(0), epoch=jnp.int32(0), model_alpha=jnp.float32(1.0))
 
 
 def jstate_variables(jstate):

@@ -21,6 +21,7 @@ float64; there a float64 run arbitrates (``test_dsch_matches_jax``).
 PyTorch's CPU convolutions do not use TF32.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import copy
 
 import jax

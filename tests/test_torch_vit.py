@@ -13,6 +13,7 @@ chains in f32), so the outputs, O(1) after the final LayerNorm, agree to
 0.1 absolute — a few bf16 ulps.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

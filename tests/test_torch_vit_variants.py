@@ -23,6 +23,7 @@ compute y and dx in f32 and round once; dscale and dbias are f32 sums of the
 same bf16 inputs).
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

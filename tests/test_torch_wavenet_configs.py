@@ -18,6 +18,7 @@
 Construction only: no forward, no JAX compile (``jax.eval_shape`` traces).
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 from pathlib import Path
 
 import jax

@@ -32,6 +32,7 @@ in training, where BatchNorm normalises stage 4's 2² maps over 3 samples
 (``tests/test_torch_wcnn.py`` explains why).
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import copy
 
 import jax

@@ -16,6 +16,7 @@ package's own f32 logits lie 1.2e-3 from the same model run in f64 (the
 port's 3.2e-4), so its training logits are held to 1e-3 · max(1, max|logit|).
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 from pathlib import Path
 
 import jax

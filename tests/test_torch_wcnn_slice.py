@@ -11,6 +11,7 @@ and biases redrawn).  64² images give 32² subbands.  Embeddings agree to
 configs to the YAML files they copy.
 """
 
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 from pathlib import Path
 
 import jax

@@ -26,7 +26,7 @@ parameters, and at ce_opt's LR of 0.09 the first step's rounding grows past
 (Adam at 1e-5, the CUB recipe), as the loop test trains at basic.yaml's 1e-5.
 """
 
-import dataclasses
+import torch_threads  # noqa: F401  (first: one PyTorch thread a worker)
 import sys
 
 import jax
@@ -41,7 +41,6 @@ from irw_tpu.engine.train import _build_hyper as jax_build_hyper
 from irw_tpu.engine.train import train as jax_train
 from irw_tpu.engine.train_step import build_train_step as jax_build_train_step
 from irw_tpu.getter import Getter
-from irw_tpu.getter import init_train_state as jax_init_train_state
 from irw_tpu.losses import build_losses as jax_build_losses
 from irw_tpu.models import get_model as jax_get_model
 from irw_tpu.samplers import RandomSampler as JaxRandomSampler
@@ -57,7 +56,7 @@ from irw_tpu_torch.samplers import RandomSampler
 from irw_tpu_torch.transforms import DeviceTransform
 from test_torch_loop import _records
 from test_torch_resnet import randomize_all
-from test_torch_train_step import _yaml
+from test_torch_train_step import _yaml, jax_state_from
 
 IMG, BATCH, STEPS, CLASSES, LABELS = 32, 8, 2, 5, 8
 MODEL = {"backbone": "resnet18", "num_classes": CLASSES, "attention": "cbam"}
@@ -109,10 +108,7 @@ def start():
     jlosses = jax_build_losses(loss_cfg)
     entries = jax_optimizers.build_optimizers(opt_cfg, variables["params"])
     loss_tx = Getter().get_loss_optimizer(loss_cfg)
-    jstate = jax_init_train_state(jmodel, jlosses, entries, loss_tx, batch, jdt, seed=0)
-    jstate = dataclasses.replace(
-        jstate, params=jax.tree_util.tree_map(jnp.asarray, variables["params"]),
-        batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]))
+    jstate = jax_state_from(variables, jlosses, entries, loss_tx)
     return {"jmodel": jmodel, "jlosses": jlosses, "entries": entries, "loss_tx": loss_tx,
             "jstate": jstate, "jdt": jdt, "ds": ds, "jds": jds}
 
