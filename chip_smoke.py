@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phases card,build,wavenets
     python3 chip_smoke.py --phases card,build,landmarks
     python3 chip_smoke.py --phases card,build,hf_towers
+    python3 chip_smoke.py --phases card,build,microbatch,engine_extras
 
 Drives the port's serving path — uint8 images → DeviceTransform (/255, Haar
 SWT: kernel K1) → the flagship MultiDinoHashing (4 × DINOv2 ViT-S/14 at
@@ -234,7 +235,31 @@ configuration of the family — and prints one line per phase:
    ``clip_vit_b32`` and ``vit_b16_hf`` one batch each, also against the CPU;
    ``openclip`` and ``siglip2`` trained 3 steps of 64 (``pair_loss.yaml``,
    ``basic.yaml``'s AdamW: the loss, ms a step, peak memory, every tower
-   tensor moved).
+   tensor moved);
+27. microbatch: the full-width flagship trains at batch 96 as ``train`` does,
+   micro-batched: ``sub_batch`` 32 (3 even chunks: 3 warm-up and 20 timed
+   steps, trained img/s and peak memory beside ``train``'s), 40 (40 + 40 +
+   16: a separate tail) and 19 (19 x 4 + 20: a tail of one merged), 1
+   warm-up and 2 timed steps each; K1 = 1 a step, and per chunk K2 = 36 (the
+   forward, the chunk's recompute and each block's own recompute: 3 a
+   block) and K3 = 12; the kernel route against the plain route at 32
+   (total_loss, gradient cosine per top-level module, the HashHead
+   BatchNorm's running statistics);
+28. engine_extras: the rest of ROADMAP A12 at full width.  Adaptive loss
+   weighting on the CUB recipe (``wcnn_attention`` over ``cub_dwt``,
+   ``roadmap_adaptative.yaml`` with the 5824-slot XBM filled first, batch
+   128): 1 warm-up and 3 timed steps, ms a step, K4 = 1 a step, the weights
+   against K4's plain route; RMSprop, Adagrad, LARS and Lamb each 3 steps of
+   the flagship at batch 96 (finite losses) and one step of the fusion and
+   hash heads on identical gradients against the same optimizer on the CPU;
+   through ``run``: the DSCH recipe (``model=resnet_dsch loss=dsch
+   optimizer=resnet_dsch``, patience 1, at most 4 epochs of 3 steps; the
+   returned metrics are the best epoch's), the flagship with
+   ``kfold.use_kfold`` for each split kind (the ``val`` split logged), and
+   with ``with_fast_eval`` and the instrumentor at epochs 1 and 2
+   (``fast_eval/`` logged at the epoch without eval; the dumps' keys those
+   of the scanned flagship, K1 = 1 and K2 = 12 in each capture, and each
+   capture's own peak memory).
 
 Then a JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -258,7 +283,7 @@ import numpy as np
 PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train", "loop",
           "runner", "dwt", "wcnn", "wavelets", "wcnn_train", "wcnn_xbm", "losses", "flash",
           "flash_serve", "flash_train", "qkv", "qkv_micro", "variants", "siblings", "trunks",
-          "files", "wavenets", "landmarks", "hf_towers")
+          "files", "wavenets", "landmarks", "hf_towers", "microbatch", "engine_extras")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -570,6 +595,50 @@ WAVENET_STEPS = 10
 WAVENET_SMALL = 8                  # the other configs' served batch and train step
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
+# the microbatch phase: the flagship at TRAIN_BATCH in chunks of sub_batch,
+# sub_batch → the timed steps (32: even chunks, as train's window; 40: a
+# separate tail; 19: a tail of one merged into the last chunk)
+MICRO_STEPS = {32: TRAIN_STEPS, 40: 2, 19: 2}
+MICRO_BN_TOL = 1e-3      # the HashHead's running statistics, kernel against plain route
+# the engine_extras phase.  configs/loss/roadmap_adaptative.yaml (held to the
+# file by tests/test_torch_engine_extras.py) on the CUB recipe with its memory
+ROADMAP_ADAPTIVE = [{"name": "CalibrationLoss", "weight": "adaptative",
+                     "kwargs": {"pos_margin": 0.9, "neg_margin": 0.6}},
+                    {"name": "SupAP", "weight": "adaptative",
+                     "kwargs": {"tau": 0.01, "rho": 100.0, "delta": 0.05}}]
+ADAPTIVE_STEPS = 3
+ADAPTIVE_TOL = 1e-3      # the adaptive weights, K4 against its plain route, relative
+EXTRA_OPTIMIZERS = ("RMSprop", "Adagrad", "LARS", "Lamb")
+EXTRA_OPT_LR = 1e-5      # basic.yaml's learning rate
+EXTRA_OPT_STEPS = 3
+EXTRA_OPT_TOL = 1e-6     # one update on the card against the CPU, of the largest move
+# the runs through run: over configs/default.yaml, logs under the phase's own
+# temporary directory
+DSCH_JOB = ["model=resnet_dsch", "loss=dsch", "optimizer=resnet_dsch", "transform=cifar",
+            "dataset=synthetic", "experience.dsch_train=true", "experience.max_iter=4",
+            "experience.step_per_epoch=3", "experience.train_eval_freq=1",
+            "+experience.dsch.patience=1", "experience.eval_bs=256"]
+EXTRAS_JOB = ["model=multidino_attention_hashing_ortho", "transform=voc_swt", "loss=hash_loss",
+              "dataset=synthetic", "dataset.kwargs.multi_label=false",
+              "dataset.kwargs.num_samples=192", "dataset.sampler.kwargs.batch_size=96",
+              "experience.step_per_epoch=1", "experience.eval_bs=96"]
+KFOLD_KINDS = ("class_disjoint", "hierarchical", "closed_set")
+# the instrumentor's features of the flagship, whose dinov2 towers are scanned
+# (no Block_<i> scope): the fusion head's and HashHead's, under flax's names;
+# tests/test_torch_hooks.py holds them to irw_tpu's capture of a scanned flagship
+_HEAD = "CrossAttentionBottleneckHead_0"
+_MHA = f"{_HEAD}/_AttnCore_0/MultiHeadDotProductAttention_0"
+HOOK_FEATURES = tuple(sorted(
+    [f"{_HEAD}/Mlp_0/{m}/__call__/[0]" for m in ("Dense_0", "Dense_1", "Dropout_0")]
+    + [f"{_HEAD}/{m}/__call__/[0]" for m in ("Mlp_0", "norm1", "norm2", "out_proj")]
+    + [f"{_MHA}/__call__/[0]"] + [f"{_MHA}/{m}/__call__/[0]" for m in ("query", "key", "value",
+                                                                        "out")]
+    + [f"{_HEAD}/_AttnCore_0/__call__/[0]/[{i}]" for i in (0, 1)]
+    + [f"{_HEAD}/__call__/[0]/[0]"]
+    + [f"{_HEAD}/__call__/[0]/[1]/{k}" for k in ("attn_weights", "ortho_loss", "ortho_raw")]
+    + [f"HashHead_0/{m}/__call__/[0]" for m in ("BatchNorm_0", "Dense_0")]
+    + ["HashHead_0/__call__/[0]"]))
+
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
@@ -1224,6 +1293,7 @@ def _timed_steps(phase: str, state, tstate, step, batches, hyper, warmup: int, n
     counts = _launch_counts(kernels)
     state["launches"][phase] = counts
     peak = torch.cuda.max_memory_allocated() - held
+    state.setdefault("timings", {})[phase] = (n * batch / seconds, peak)
     log(phase, f"launches over {n} steps: {counts}")
     _check_launches(phase, per_step, expected, "step")
     log(phase, f"{n * batch / seconds:.1f} trained img/s, {seconds / n * 1e3:.1f} ms per step "
@@ -4878,6 +4948,333 @@ def phase_wavenets(state):
                         f"before the model | {state['card']}")
 
 
+def phase_microbatch(state):
+    """The flagship trains micro-batched (ROADMAP A12): the train phase's model
+    and step with ``sub_batch`` 32, 40 and 19; launches per step; img/s and
+    peak memory beside ``train``'s; the kernel route against the plain route
+    at 32, running statistics included."""
+    import torch
+
+    from irw_tpu_torch.data import SyntheticVOCDataset
+    from irw_tpu_torch.engine import build_train_step, init_train_state
+    from irw_tpu_torch.engine.train import _build_hyper
+    from irw_tpu_torch.engine.train_step import micro_batches
+    from irw_tpu_torch.losses import build_losses
+    from irw_tpu_torch.ops.attention import attention_plain_autograd
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    held = _release_earlier_phases(state)
+    model = _flagship_model()
+    _check_cores(model, "vmem_attention_fn")
+    ds = SyntheticVOCDataset(num_train=TRAIN_BATCH * 2, image_size=224, seed=3)
+    batches = [{"image": ds.images[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+                "label": ds.labels[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]} for i in range(2)]
+    tstate = init_train_state(model, build_losses(HASH_LOSS), OPTIMIZER, HASH_LOSS, seed=0)
+
+    def hyper():
+        return _build_hyper(tstate.optimizer_entries, 1, tstate.step, PROTOCOL["warm_up"], None,
+                            PROTOCOL["ortho_scale"])
+
+    steps, window_ms = {}, None
+    for sub_batch, n in MICRO_STEPS.items():
+        chunks = micro_batches(TRAIN_BATCH, sub_batch)
+        steps[sub_batch] = build_train_step(DeviceTransform(SWT_OPS),
+                                            clip_grad=PROTOCOL["clip_grad"],
+                                            proxy_map_metric="hamming", sub_batch=sub_batch)
+        # K2: each block's forward, its chunk's recompute and its own recompute
+        expected = (1, 36 * len(chunks), 12 * len(chunks), 0, 0, 0, 0)
+        metrics, step_ms = _timed_steps(
+            f"microbatch_{sub_batch}", state, tstate, steps[sub_batch], batches, hyper,
+            WARMUP_CALLS if n == TRAIN_STEPS else 1, n, expected, held, TRAIN_BATCH,
+            f"chunks {chunks}, bf16, block remat inside each chunk's checkpoint, AdamW")
+        _check_finite("microbatch", metrics, TRAIN_METRICS)
+        window_ms = window_ms if sub_batch != next(iter(MICRO_STEPS)) else step_ms
+    timings = state["timings"]
+    even = next(iter(MICRO_STEPS))  # the timed window's sub_batch
+    ips, peak = timings[f"microbatch_{even}"]
+    if "train" in timings:
+        log("microbatch", f"sub_batch {even}: {ips:.1f} trained img/s and {peak / 2 ** 30:.2f} GiB "
+                          f"peak beside the unchunked train phase's {timings['train'][0]:.1f} "
+                          f"img/s and {timings['train'][1] / 2 ** 30:.2f} GiB at batch "
+                          f"{TRAIN_BATCH} in this run | {state['card']}")
+
+    # the kernel route against the plain route, from one saved state
+    snapshot = {"model": {k: v.clone() for k, v in model.state_dict().items()},
+                "loss": {k: v.clone() for k, v in tstate.losses[0][0].state_dict().items()},
+                "rng": {k: g.get_state() for k, g in tstate.generators.items()}}
+    routes = {}
+    for name, core in (("kernel", None), ("plain", attention_plain_autograd)):
+        loss, grads = _route_step(tstate, steps[even], batches[0], hyper(), snapshot, core=core)
+        bn = model.hash_head.bn
+        routes[name] = (loss, grads, torch.cat([bn.running_mean, bn.running_var]).clone())
+    (loss_k, grads_k, bn_k), (loss_p, grads_p, bn_p) = routes["kernel"], routes["plain"]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cosines = {m: float(torch.nn.functional.cosine_similarity(grads_k[m], grads_p[m], dim=0))
+               for m in grads_k}
+    bn_err = float(((bn_k - bn_p).abs() / bn_p.abs().clamp(min=1.0)).max())
+    moved = not torch.equal(bn_k, torch.cat([snapshot["model"]["hash_head.bn.running_mean"],
+                                             snapshot["model"]["hash_head.bn.running_var"]]))
+    log("microbatch", f"kernel vs plain route at sub_batch {even}: total_loss {loss_k:.6f} vs "
+                      f"{loss_p:.6f} (rel {rel:.2e}, limit {ROUTE_LOSS_TOL}); gradient cosine "
+                      "per module " + ", ".join(f"{m} {c:.6f}" for m, c in cosines.items())
+                      + f" (limit {ROUTE_COSINE}); HashHead running statistics within "
+                      f"{bn_err:.2e} (limit {MICRO_BN_TOL}), moved {moved}")
+    if not (rel <= ROUTE_LOSS_TOL and all(c >= ROUTE_COSINE for c in cosines.values())
+            and bn_err <= MICRO_BN_TOL and moved):
+        raise AssertionError(f"microbatch: the kernel route disagrees with the plain route: "
+                             f"{rel}, {cosines}, {bn_err}, moved {moved}")
+    busy_ms = _device_profile("microbatch", lambda: steps[even](tstate, batches[1], hyper()),
+                              f"one train step of {TRAIN_BATCH} in chunks of {even}", state)
+    if busy_ms is not None:
+        log("microbatch", f"idle share against the timed steps' {window_ms:.1f} ms: "
+                          f"{1 - busy_ms / window_ms:.3f}")
+    _release_earlier_phases(state)
+
+
+def _extras_adaptive(state, held: int):
+    """Adaptive loss weighting on the CUB recipe: ADAPTIVE_STEPS timed steps
+    (K4 once a step), the weights finite, and one step's weights on K4's
+    route against its plain route from the same weights and memory."""
+    import torch
+
+    from irw_tpu_torch.engine import build_train_step, get_memory, init_train_state
+    from irw_tpu_torch.engine.train import _build_hyper
+    from irw_tpu_torch.losses import build_losses
+    from irw_tpu_torch.models import get_model
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    model = get_model(WCNN_EMB["name"], seed=0, **WCNN_EMB["kwargs"])
+    xbm = get_memory(CUB_MEMORY, 2048)
+    tstate = init_train_state(model, build_losses(ROADMAP_ADAPTIVE), CUB_OPTIMIZER,
+                              ROADMAP_ADAPTIVE, seed=0, xbm=xbm)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tstate.xbm_state = xbm.update(
+        tstate.xbm_state,
+        torch.nn.functional.normalize(torch.randn(xbm.size, xbm.embedding_dim, generator=gen,
+                                                  device="cuda"), dim=1),
+        torch.randint(0, CUB_CLASSES, (xbm.size,), generator=gen, device="cuda",
+                      dtype=torch.int32),
+        torch.arange(xbm.size, device="cuda"))
+    step = build_train_step(DeviceTransform(DWT_OPS), xbm=xbm, xbm_active=True,
+                            adaptive_weights=True)
+    batches = _cub_batches(ADAPTIVE_STEPS + 1, seed=9, memory=xbm.size)
+
+    def hyper():
+        return _build_hyper(tstate.optimizer_entries, 1, tstate.step, 0, None)
+
+    weights = [f"adaptive_weight_{i}" for i in range(4)]
+    metrics, step_ms = _timed_steps(
+        "engine_extras_adaptive", state, tstate, step, batches, hyper, 1, ADAPTIVE_STEPS,
+        (0, 0, 0, 1, 0, 0, 0), held, CUB_BATCH, "the CUB recipe with adaptive weighting: one "
+        "forward, 5 pullbacks (CalibrationLoss, its memory term, SupAP, its memory term, ortho) "
+        f"over {xbm.size} slots, Adam")
+    _check_finite("engine_extras", metrics, XBM_TERMS + ("total_loss", "grad_norm", *weights))
+
+    snapshot = {"model": {k: v.clone() for k, v in model.state_dict().items()},
+                "xbm": [t.clone() for t in (tstate.xbm_state.embeddings, tstate.xbm_state.labels,
+                                            tstate.xbm_state.valid, tstate.xbm_state.ptr)]}
+    routes = []
+    for plain in (False, True):
+        model.load_state_dict(snapshot["model"])
+        for t, saved in zip((tstate.xbm_state.embeddings, tstate.xbm_state.labels,
+                             tstate.xbm_state.valid, tstate.xbm_state.ptr), snapshot["xbm"]):
+            t.copy_(saved)
+        with _k4_plain() if plain else contextlib.nullcontext():
+            m = step(tstate, batches[0], hyper())
+        routes.append([float(m[w]) for w in weights])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*routes))
+    log("engine_extras", f"adaptive weights {routes[0]} on K4's route, {routes[1]} on its plain "
+                         f"route (rel {rel:.2e}, limit {ADAPTIVE_TOL}); {step_ms:.1f} ms a step "
+                         f"| {state['card']}")
+    if rel > ADAPTIVE_TOL:
+        raise AssertionError(f"engine_extras: adaptive weights differ between routes: {routes}")
+
+
+def _extras_optimizers(state):
+    """RMSprop, Adagrad, LARS and Lamb: EXTRA_OPT_STEPS flagship steps each,
+    then one step of the fusion and hash heads on the last step's gradients,
+    on the card and on the CPU."""
+    import copy
+
+    import torch
+
+    from irw_tpu_torch.data import SyntheticVOCDataset
+    from irw_tpu_torch.engine import build_train_step, init_train_state, optimizers
+    from irw_tpu_torch.engine.train import _build_hyper
+    from irw_tpu_torch.losses import build_losses
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    model = _flagship_model()
+    ds = SyntheticVOCDataset(num_train=TRAIN_BATCH, image_size=224, seed=5)
+    batch = {"image": ds.images, "label": ds.labels}
+    step = build_train_step(DeviceTransform(SWT_OPS), proxy_map_metric="hamming")
+    for name in EXTRA_OPTIMIZERS:
+        cfg = [{"name": name, "params": None, "kwargs": {"lr": EXTRA_OPT_LR}}]
+        tstate = init_train_state(model, build_losses(HASH_LOSS), cfg, HASH_LOSS, seed=0)
+        assert isinstance(tstate.optimizer_entries[0].optimizer, optimizers.OptaxOptimizer)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = [step(tstate, batch, _build_hyper(tstate.optimizer_entries, 1, tstate.step, 0,
+                                                    None)) for _ in range(EXTRA_OPT_STEPS)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        losses = [float(m["total_loss"]) for m in metrics]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"engine_extras: {name} gave losses {losses}")
+        # one step of the heads on identical gradients, card against CPU
+        heads = torch.nn.ModuleDict({"head": copy.deepcopy(model.head),
+                                     "hash_head": copy.deepcopy(model.hash_head)})
+        grads = {f"{m}.{n}": p.grad.clone() for m in ("head", "hash_head")
+                 for n, p in getattr(model, m).named_parameters() if p.grad is not None}
+        after, start = [], {}
+        for module in (heads, copy.deepcopy(heads).cpu()):
+            start = {n: p.detach().cpu().clone() for n, p in module.named_parameters()}
+            for n, p in module.named_parameters():
+                p.grad = grads[n].to(p.device) if n in grads else None
+            entry = optimizers.build_optimizers([dict(cfg[0], kwargs={"lr": 1e-3})], module)[0]
+            entry.optimizer.step()
+            after.append({n: p.detach().cpu() for n, p in module.named_parameters()
+                          if n in grads})
+        # the card's update against the CPU's, of the CPU's largest move in each
+        # tensor, past one unit in the last place of the parameter itself
+        err = 0.0
+        for n, ref in after[1].items():
+            excess = (after[0][n] - ref).abs().numpy() - np.spacing(np.abs(ref.numpy()))
+            err = max(err, float(excess.max()) / max(float((ref - start[n]).abs().max()), 1e-30))
+        log("engine_extras", f"{name}: losses {', '.join(f'{v:.6f}' for v in losses)} over "
+                             f"{EXTRA_OPT_STEPS} steps of {TRAIN_BATCH} ({seconds:.2f} s, the "
+                             f"first with its build); one update of the heads' "
+                             f"{len(after[1])} tensors on identical gradients within {err:.2e} "
+                             f"of the CPU's largest move (limit {EXTRA_OPT_TOL})")
+        if err > EXTRA_OPT_TOL:
+            raise AssertionError(f"engine_extras: {name}'s update on the card differs from "
+                                 f"the CPU's: {err}")
+        del tstate, heads
+    del model
+
+
+def _extras_run(overrides: list, log_root: str, name: str) -> tuple:
+    """``run`` of ``compose(default, overrides)`` on the card, logs under
+    ``log_root``: (metrics by split, the run's metrics.jsonl records, its log
+    directory, seconds)."""
+    import os
+
+    from irw_tpu_torch import run as port_run
+    from irw_tpu_torch import single_experiment_runner as runner
+    from irw_tpu_torch.config import compose
+
+    cfg = compose(runner.CONFIG_DIR, "default",
+                  overrides + [f"experience.log_dir={log_root}",
+                               f"experience.experiment_name={name}"])
+    t0 = time.perf_counter()
+    metrics = port_run.run(cfg)
+    log_dir = os.path.join(log_root, name)
+    return metrics, _jsonl(os.path.join(log_dir, "metrics.jsonl")), log_dir, \
+        time.perf_counter() - t0
+
+
+def _extras_runs(state):
+    """The DSCH recipe, the three k-fold kinds and the fast eval with the
+    instrumentor, each through ``run`` on the card."""
+    import os
+    import tempfile
+
+    import torch
+
+    from irw_tpu_torch.hooks import instrumentation
+
+    with tempfile.TemporaryDirectory() as root:
+        metrics, records, _, seconds = _extras_run(DSCH_JOB, root, "dsch")
+        scores = {r["step"]: r["test/map_level0"] for r in records if "test/map_level0" in r}
+        alphas = [r["train/model_alpha"] for r in records if "train/model_alpha" in r]
+        best = max(scores, key=lambda e: (scores[e], -e))
+        stopped = max(scores) < 4
+        log("engine_extras", f"DSCH recipe: test map_level0 by epoch {scores}, α {alphas}; "
+                             f"stopped early {stopped}; returned {metrics['test']['map_level0']} "
+                             f"(epoch {best}'s) in {seconds:.1f} s")
+        if metrics["test"]["map_level0"] != scores[best]:
+            raise AssertionError("engine_extras: DSCH returned other than the best epoch's "
+                                 f"metrics: {metrics['test']}, {scores}")
+
+        for kind in KFOLD_KINDS:
+            metrics, records, _, seconds = _extras_run(
+                EXTRAS_JOB + ["experience.kfold.use_kfold=true", f"experience.kfold.kind={kind}",
+                              "experience.max_iter=1", "experience.val_eval_freq=1",
+                              "experience.test_eval_freq=-1", "experience.train_eval_freq=-1"],
+                root, f"kfold_{kind}")
+            logged = [r["val/map_level0"] for r in records if "val/map_level0" in r]
+            log("engine_extras", f"k-fold {kind}: val map_level0 {logged} logged, splits "
+                                 f"{sorted(metrics)} in {seconds:.1f} s")
+            if len(logged) != 1 or "val" not in metrics:
+                raise AssertionError(f"engine_extras: k-fold {kind} logged no val split")
+
+        kernels = _kernel_wrappers()
+        dumps = []
+        dump = instrumentation.FixedBatchInstrumentor.maybe_dump
+
+        def counted(self, epoch, *args, **kwargs):
+            # the capture's own peak memory: above what the run holds when it starts
+            before = [fn.launches for fn in kernels]
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            path = dump(self, epoch, *args, **kwargs)
+            torch.cuda.synchronize()
+            if path is not None:
+                dumps.append((path, tuple(fn.launches - b for fn, b in zip(kernels, before)),
+                              (torch.cuda.max_memory_allocated() - held) / 2 ** 30))
+            return path
+
+        instrumentation.FixedBatchInstrumentor.maybe_dump = counted
+        try:
+            metrics, records, log_dir, seconds = _extras_run(
+                EXTRAS_JOB + ["experience.with_fast_eval=true", "experience.max_iter=2",
+                              "experience.train_eval_freq=2", "experience.test_eval_freq=2",
+                              "experience.hooks_configs.active=true",
+                              "experience.hooks_configs.target_epochs=[1, 2]"],
+                root, "extras")
+        finally:
+            instrumentation.FixedBatchInstrumentor.maybe_dump = dump
+        fast = [r["step"] for r in records if any(k.startswith("fast_eval/") for k in r)]
+        files = sorted(os.listdir(os.path.join(log_dir, "instrumentation")))
+        keys = []
+        for path, _, _ in dumps:
+            with np.load(path) as data:
+                keys.append(sorted(k[len("feat/"):] for k in data.files if k.startswith("feat/")))
+        log("engine_extras", f"fast eval logged at epochs {fast}; instrumentation files {files}; "
+                             f"{len(keys[0]) if keys else 0} features a dump; launches per "
+                             f"capture ({', '.join(KERNEL_IDS)}): {[c for _, c, _ in dumps]}; "
+                             f"the captures' own peak memory "
+                             f"{[round(g, 3) for _, _, g in dumps]} GiB; in {seconds:.1f} s")
+        if fast != [1]:
+            raise AssertionError(f"engine_extras: fast_eval/ logged at {fast}, not [1]")
+        if files != ["analysis_epoch_1.npz", "analysis_epoch_2.npz", "fixed_batch.npz"]:
+            raise AssertionError(f"engine_extras: instrumentation wrote {files}")
+        if keys != [list(HOOK_FEATURES)] * 2:
+            raise AssertionError(f"engine_extras: the dumps hold {keys}")
+        _check_launches("engine_extras", [c for _, c, _ in dumps], (1, 12, 0, 0, 0, 0, 0),
+                        "instrumentor capture")
+
+
+def phase_engine_extras(state):
+    """The rest of ROADMAP A12 at full width: adaptive weighting (K4), the
+    four optax optimizers, the DSCH protocol, k-fold splits, the fast eval
+    and the instrumentor (K1, K2) through ``run``."""
+    t0 = time.perf_counter()
+    held = _release_earlier_phases(state)
+    _extras_adaptive(state, held)
+    _release_earlier_phases(state)
+    t1 = time.perf_counter()
+    _extras_optimizers(state)
+    _release_earlier_phases(state)
+    t2 = time.perf_counter()
+    _extras_runs(state)
+    _release_earlier_phases(state)
+    log("engine_extras", f"adaptive {t1 - t0:.1f} s, optimizers {t2 - t1:.1f} s, runs "
+                         f"{time.perf_counter() - t2:.1f} s")
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -4913,7 +5310,8 @@ def main(argv=None) -> int:
                "qkv": phase_qkv, "qkv_micro": phase_qkv_micro, "variants": phase_variants,
                "siblings": phase_siblings, "trunks": phase_trunks, "files": phase_files,
                "wavenets": phase_wavenets, "landmarks": phase_landmarks,
-               "hf_towers": phase_hf_towers}
+               "hf_towers": phase_hf_towers, "microbatch": phase_microbatch,
+               "engine_extras": phase_engine_extras}
     for name in phases:
         if name != "card":
             t0 = time.perf_counter()
@@ -4932,6 +5330,8 @@ def main(argv=None) -> int:
                "runner": ("runner", RUNNER_EPOCHS * RUNNER_STEPS),
                "wcnn": ("wcnn_train", WCNN_TRAIN_STEPS), "wcnn_xbm": ("wcnn_xbm", XBM_STEPS),
                "shared": ("siblings_train", TRAIN_STEPS),
+               **{f"microbatch_{sb}": (f"microbatch_{sb}", n) for sb, n in MICRO_STEPS.items()},
+               "adaptive": ("engine_extras_adaptive", ADAPTIVE_STEPS),
                **{config: (f"wavenets_{config}_train", WAVENET_STEPS) for config in WAVENET_MAIN},
                **{f"hf_{config}": (f"hf_towers_{config}_train", TRUNK_STEPS)
                   for config in HF_TRAIN}}

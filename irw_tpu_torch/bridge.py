@@ -558,3 +558,254 @@ def load_jax_loss_params(losses, loss_params):
         loss.load_state_dict({k: torch.from_numpy(np.array(v, dtype=np.float32))
                               for k, v in tree.items()}, strict=True)
     return losses
+
+
+# ---------------------------------------------------------------------------
+# the port's names → flax paths and layouts (the inverse of the mapping above)
+# ---------------------------------------------------------------------------
+
+# owner class → {the port's child, or a ModuleList ``a`` for each of its items
+# ``a.i``: its flax scope relative to the owner's; "" where the child's
+# parameters sit at the owner's level (a band axis), "../x" a sibling scope}
+_SCOPES = {
+    "BandedViT": {"vit": "VmapVisionTransformer_0"},
+    "SharedViT": {"vit": "VisionTransformer_0"},
+    "VisionTransformer": {"patch_embed": "PatchEmbed_0/Conv_0"},
+    "Block": {"attn": "attn", "mlp": "Mlp_0"},
+    "FlashAttention": {"qkv": "../attn_qkv", "out": "../attn_out"},
+    "Mlp": {"fc1": "Dense_0", "fc2": "Dense_1"},
+    "AttnCore": {"attn": "MultiHeadDotProductAttention_0"},
+    "HashHead": {"linear": "Dense_0", "bn": "BatchNorm_0"},
+    "GatedFusionHead": {"gate_fc1": "Dense_0", "gate_fc2": "Dense_1", "mlp": "Mlp_0"},
+    "GateFusionHead": {"fc": "Dense_0", "bn": "BatchNorm_0"},
+    "SubbandCBAM": {"gate": "SubbandChannelGate_0"},
+    "SubbandChannelGate": {"fc1": "Dense_0", "fc2": "Dense_1"},
+    "ChannelGate1D": {"fc1": "Dense_0", "fc2": "Dense_1"},
+    "CrossBandAttention": {"fc1": "Dense_0", "fc2": "Dense_1", "spatial": "Conv_0",
+                           "spatial_norm": "BatchNorm_0"},
+    "BandedResNet": {"branches": ""},
+    "BandedStagedResNet": {"branches": ""},
+    "ResNet": {"stem": "Conv_0", "stem_norm": "BatchNorm_0"},
+    "DenseNet": {"stem": "Conv_0", "stem_norm": "BatchNorm_0", "norm": "BatchNorm_1"},
+    "DenseLayer": {"norm1": "BatchNorm_0", "conv1": "Conv_0", "norm2": "BatchNorm_1",
+                   "conv2": "Conv_1"},
+    "Transition": {"norm": "BatchNorm_0", "conv": "Conv_0"},
+    "ConvNeXt": {"stem": "Conv_0", "stem_norm": "LayerNorm_0"},
+    "ConvNeXtBlock": {"dwconv": "Conv_0", "norm": "LayerNorm_0", "fc1": "Dense_0",
+                      "fc2": "Dense_1"},
+    "FourBranchResNet": {"backbone": "_BandedStagedResNet_0",
+                         "branch_classifier": "DenseGeneral_0"},
+    "FourBranchResNet50Fusion": {"backbone": "_BandedStagedResNet_0",
+                                 "branch_classifier": "DenseGeneral_0",
+                                 "gate": "ChannelGate1D_0", "classifier": "Dense_0"},
+    "HybridMultiBranch": {"ll_trunk": "ResNet_0", "detail_trunks": "VmapDenseNet_0",
+                          "classifier": "Dense_0"},
+    "RetrievalNet": {"backbone": "backbone", "norm": "LayerNorm_0", "fc": "fc"},
+    "ResNetCE": {"trunk": "ResNet_0", "fc": "Dense_0"},
+    "ResNetHashing": {"trunk": "ResNet_0", "fc": "Dense_0", "norm": "LayerNorm_0"},
+    "ResNet50DSCH": {"trunk": "ResNet_0", "fc": "Dense_0", "norm": "LayerNorm_0"},
+    "ResNet50Mod": {"dsch": "ResNet50DSCH_0"},
+    "HuggingFaceVisionWrapper": {"tower": "tower"},
+}
+_QUERY_HEADS = ("StandardFusionHead", "SemanticFusionHead", "CrossAttentionBottleneckHead")
+_WAVELET_CNNS = ("WCNN", "WCNNAttention", "WaveResNet", "WaveResNetCE")
+_FAMILY = ("MultiDinoHashing", "MultiDinoAttention", "SharedDinoHashing",
+           "PromptedSharedDinoHashing", "PretrainedMultiDinoHashing", "MultiDinoHashingTF",
+           "DINOHashBaseline", "SingleBandNet", "DinoModelCE", "MultiDinoModel")
+# owner classes whose children carry their flax names: the attention modules'
+# query/key/value/out, and the HF towers (plain ``Module`` containers included)
+_OWN_NAMES = ("Attention", "FusedMHA", "SplitCLSMHA", "MultiHeadAttention", "Module",
+              "CLIPVisionTower", "_CLIPLayer", "ViTTower", "_ViTLayer", "SiglipVisionTower",
+              "SiglipAttentionBlock", "SiglipPoolingHead")
+# owner classes with rules below, where a child they do not name keeps its
+# name (a fusion head's ``norm1``/``norm2``/``out_proj``, ``branch_ln``)
+_RULED = (*_SCOPES, *_QUERY_HEADS, *_WAVELET_CNNS, *_FAMILY, *_OWN_NAMES, "BasicBlock",
+          "Bottleneck", "ProjectionHead")
+_SCALES = ("LayerNorm", "FusedLayerNorm", "DomainLayerNorm", "BatchNorm", "BatchNorm1d",
+           "BatchNorm2d")
+
+
+def _child_scope(owner, name: str, child, parent) -> str:
+    """The flax scope (relative to ``owner``'s) of ``owner``'s child ``name``
+    (``a.i`` for item i of the ModuleList ``a``); ``parent`` is ``owner``'s
+    own parent, None at the root.  Raises for an owner class it has no rules
+    for."""
+    kind, child_kind = type(owner).__name__, type(child).__name__
+    head, _, index = name.partition(".")
+    if kind not in _RULED:
+        raise ValueError(f"no flax scope for the children of a {kind} (child {name!r}); "
+                         "bridge.jax_module_paths covers the layouts from_jax_variables reads")
+    if kind == "ResNet" and type(parent).__name__ == "BandedStagedResNet":
+        # one band of the staged trunk: VmapStem_0, VmapStage_k with blocks from 0 a stage
+        if head != "blocks":
+            return f"VmapStem_0/{_SCOPES['ResNet'][name]}"
+        i = int(index)
+        stage = next(k for k, end in enumerate(owner.stage_ends) if i < end)
+        return f"VmapStage_{stage}/{child_kind}_{i - (owner.stage_ends[stage - 1] if stage else 0)}"
+    rules = _SCOPES.get(kind, {})
+    if name in rules or head in rules:
+        return rules.get(name, rules.get(head))
+    if kind == "VisionTransformer" and head == "blocks":
+        if not getattr(owner, "scan_blocks", False):
+            return f"Block_{index}"
+        return "blocks/inner/Block_0" if getattr(owner, "scan_group", 1) > 1 else \
+            "blocks/Block_0"
+    if kind in ("VisionTransformer", "Block") and child_kind in ("LayerNorm", "FusedLayerNorm"):
+        return f"{name}/LayerNorm_0"  # a DomainLayerNorm of one domain
+    if kind in _FAMILY or kind in _WAVELET_CNNS:
+        if name == "hash_head":
+            return "HashHead_0"
+        if name in ("head", "gate"):
+            return f"{child_kind}_0"
+        if name == "classifier":
+            return "Dense_0"
+        if name == "branch_classifier":
+            return "branch_classifiers" if kind == "WaveResNetCE" else "DenseGeneral_0"
+        if name == "backbone":
+            # SharedViT is the port's alone: its ViT sits at the model's level
+            return {"VisionTransformer": "VisionTransformer_0", "BandedViT": "BandedViT_0",
+                    "BandedResNet": "BandedResNet_0/VmapResNet_0"}.get(child_kind, "")
+    if kind == "GateFusionHead" and name == "gate":
+        return f"{child_kind}_0"
+    if kind in _QUERY_HEADS or kind == "GatedFusionHead":
+        if name == "core":
+            return "_AttnCore_0"
+        if name == "mlp":
+            return "Mlp_0"
+        if head == "proj":
+            return f"proj_{index}"
+    if kind in ("ResNet", "ConvNeXt") and head == "blocks":
+        return f"{child_kind}_{index}"
+    if kind in ("BasicBlock", "Bottleneck") and head in ("convs", "norms"):
+        return f"{'Conv' if head == 'convs' else 'BatchNorm'}_{index}"
+    if kind == "DenseNet" and head in ("layers", "transitions"):
+        return f"{child_kind}_{index}"
+    if kind == "ConvNeXt":
+        # LayerNorm_s and Conv_s downsample before stage s; the last LayerNorm is the final norm
+        if head in ("down_norms", "downsamples"):
+            return f"{'LayerNorm' if head == 'down_norms' else 'Conv'}_{int(index) + 1}"
+        if name == "norm":
+            return f"LayerNorm_{len(owner.downsamples) + 1}"
+    if kind == "BandedStagedResNet" and head == "att_blocks":
+        return f"att_block{int(index) + 1}"
+    if kind == "ProjectionHead":
+        if head == "layers":
+            return f"Dense_{index}"
+        if head == "norms":
+            return f"{'BatchNorm' if child_kind == 'BatchNorm' else 'LayerNorm'}_{index}"
+    return name.replace(".", "/")
+
+
+def _join(prefix: str, scope: str) -> str:
+    while scope.startswith("../"):
+        prefix, scope = prefix.rpartition("/")[0], scope[3:]
+    return "/".join(p for p in (prefix, scope) if p)
+
+
+def jax_module_paths(model) -> dict:
+    """Each module of ``model`` (its name in ``named_modules``, "" for the
+    model) → the flax scope path of the module the bridge reads its
+    parameters from, e.g. ``hash_head.linear`` → ``HashHead_0/Dense_0`` and,
+    in the banded ViT, ``backbone.vit.blocks.2.mlp`` →
+    ``BandedViT_0/VmapVisionTransformer_0/Block_2/Mlp_0`` (with
+    ``scan_blocks``, ``…/blocks/Block_0/Mlp_0``).  It covers the layouts
+    listed in this module's docstring, and raises for a module class it has
+    no rules for."""
+    import torch.nn as nn
+
+    out = {"": ""}
+
+    def walk(module, parent, port: str, scope: str):
+        for name, child in module.named_children():
+            items = ([(f"{name}.{i}", c) for i, c in child.named_children()]
+                     if isinstance(child, nn.ModuleList) else [(name, child)])
+            for cname, c in items:
+                port_name = f"{port}.{cname}" if port else cname
+                out[port_name] = _join(scope, _child_scope(module, cname, c, parent))
+                walk(c, module, port_name, out[port_name])
+
+    walk(model, None, "", "")
+    return out
+
+
+def jax_param_paths(model) -> dict:
+    """Each parameter of ``model`` → the flax path of the leaf the bridge
+    carries into it: its module's scope (``jax_module_paths``) and the leaf's
+    flax name (``kernel`` of a Dense or Conv, ``scale`` of a LayerNorm or
+    BatchNorm, ``embedding`` of an ``nn.Embed``, else its own name)."""
+    modules = dict(model.named_modules())
+    scopes = jax_module_paths(model)
+    out = {}
+    for name, _ in model.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        kind = type(modules[owner]).__name__
+        if leaf == "weight":
+            if kind in _SCALES:
+                leaf = "scale"
+            elif kind == "Embedding":
+                leaf = "embedding"
+            elif kind == "SubbandEca":
+                leaf = "Conv_0/kernel"
+            else:
+                leaf = "kernel"
+        out[name] = _join(scopes[owner], leaf)
+    return out
+
+
+def _flax_layout(module, attr: str, leaf: str, parent, t):
+    """``t``, shaped as the parameter ``leaf`` of ``module`` (``attr`` in
+    ``parent``), in the layout of the flax leaf the bridge reads it from:
+    the inverse of the transposes and reshapes above."""
+    import torch
+
+    kind = type(module).__name__
+    h = getattr(parent, "num_heads", None)
+    if leaf == "weight" and (kind == "PatchEmbed" or isinstance(module, torch.nn.Conv2d)):
+        return torch.movedim(t, (-4, -3), (-1, -2))     # OIHW → HWIO
+    if leaf == "weight" and kind == "SubbandEca":
+        return t.reshape(-1, 1, 1)
+    if leaf in ("cls_token", "pos_embed"):
+        return t.unsqueeze(-3)
+    if not isinstance(module, torch.nn.Linear) and kind != "Linear":
+        return t
+    if leaf == "weight":
+        t = t.transpose(-1, -2)                          # (…, in, out)
+        if h and attr == "out" and type(parent).__name__ != "FlashAttention":
+            return t.reshape(*t.shape[:-2], h, -1, t.shape[-1])
+    if h and attr in ("query", "key", "value"):
+        return t.reshape(*t.shape[:-1], h, -1)
+    if h and attr == "qkv":
+        return t.reshape(*t.shape[:-1], 3, h, -1)
+    return t
+
+
+def to_flax_leaves(model, tensors: dict) -> dict:
+    """``tensors``, {``model``'s parameter name: a tensor of its shape} (its
+    gradient, say) → {flax path: the tensor in the flax leaf's layout}.
+    Several port tensors on one flax leaf are a band or scan axis: the
+    per-band trunks stacked on the leading axis, a scanned ViT's blocks on
+    its depth axis (after the band axis of ``BandedViT_0``; as (G, k) in a
+    grouped scan)."""
+    import torch
+
+    modules = dict(model.named_modules())
+    paths = jax_param_paths(model)
+    grouped: dict = {}
+    for name, t in tensors.items():
+        owner, _, leaf = name.rpartition(".")
+        parent = modules[owner.rpartition(".")[0]] if owner else None
+        grouped.setdefault(paths[name], []).append(
+            (name, _flax_layout(modules[owner], owner.rpartition(".")[2], leaf, parent, t)))
+    out = {}
+    for path, items in grouped.items():
+        if len(items) == 1:
+            out[path] = items[0][1]
+            continue
+        axis = 1 if path.startswith("BandedViT_0") else 0
+        stacked = torch.stack([t for _, t in items], dim=axis)
+        if "/blocks/inner/" in f"/{path}":
+            vit = modules[items[0][0].rpartition(".blocks.")[0]]
+            stacked = stacked.reshape(*stacked.shape[:axis], vit.scan_group, -1,
+                                      *stacked.shape[axis + 1:])
+        out[path] = stacked
+    return out

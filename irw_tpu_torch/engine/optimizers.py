@@ -23,7 +23,15 @@ torch-semantics schedule functions below and writes it into the group
 before each step (``set_group_lrs``).  ``AdamW`` is torch's, whose
 decoupled decay equals optax's ``adamw``; ``Adam`` and ``SGD`` couple the
 decay into the gradient, as ``optax.add_decayed_weights`` before the update
-does.  The other optax optimizers wait for ROADMAP A12.
+does.  ``RMSprop``, ``Adagrad``, ``LARS`` and ``Lamb`` are the optax
+transforms of those names (``optax.rmsprop``, ``adagrad``, ``lars``,
+``lamb``, optax 0.2.6), not torch's optimizers: their defaults (RMSprop's
+decay 0.9 with eps inside the square root, Adagrad's accumulator 0.1 and eps
+1e-7, LARS's trust coefficient 1e-3 and momentum 0.9, Lamb's eps 1e-6) and
+their arithmetic, one parameter at a time as ``optax.multi_transform``
+applies them to a group's leaves.  A kwarg the optax transform does not take
+raises ``TypeError``, as the JAX package's ``ctor(learning_rate, **kwargs)``
+does.
 """
 
 from __future__ import annotations
@@ -186,7 +194,125 @@ class ReduceOnPlateau:
 # optimizer construction
 # ---------------------------------------------------------------------------
 
-_LATER = ("RMSprop", "Adagrad", "LARS", "Lamb")
+def _bias_correction(decay: float, count: int, like: torch.Tensor) -> torch.Tensor:
+    """optax's ``1 - decay**count``, computed in float32 (with the double
+    ``1 - 0.999`` Adam's second moment would be off by 1e-5)."""
+    return 1 - torch.tensor(decay, dtype=torch.float32, device=like.device) ** count
+
+
+def _rmsprop_update(p, g, state, h):
+    """``optax.rmsprop``: ``scale_by_rms`` (or ``scale_by_stddev`` when
+    centered), the learning rate, then ``trace`` with a momentum."""
+    decay = h["decay"]
+    if not state:
+        state["nu"] = torch.full_like(p, h["initial_scale"])
+        if h["centered"]:
+            state["mu"] = torch.zeros_like(p)
+        if h["momentum"] is not None:
+            state["trace"] = torch.zeros_like(p)
+        state["count"] = 0
+    state["nu"] = (1 - decay) * (g * g) + decay * state["nu"]
+    nu = state["nu"]
+    if h["centered"]:
+        state["mu"] = (1 - decay) * g + decay * state["mu"]
+    mu = state.get("mu")
+    if h["bias_correction"]:
+        state["count"] += 1
+        correction = _bias_correction(decay, state["count"], nu)
+        nu = nu / correction
+        mu = None if mu is None else mu / correction
+    if mu is not None:
+        nu = nu - mu * mu
+    if h["eps_in_sqrt"]:
+        u = torch.rsqrt(nu + h["eps"]) * g
+    else:
+        u = 1 / (torch.sqrt(nu) + h["eps"]) * g
+    u = u * -h["lr"]
+    if h["momentum"] is not None:
+        state["trace"] = u + h["momentum"] * state["trace"]
+        u = u + h["momentum"] * state["trace"] if h["nesterov"] else state["trace"]
+    return u
+
+
+def _adagrad_update(p, g, state, h):
+    """``optax.adagrad``: ``scale_by_rss``, then the learning rate."""
+    if not state:
+        state["sum_of_squares"] = torch.full_like(p, h["initial_accumulator_value"])
+    state["sum_of_squares"] = g * g + state["sum_of_squares"]
+    t = state["sum_of_squares"]
+    u = torch.where(t > 0, torch.rsqrt(t + h["eps"]), 0.0) * g
+    return u * -h["lr"]
+
+
+def _trust_ratio(u, p, coefficient: float, eps: float):
+    """``scale_by_trust_ratio`` (min_norm 0): u · c‖p‖ / (‖u‖ + eps), or u
+    where either norm is 0."""
+    p_norm = torch.sqrt(torch.sum(p * p))
+    u_norm = torch.sqrt(torch.sum(u * u))
+    ratio = coefficient * p_norm / (u_norm + eps)
+    return u * torch.where((p_norm == 0) | (u_norm == 0), 1.0, ratio)
+
+
+def _lars_update(p, g, state, h):
+    """``optax.lars``: decayed weights, the trust ratio (each under its
+    mask), the learning rate, then ``trace``."""
+    if not state:
+        state["trace"] = torch.zeros_like(p)
+    u = g + h["weight_decay"] * p if h["weight_decay_mask"] else g
+    if h["trust_ratio_mask"]:
+        u = _trust_ratio(u, p, h["trust_coefficient"], h["eps"])
+    u = u * -h["lr"]
+    state["trace"] = u + h["momentum"] * state["trace"]
+    return u + h["momentum"] * state["trace"] if h["nesterov"] else state["trace"]
+
+
+def _lamb_update(p, g, state, h):
+    """``optax.lamb``: ``scale_by_adam``, decayed weights, the trust ratio
+    (coefficient 1, eps 0), then the learning rate."""
+    b1, b2 = h["b1"], h["b2"]
+    if not state:
+        state["mu"], state["nu"], state["count"] = torch.zeros_like(p), torch.zeros_like(p), 0
+    state["mu"] = (1 - b1) * g + b1 * state["mu"]
+    state["nu"] = (1 - b2) * (g * g) + b2 * state["nu"]
+    state["count"] += 1
+    mu_hat = state["mu"] / _bias_correction(b1, state["count"], p)
+    nu_hat = state["nu"] / _bias_correction(b2, state["count"], p)
+    u = mu_hat / (torch.sqrt(nu_hat + h["eps_root"]) + h["eps"])
+    u = u + h["weight_decay"] * p
+    return _trust_ratio(u, p, 1.0, 0.0) * -h["lr"]
+
+
+class OptaxOptimizer(torch.optim.Optimizer):
+    """One optax transform as a torch optimizer: each param group carries
+    the transform's keyword arguments (its defaults filled in) and ``lr``,
+    and ``step`` applies ``update(p, grad, state, group)`` to every
+    parameter with a gradient, in float32 arithmetic as optax does."""
+
+    def __init__(self, params, update):
+        super().__init__(params, {})
+        self.update = update
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    p.add_(self.update(p, p.grad, self.state[p], group))
+
+
+# name → (the optax transform's keyword arguments and defaults, its update)
+_OPTAX = {
+    "RMSprop": ({"decay": 0.9, "eps": 1e-8, "initial_scale": 0.0, "eps_in_sqrt": True,
+                 "centered": False, "momentum": None, "nesterov": False,
+                 "bias_correction": False}, _rmsprop_update),
+    "Adagrad": ({"initial_accumulator_value": 0.1, "eps": 1e-7}, _adagrad_update),
+    "LARS": ({"weight_decay": 0.0, "weight_decay_mask": True, "trust_coefficient": 0.001,
+              "eps": 0.0, "trust_ratio_mask": True, "momentum": 0.9, "nesterov": False},
+             _lars_update),
+    "Lamb": ({"b1": 0.9, "b2": 0.999, "eps": 1e-6, "eps_root": 0.0, "weight_decay": 0.0},
+             _lamb_update),
+}
+_NAMES = sorted(["Adam", "AdamW", "SGD", *_OPTAX])
 
 
 def _group_hyper(name: str, kwargs: dict) -> tuple[float, dict]:
@@ -203,12 +329,23 @@ def _group_hyper(name: str, kwargs: dict) -> tuple[float, dict]:
         return lr, {"momentum": momentum, "weight_decay": kwargs.pop("weight_decay", 0.0),
                     # optax drops nesterov without momentum; torch would refuse it
                     "nesterov": bool(kwargs.pop("nesterov", False)) and momentum > 0}
-    if name in _LATER:
-        raise NotImplementedError(f"optimizer {name!r} waits for ROADMAP A12")
-    raise ValueError(f"unknown optimizer {name!r}; available: ['Adam', 'AdamW', 'SGD']")
+    if name in _OPTAX:
+        defaults = _OPTAX[name][0]
+        unknown = sorted(set(kwargs) - set(defaults))
+        if unknown:
+            raise TypeError(f"{name.lower()}() got an unexpected keyword argument "
+                            f"{unknown[0]!r}")
+        return lr, {**defaults, **kwargs}
+    raise ValueError(f"unknown optimizer {name!r}; available: {_NAMES}")
 
 
-_OPTIMIZERS = {"Adam": torch.optim.Adam, "AdamW": torch.optim.AdamW, "SGD": torch.optim.SGD}
+_TORCH = {"Adam": torch.optim.Adam, "AdamW": torch.optim.AdamW, "SGD": torch.optim.SGD}
+
+
+def _make_optimizer(name: str, groups: list) -> torch.optim.Optimizer:
+    if name in _OPTAX:
+        return OptaxOptimizer(groups, _OPTAX[name][1])
+    return _TORCH[name](groups)
 
 
 def _param_label(name: str, param: torch.Tensor, module_names, frozen: set) -> str:
@@ -287,7 +424,7 @@ def build_optimizers(opt_config: list, model: torch.nn.Module,
             base_lrs[label] = lr
             if members[label]:
                 groups.append({"params": members[label], "label": label, "lr": lr, **hyper})
-        entry = OptimizerEntry(name=target or "net", optimizer=_OPTIMIZERS[name](groups),
+        entry = OptimizerEntry(name=target or "net", optimizer=_make_optimizer(name, groups),
                                target=target, group_base_lr=base_lrs)
         lr_w = base_lrs["weight"]
         if cfg.get("scheduler_on_epoch"):

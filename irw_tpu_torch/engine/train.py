@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from irw_tpu_torch.data.loader import EpochLoader
+from irw_tpu_torch.engine.batch_map import build_fast_eval_subset
 from irw_tpu_torch.engine.checkpoint import finalize_checkpoints, save_checkpoint
 from irw_tpu_torch.engine.evaluate import evaluate
 from irw_tpu_torch.engine.train_step import build_train_step
@@ -93,13 +94,8 @@ def _build_hyper(optimizer_entries, epoch, step, warm_up, warm_up_key, ortho_sca
     return hyper
 
 
-def _refuse_unported(exp: dict, instrumentor) -> None:
-    """The loop's options that wait for a later ROADMAP item (the step
-    refuses ``sub_batch`` below the batch and adaptive weights itself)."""
-    if instrumentor is not None:
-        raise NotImplementedError("the fixed-batch instrumentor (hooks) waits for ROADMAP A12")
-    if exp.get("with_fast_eval"):
-        raise NotImplementedError("with_fast_eval (the fast-eval subset) waits for ROADMAP A12")
+def _refuse_unported(exp: dict) -> None:
+    """The loop's options that wait for a later ROADMAP item."""
     # use_mesh is ignored on one device, as the JAX loop ignores it with one
     for key in ("model_parallel", "band_parallel", "pipeline_parallel"):
         if int(exp.get(key, 1) or 1) > 1:
@@ -117,10 +113,11 @@ def train(state, train_dataset, sampler, eval_datasets: dict, host_transform, de
     ``transforms.HostTransform``, or None for the stored images) makes the
     training batches with its train ops and the eval's with its eval ops,
     as the JAX loop passes its one host stage to both.
-    ``eval_fn(state, datasets)`` replaces ``engine.evaluate``.  Returns
-    (state, metrics by split)."""
+    ``eval_fn(state, datasets)`` replaces ``engine.evaluate``.
+    ``instrumentor``: a ``hooks.FixedBatchInstrumentor``.  Returns (state,
+    metrics by split)."""
     exp = dict(config.get("experience", config))
-    _refuse_unported(exp, instrumentor)
+    _refuse_unported(exp)
     max_iter = exp.get("max_iter", 50)
     step_per_epoch = exp.get("step_per_epoch", None)
     # per-split eval cadence: each split has its own freq; -1 turns that
@@ -165,7 +162,8 @@ def train(state, train_dataset, sampler, eval_datasets: dict, host_transform, de
                 device_transform, clip_grad=exp.get("clip_grad", None),
                 proxy_map_metric="hamming" if distance_metric == "hamming" else "cosine",
                 xbm=xbm, sub_batch=exp.get("sub_batch", None), adaptive_weights=adaptive,
-                xbm_active=xbm_on, frozen_collections=frozen)
+                xbm_active=xbm_on, frozen_collections=frozen,
+                adaptive_head_key=exp.get("adaptive_head_key", "HashHead"))
         return steps[xbm_on]
 
     run_eval = eval_fn or (lambda current, datasets: evaluate(
@@ -173,6 +171,15 @@ def train(state, train_dataset, sampler, eval_datasets: dict, host_transform, de
         distance_metric=distance_metric, device=device, host_transform=host_transform,
         num_workers=num_workers))
 
+    def evaluate_split(datasets):
+        model.eval()
+        try:
+            return run_eval(state, datasets)
+        finally:
+            model.train()
+
+    fast_subset = (build_fast_eval_subset(train_dataset, per_class=5)
+                   if exp.get("with_fast_eval", False) else None)
     logger = MetricsLogger(log_dir)
     best_score = -float("inf")
     metrics_by_split: dict[str, dict] = {}
@@ -214,6 +221,8 @@ def train(state, train_dataset, sampler, eval_datasets: dict, host_transform, de
             t_mark = time.perf_counter()
             for batch in loader:
                 data_time += time.perf_counter() - t_mark
+                if instrumentor is not None:
+                    instrumentor.snapshot_batch(batch)
                 # state.step is the host's counter: building hyper waits for nothing
                 hyper = _build_hyper(state.optimizer_entries, epoch, state.step, warm_up,
                                      warm_up_key, ortho_scale=exp.get("ortho_scale"))
@@ -251,17 +260,16 @@ def train(state, train_dataset, sampler, eval_datasets: dict, host_transform, de
                         f"batch_map={epoch_metrics.get('batch_map', 0.0):.4f} "
                         f"[{train_seconds:.1f}s | data {data_time:.1f}s step {step_time:.1f}s]")
 
+            if instrumentor is not None:
+                instrumentor.maybe_dump(epoch, device_transform)
+
             score = None
             evaluated = []
             for split, datasets in eval_datasets.items():
                 if not _should_eval(exp.get(f"{split}_eval_freq", default_eval_freq), epoch):
                     continue
                 t_eval = time.perf_counter()
-                model.eval()
-                try:
-                    results = run_eval(state, datasets)
-                finally:
-                    model.train()
+                results = evaluate_split(datasets)
                 metrics_by_split[split] = results
                 evaluated.append(split)
                 logger.log(epoch, dict(results, eval_seconds=time.perf_counter() - t_eval),
@@ -280,6 +288,8 @@ def train(state, train_dataset, sampler, eval_datasets: dict, host_transform, de
                             entry.plateau.update(tracked)
                 if score is not None and score > best_score:
                     best_score = score
+            if not evaluated and fast_subset is not None:
+                logger.log(epoch, evaluate_split(fast_subset), prefix="fast_eval/")
 
             # checkpoint_freq: the rolling save's cadence; the last epoch
             # always saves, so a finished run's checkpoint says max_iter

@@ -51,8 +51,8 @@ def get_loss(name: str, **kwargs):
 
 def build_losses(loss_config):
     """list of {name, weight, kwargs} → [(loss, weight)].  ``weight:
-    adaptative`` maps to 1.0, as in the JAX package; the train step's
-    ``adaptive_weights`` (ROADMAP A12) is what would re-weight."""
+    adaptative`` maps to 1.0, as in the JAX package; ``engine.train`` sees
+    it and builds the step with ``adaptive_weights``, which re-weights."""
     out = []
     for entry in loss_config:
         weight = entry.get("weight", 1.0)

@@ -359,7 +359,9 @@ class VisionTransformer(nn.Module):
         super().__init__()
         if isinstance(dtype, str):  # 'bfloat16' / 'float32' from YAML configs
             dtype = getattr(torch, dtype)
-        del scan_blocks, scan_group  # parameter layouts only: bridge unstacks them
+        # the JAX module's parameter layout only (the bridge unstacks it and
+        # names flax paths by it): the port always loops over its blocks
+        self.scan_blocks, self.scan_group = scan_blocks, scan_group
         if quant_int8:  # the Block variant not ported yet (vit.py:333)
             raise NotImplementedError("ViT quant_int8=True waits for ROADMAP A14")
         if remat_policy in _LATER_REMAT_POLICIES:
@@ -460,17 +462,18 @@ VIT_DIMS = {
 
 
 def vit_config(name: str, **kw) -> dict:
-    """Constructor kwargs for a named ViT variant (vit.py:650-671, without
-    ``scan_blocks``, which the port accepts and ignores: it always loops over
-    blocks)."""
+    """Constructor kwargs for a named ViT variant (vit.py:650-671).
+    ``scan_blocks`` is kept as the JAX presets set it: it names the flax
+    layout (``bridge.jax_module_paths``), and the port loops over blocks
+    whatever it says."""
     if name in ("dinov2_vits14", "vit_small", "deit_small"):
-        base = dict(embed_dim=384, depth=12, num_heads=6)
+        base = dict(embed_dim=384, depth=12, num_heads=6, scan_blocks=True)
     elif name in ("dinov2_vitb14", "vit_base", "deit_base"):
-        base = dict(embed_dim=768, depth=12, num_heads=12)
+        base = dict(embed_dim=768, depth=12, num_heads=12, scan_blocks=True)
     elif name.startswith("dinov3_vits"):
-        base = dict(embed_dim=384, depth=12, num_heads=6, patch_size=16)
+        base = dict(embed_dim=384, depth=12, num_heads=6, patch_size=16, scan_blocks=True)
     elif name.startswith("dinov3_vitb"):
-        base = dict(embed_dim=768, depth=12, num_heads=12, patch_size=16)
+        base = dict(embed_dim=768, depth=12, num_heads=12, patch_size=16, scan_blocks=True)
     elif name in ("vit_tiny", "test_tiny"):
         base = dict(embed_dim=64, depth=2, num_heads=2, patch_size=8)
     else:

@@ -9,8 +9,14 @@ to ``engine.train``.  ``device=None`` means the card.
 
 The config's ``model.freeze_batch_norm`` and ``model.freeze_pos_embedding``
 join the model's frozen collections in the freezing set no optimizer holds
-(``run.py:113-130``).  k-fold splits, ``dsch_train`` and
-``hooks_configs.active`` wait for ROADMAP A12.
+(``run.py:113-130``).  With ``experience.kfold.use_kfold`` the training set
+is split by ``engine.splits.get_splits`` (``kind``, ``n_splits``, the run's
+seed): the held-out ``fold`` becomes the ``val`` eval split and the rest the
+training set (``run.py:66-80``).  ``experience.hooks_configs.active``
+attaches a ``hooks.FixedBatchInstrumentor`` writing to
+``<log_dir>/instrumentation`` at ``target_epochs``; ``experience.dsch_train``
+trains by ``engine.dsch.train_dsch`` instead of ``engine.train`` and
+returns the best epoch's metrics (``run.py:175-197``).
 """
 
 from __future__ import annotations
@@ -22,10 +28,14 @@ import numpy as np
 import torch
 
 from irw_tpu_torch.config import Config
+from irw_tpu_torch.data.base import subset
 from irw_tpu_torch.engine.checkpoint import maybe_resume, rotate_stale_metrics
+from irw_tpu_torch.engine.dsch import train_dsch
+from irw_tpu_torch.engine.splits import get_splits
 from irw_tpu_torch.engine.train import train as engine_train
 from irw_tpu_torch.engine.train_state import init_train_state
 from irw_tpu_torch.getter import Getter
+from irw_tpu_torch.hooks import FixedBatchInstrumentor
 from irw_tpu_torch.utils.freezing import config_freeze_set
 
 LOGGER = logging.getLogger(__name__)
@@ -36,24 +46,12 @@ def log_dir_of(exp) -> str:
                         str(exp.get("experiment_name", "default")))
 
 
-def _refuse_unported(exp) -> None:
-    if (exp.get("kfold") or {}).get("use_kfold"):
-        raise NotImplementedError("experience.kfold (k-fold splits) waits for ROADMAP A12")
-    if exp.get("dsch_train"):
-        raise NotImplementedError("experience.dsch_train (the DSCH protocol) waits for "
-                                  "ROADMAP A12")
-    if (exp.get("hooks_configs") or {}).get("active"):
-        raise NotImplementedError("experience.hooks_configs.active (the fixed-batch "
-                                  "instrumentor) waits for ROADMAP A12")
-
-
 def run(config, device=None) -> dict:
     """Train the run ``config`` describes; returns the last eval's metrics
     by split."""
     if not isinstance(config, Config):
         config = Config(config)
     exp = config.experience
-    _refuse_unported(exp)
     log_dir = log_dir_of(exp)
     os.makedirs(log_dir, exist_ok=True)
     seed = int(exp.get("seed", 333))
@@ -74,6 +72,15 @@ def run(config, device=None) -> dict:
                 LOGGER.info(f"loss {entry.get('name')}: num_classes {kwargs['num_classes']} "
                             f"-> {inferred} (inferred from dataset)")
                 kwargs["num_classes"] = inferred
+
+    kfold = exp.get("kfold") or {}
+    if kfold.get("use_kfold"):
+        folds = get_splits(train_ds.labels, train_ds.super_labels,
+                           kind=kfold.get("kind", "class_disjoint"),
+                           n_splits=int(kfold.get("n_splits", 4)), seed=seed)
+        train_idx, val_idx = folds[int(kfold.get("fold", 0))]
+        eval_datasets = dict(eval_datasets, val=subset(train_ds, val_idx, mode="eval"))
+        train_ds = subset(train_ds, train_idx, mode="train")
 
     sampler_cfg = config.dataset.get("sampler",
                                      {"name": "RandomSampler", "kwargs": {"batch_size": 32}})
@@ -111,7 +118,18 @@ def run(config, device=None) -> dict:
     else:
         rotate_stale_metrics(log_dir)
 
+    instrumentor = None
+    hooks_cfg = exp.get("hooks_configs") or {}
+    if hooks_cfg.get("active"):
+        instrumentor = FixedBatchInstrumentor(
+            model, os.path.join(log_dir, "instrumentation"),
+            target_epochs=tuple(hooks_cfg.get("target_epochs", (1, 5, 10, 25, 40, 50))))
+
     # the JAX loop is given the train host stage for its evals too
+    if exp.get("dsch_train"):
+        _, metrics = train_dsch(state, train_ds, sampler, eval_datasets, host_train, device_train,
+                                config.to_dict(), log_dir)
+        return metrics
     _, metrics = engine_train(state, train_ds, sampler, eval_datasets, host_train, device_train,
-                              config.to_dict(), log_dir)
+                              config.to_dict(), log_dir, instrumentor=instrumentor)
     return metrics

@@ -382,9 +382,6 @@ def test_ref_aware_loss_trains_with_the_memory_on(tmp_path):
 
 
 REFUSALS = {
-    "instrumentor": ({}, {"instrumentor": object()}, "A12"),
-    "with_fast_eval": ({"with_fast_eval": True}, {}, "A12"),
-    "sub_batch": ({"sub_batch": 3}, {}, "A12"),
     "model_parallel": ({"model_parallel": 2}, {}, "A13"),
     "band_parallel": ({"band_parallel": 2}, {}, "A13"),
     "pipeline_parallel": ({"pipeline_parallel": 4}, {}, "A13"),

@@ -97,6 +97,53 @@ def test_port_and_chip_smoke_import_no_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+# the packages no module of the port (nor chip_smoke.py) may import: the
+# reference and its stack, and what the card's machine does not have
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sklearn", "irw_tpu")
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in
+                                        (REPO / "irw_tpu_torch").rglob("*.py")) + ["chip_smoke.py"])
+def test_module_imports_nothing_forbidden(path):
+    """No import statement of the module names a forbidden package, at any
+    depth (a function-level import included)."""
+    import ast
+
+    tree = ast.parse((REPO / path).read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module.split(".")[0])
+    assert not names & set(FORBIDDEN), sorted(names & set(FORBIDDEN))
+
+
+def test_engine_extras_import_without_the_reference_stack():
+    """The engine extras' modules load with no forbidden package in
+    ``sys.modules`` afterwards (scikit-learn's folds are the port's own)."""
+    modules = ["irw_tpu_torch.engine.splits", "irw_tpu_torch.engine.dsch",
+               "irw_tpu_torch.engine.batch_map", "irw_tpu_torch.hooks",
+               "irw_tpu_torch.hooks.instrumentation", "irw_tpu_torch.engine.optimizers",
+               "irw_tpu_torch.engine.train_step", "irw_tpu_torch.run"]
+    code = (
+        "import importlib, json, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, check=True, timeout=300)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_no_port_module_waits_for_a12():
+    """ROADMAP A12 (the engine extras) is ported: no raise or docstring of
+    the port names it."""
+    hits = [f"{p.relative_to(REPO)}:{i}" for p in (REPO / "irw_tpu_torch").rglob("*.py")
+            for i, line in enumerate(p.read_text().splitlines(), 1) if "A12" in line]
+    assert hits == []
+
+
 def test_files_load_through_the_library_without_pillow(tmp_path):
     """A VOC tree of baseline JPEGs loads through the port with its library
     built, and Pillow never loads: it is the fallback's alone."""

@@ -42,7 +42,8 @@ from test_torch_vit import randomize
 
 JOB = "model.kwargs.fusion_config.ortho_weight=0.1"
 # the port's measurement keys, which the JAX loop does not log
-PORT_ONLY = {"train/train_seconds", "test/eval_seconds"}
+# the port's timing keys beside the JAX loop's (each split's eval seconds)
+PORT_ONLY = {"train/train_seconds", "test/eval_seconds", "val/eval_seconds"}
 TINY = ["model.kwargs.backbones_config=[{name: test_tiny, frozen: false}]",
         "+model.kwargs.vit_kwargs={img_size: 16}", "model.kwargs.with_autocast=false",
         "model.kwargs.fusion_config.dropout=0.0", "dataset.kwargs.num_train=24",
@@ -259,20 +260,6 @@ def test_chip_smoke_runner_job_composes():
             cfg.experience.num_workers, cfg.dataset.kwargs.image_size) == (96, 1000, 8, 64)
     assert cfg.dataset.kwargs.num_train == chip_smoke.RUNNER_TRAIN
     assert cfg.memory.kwargs.size == 5717 and cfg.transform.train.ColorJitter.hue == 0
-
-
-REFUSALS = {
-    "kfold": (["experience.kfold.use_kfold=true"], NotImplementedError, "A12"),
-    "dsch_train": (["experience.dsch_train=true"], NotImplementedError, "A12"),
-    "hooks": (["experience.hooks_configs.active=true"], NotImplementedError, "A12"),
-}
-
-
-@pytest.mark.parametrize("case", sorted(REFUSALS))
-def test_unported_run_options_name_their_roadmap_item(case, tmp_path):
-    overrides, exc, item = REFUSALS[case]
-    with pytest.raises(exc, match=item):
-        runner.run_one(overrides + [f"experience.log_dir={tmp_path}"], device="cpu")
 
 
 @pytest.mark.parametrize("flags", [["--jobs", "2"], ["--chips-per-job", "1"]])

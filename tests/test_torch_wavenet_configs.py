@@ -11,6 +11,8 @@
   count of ``jax.eval_shape`` of the JAX init (``train=True``, as
   ``irw_tpu/getter.py:167`` inits; ``mtwavenet_fusion_dml``, whose
   training init raises in JAX, in eval);
+- ``bridge.jax_param_paths`` names, for each port parameter, the flax leaf
+  the bridge carries into it (``tests/test_torch_param_paths.py``'s check);
 - ``model.freeze_batch_norm`` selects the same parameters of
   ``mtwavenet50`` in both packages;
 - ``chip_smoke.py``'s ``wavenets`` phase choices held to the YAML files.
@@ -37,6 +39,7 @@ from irw_tpu_torch.config import compose
 from irw_tpu_torch.models import MODEL_REGISTRY
 from irw_tpu_torch.single_experiment_runner import CONFIG_DIR
 from irw_tpu_torch.utils.freezing import config_freeze_set, frozen_names
+from test_torch_param_paths import assert_paths_are_the_leaves
 
 REPO = Path(__file__).resolve().parents[1]
 WRESNET = ("wresnet", "wresnet_cifar", "wresnet_cifar_ce", "wresnet_sdd", "wresnet_sdd_ce")
@@ -149,6 +152,15 @@ def test_wavenet_config_builds_what_jax_builds(config):
     if config.startswith("wresnet"):
         assert model.backbone.branches[0].stem.kernel_size == (1, 1)
         assert not model.backbone.branches[0].stem_pool
+
+
+@pytest.mark.parametrize("config", WRESNET + MTWAVENET)
+def test_wavenet_config_param_paths_are_the_flax_leaves(config):
+    _, name, kwargs = _composed(config)
+    jmodel = jax_get_model(name, **kwargs)
+    with torch.device("meta"):
+        model = MODEL_REGISTRY[name](torch.device("cpu"), **kwargs)
+    assert_paths_are_the_leaves(model, _jax_tree(jmodel))
 
 
 def test_freeze_batch_norm_selects_what_jax_selects():
