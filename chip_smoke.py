@@ -203,7 +203,7 @@ configuration of the family — and prints one line per phase:
    cross-band attention after each stage, 272 M parameters, an embedding
    loss, ``model.freeze_batch_norm``) each serve 3 warm-up and 20 timed
    batches of 64 (K4 = 1 a batch, img/s, peak memory, each distinct batch
-   against K4's plain route) and train 3 warm-up and 10 timed steps
+   against K4's plain route) and train 3 warm-up and 6 timed steps
    (``multi_ce`` at batch 16, ``pair_loss`` at cub.yaml's 128;
    ``basic.yaml``'s AdamW; K4 = 1 a step; for ``wresnet_sdd_ce`` one step's
    K4 route against its plain route); each other A10b config serves a batch
@@ -230,7 +230,7 @@ configuration of the family — and prints one line per phase:
    f32, 224², no kernel on the path.  ``openclip`` and ``metaclip2`` (CLIP
    ViT-B/16) and ``siglip2`` (SigLIP B/16) through ``RetrievalNet`` from
    their ``configs/model`` files, each served as ``trunks`` serves (3 warm-up
-   and 10 timed batches of 64: img/s, ms a batch, peak memory, launches,
+   and 6 timed batches of 64: img/s, ms a batch, peak memory, launches,
    the first 4 images against a CPU copy with TF32 off); the registry's
    ``clip_vit_b32`` and ``vit_b16_hf`` one batch each, also against the CPU;
    ``openclip`` and ``siglip2`` trained 3 steps of 64 (``pair_loss.yaml``,
@@ -259,7 +259,25 @@ configuration of the family — and prints one line per phase:
    with ``with_fast_eval`` and the instrumentor at epochs 1 and 2
    (``fast_eval/`` logged at the epoch without eval; the dumps' keys those
    of the scanned flagship, K1 = 1 and K2 = 12 in each capture, and each
-   capture's own peak memory).
+   capture's own peak memory);
+29. run_tools: what a trained run is used for (ROADMAP A15b).  The flagship
+   study's job through ``run`` at full width, 2 steps of 96 on 224²
+   synthetic images whose host stages are identities; over its run dir,
+   ``evaluate.load_and_evaluate`` (K1 = 1, K2 = 12 an eval batch; its
+   metrics held to the run's last eval within 1e-6),
+   ``attention.mean_attention`` and ``plot_exemples.retrieval_rows`` +
+   ``render`` (K1 = 1, K2 = 12 a batch); ``alpha_weights.generate_alphas``
+   over a ``wcnn_attention_ce`` + ``cub_dwt`` run dir (K4 = 1 a batch); a
+   seeded hub-layout DINOv2 ViT-S/14 through the converter, grafted into
+   every band of the flagship, one served batch (K1 = 1, K2 = 12);
+30. serving: the serving extras (ROADMAP A14).  The flagship with
+   ``quant_int8`` beside the float flagship on the same weights, 3 + 20
+   batches of 64 each (img/s; K1 = 1, K2 = 0 and K1 = 1, K2 = 12 a batch;
+   the share of equal sign codes); the float flagship exported with the SWT
+   folded in at a serve batch of 64 (``torch.export``), loaded, one batch
+   held bit for bit to the eager forward with K1 = 1 and K2 = 12 counted
+   inside the program; the int8 flagship exported (int8 weights and
+   scales); both artifacts' sizes.
 
 Then a JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -283,7 +301,8 @@ import numpy as np
 PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", "train", "loop",
           "runner", "dwt", "wcnn", "wavelets", "wcnn_train", "wcnn_xbm", "losses", "flash",
           "flash_serve", "flash_train", "qkv", "qkv_micro", "variants", "siblings", "trunks",
-          "files", "wavenets", "landmarks", "hf_towers", "microbatch", "engine_extras")
+          "files", "wavenets", "landmarks", "hf_towers", "microbatch", "engine_extras",
+          "run_tools", "serving")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -507,7 +526,7 @@ TRUNK_SWT = ("single_band", "detail_tester", "multi_dino")
 TRUNK_PLAIN = ("dino_hashing", "dino_default", "dino", "dino_v3", "deit", "ibot", "resnet",
                "resnet_ce", "resnet_hashing", "resnet_dsch", "resnet_max_ln", "convnext")
 TRUNK_PLAIN_OPS = [("Normalize", {})]
-TRUNK_TIMED = 10         # timed served batches per config, after WARMUP_CALLS
+TRUNK_TIMED = 6          # timed served batches per config, after WARMUP_CALLS
 TRUNK_STEPS = 3
 # the hf_towers phase: the HF vision wrapper's towers (ROADMAP A10d) at full
 # width (ViT-B/16 or B/32, 224², f32): the configs of HF_SERVE served as the
@@ -591,7 +610,7 @@ WAVENET_CONFIGS = {
 WAVENET_MAIN = {"wresnet_sdd_ce": ("sdd", "multi_ce.yaml", 16),
                 "mtwavenet50": ("cub_dwt", "pair_loss.yaml", CUB_BATCH)}
 WAVENET_OPTIMIZER = OPTIMIZER      # configs/optimizer/basic.yaml
-WAVENET_STEPS = 10
+WAVENET_STEPS = 6
 WAVENET_SMALL = 8                  # the other configs' served batch and train step
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
@@ -5274,6 +5293,329 @@ def phase_engine_extras(state):
                          f"{time.perf_counter() - t2:.1f} s")
 
 
+# the run_tools phase: the flagship study's job through ``run`` at full width,
+# 2 steps of 96 on 224² synthetic images whose host stages are identities
+# (Resize and crops at 224), so the offline eval sees the run's own eval
+# pixels; eval_bs 256 (its query set and gallery each one padded batch)
+RUN_TOOLS_TRAIN, RUN_TOOLS_QUERY, RUN_TOOLS_EVAL_BS = 192, 128, 256
+RUN_TOOLS_CUTS = [f"dataset.kwargs.num_train={RUN_TOOLS_TRAIN}",
+                  f"dataset.kwargs.num_query={RUN_TOOLS_QUERY}", "dataset.kwargs.image_size=224",
+                  "transform.train.Resize.size=224", "transform.train.RandomResizedCrop.size=224",
+                  "transform.test.Resize.size=224", "transform.test.CenterCrop.size=224",
+                  "experience.max_iter=1", "experience.train_eval_freq=1",
+                  "experience.test_eval_freq=1", "experience.checkpoint_freq=1",
+                  f"experience.eval_bs={RUN_TOOLS_EVAL_BS}",
+                  f"experience.evaluation.top_k={RUN_TOOLS_TRAIN}"]
+RUN_TOOLS_BS = 64           # mean_attention's and generate_alphas's --bs default
+RUN_TOOLS_METRIC_TOL = 1e-6  # the offline eval against the run's own, absolute
+# generate_alphas over configs/model/wcnn_attention_ce.yaml + cub_dwt at full width
+RUN_TOOLS_WCNN = ["dataset=synthetic", "dataset.kwargs.num_samples=128", "transform=cub_dwt",
+                  "model=wcnn_attention_ce"]
+# the serving phase: the int8 flagship beside the float one, and the exports
+EXPORT_CODES_SHARE = 0.9    # least share of int8 sign codes equal to the float program's
+
+
+def _tool_launches(kernels, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with every count set to 0 first; (its
+    result, the launches of its run less those of ``run.first_sample``, the
+    one sizing batch ``load_run`` sends through the train stages)."""
+    import torch
+
+    from irw_tpu_torch import run as port_run
+
+    sizing = [0] * len(kernels)
+    first_sample = port_run.first_sample
+
+    def counted(*a, **k):
+        before = [k_.launches for k_ in kernels]
+        out = first_sample(*a, **k)
+        for i, (k_, b) in enumerate(zip(kernels, before)):
+            sizing[i] += k_.launches - b
+        return out
+
+    for k_ in kernels:
+        k_.launches = 0
+    port_run.first_sample = counted
+    try:
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        port_run.first_sample = first_sample
+    return out, {k_.__name__: k_.launches - s for k_, s in zip(kernels, sizing)}
+
+
+def _per_unit(phase: str, counts: dict, units: int, expected: tuple, what: str) -> None:
+    per = tuple(counts[fn.__name__] / units for fn in _kernel_wrappers())
+    _check_launches(phase, [per], expected, what)
+
+
+def _hub_dinov2_vits14(tokens: int, depth: int = 12, seed: int = 0) -> dict:
+    """A torch.hub DINOv2 ViT-S/14 state dict (``blocks.N.attn.qkv``,
+    ``ls1.gamma``, ``mask_token``, …) drawn from ``seed``, its position
+    table ``tokens`` long: made in memory, nothing is downloaded."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    d, sd = 384, {}
+
+    def draw(*shape, std=0.02, mean=0.0):
+        return mean + std * torch.randn(*shape, generator=gen)
+
+    sd["cls_token"], sd["mask_token"] = draw(1, 1, d), draw(1, d)
+    sd["pos_embed"] = draw(1, tokens, d)
+    sd["patch_embed.proj.weight"] = draw(d, 3, 14, 14, std=(3 * 14 * 14) ** -0.5)
+    sd["patch_embed.proj.bias"] = draw(d)
+    for i in range(depth):
+        b = f"blocks.{i}"
+        for norm in ("norm1", "norm2"):
+            sd[f"{b}.{norm}.weight"], sd[f"{b}.{norm}.bias"] = draw(d, std=0.1, mean=1.0), draw(d)
+        for name, (o, n) in (("attn.qkv", (3 * d, d)), ("attn.proj", (d, d)),
+                             ("mlp.fc1", (4 * d, d)), ("mlp.fc2", (d, 4 * d))):
+            sd[f"{b}.{name}.weight"], sd[f"{b}.{name}.bias"] = draw(o, n, std=n ** -0.5), draw(o)
+        sd[f"{b}.ls1.gamma"], sd[f"{b}.ls2.gamma"] = draw(d, std=0.1, mean=1.0), draw(d, std=0.1,
+                                                                                      mean=1.0)
+    sd["norm.weight"], sd["norm.bias"] = draw(d, std=0.1, mean=1.0), draw(d)
+    return sd
+
+
+def phase_run_tools(state):
+    """What a trained run is used for (ROADMAP A15b): the flagship study's
+    job through ``run`` (RUN_TOOLS_CUTS), then over its run dir, on the
+    card, ``evaluate.load_and_evaluate`` (held to the run's own last eval),
+    ``attention.mean_attention``, ``plot_exemples.retrieval_rows`` and
+    ``render``; ``alpha_weights.generate_alphas`` over a wcnn_attention_ce +
+    cub_dwt run dir (K4); a seeded hub-layout DINOv2 ViT-S/14 converted and
+    grafted into the flagship, which serves a batch."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from irw_tpu_torch import alpha_weights, attention, evaluate, plot_exemples
+    from irw_tpu_torch import single_experiment_runner as runner
+    from irw_tpu_torch.config import compose
+    from irw_tpu_torch.data import SyntheticVOCDataset
+    from irw_tpu_torch.getter import Getter
+    from irw_tpu_torch.run import first_sample, first_sampler, run
+    from irw_tpu_torch.studies.run_plan import expand_jobs, load_plan
+    from irw_tpu_torch.tools.convert_torch_weights import convert
+    from irw_tpu_torch.transforms import DeviceTransform
+    from irw_tpu_torch.utils.pretrained import graft_flagship_backbone
+
+    held = _release_earlier_phases(state)
+    kernels = _kernel_wrappers()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    (name, job), = [(n, o) for n, o in expand_jobs(load_plan(os.path.join(repo, RUNNER_PLAN)))
+                    if RUNNER_JOB in o]
+    root = tempfile.mkdtemp(prefix="irw_run_tools_")
+    try:
+        t0 = time.perf_counter()
+        metrics = run(compose(runner.CONFIG_DIR, "default",
+                              job + RUN_TOOLS_CUTS + [f"experience.log_dir={root}"]))["test"]
+        run_dir = os.path.join(root, name)
+        t1 = time.perf_counter()
+        log("run_tools", f"the run: {t1 - t0:.1f} s ({RUN_TOOLS_TRAIN // TRAIN_BATCH} steps of "
+                         f"{TRAIN_BATCH}, its eval), map_level0 {metrics['map_level0']:.4f}")
+
+        offline, counts = _tool_launches(kernels, evaluate.load_and_evaluate, run_dir,
+                                         batch_size=RUN_TOOLS_EVAL_BS)
+        t2 = time.perf_counter()
+        state["launches"]["run_tools_eval"] = counts
+        _per_unit("run_tools", counts, 2, (1, 12, 0, 0, 0, 0, 0),
+                  "eval batch of load_and_evaluate (query set, gallery)")
+        worst = max(abs(offline[k] - metrics[k]) for k in metrics)
+        log("run_tools", f"load_and_evaluate: {t2 - t1:.1f} s, map_level0 "
+                         f"{offline['map_level0']:.6f}, max |offline - the run's last eval| over "
+                         f"{len(metrics)} metrics {worst:.3e}")
+        if set(offline) != set(metrics) or worst > RUN_TOOLS_METRIC_TOL:
+            raise AssertionError(f"run_tools: offline eval {offline} differs from the run's "
+                                 f"last eval {metrics}")
+
+        mean, counts = _tool_launches(kernels, attention.mean_attention, run_dir, "test",
+                                      RUN_TOOLS_BS)
+        batches = -(-RUN_TOOLS_TRAIN // RUN_TOOLS_BS)   # the gallery
+        state["launches"]["run_tools_attention"] = counts
+        _per_unit("run_tools", counts, batches, (1, 12, 0, 0, 0, 0, 0), "mean_attention batch")
+        log("run_tools", f"mean_attention over {RUN_TOOLS_TRAIN} gallery images: per band "
+                         f"{np.round(mean.mean(0), 4).tolist()}, rows sum to "
+                         f"{np.round(mean.sum(1), 6).tolist()}")
+        if mean.shape != (4, 4) or not np.allclose(mean.sum(1), 1.0, atol=1e-3):
+            raise AssertionError(f"run_tools: attention weights {mean}")
+
+        t3 = time.perf_counter()
+        rows, counts = _tool_launches(kernels, plot_exemples.retrieval_rows, run_dir, 6, 5)
+        state["launches"]["run_tools_panels"] = counts
+        _per_unit("run_tools", counts, 2, (1, 12, 0, 0, 0, 0, 0),
+                  "retrieval_rows batch (query set, gallery)")
+        png = os.path.join(root, "panels.png")
+        canvas = plot_exemples.render([rows], png)
+        with open(png, "rb") as f:
+            signature = f.read(8)
+        colours = [c for row in rows for _, c in row]
+        log("run_tools", f"retrieval_rows + render: {time.perf_counter() - t3:.1f} s, canvas "
+                         f"{canvas.shape}, {os.path.getsize(png)} PNG bytes, borders "
+                         f"{ {c: colours.count(c) for c in sorted(set(colours))} }")
+        if canvas.shape != (6 * 110, 6 * 110, 3) or signature != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError("run_tools: the retrieval panel")
+
+        # generate_alphas over a wcnn_attention_ce + cub_dwt run dir: the
+        # config's model at full width, its weights from seed 0
+        wcnn_dir = os.path.join(root, "wcnn")
+        cfg = compose(runner.CONFIG_DIR, "default", RUN_TOOLS_WCNN)
+        getter = Getter()
+        (host_train, device_train), _ = getter.get_transform(cfg.transform)
+        train_ds, _ = getter.get_dataset(cfg.dataset)
+        sample = first_sample(first_sampler(getter, cfg, train_ds, 0), train_ds, host_train,
+                              device_train, 0)
+        model = getter.get_model(cfg.model, seed=0, image_size=tuple(sample.shape[-3:-1]))
+        os.makedirs(os.path.join(wcnn_dir, "weights"))
+        torch.save({"state": {"model": model.state_dict()},
+                    "meta": {"config": cfg.to_dict(), "epoch": 0, "score": None,
+                             "best_score": None}}, os.path.join(wcnn_dir, "weights", "rolling"))
+        del model
+        t4 = time.perf_counter()
+        alphas, counts = _tool_launches(kernels, alpha_weights.generate_alphas, wcnn_dir, "test",
+                                        RUN_TOOLS_BS)
+        state["launches"]["run_tools_alphas"] = counts
+        _per_unit("run_tools", counts, 2, (0, 0, 0, 1, 0, 0, 0), "generate_alphas batch")
+        log("run_tools", f"generate_alphas (wcnn_attention_ce, cub_dwt, 128 images): "
+                         f"{time.perf_counter() - t4:.1f} s, mean gate "
+                         f"{np.round(alphas, 4).tolist()}")
+        if alphas.shape != (4,) or not np.isfinite(alphas).all():
+            raise AssertionError(f"run_tools: gate alphas {alphas}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # a hub-layout DINOv2 ViT-S/14 converted and grafted into every band
+    _release_earlier_phases(state)
+    t5 = time.perf_counter()
+    model = _flagship_model()
+    vit = model.backbone.vit
+    converted = convert(_hub_dinov2_vits14(vit.pos_embed.shape[-2], len(vit.blocks)),
+                        "dinov2_vits14")
+    graft_flagship_backbone(model, converted)
+    last = len(vit.blocks) - 1
+    q = vit.blocks[last].attn.query.weight
+    if not all(torch.equal(q[b].cpu(), converted[f"blocks.{last}.attn.query.weight"])
+               for b in range(4)):
+        raise AssertionError("run_tools: the grafted tower is not in every band")
+    images = SyntheticVOCDataset(num_train=BATCH, image_size=224, seed=0).images
+    transform = DeviceTransform(SWT_OPS)
+    with torch.inference_mode():
+        (codes, _), counts = _tool_launches(kernels, lambda: model(transform(images)))
+    state["launches"]["run_tools_graft"] = counts
+    _per_unit("run_tools", counts, 1, (1, 12, 0, 0, 0, 0, 0), "served batch of the grafted model")
+    log("run_tools", f"graft + a served batch of {BATCH}: {time.perf_counter() - t5:.1f} s, codes "
+                     f"{tuple(codes.shape)}, share of +1 bits "
+                     f"{float((codes > 0).float().mean()):.3f}"
+                     f" | {state['card']}")
+    if codes.shape != (BATCH, 64) or not bool(torch.isin(codes, torch.tensor(
+            [-1.0, 1.0], device=codes.device)).all()):
+        raise AssertionError("run_tools: the grafted model's codes")
+    _release_earlier_phases(state)
+
+
+def _serve_timed(model, transform, distinct, kernels):
+    """WARMUP_CALLS, then SERVE_BATCHES timed batches; (ms a batch, the
+    launches per batch, the codes of each distinct image set)."""
+    import torch
+
+    with torch.inference_mode():
+        for i in range(WARMUP_CALLS):
+            model(transform(distinct[i % SERVE_DISTINCT]))
+        torch.cuda.synchronize()
+        for fn in kernels:
+            fn.launches = 0
+        codes = []
+        t0 = time.perf_counter()
+        for i in range(SERVE_BATCHES):
+            out, _ = model(transform(distinct[i % SERVE_DISTINCT]))
+            if i < SERVE_DISTINCT:
+                codes.append(out)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / SERVE_BATCHES * 1e3
+    return ms, _launch_counts(kernels), codes
+
+
+def phase_serving(state):
+    """The serving extras (ROADMAP A14): the flagship with ``quant_int8``
+    beside the float flagship on the same weights (img/s, launches, the
+    share of equal sign codes); the float flagship exported with its device
+    transform at a serve batch of BATCH, loaded and held bit for bit to
+    the eager forward, K1 and K2 counted inside the program; the int8
+    artifact (int8 weights and scales) exported; both artifacts' sizes."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from irw_tpu_torch.data import SyntheticVOCDataset
+    from irw_tpu_torch.tools.export_serving import export_model
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    held = _release_earlier_phases(state)
+    kernels = _kernel_wrappers()
+    transform = DeviceTransform(SWT_OPS)
+    ds = SyntheticVOCDataset(num_train=BATCH * SERVE_DISTINCT, image_size=224, seed=0)
+    distinct = [ds.images[i * BATCH:(i + 1) * BATCH] for i in range(SERVE_DISTINCT)]
+    model = _flagship_model()
+    quant = _flagship_model(vit_kwargs={"quant_int8": True})
+    quant.load_state_dict(model.state_dict())
+    if type(quant.backbone.vit.blocks[0].attn).__name__ != "QuantMHA":
+        raise AssertionError("serving: quant_int8 did not take the QuantMHA route")
+    results = {}
+    for label, m, expected in (("float", model, (1, 12, 0, 0, 0, 0, 0)),
+                               ("int8", quant, (1, 0, 0, 0, 0, 0, 0))):
+        ms, counts, codes = _serve_timed(m, transform, distinct, kernels)
+        state["launches"][f"serving_{label}"] = counts
+        _per_unit("serving", counts, SERVE_BATCHES, expected, f"{label} served batch")
+        results[label] = codes
+        log("serving", f"{label}: {BATCH * 1e3 / ms:.1f} img/s, {ms:.2f} ms a batch of {BATCH} "
+                       f"(SWT + 4 x ViT-S/14 + fusion + hash, bf16) | {state['card']}")
+    same = torch.cat([(a == b).float().flatten() for a, b in zip(results["float"],
+                                                                  results["int8"])])
+    log("serving", f"int8 sign codes equal to the float program's: {float(same.mean()):.4f} of "
+                   f"{same.numel()} bits")
+    if float(same.mean()) < EXPORT_CODES_SHARE:
+        raise AssertionError("serving: the int8 codes left the float program's")
+
+    root = tempfile.mkdtemp(prefix="irw_serving_")
+    try:
+        images = torch.from_numpy(distinct[0]).cuda()
+        path = os.path.join(root, "float.pt2")
+        t0 = time.perf_counter()
+        export_model(model, None, (224, 224, 3), out_path=path, symbolic_batch=BATCH,
+                     device_transform=transform)
+        t1 = time.perf_counter()
+        served = torch.export.load(path).module()
+        t2 = time.perf_counter()
+        with torch.inference_mode():
+            eager, _ = model(transform(images))
+            out, counts = _tool_launches(kernels, served, images)
+        state["launches"]["serving_export"] = counts
+        _per_unit("serving", counts, 1, (1, 12, 0, 0, 0, 0, 0), "batch of the loaded artifact")
+        log("serving", f"float artifact: {os.path.getsize(path) / 2 ** 20:.1f} MiB, export "
+                       f"{t1 - t0:.1f} s, load {t2 - t1:.1f} s, codes {tuple(out.shape)} equal "
+                       f"to the eager forward's: {bool(torch.equal(out, eager))}")
+        if not torch.equal(out, eager):
+            raise AssertionError("serving: the loaded artifact's codes differ")
+        del served
+        # the int8 artifact (the CPU tests load one and hold it to the eager
+        # int8 forward): its size
+        path = os.path.join(root, "int8.pt2")
+        t0 = time.perf_counter()
+        export_model(quant, None, (224, 224, 3), out_path=path, symbolic_batch=BATCH,
+                     device_transform=transform, compress_int8=True)
+        log("serving", f"int8 artifact (int8 weights and scales): "
+                       f"{os.path.getsize(path) / 2 ** 20:.1f} MiB, export "
+                       f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _release_earlier_phases(state)
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5311,7 +5653,8 @@ def main(argv=None) -> int:
                "siblings": phase_siblings, "trunks": phase_trunks, "files": phase_files,
                "wavenets": phase_wavenets, "landmarks": phase_landmarks,
                "hf_towers": phase_hf_towers, "microbatch": phase_microbatch,
-               "engine_extras": phase_engine_extras}
+               "engine_extras": phase_engine_extras, "run_tools": phase_run_tools,
+               "serving": phase_serving}
     for name in phases:
         if name != "card":
             t0 = time.perf_counter()
@@ -5345,7 +5688,15 @@ def main(argv=None) -> int:
               **{config: (f"trunks_{config}", TRUNK_TIMED) for config in TRUNK_SWT},
               **{config: (f"wavenets_{config}_serve", SERVE_BATCHES) for config in WAVENET_MAIN},
               **{f"hf_{config}": (f"hf_towers_{config}", TRUNK_TIMED) for config in HF_SERVE},
-              **{f"hf_{name}": (f"hf_towers_{name}", 1) for name in HF_REGISTRY}}
+              **{f"hf_{name}": (f"hf_towers_{name}", 1) for name in HF_REGISTRY},
+              "run_tools_eval": ("run_tools_eval", 2),
+              "run_tools_attention": ("run_tools_attention", -(-RUN_TOOLS_TRAIN // RUN_TOOLS_BS)),
+              "run_tools_panels": ("run_tools_panels", 2),
+              "run_tools_alphas": ("run_tools_alphas", 2),
+              "run_tools_graft": ("run_tools_graft", 1),
+              "serving_float": ("serving_float", SERVE_BATCHES),
+              "serving_int8": ("serving_int8", SERVE_BATCHES),
+              "serving_export": ("serving_export", 1)}
     if "default_units" in state:  # the default composition's run (trunks)
         trained["default"] = ("trunks_default", state["default_units"][0])
         served["default_eval"] = ("trunks_default_eval", state["default_units"][1])

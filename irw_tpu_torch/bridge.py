@@ -614,7 +614,7 @@ _FAMILY = ("MultiDinoHashing", "MultiDinoAttention", "SharedDinoHashing",
            "DINOHashBaseline", "SingleBandNet", "DinoModelCE", "MultiDinoModel")
 # owner classes whose children carry their flax names: the attention modules'
 # query/key/value/out, and the HF towers (plain ``Module`` containers included)
-_OWN_NAMES = ("Attention", "FusedMHA", "SplitCLSMHA", "MultiHeadAttention", "Module",
+_OWN_NAMES = ("Attention", "FusedMHA", "SplitCLSMHA", "QuantMHA", "MultiHeadAttention", "Module",
               "CLIPVisionTower", "_CLIPLayer", "ViTTower", "_ViTLayer", "SiglipVisionTower",
               "SiglipAttentionBlock", "SiglipPoolingHead")
 # owner classes with rules below, where a child they do not name keeps its
@@ -766,7 +766,7 @@ def _flax_layout(module, attr: str, leaf: str, parent, t):
         return t.reshape(-1, 1, 1)
     if leaf in ("cls_token", "pos_embed"):
         return t.unsqueeze(-3)
-    if not isinstance(module, torch.nn.Linear) and kind != "Linear":
+    if not isinstance(module, torch.nn.Linear) and kind not in ("Linear", "QuantDense"):
         return t
     if leaf == "weight":
         t = t.transpose(-1, -2)                          # (…, in, out)

@@ -103,14 +103,33 @@ class LayerNorm(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(*lead, dim))
         self.bias = nn.Parameter(torch.zeros(*lead, dim))
+        # flax's own arithmetic in place of ``layer_norm`` (the int8 path's
+        # blocks, whose requantization would magnify a rounding difference)
+        self.flax_arithmetic = False
 
     def forward(self, x):
         dim = x.shape[-1:]
+        if self.flax_arithmetic:
+            return flax_layer_norm(x, self.weight, self.bias, self.eps).to(self.dtype)
         if self.weight.dim() == 1:
             return F.layer_norm(x.float(), dim, self.weight, self.bias, self.eps).to(self.dtype)
         return torch.stack([  # per band: its own scale and bias
             F.layer_norm(x[s].float(), dim, self.weight[s], self.bias[s], self.eps).to(self.dtype)
             for s in range(x.shape[0])])
+
+
+def flax_layer_norm(x, weight, bias, eps: float):
+    """flax ``LayerNorm``'s arithmetic (``_compute_stats`` with the fast
+    variance, ``_normalize``) in f32: mean and E[x²] of x in f32, var =
+    max(E[x²] − mean², 0), (x − mean) · (rsqrt(var + eps) · scale) + bias.
+    ``weight`` and ``bias`` (D,) or per band (S, D) against (S, …, D)."""
+    if weight.dim() == 2:
+        shape = (weight.shape[0],) + (1,) * (x.dim() - 2) + (weight.shape[1],)
+        weight, bias = weight.reshape(shape), bias.reshape(shape)
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+    return (xf - mean) * (torch.rsqrt(var + eps) * weight) + bias
 
 
 def apply_dropout(x, rate: float, training: bool, generator: torch.Generator | None = None):
@@ -132,23 +151,55 @@ def draw_seed(generator: torch.Generator | None) -> int | None:
     return int(torch.randint(0, 2 ** 62, (), generator=generator, device=generator.device))
 
 
+class QuantDense(Linear):
+    """``QuantDense`` (``layers.py:39-59``): a ``Linear`` whose matmul runs
+    on the int8 path (``ops.quant.quant_dense_apply``) over its unchanged
+    float weight, x cast to ``dtype`` first.  Serving only: the quantizer's
+    round has no gradient."""
+
+    def forward(self, x):
+        from irw_tpu_torch.ops.quant import quant_dense_apply
+
+        return quant_dense_apply(x.to(self.dtype), self.weight.transpose(-1, -2), self.bias,
+                                 out_dtype=self.dtype)
+
+
+def gelu_tanh_jnp(x):
+    """``jax.nn.gelu(x, approximate=True)`` as jnp computes it, op by op in
+    x's dtype: 0.5 · (1 + tanh(√(2/π) · (x + 0.044715 · x³))) · x, each
+    constant rounded to the dtype first.  In bf16 it gives jnp's bits, where
+    ``F.gelu`` rounds once."""
+    def c(v):
+        return torch.full((), v, dtype=x.dtype, device=x.device)
+
+    inner = c(math.sqrt(2.0 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+
+
 class Mlp(nn.Module):
     """Linear → GELU → Linear → Dropout (``layers.py:62-99``).  GELU is the
     tanh form by default (flax ``nn.gelu``); ``exact_gelu=True`` is the erf
-    form."""
+    form.  ``quant_int8=True`` makes both Linears ``QuantDense``, the same
+    parameters, and takes the tanh form as jnp computes it
+    (``gelu_tanh_jnp``): the int8 requantization after it would turn a
+    rounding difference into a different integer."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  exact_gelu: bool = False, bands: int | None = None,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 quant_int8: bool = False):
         super().__init__()
-        self.fc1 = Linear(in_dim, hidden_dim, bands=bands, dtype=dtype)
-        self.fc2 = Linear(hidden_dim, out_dim, bands=bands, dtype=dtype)
+        dense = QuantDense if quant_int8 else Linear
+        self.fc1 = dense(in_dim, hidden_dim, bands=bands, dtype=dtype)
+        self.fc2 = dense(hidden_dim, out_dim, bands=bands, dtype=dtype)
         self.approximate = "none" if exact_gelu else "tanh"
+        self.jnp_gelu = quant_int8 and not exact_gelu
         self.dropout = dropout
 
     def forward(self, x, generator: torch.Generator | None = None):
-        x = self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
-        return apply_dropout(x, self.dropout, self.training, generator)
+        h = self.fc1(x)
+        h = gelu_tanh_jnp(h) if self.jnp_gelu else F.gelu(h, approximate=self.approximate)
+        return apply_dropout(self.fc2(h), self.dropout, self.training, generator)
 
 
 class BatchNorm(nn.BatchNorm1d):

@@ -23,8 +23,14 @@ K3 backward on the card) and otherwise, or while attention dropout is active,
 flax's ``dot_product_attention`` semantics.  All but ``FlashAttention`` keep
 the MHA parameters ``query``/``key``/``value``/``out``.  ``ln_fused`` swaps
 every LayerNorm (``norm1``, ``norm2``, the final ``norm``) for
-``ops.fused_ln.FusedLayerNorm``, same parameters.  ``quant_int8`` (ROADMAP
-A14) raises.
+``ops.fused_ln.FusedLayerNorm``, same parameters.  ``quant_int8`` comes
+before every other route: ``QuantMHA`` (the four projections on the int8
+path of ``ops.quant``, a float core) and an Mlp of ``QuantDense``s, same
+parameters, serving only (the Block raises in training); its float steps
+round as jnp's do (flax's LayerNorm arithmetic, the LayerScale product
+rounded before the residual sum, jnp's softmax and tanh GELU), since the
+int8 requantization would turn a rounding difference into another
+integer.
 
 Two extras of the unbanded ViT serve the shared-tower models
 (``multi_dino.SharedDinoHashing``): ``num_domains`` > 1 gives every
@@ -290,6 +296,39 @@ class SplitCLSMHA(_MHA):
         return self.out(ctx.reshape(*pre, n, d))
 
 
+def _softmax_jnp(s):
+    """``jax.nn.softmax`` over the last axis as jnp computes it in s's
+    dtype: exp(s − max) rounded, its sum taken in f32 and rounded, then the
+    division (``torch.softmax`` rounds once)."""
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.float().sum(dim=-1, keepdim=True).to(s.dtype)
+
+
+class QuantMHA(_MHA):
+    """``QuantMHA`` (vit.py:156-201): self-attention whose q, k, v and out
+    projections run on the int8 path (``ops.quant.quant_dense_apply``, three
+    separate matmuls over the unchanged f32 weights, the input cast to the
+    compute dtype), around a float core: q / √hd, scores and softmax
+    (``_softmax_jnp``: the int8 requantization of the output would turn a
+    rounding difference into a different integer) in the compute dtype,
+    P·V.  MHA parameters.  Serving only: ``Block`` raises in training."""
+
+    def forward(self, y, generator: torch.Generator | None = None):
+        from irw_tpu_torch.ops.quant import quant_dense_apply
+
+        *pre, n, d = y.shape
+        h = self.num_heads
+        dtype = self.query.dtype
+        y = y.to(dtype)
+        q, k, v = (quant_dense_apply(y, p.weight.transpose(-1, -2), p.bias, out_dtype=dtype)
+                   .reshape(*pre, n, h, d // h) for p in (self.query, self.key, self.value))
+        scores = torch.einsum("...qhd,...khd->...hqk", _div_sqrt(q, d // h), k)
+        weights = apply_dropout(_softmax_jnp(scores), self.dropout, self.training, generator)
+        ctx = torch.einsum("...hqk,...khd->...qhd", weights, v).reshape(*pre, n, d)
+        return quant_dense_apply(ctx, self.out.weight.transpose(-1, -2), self.out.bias,
+                                 out_dtype=dtype)
+
+
 def _per_band(param, x):
     """(D,) or (S, D) parameter → broadcastable against (…, N, D) / (S, …, N, D)."""
     if param.dim() == 1:
@@ -303,14 +342,17 @@ class Block(nn.Module):
                  exact_gelu: bool = False, bands: int | None = None,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
                  use_flash: bool = False, split_cls: bool = False, fused_qkv: bool = False,
-                 ln_fused: bool = False, num_domains: int = 1):
+                 ln_fused: bool = False, num_domains: int = 1, quant_int8: bool = False):
         super().__init__()
         lead = () if bands is None else (bands,)
         self.dtype = dtype
+        self.quant_int8 = quant_int8
         self.norm1 = domain_layer_norm(dim, ln_fused, num_domains, bands=bands, dtype=dtype)
-        # vit.py:345-374: use_flash, then split_cls, then fused_qkv, then the
-        # MHA route with or without vmem_attn
-        if use_flash:
+        # vit.py:345-374: quant_int8, then use_flash, then split_cls, then
+        # fused_qkv, then the MHA route with or without vmem_attn
+        if quant_int8:
+            self.attn = QuantMHA(dim, num_heads, bands, dtype, dropout)
+        elif use_flash:
             self.attn = FlashAttention(dim, num_heads, bands, dtype)
         elif split_cls or fused_qkv:
             self.attn = (SplitCLSMHA if split_cls else FusedMHA)(
@@ -319,10 +361,23 @@ class Block(nn.Module):
             self.attn = Attention(dim, num_heads, vmem_attn, bands, dtype, dropout)
         self.ls1 = nn.Parameter(torch.full((*lead, dim), layerscale_init))
         self.norm2 = domain_layer_norm(dim, ln_fused, num_domains, bands=bands, dtype=dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, exact_gelu, bands, dtype, dropout)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, exact_gelu, bands, dtype, dropout,
+                       quant_int8)
         self.ls2 = nn.Parameter(torch.full((*lead, dim), layerscale_init))
+        if quant_int8:  # the int8 requantization magnifies a rounding difference
+            for norm in (self.norm1, self.norm2):
+                if isinstance(norm, LayerNorm):
+                    norm.flax_arithmetic = True
 
     def forward(self, x, generator: torch.Generator | None = None, domain=None):
+        if self.quant_int8:
+            if self.training:
+                raise ValueError("quant_int8 is a serving-only path: the int8 quantizer's "
+                                 "round() has zero gradient")
+            # jnp's x + attn_out * ls1: the product rounded, then the sum
+            ls1, ls2 = (_per_band(ls, x).to(self.dtype) for ls in (self.ls1, self.ls2))
+            x = x + self.attn(_norm(self.norm1, x, domain)) * ls1
+            return x + self.mlp(_norm(self.norm2, x, domain)) * ls2
         x = torch.addcmul(x, self.attn(_norm(self.norm1, x, domain), generator),
                           _per_band(self.ls1, x).to(self.dtype))
         return torch.addcmul(x, self.mlp(_norm(self.norm2, x, domain), generator),
@@ -362,8 +417,6 @@ class VisionTransformer(nn.Module):
         # the JAX module's parameter layout only (the bridge unstacks it and
         # names flax paths by it): the port always loops over its blocks
         self.scan_blocks, self.scan_group = scan_blocks, scan_group
-        if quant_int8:  # the Block variant not ported yet (vit.py:333)
-            raise NotImplementedError("ViT quant_int8=True waits for ROADMAP A14")
         if remat_policy in _LATER_REMAT_POLICIES:
             raise NotImplementedError(f"remat_policy {remat_policy!r} waits for ROADMAP "
                                       "A6-remainder; the port remats whole blocks "
@@ -388,7 +441,7 @@ class VisionTransformer(nn.Module):
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, layerscale_init, vmem_attn,
                   exact_gelu, bands, dtype, dropout, use_flash, split_cls, fused_qkv, ln_fused,
-                  num_domains)
+                  num_domains, quant_int8)
             for _ in range(depth))
         self.norm = domain_layer_norm(embed_dim, ln_fused, num_domains, bands=bands,
                                       dtype=dtype)

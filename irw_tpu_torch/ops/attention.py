@@ -5,10 +5,12 @@ Port of ``irw_tpu/ops/vmem_attention.py``: ``fused_attention`` (:273-324)
 with its custom VJP ``_core`` (:242-256) over the kernel bodies
 ``_fwd_kernel`` (:166-173) and ``_bwd_kernel`` (:176-192), and
 ``vmem_attention_fn``'s routing rule (:327-370).  ``fused_attention`` is a
-``torch.autograd.Function``: for CUDA tensors its forward launches kernel K2
-(``csrc/attention_fwd.cu``) and its backward kernel K3
-(``csrc/attention_bwd.cu``), and it raises rather than fall back; for CPU
-tensors they run ``attention_plain`` and ``attention_plain_bwd``.  Where the
+``torch.autograd.Function`` when a gradient will be taken: for CUDA tensors
+its forward launches kernel K2 (``csrc/attention_fwd.cu``) and its backward
+kernel K3 (``csrc/attention_bwd.cu``), and it raises rather than fall back;
+for CPU tensors they run ``attention_plain`` and ``attention_plain_bwd``.
+The forward is the custom op ``irw_tpu_torch::attention_fwd``
+(``ops.library``), which an exported eval forward calls by name.  Where the
 TPU kernel's VJP saves only q, k and v and recomputes everything, the
 forward here also saves each row's softmax statistics (max m and sum l of
 exp(s − m), an f32 (2, B·H, N) tensor) when autograd will need them, and
@@ -30,6 +32,7 @@ import math
 import torch
 
 from irw_tpu_torch import cuda_lib
+from irw_tpu_torch.ops.library import kernel_op
 
 
 def _scores(q, k, scale: float):
@@ -144,33 +147,59 @@ def _check_inputs(what: str, *ts) -> bool:
     return False
 
 
-def _forward(q, k, v, scale: float, with_stats: bool = False):
-    """The forward without autograd: ``attention_plain`` on the CPU, K2 on
-    the card.  Returns (out, the row statistics (2, B·H, N) with
-    ``with_stats``, else None)."""
-    if _check_inputs("fused_attention", q, k, v):
-        if with_stats:
-            return attention_plain(q, k, v, scale, with_stats=True)
-        return attention_plain(q, k, v, scale), None
+def _fwd_cpu(q, k, v, scale: float, with_stats: bool):
+    """The op's CPU implementation: ``attention_plain``."""
+    if with_stats:
+        o, stats = attention_plain(q, k, v, scale, with_stats=True)
+    else:
+        o, stats = attention_plain(q, k, v, scale), q.new_empty((0,), dtype=torch.float32)
+    return o.contiguous(), stats
+
+
+def _fwd_cuda(q, k, v, scale: float, with_stats: bool):
+    """The op's CUDA implementation: kernel K2 (statistics (0,) without
+    ``with_stats``)."""
+    _check_inputs("fused_attention", q, k, v)
     *lead, n, h, hd = q.shape
     b = math.prod(lead)
     # flatten the batch dims without copying when the layout allows it
     q3, k3, v3 = (_kernel_layout(t.reshape(b, n, h, hd)) for t in (q, k, v))
     out = torch.empty((b, n, h, hd), dtype=q.dtype, device=q.device)
-    stats = (torch.empty((2, b * h, n), dtype=torch.float32, device=q.device)
-             if with_stats else None)
+    stats = torch.empty((2, b * h, n) if with_stats else (0,), dtype=torch.float32,
+                        device=q.device)
     if out.numel() == 0:
         return out.reshape(q.shape), stats
     lib = cuda_lib.load("attention_fwd", _FWD_SIGNATURES)
     strides = [s for t in (q3, k3, v3, out) for s in t.stride()[:3]]
     status = lib.irw_attention_fwd(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
-        None if stats is None else stats.data_ptr(),
+        stats.data_ptr() if with_stats else None,
         _DTYPE_CODES[q.dtype], b, n, h, hd, float(scale), *strides,
         cuda_lib.stream_of(q3))
     cuda_lib.check(status, "fused_attention", lib)
     fused_attention.launches += 1
     return out.reshape(q.shape), stats
+
+
+def _fwd_fake(q, k, v, scale: float, with_stats: bool):
+    *lead, n, h, _ = q.shape
+    b = math.prod(lead)
+    return q.new_empty(q.shape), q.new_empty((2, b * h, n) if with_stats else (0,),
+                                             dtype=torch.float32)
+
+
+_FWD_OP = kernel_op("attention_fwd",
+                    "(Tensor q, Tensor k, Tensor v, float scale, bool with_stats) "
+                    "-> (Tensor, Tensor)", _fwd_cpu, _fwd_cuda, _fwd_fake)
+
+
+def _forward(q, k, v, scale: float, with_stats: bool = False):
+    """The forward without autograd, the op ``irw_tpu_torch::attention_fwd``:
+    ``attention_plain`` on the CPU, K2 on the card.  Returns (out, the row
+    statistics (2, B·H, N) with ``with_stats``, else None)."""
+    _check_inputs("fused_attention", q, k, v)
+    out, stats = _FWD_OP(q, k, v, float(scale), bool(with_stats))
+    return out, (stats if with_stats else None)
 
 
 def fused_attention_bwd(q, k, v, g, scale: float | None = None, stats=None):
@@ -271,7 +300,9 @@ def fused_attention(q, k, v, *, scale: float | None = None):
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _Attention.apply(q, k, v, float(scale), False, _needs_grad(q, k, v))
+    if not _needs_grad(q, k, v):  # no autograd node: what an exported program traces
+        return _forward(q, k, v, float(scale))[0]
+    return _Attention.apply(q, k, v, float(scale), False, True)
 
 
 fused_attention.launches = 0

@@ -13,10 +13,12 @@ and masks the padding with segment ids; here the padding is implicit: keys
 at or past N (read as zeros) get ``MASK_VALUE`` added to their scores, as
 the library does across segments, and rows past N are never stored.
 
-``flash_attention`` is a ``torch.autograd.Function``: for CUDA tensors its
-forward launches kernel K6-fwd (``csrc/flash_attention_fwd.cu``) and its
-backward K6-bwd (``csrc/flash_attention_bwd.cu``); it raises rather than
-fall back.  For CPU tensors they run ``flash_attention_plain`` and
+``flash_attention`` is a ``torch.autograd.Function`` when a gradient will be
+taken (its forward the custom op ``irw_tpu_torch::flash_attention_fwd``,
+``ops.library``): for CUDA tensors its forward launches kernel K6-fwd
+(``csrc/flash_attention_fwd.cu``) and its backward K6-bwd
+(``csrc/flash_attention_bwd.cu``); it raises rather than fall back.  For
+CPU tensors they run ``flash_attention_plain`` and
 ``flash_attention_plain_bwd``.  Like the library's VJP, the forward saves
 q, k, v, o and the row statistics l and m; the backward kernels form
 ``di = rowsum(o · do)`` (:273-275) themselves from o.  The public layout is
@@ -35,6 +37,7 @@ import math
 import torch
 
 from irw_tpu_torch import cuda_lib
+from irw_tpu_torch.ops.library import kernel_op
 
 BLOCK = 128   # keys per block (and the padding multiple), as the library's defaults
 # the library's DEFAULT_MASK_VALUE, -0.7 · float32 max (flash_attention.py:32)
@@ -215,12 +218,19 @@ def _check_inputs(what: str, *ts) -> bool:
     return False
 
 
-def flash_attention_fwd(q, k, v, *, save_residuals: bool = False):
-    """The forward without autograd: ``flash_attention_plain`` on the CPU,
-    K6-fwd on the card (counted in ``flash_attention_fwd.launches``).
-    Returns o, or (o, l, m) with ``save_residuals``."""
-    if _check_inputs("flash_attention", q, k, v):
-        return flash_attention_plain(q, k, v, save_residuals=save_residuals)
+def _fwd_cpu(q, k, v, save_residuals: bool):
+    """The op's CPU implementation: ``flash_attention_plain``, its l and m
+    stacked as (2, …, H, N) (shape (0,) without ``save_residuals``)."""
+    if not save_residuals:
+        o = flash_attention_plain(q, k, v)
+        return o.contiguous(), q.new_empty((0,), dtype=torch.float32)
+    o, l, m = flash_attention_plain(q, k, v, save_residuals=True)
+    return o.contiguous(), torch.stack([l, m])
+
+
+def _fwd_cuda(q, k, v, save_residuals: bool):
+    """The op's CUDA implementation: kernel K6-fwd."""
+    _check_inputs("flash_attention", q, k, v)
     *lead, n, h, hd = q.shape
     b = math.prod(lead)
     q3, k3, v3 = (_kernel_layout(t.reshape(b, n, h, hd)) for t in (q, k, v))
@@ -236,10 +246,30 @@ def flash_attention_fwd(q, k, v, *, save_residuals: bool = False):
         _DTYPE_CODES[q.dtype], b, n, h, hd, *strides, cuda_lib.stream_of(q3))
     cuda_lib.check(status, "flash_attention", lib)
     flash_attention_fwd.launches += 1
-    o = out.reshape(q.shape)
+    return out.reshape(q.shape), stats.reshape((2, *lead, h, n) if save_residuals else (0,))
+
+
+def _fwd_fake(q, k, v, save_residuals: bool):
+    *lead, n, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((2, *lead, h, n) if save_residuals else (0,),
+                                             dtype=torch.float32)
+
+
+_FWD_OP = kernel_op("flash_attention_fwd",
+                    "(Tensor q, Tensor k, Tensor v, bool save_residuals) -> (Tensor, Tensor)",
+                    _fwd_cpu, _fwd_cuda, _fwd_fake)
+
+
+def flash_attention_fwd(q, k, v, *, save_residuals: bool = False):
+    """The forward without autograd, the op ``irw_tpu_torch::flash_attention_fwd``:
+    ``flash_attention_plain`` on the CPU, K6-fwd on the card (counted in
+    ``flash_attention_fwd.launches``).  Returns o, or (o, l, m) with
+    ``save_residuals``."""
+    _check_inputs("flash_attention", q, k, v)
+    o, stats = _FWD_OP(q, k, v, bool(save_residuals))
     if not save_residuals:
         return o
-    return o, stats[0].reshape(*lead, h, n), stats[1].reshape(*lead, h, n)
+    return o, stats[0], stats[1]
 
 
 flash_attention_fwd.launches = 0
@@ -327,6 +357,8 @@ def flash_attention(q, k, v):
     K6-bwd (f32 or bf16, hd ∈ {32, 64, 128}), counted in
     ``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches``.
     """
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return flash_attention_fwd(q, k, v)   # no autograd node: what an exported program traces
     return _FlashAttention.apply(q, k, v, False)
 
 

@@ -5,7 +5,8 @@ Port of ``irw_tpu/ops/wavelets/pallas_dwt.py:134-220``
 along H, then along W on both halves, then the v6 scales (0.5, 1, 1, √2);
 recurse on the scaled LL; return the last level's [LL, LH, HL, HH].
 
-``lifting_multi_level`` launches the CUDA kernel K4 (``csrc/lifting_dwt.cu``)
+``lifting_multi_level`` is the custom op ``irw_tpu_torch::lifting_multi_level``
+(``ops.library``): it launches the CUDA kernel K4 (``csrc/lifting_dwt.cu``)
 for a CUDA f32, bf16 or f16 tensor and runs ``lifting_multi_level_plain``
 (built from ``ops.wavelets.lifting``) for a CPU tensor; it never falls back
 from one to the other.  In bf16 and f16 the kernel rounds every operation to
@@ -28,6 +29,7 @@ import functools
 import torch
 
 from irw_tpu_torch import cuda_lib
+from irw_tpu_torch.ops.library import kernel_op
 from irw_tpu_torch.ops.wavelets.lifting import (
     BASES,
     CDF97_A1,
@@ -276,21 +278,13 @@ _SIGNATURES = {
 }
 
 
-def lifting_multi_level(x: torch.Tensor, levels: int = 1, basis: str = "haar") -> torch.Tensor:
-    """Multi-level lifting DWT, coarsest level: (N, H, W) → (N, 4, H/2ˡ, W/2ˡ).
+def _lifting_cpu(x: torch.Tensor, levels: int, basis: str) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    return lifting_multi_level_plain(x, levels, basis)
 
-    CPU tensor: the plain version, in x's dtype.  CUDA f32, bf16 or f16
-    tensor: kernel K4 in that dtype, counted in
-    ``lifting_multi_level.launches`` (one per call, whatever the number of
-    levels), on the path ``lifting_kernel_variants`` names (held once a
-    shape against the one the C side takes; kept in
-    ``lifting_multi_level.last_path``).  Other dtypes on the card raise."""
-    _check(x, levels, basis)
-    if x.device.type == "cpu":
-        return lifting_multi_level_plain(x, levels, basis)
-    if x.device.type != "cuda":
-        raise ValueError(f"lifting_multi_level: no kernel for device {x.device}; the kernel "
-                         "takes float32, bfloat16 or float16 (N, H, W) planes on a CUDA device")
+
+def _lifting_cuda(x: torch.Tensor, levels: int, basis: str) -> torch.Tensor:
+    """The op's CUDA implementation: kernel K4 in x's dtype."""
     if x.dtype not in ENTRY:
         raise NotImplementedError(f"lifting_multi_level: kernel K4 takes float32, bfloat16 or "
                                   f"float16, not {x.dtype}")
@@ -319,6 +313,37 @@ def lifting_multi_level(x: torch.Tensor, levels: int = 1, basis: str = "haar") -
     lifting_multi_level.launches += 1
     lifting_multi_level.last_path = path
     return out
+
+
+def _lifting_fake(x: torch.Tensor, levels: int, basis: str) -> torch.Tensor:
+    n, h, w = x.shape
+    return x.new_empty((n, 4, h // 2 ** levels, w // 2 ** levels))
+
+
+_OP = kernel_op("lifting_multi_level", "(Tensor x, int levels, str basis) -> Tensor",
+                _lifting_cpu, _lifting_cuda, _lifting_fake)
+
+
+def lifting_multi_level(x: torch.Tensor, levels: int = 1, basis: str = "haar") -> torch.Tensor:
+    """Multi-level lifting DWT, coarsest level: (N, H, W) → (N, 4, H/2ˡ, W/2ˡ).
+
+    The op ``irw_tpu_torch::lifting_multi_level``.  CPU tensor: the plain
+    version, in x's dtype (directly when x needs a gradient: the kernel has
+    no backward).  CUDA f32, bf16 or f16 tensor: kernel K4 in that dtype,
+    counted in ``lifting_multi_level.launches`` (one per call, whatever the
+    number of levels), on the path ``lifting_kernel_variants`` names (held
+    once a shape against the one the C side takes; kept in
+    ``lifting_multi_level.last_path``).  Other dtypes on the card raise."""
+    _check(x, levels, basis)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lifting_multi_level: no kernel for device {x.device}; the kernel "
+                         "takes float32, bfloat16 or float16 (N, H, W) planes on a CUDA device")
+    if x.device.type == "cuda" and x.dtype not in ENTRY:
+        raise NotImplementedError(f"lifting_multi_level: kernel K4 takes float32, bfloat16 or "
+                                  f"float16, not {x.dtype}")
+    if x.device.type == "cpu" and x.requires_grad and torch.is_grad_enabled():
+        return lifting_multi_level_plain(x, levels, basis)
+    return _OP(x, int(levels), basis)
 
 
 lifting_multi_level.launches = 0

@@ -1,9 +1,10 @@
 """Level-1 stationary Haar transform (the flagship VOC study's SWT).
 
 Port of ``irw_tpu/ops/wavelets/pallas_dwt.py:247-295`` (``haar_swt2_pallas``).
-``haar_swt2`` launches the CUDA kernel K1 (``csrc/haar_swt2.cu``) for a CUDA
-tensor and runs ``haar_swt2_plain`` for a CPU tensor; it never falls back
-from one to the other.
+``haar_swt2`` is the custom op ``irw_tpu_torch::haar_swt2`` (``ops.library``):
+it launches the CUDA kernel K1 (``csrc/haar_swt2.cu``) for a CUDA tensor and
+runs ``haar_swt2_plain`` for a CPU tensor; it never falls back from one to
+the other.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import math
 import torch
 
 from irw_tpu_torch import cuda_lib
+from irw_tpu_torch.ops.library import kernel_op
 
 SQRT2 = math.sqrt(2.0)
 
@@ -43,20 +45,13 @@ _SIGNATURES = {
 }
 
 
-def haar_swt2(x: torch.Tensor) -> torch.Tensor:
-    """Level-1 stationary Haar transform: (N, H, W) → (N, 4, H, W).
+def _swt_cpu(x: torch.Tensor) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    return haar_swt2_plain(x)
 
-    CPU tensor: the plain version.  CUDA tensor: kernel K1 (f32 inside, cast
-    back to the input dtype), counted in ``haar_swt2.launches``.
-    """
-    if x.dim() != 3 or not x.is_floating_point():
-        raise ValueError(f"haar_swt2 takes a floating (N, H, W) tensor, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    if x.device.type == "cpu":
-        return haar_swt2_plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"haar_swt2: no kernel for device {x.device}; the kernel takes "
-                         "floating (N, H, W) planes on a CUDA device")
+
+def _swt_cuda(x: torch.Tensor) -> torch.Tensor:
+    """The op's CUDA implementation: kernel K1 (f32 inside, cast back)."""
     in_dtype = x.dtype
     xf = x.float().contiguous()
     n, h, w = xf.shape
@@ -69,6 +64,33 @@ def haar_swt2(x: torch.Tensor) -> torch.Tensor:
     cuda_lib.check(status, "haar_swt2", lib)
     haar_swt2.launches += 1
     return out.to(in_dtype)
+
+
+def _swt_fake(x: torch.Tensor) -> torch.Tensor:
+    n, h, w = x.shape
+    return x.new_empty((n, 4, h, w))
+
+
+_OP = kernel_op("haar_swt2", "(Tensor x) -> Tensor", _swt_cpu, _swt_cuda, _swt_fake)
+
+
+def haar_swt2(x: torch.Tensor) -> torch.Tensor:
+    """Level-1 stationary Haar transform: (N, H, W) → (N, 4, H, W).
+
+    The op ``irw_tpu_torch::haar_swt2``: on a CPU tensor the plain version;
+    on a CUDA tensor kernel K1 (f32 inside, cast back to the input dtype),
+    counted in ``haar_swt2.launches``.  A CPU input that needs a gradient
+    takes the plain version directly (the kernel has no backward).
+    """
+    if x.dim() != 3 or not x.is_floating_point():
+        raise ValueError(f"haar_swt2 takes a floating (N, H, W) tensor, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"haar_swt2: no kernel for device {x.device}; the kernel takes "
+                         "floating (N, H, W) planes on a CUDA device")
+    if x.device.type == "cpu" and x.requires_grad and torch.is_grad_enabled():
+        return haar_swt2_plain(x)
+    return _OP(x)
 
 
 haar_swt2.launches = 0

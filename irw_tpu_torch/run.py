@@ -46,6 +46,26 @@ def log_dir_of(exp) -> str:
                         str(exp.get("experiment_name", "default")))
 
 
+def first_sampler(getter, config, train_ds, seed: int):
+    """The run's sampler (``dataset.sampler``) at epoch 0."""
+    sampler_cfg = config.dataset.get("sampler",
+                                     {"name": "RandomSampler", "kwargs": {"batch_size": 32}})
+    sampler = getter.get_sampler(train_ds, sampler_cfg)
+    sampler.seed = seed
+    sampler.reshuffle(0)
+    return sampler
+
+
+def first_sample(sampler, train_ds, host_train, device_train, seed: int) -> torch.Tensor:
+    """The first batch through the train stages: its size fixes the ViTs'
+    token count, as the JAX init reads it from a sample batch."""
+    first = sampler.batches[0]
+    images = host_train.batch([train_ds.load_image(int(i)) for i in first],
+                              np.random.RandomState(seed), True)
+    with torch.inference_mode():
+        return device_train(images)
+
+
 def run(config, device=None) -> dict:
     """Train the run ``config`` describes; returns the last eval's metrics
     by split."""
@@ -82,19 +102,8 @@ def run(config, device=None) -> dict:
         eval_datasets = dict(eval_datasets, val=subset(train_ds, val_idx, mode="eval"))
         train_ds = subset(train_ds, train_idx, mode="train")
 
-    sampler_cfg = config.dataset.get("sampler",
-                                     {"name": "RandomSampler", "kwargs": {"batch_size": 32}})
-    sampler = getter.get_sampler(train_ds, sampler_cfg)
-    sampler.seed = seed
-    sampler.reshuffle(0)
-
-    # the first batch through the train stages: its size fixes the ViTs'
-    # token count, as the JAX init reads it from a sample batch
-    first = sampler.batches[0]
-    images = host_train.batch([train_ds.load_image(int(i)) for i in first],
-                              np.random.RandomState(seed), True)
-    with torch.inference_mode():
-        sample = device_train(images)
+    sampler = first_sampler(getter, config, train_ds, seed)
+    sample = first_sample(sampler, train_ds, host_train, device_train, seed)
     model = getter.get_model(config.model, device, seed, image_size=tuple(sample.shape[-3:-1]))
     loss_config = config.get("loss", [])
     losses = getter.get_loss(loss_config)

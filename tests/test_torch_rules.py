@@ -84,6 +84,7 @@ def test_port_and_chip_smoke_import_no_jax():
             "irw_tpu_torch.benchmarks.landmark_bench"} <= set(modules)
     assert {"irw_tpu_torch.models.siglip", "irw_tpu_torch.models.hf_towers",
             "irw_tpu_torch.models.hf_wrapper"} <= set(modules)
+    assert set(RUN_TOOLS) <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r} + ['irw_tpu_torch', 'chip_smoke']:\n"
@@ -134,6 +135,74 @@ def test_engine_extras_import_without_the_reference_stack():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True, timeout=300)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+# the tools that read a run and the serving extras (ROADMAP A15b, A14)
+RUN_TOOLS = ("irw_tpu_torch.evaluate", "irw_tpu_torch.attention", "irw_tpu_torch.alpha_weights",
+             "irw_tpu_torch.plot_exemples", "irw_tpu_torch.run_dir", "irw_tpu_torch.tools",
+             "irw_tpu_torch.tools.convert_torch_weights", "irw_tpu_torch.tools.export_serving",
+             "irw_tpu_torch.utils.pretrained", "irw_tpu_torch.ops.quant",
+             "irw_tpu_torch.ops.library")
+
+
+@pytest.mark.parametrize("module", RUN_TOOLS)
+def test_run_tools_import_no_reference_nor_pillow(module):
+    """The run tools and the serving extras name no JAX, flax, irw_tpu,
+    Pillow or transformers import at any depth (the JAX CLIs they port
+    read images with Pillow and HF weights through transformers)."""
+    import ast
+
+    path = REPO / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = path.with_suffix("") / "__init__.py"
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module.split(".")[0])
+    assert not names & {*FORBIDDEN, "PIL", "transformers"}
+
+
+def test_kernel_ops_are_the_plain_version_and_the_kernel():
+    """Every ``torch.library`` op of the port (``ops.library.OPS``: the
+    launches an eval forward reaches, K1, K2, K4 and K6-fwd) has a CPU
+    implementation that is its plain version (it calls the module's plain
+    function and nothing of ``cuda_lib``), a CUDA implementation that
+    launches the kernel or raises (it loads the library, checks the launch's
+    status and counts it in the wrapper's ``launches``, and catches
+    nothing), a fake one, and nothing else."""
+    import inspect
+
+    from irw_tpu_torch.ops.library import NAMESPACE, OPS
+
+    plain = {"haar_swt2": "haar_swt2_plain(", "attention_fwd": "attention_plain(",
+             "lifting_multi_level": "lifting_multi_level_plain(",
+             "flash_attention_fwd": "flash_attention_plain("}
+    wrapper = {"haar_swt2": "haar_swt2", "attention_fwd": "fused_attention",
+               "lifting_multi_level": "lifting_multi_level",
+               "flash_attention_fwd": "flash_attention_fwd"}
+    assert set(OPS) == set(plain)
+    for name, entry in OPS.items():
+        qualified = f"{NAMESPACE}::{name}"
+        for key in ("CPU", "CUDA", "Meta"):
+            assert torch._C._dispatch_has_kernel_for_dispatch_key(qualified, key), (name, key)
+        for key in ("XPU", "MPS"):
+            assert not torch._C._dispatch_has_kernel_for_dispatch_key(qualified, key), (name, key)
+        cpu, cuda = inspect.getsource(entry["plain"]), inspect.getsource(entry["kernel"])
+        assert plain[name] in cpu and "cuda_lib" not in cpu and "launches" not in cpu
+        assert "cuda_lib.load(" in cuda and "cuda_lib.check(" in cuda
+        assert f"{wrapper[name]}.launches += 1" in cuda
+        assert "try:" not in cuda and "except" not in cuda
+
+
+def test_no_port_module_waits_for_a14_or_a15b():
+    """ROADMAP A14 (int8, export) and A15b (the run tools) are ported: no
+    raise or docstring of the port names them."""
+    hits = [f"{p.relative_to(REPO)}:{i}" for p in (REPO / "irw_tpu_torch").rglob("*.py")
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if "A14" in line or "A15" in line]
+    assert hits == []
 
 
 def test_no_port_module_waits_for_a12():
@@ -379,13 +448,7 @@ def test_unported_models_and_heads_name_their_roadmap_item():
                      ("resnet_ce", {"depth": 18})):
         with pytest.raises(NotImplementedError, match="A10e"):
             get_model(name, device="cpu", dtype="bfloat16", **kw)
-    # the one ViT Block variant of irw_tpu/models/vit.py:326-334 still to
-    # port; the scanned layouts are only parameter layouts, accepted and ignored
-    with pytest.raises(NotImplementedError, match="A14"):
-        make_vit("test_tiny", quant_int8=True)
-    with pytest.raises(NotImplementedError, match="A14"):
-        get_model("multidino_attention_hashing", device="cpu",
-                  **dict(TINY, vit_kwargs={"img_size": 16, "quant_int8": True}))
+    # the scanned layouts are only parameter layouts, accepted and ignored
     vit = make_vit("test_tiny", scan_blocks=True, scan_group=2, fused_qkv=False)
     assert len(vit.blocks) == 2
 
