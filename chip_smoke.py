@@ -17,6 +17,7 @@
     python3 chip_smoke.py --phases card,build,landmarks
     python3 chip_smoke.py --phases card,build,hf_towers
     python3 chip_smoke.py --phases card,build,microbatch,engine_extras
+    python3 chip_smoke.py --phases card,build,wcnn,wcnn_train,trunks_half
 
 Drives the port's serving path — uint8 images → DeviceTransform (/255, Haar
 SWT: kernel K1) → the flagship MultiDinoHashing (4 × DINOv2 ViT-S/14 at
@@ -277,7 +278,22 @@ configuration of the family — and prints one line per phase:
    folded in at a serve batch of 64 (``torch.export``), loaded, one batch
    held bit for bit to the eager forward with K1 = 1 and K2 = 12 counted
    inside the program; the int8 flagship exported (int8 weights and
-   scales); both artifacts' sizes.
+   scales); both artifacts' sizes;
+31. trunks_half: the CNN trunks in half precision (ROADMAP A10e).
+   ``model=wcnn_attention_ce transform=cub_dwt +model.kwargs.dtype=bfloat16``
+   composed and built by the ``Getter`` at full width (Normalize and K4 in
+   f32, 4 x ResNet-50 in bf16, the CBAM gate and classifiers in f32, every
+   parameter and statistic f32): 3 + 20 served batches of 64 (img/s, peak,
+   idle share; K4 = 1 a batch, its bands within 1e-5 of the plain route's;
+   the unit embeddings against the same weights' f32 run with TF32 off, each
+   row at cosine ``HALF_COSINE``), one f16 batch likewise; CUB's batch 128
+   with ``multi_ce_fusionloss`` and Adam, the first step's loss within
+   ``HALF_LOSS_REL`` of the f32 step's, then 3 + 6 timed steps (K4 = 1 a
+   step); ``wresnet_sdd_ce`` + ``sdd`` in bf16 at 16, 3 + 6 steps (K4 = 1
+   inside the model); one bf16 batch and step of ``mtwavenet50``,
+   ``hybrid_mtwavenet_v2_ce`` (DenseNet-121), ``resnet_ce``, ``convnext`` and
+   ``densenet121`` from the registry, each against its f32 twin; the bf16
+   numbers beside the f32 ``wcnn`` and ``wcnn_train`` ones of the run.
 
 Then a JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -302,7 +318,7 @@ PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", 
           "runner", "dwt", "wcnn", "wavelets", "wcnn_train", "wcnn_xbm", "losses", "flash",
           "flash_serve", "flash_train", "qkv", "qkv_micro", "variants", "siblings", "trunks",
           "files", "wavenets", "landmarks", "hf_towers", "microbatch", "engine_extras",
-          "run_tools", "serving")
+          "run_tools", "serving", "trunks_half")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -612,6 +628,29 @@ WAVENET_MAIN = {"wresnet_sdd_ce": ("sdd", "multi_ce.yaml", 16),
 WAVENET_OPTIMIZER = OPTIMIZER      # configs/optimizer/basic.yaml
 WAVENET_STEPS = 6
 WAVENET_SMALL = 8                  # the other configs' served batch and train step
+# the trunks_half phase (ROADMAP A10e): the WCNN path composed with the
+# config override a user gives for a bf16 trunk, served at BATCH and trained
+# at CUB_BATCH (WCNN_CE_LOSS, CUB_WRESNET) for HALF_STEPS timed steps;
+# wresnet_sdd_ce + sdd at 16 likewise; HALF_MODELS built by the registry in
+# bf16 for one batch of HALF_SMALL and one step each (loss file, input)
+HALF_OVERRIDES = ["model=wcnn_attention_ce", "transform=cub_dwt", "+model.kwargs.dtype=bfloat16"]
+HALF_SDD = ["model=wresnet_sdd_ce", "transform=sdd", "+model.kwargs.dtype=bfloat16"]
+HALF_STEPS = 6
+HALF_SMALL = 8
+HALF_MODELS = {"mtwavenet50": ({}, "pair_loss.yaml", "bands"),
+               "hybrid_mtwavenet_v2_ce": ({"num_classes": CUB_CLASSES}, "celoss.yaml", "bands"),
+               "resnet_ce": ({"num_classes": CUB_CLASSES}, "celoss.yaml", "images"),
+               "convnext": ({}, "pair_loss.yaml", "images"),
+               "densenet121": ({}, "pair_loss.yaml", "images")}
+# a half-precision model's unit embeddings against the same weights' f32 run
+# on the card with TF32 off, each row's cosine: ten times the CPU's largest
+# 1 - cosine over the five registry models and the two WCNNs at full width
+# on 224² images (tools/half_cosines.py: bf16 2.96e-5, mtwavenet50; f16
+# 6.0e-7); the first bf16 train step's total_loss against the f32 step's,
+# relative: at least five times JAX's own bf16-vs-f32 gap of one CE step,
+# which tests/test_torch_trunks_half_step.py asserts
+HALF_COSINE = {"bfloat16": 1 - 3e-4, "float16": 1 - 6e-6}
+HALF_LOSS_REL = 1e-2
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
 # the microbatch phase: the flagship at TRAIN_BATCH in chunks of sub_batch,
@@ -2076,6 +2115,7 @@ def phase_wcnn(state):
         peak = torch.cuda.max_memory_allocated()
         log("wcnn", f"launches over {WCNN_BATCHES} batches: {counts}")
         _check_launches("wcnn", per_batch, (0, 0, 0, 1, 0, 0, 0), "batch")
+        state.setdefault("timings", {})["wcnn"] = (WCNN_BATCHES * BATCH / seconds, peak)
         log("wcnn", f"{WCNN_BATCHES * BATCH / seconds:.1f} img/s (batch {BATCH}, Normalize + "
                     f"haar DWT + 4 x ResNet-50 at 112² + CBAM gate) | peak memory "
                     f"{peak / 2 ** 30:.2f} GiB | {precision} | {state['card']}")
@@ -4967,6 +5007,289 @@ def phase_wavenets(state):
                         f"before the model | {state['card']}")
 
 
+def _twin(name: str, kwargs: dict, src, dtype: str):
+    """The model ``name`` (registry name and keyword arguments) built on the
+    meta device in ``dtype`` and given ``src``'s parameters and statistics:
+    what ``get_model(..., dtype=dtype)`` builds from ``src``'s seed, without
+    drawing 100 M weights again."""
+    import torch
+
+    from irw_tpu_torch.models import MODEL_REGISTRY
+
+    with torch.device("meta"):
+        twin = MODEL_REGISTRY[name](torch.device("cuda"), **dict(kwargs, dtype=dtype))
+    twin = twin.to_empty(device="cuda")
+    twin.load_state_dict(src.state_dict())
+    return twin.train(src.training)
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    import torch
+
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def _hold_half(phase: str, label: str, out, ref, dtype: str) -> float:
+    """Each row of the unit embeddings ``out`` at cosine HALF_COSINE[dtype]
+    or more to the f32 run's ``ref``; both finite and unit."""
+    import torch
+
+    out, ref = out.float(), ref.float()
+    cos = torch.nn.functional.cosine_similarity(out, ref, dim=-1).min().item()
+    unit = bool(torch.allclose(out.norm(dim=-1), torch.ones_like(out[:, 0]), atol=2e-2))
+    log(phase, f"{label}: min cosine to the f32 run (TF32 off) {cos:.6f} (limit "
+               f"{HALF_COSINE[dtype]}); unit {unit}")
+    if not (torch.isfinite(out).all() and unit and cos >= HALF_COSINE[dtype]):
+        raise AssertionError(f"{phase}: {label} strays from the f32 run: cosine {cos}")
+    return cos
+
+
+def _check_f32_state(phase: str, label: str, model) -> None:
+    """Parameters and BatchNorm statistics stay float32 (flax's
+    ``param_dtype``), the compute dtype only casts at use."""
+    import torch
+
+    dtypes = {t.dtype for t in (*model.parameters(), *model.buffers()) if t.is_floating_point()}
+    log(phase, f"{label}: parameter and buffer dtypes {sorted(map(str, dtypes))}")
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"{phase}: {label} holds {dtypes}, not float32 alone")
+
+
+def _half_compute(model) -> set:
+    from irw_tpu_torch.models.resnet import BatchNorm, Conv2d
+
+    return {str(m.dtype) for m in model.modules() if isinstance(m, (Conv2d, BatchNorm))}
+
+
+def phase_trunks_half(state):
+    """The CNN trunks in half precision (ROADMAP A10e): ``model=wcnn_attention_ce
+    transform=cub_dwt +model.kwargs.dtype=bfloat16`` composed and built by the
+    ``Getter`` at full width, served (K4 once a batch, its bands against K4's
+    plain route, the embeddings against the f32 run of the same weights with
+    TF32 off) and trained at CUB's batch (the first step's loss against the
+    f32 step's); ``wresnet_sdd_ce`` + ``sdd`` in bf16 trained at 16 (K4 in
+    the model); one bf16 batch and step of each of HALF_MODELS from the
+    registry; one f16 batch of the WCNN; parameters and statistics float32
+    throughout.  Logs img/s, ms a step and peak memory beside the f32
+    ``wcnn`` and ``wcnn_train`` numbers of the run."""
+    import os
+
+    import torch
+
+    from irw_tpu_torch import single_experiment_runner as runner
+    from irw_tpu_torch.config import compose, yaml_lite
+    from irw_tpu_torch.engine import build_train_step, init_train_state
+    from irw_tpu_torch.engine.train import _build_hyper
+    from irw_tpu_torch.getter import Getter
+    from irw_tpu_torch.losses import build_losses
+    from irw_tpu_torch.models import get_model
+    from irw_tpu_torch.transforms import DeviceTransform, build_transforms
+
+    phase = "trunks_half"
+    held = _release_earlier_phases(state)
+    cfg = compose(runner.CONFIG_DIR, "default", HALF_OVERRIDES)
+    name, kwargs = cfg.model.name, cfg.model.kwargs.to_dict()
+    t0 = time.perf_counter()
+    model = Getter().get_model(cfg.model, seed=0)
+    build_s = time.perf_counter() - t0
+    serve_dev = build_transforms(cfg.transform.test)[1]
+    compute = _half_compute(model)
+    gate = {str(m.dtype) for m in model.gate.modules() if hasattr(m, "dtype")}
+    log(phase, f"{' '.join(HALF_OVERRIDES)}: {type(model).__name__} built in {build_s:.1f} s; "
+               f"trunk convs and BatchNorms compute in {sorted(compute)}, the gate in "
+               f"{sorted(gate)}, the classifiers in {model.classifier.dtype}")
+    if compute != {"torch.bfloat16"} or gate != {"torch.float32"}:
+        raise AssertionError(f"{phase}: the override built {compute} trunks, a {gate} gate")
+    _check_f32_state(phase, "wcnn_attention_ce bf16 as built", model)
+
+    # served: WARMUP_CALLS + SERVE_BATCHES batches of BATCH, K4 once a batch
+    images = [b["image"] for b in _wavenet_batches(SERVE_DISTINCT, BATCH, 224, 64, 23)]
+    kernels = _kernel_wrappers()
+    with torch.inference_mode():
+        for i in range(WARMUP_CALLS):
+            model(serve_dev(images[i % SERVE_DISTINCT]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels:
+            fn.launches = 0
+        per_batch, outs = [], []
+        t0 = time.perf_counter()
+        for i in range(SERVE_BATCHES):
+            before = [fn.launches for fn in kernels]
+            emb = model(serve_dev(images[i % SERVE_DISTINCT]))[0]
+            if i < SERVE_DISTINCT:
+                outs.append(emb)
+            per_batch.append(tuple(fn.launches - b for fn, b in zip(kernels, before)))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        serve_peak = torch.cuda.max_memory_allocated() - held
+        state["launches"]["trunks_half_serve"] = _launch_counts(kernels)
+        _check_launches(phase, per_batch, (0, 0, 0, 1, 0, 0, 0), "served batch")
+        serve_ips = SERVE_BATCHES * BATCH / seconds
+        log(phase, f"bf16 WCNN served {serve_ips:.1f} img/s, {seconds / SERVE_BATCHES * 1e3:.2f} "
+                   f"ms a batch of {BATCH} ({SERVE_BATCHES} timed after {WARMUP_CALLS}; Normalize "
+                   f"+ K4 in f32, 4 x ResNet-50 in bf16, CBAM gate in f32), embeddings "
+                   f"{outs[0].dtype} {tuple(outs[0].shape)} | peak memory "
+                   f"{serve_peak / 2 ** 30:.2f} GiB | {state['card']}")
+        batch_ms = seconds / SERVE_BATCHES * 1e3
+        busy_ms = _device_profile(phase, lambda: model(serve_dev(images[0])),
+                                  f"one bf16 WCNN batch of {BATCH}", state, _WCNN_GROUPS)
+        if busy_ms is not None:
+            log(phase, f"idle share against the timed batches' {batch_ms:.2f} ms: "
+                       f"{1 - busy_ms / batch_ms:.3f}")
+        bands = serve_dev(images[0])
+        with _k4_plain():
+            plain = serve_dev(images[0])
+            plain_emb = model(plain)[0]
+        k4_err = (bands - plain).abs().max().item() / max(1.0, plain.abs().max().item())
+        log(phase, f"K4 against its plain route on the batch's images: max|bands - plain| "
+                   f"{k4_err:.3e} of max(1, max|plain|) (limit {K4_TOL['haar']})")
+        if not k4_err <= K4_TOL["haar"]:
+            raise AssertionError(f"{phase}: K4 strays {k4_err} from its plain route")
+        _hold_half(phase, "bf16 WCNN, K4's route against its plain route", outs[0], plain_emb,
+                   "bfloat16")
+        twin32 = _twin(name, kwargs, model, "float32")
+        twin16 = _twin(name, kwargs, model, "float16")
+        with _no_tf32():
+            refs = [twin32(serve_dev(x))[0] for x in images]
+        for i, (emb, ref) in enumerate(zip(outs, refs)):
+            _hold_half(phase, f"bf16 WCNN batch {i}", emb, ref, "bfloat16")
+        f16 = twin16(serve_dev(images[0]))[0]
+        _hold_half(phase, f"f16 WCNN batch 0 ({_half_compute(twin16)})", f16, refs[0],
+                   "float16")
+        del twin16, refs, outs
+
+    # trained: the first step against the f32 twin's, then HALF_STEPS timed
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():  # the zero-initialised classifiers drawn: a loss the features reach
+        for lin in (model.branch_classifier, model.classifier):
+            lin.weight.copy_(0.02 * torch.randn(lin.weight.shape, generator=gen))
+    twin32 = _twin(name, kwargs, model, "float32")
+    batches = _cub_batches(2, seed=24)
+    states, firsts = {}, {}
+    for label, mdl in (("bf16", model), ("f32", twin32)):
+        states[label] = init_train_state(mdl, build_losses(WCNN_CE_LOSS), CUB_WRESNET,
+                                         WCNN_CE_LOSS, seed=0)
+    train_dev = build_transforms(cfg.transform.train)[1]
+    step = build_train_step(train_dev)
+
+    def hyper(ts):
+        return _build_hyper(ts.optimizer_entries, 1, ts.step, 0, None)
+
+    firsts["bf16"] = float(step(states["bf16"], batches[0], hyper(states["bf16"]))["total_loss"])
+    with _no_tf32():
+        firsts["f32"] = float(step(states["f32"], batches[0], hyper(states["f32"]))["total_loss"])
+    rel = abs(firsts["bf16"] - firsts["f32"]) / abs(firsts["f32"])
+    log(phase, f"first train step's total_loss: bf16 {firsts['bf16']:.6f}, f32 (TF32 off) "
+               f"{firsts['f32']:.6f}, relative {rel:.2e} (limit {HALF_LOSS_REL})")
+    if not rel <= HALF_LOSS_REL:
+        raise AssertionError(f"{phase}: the bf16 step's loss strays {rel} from the f32 step's")
+    del states["f32"], twin32
+    torch.cuda.empty_cache()
+    tstate = states["bf16"]
+    metrics, step_ms = _timed_steps(
+        phase, state, tstate, step, batches, lambda: hyper(tstate), WARMUP_CALLS, HALF_STEPS,
+        (0, 0, 0, 1, 0, 0, 0), held, CUB_BATCH, "Normalize + K4 in f32, 4 x ResNet-50 in bf16, "
+        "CBAM gate and 5 CE heads in f32, Adam; images made on the card")
+    _check_finite(phase, metrics, ("total_loss", "grad_norm"))
+    _check_f32_state(phase, "wcnn_attention_ce bf16 after its steps", model)
+    opt_dtypes = {t.dtype for e in tstate.optimizer_entries for st in e.optimizer.state.values()
+                  for t in st.values() if torch.is_tensor(t) and t.is_floating_point()}
+    if opt_dtypes != {torch.float32}:
+        raise AssertionError(f"{phase}: the optimizer state holds {opt_dtypes}")
+    train_ips, train_peak = state["timings"][phase]
+    busy_ms = _device_profile(phase, lambda: step(tstate, batches[1], hyper(tstate)),
+                              f"one bf16 train step of {CUB_BATCH}", state, _WCNN_GROUPS)
+    if busy_ms is not None:
+        log(phase, f"idle share against the timed steps' {step_ms:.1f} ms: "
+                   f"{1 - busy_ms / step_ms:.3f}")
+    del model, tstate, step, batches, states
+
+    # wresnet_sdd_ce + sdd in bf16: the in-model DWT (K4) before bf16 branches
+    _release_earlier_phases(state)
+    cfg_sdd = compose(runner.CONFIG_DIR, "default", HALF_SDD)
+    sdd = Getter().get_model(cfg_sdd.model, seed=0)
+    if _half_compute(sdd) != {"torch.bfloat16"}:
+        raise AssertionError(f"{phase}: wresnet_sdd_ce built {_half_compute(sdd)}")
+    sdd_batch = WAVENET_MAIN["wresnet_sdd_ce"][2]
+    tstate, sdd_step, sdd_hyper, frozen = _wavenet_step(
+        cfg_sdd, sdd, build_transforms(cfg_sdd.transform.train)[1], "multi_ce.yaml")
+    sdd_batches = _wavenet_batches(2, sdd_batch, 224, 120, 25)
+    metrics, sdd_ms = _timed_steps(
+        "trunks_half_sdd", state, tstate, sdd_step, sdd_batches, sdd_hyper, WARMUP_CALLS,
+        HALF_STEPS, (0, 0, 0, 1, 0, 0, 0), held, sdd_batch,
+        f"wresnet_sdd_ce + sdd in bf16 (K4 in the model, 4 x ResNet-50 with the 1 x 1 stem at "
+        f"112²), multi_ce, basic.yaml's AdamW, freezing set {frozen}")
+    _check_finite(phase, metrics, ("total_loss", "grad_norm"))
+    _check_f32_state(phase, "wresnet_sdd_ce bf16 after its steps", sdd)
+    del sdd, tstate, sdd_step, sdd_batches
+
+    # one bf16 batch and one step of each registry model, against its f32 twin
+    norm_dev = DeviceTransform(DWT_OPS[:1])
+    band_dev = DeviceTransform(DWT_OPS)
+    for reg, (kw, loss_file, inputs) in HALF_MODELS.items():
+        _release_earlier_phases(state)
+        t0 = time.perf_counter()
+        mdl = get_model(reg, seed=0, dtype="bfloat16", **kw)
+        build_s = time.perf_counter() - t0
+        dev = band_dev if inputs == "bands" else norm_dev
+        expected = (0, 0, 0, 1 if inputs == "bands" else 0, 0, 0, 0)
+        batch = _wavenet_batches(1, HALF_SMALL, 224, CUB_CLASSES, 26)[0]
+        for fn in kernels:
+            fn.launches = 0
+        with torch.inference_mode():
+            out = mdl(dev(batch["image"]))
+            out = out[0] if isinstance(out, tuple) else out
+            _check_launches(phase, [tuple(fn.launches for fn in kernels)], expected,
+                            f"served batch, {reg}")
+            twin = _twin(reg, kw, mdl, "float32")
+            with _no_tf32():
+                ref = twin(dev(batch["image"]))
+            ref = ref[0] if isinstance(ref, tuple) else ref
+            del twin
+        unit = torch.nn.functional.normalize
+        _hold_half(phase, f"{reg} bf16 ({type(mdl).__name__}, output {out.dtype} "
+                          f"{tuple(out.shape)})", unit(out.float(), dim=-1),
+                   unit(ref.float(), dim=-1), "bfloat16")
+        loss_cfg = yaml_lite.load(os.path.join(runner.CONFIG_DIR, "loss", loss_file))
+        tstate = init_train_state(mdl, build_losses(loss_cfg), WAVENET_OPTIMIZER, loss_cfg,
+                                  seed=0)
+        mstep = build_train_step(dev)
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        metrics = mstep(tstate, batch, _build_hyper(tstate.optimizer_entries, 1, 0, 0, None))
+        torch.cuda.synchronize()
+        _check_launches(phase, [tuple(fn.launches for fn in kernels)], expected,
+                        f"train step, {reg}")
+        _check_finite(phase, [metrics], ("total_loss", "grad_norm"))
+        _check_f32_state(phase, f"{reg} bf16 after its step", mdl)
+        log(phase, f"{reg}: built in {build_s:.1f} s, one bf16 step of {HALF_SMALL} with "
+                   f"{loss_file} in {time.perf_counter() - t0:.2f} s (its first) | "
+                   f"{state['card']}")
+        del mdl, tstate, mstep
+
+    f32_serve = state.get("timings", {}).get("wcnn")
+    f32_train = state.get("timings", {}).get("wcnn_train")
+    log(phase, "summary, WCNN at full width: served "
+               + (f"f32 (TF32 convs) {f32_serve[0]:.1f} img/s, peak {f32_serve[1] / 2 ** 30:.2f} "
+                  f"GiB; " if f32_serve else "f32 not run (phase wcnn); ")
+               + f"bf16 {serve_ips:.1f} img/s, peak {serve_peak / 2 ** 30:.2f} GiB | trained at "
+               f"{CUB_BATCH}: "
+               + (f"f32 (TF32 convs) {f32_train[0]:.1f} img/s, {CUB_BATCH / f32_train[0] * 1e3:.1f} "
+                  f"ms a step, peak {f32_train[1] / 2 ** 30:.2f} GiB; " if f32_train
+                  else "f32 not run (phase wcnn_train); ")
+               + f"bf16 {train_ips:.1f} img/s, {step_ms:.1f} ms a step, peak "
+               f"{train_peak / 2 ** 30:.2f} GiB | wresnet_sdd_ce bf16 {sdd_ms:.1f} ms a step "
+               f"at {sdd_batch} | {state['card']}")
+
+
 def phase_microbatch(state):
     """The flagship trains micro-batched (ROADMAP A12): the train phase's model
     and step with ``sub_batch`` 32, 40 and 19; launches per step; img/s and
@@ -5654,7 +5977,7 @@ def main(argv=None) -> int:
                "wavenets": phase_wavenets, "landmarks": phase_landmarks,
                "hf_towers": phase_hf_towers, "microbatch": phase_microbatch,
                "engine_extras": phase_engine_extras, "run_tools": phase_run_tools,
-               "serving": phase_serving}
+               "serving": phase_serving, "trunks_half": phase_trunks_half}
     for name in phases:
         if name != "card":
             t0 = time.perf_counter()
@@ -5676,6 +5999,8 @@ def main(argv=None) -> int:
                **{f"microbatch_{sb}": (f"microbatch_{sb}", n) for sb, n in MICRO_STEPS.items()},
                "adaptive": ("engine_extras_adaptive", ADAPTIVE_STEPS),
                **{config: (f"wavenets_{config}_train", WAVENET_STEPS) for config in WAVENET_MAIN},
+               "wcnn_bf16": ("trunks_half", HALF_STEPS),
+               "wresnet_sdd_ce_bf16": ("trunks_half_sdd", HALF_STEPS),
                **{f"hf_{config}": (f"hf_towers_{config}_train", TRUNK_STEPS)
                   for config in HF_TRAIN}}
     served = {"flagship": ("serve", SERVE_BATCHES), "wcnn": ("wcnn", WCNN_BATCHES),
@@ -5687,6 +6012,7 @@ def main(argv=None) -> int:
               "shared": ("siblings_serve", SERVE_BATCHES),
               **{config: (f"trunks_{config}", TRUNK_TIMED) for config in TRUNK_SWT},
               **{config: (f"wavenets_{config}_serve", SERVE_BATCHES) for config in WAVENET_MAIN},
+              "wcnn_bf16": ("trunks_half_serve", SERVE_BATCHES),
               **{f"hf_{config}": (f"hf_towers_{config}", TRUNK_TIMED) for config in HF_SERVE},
               **{f"hf_{name}": (f"hf_towers_{name}", 1) for name in HF_REGISTRY},
               "run_tools_eval": ("run_tools_eval", 2),

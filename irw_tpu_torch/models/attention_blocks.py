@@ -8,7 +8,10 @@ and the gate and the weighted mean in f32, as the JAX gates
 (``dtype=float32``) promote them.  ``ChannelGate1D`` (mtwavenet's fusion) is
 the same gate with the weighted SUM, no ``/ S`` (attention_blocks.py:86-105).
 ``CrossBandAttention`` gates the stage maps of every band over their S·C
-channels, band-major (attention_blocks.py:108-152).
+channels, band-major (attention_blocks.py:108-152), in the trunk's
+``dtype``: its Dense layers, conv and BatchNorm compute in it (the bias
+added after the rounding, as flax's), and the pools, the sigmoid and the
+gating products stay in it.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from irw_tpu_torch.models.layers import Linear
-from irw_tpu_torch.models.resnet import lecun_normal_
+from irw_tpu_torch.models.resnet import Conv2d, compute_dtype, lecun_normal_
 
 
 def _fuse(x, scale):
@@ -114,13 +117,14 @@ class CrossBandAttention(nn.Module):
     each band's memory stays as its trunk left it; returns the (B, S·C)
     gate beside them."""
 
-    def __init__(self, channels: int, no_spatial: bool = True):
+    def __init__(self, channels: int, no_spatial: bool = True, dtype="float32"):
         super().__init__()
-        self.fc1 = Linear(channels, channels)
-        self.fc2 = Linear(channels, channels)
+        self.dtype = dtype = compute_dtype(dtype)
+        self.fc1 = Linear(channels, channels, dtype=dtype, round_first=True)
+        self.fc2 = Linear(channels, channels, dtype=dtype, round_first=True)
         self.no_spatial = no_spatial
         if not no_spatial:
-            self.spatial = nn.Conv2d(2, 1, 7, padding=3, bias=False)
+            self.spatial = Conv2d(2, 1, 7, padding=3, bias=False, dtype=dtype)
             self.spatial_norm = nn.BatchNorm2d(1, eps=1e-5)
 
     def reset_parameters(self, generator=None):

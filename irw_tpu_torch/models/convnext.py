@@ -13,6 +13,12 @@ The stem and downsampling convs are flax ``nn.Conv`` with its default
 (total = (out − 1)·stride + k − in) with the smaller half at the top and
 left, as XLA pads.  The blocks run on NHWC tensors (LayerNorm and Linear on
 the channel axis), the convs on NCHW views of them.
+
+``dtype`` (``resnet.compute_dtype``) is the compute dtype of every conv,
+Linear and LayerNorm, as the JAX module passes it; parameters stay
+float32.  The LayerScale product promotes: ``y * gamma`` with a float32
+``gamma`` is float32, so from the first block on the residual stream is
+float32 and each conv and LayerNorm casts it back (convnext.py:29-30).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from irw_tpu_torch.models.layers import LayerNorm, Linear
-from irw_tpu_torch.models.resnet import lecun_normal_
+from irw_tpu_torch.models.resnet import Conv2d, compute_dtype, lecun_normal_
 
 
 def _same_pad(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -32,7 +38,7 @@ def _same_pad(size: int, kernel: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv_same(conv: nn.Conv2d, x):
+def conv_same(conv: Conv2d, x):
     """``conv`` (no padding of its own) over the NHWC ``x`` with flax's
     ``'SAME'`` padding; NHWC out."""
     x = x.permute(0, 3, 1, 2)
@@ -45,13 +51,13 @@ def conv_same(conv: nn.Conv2d, x):
 
 
 class ConvNeXtBlock(nn.Module):
-    def __init__(self, dim: int, layerscale_init: float = 1e-6):
+    def __init__(self, dim: int, layerscale_init: float = 1e-6, dtype=torch.float32):
         super().__init__()
         self.layerscale_init = layerscale_init
-        self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
-        self.norm = LayerNorm(dim)
-        self.fc1 = Linear(dim, 4 * dim)
-        self.fc2 = Linear(4 * dim, dim)
+        self.dwconv = Conv2d(dim, dim, 7, padding=3, groups=dim, dtype=dtype)
+        self.norm = LayerNorm(dim, dtype=dtype)
+        self.fc1 = Linear(dim, 4 * dim, dtype=dtype, round_first=True)
+        self.fc2 = Linear(4 * dim, dim, dtype=dtype, round_first=True)
         self.gamma = nn.Parameter(torch.full((dim,), layerscale_init))
 
     def forward(self, x):
@@ -61,17 +67,18 @@ class ConvNeXtBlock(nn.Module):
 
 
 class ConvNeXt(nn.Module):
-    def __init__(self, depths=(3, 3, 9, 3), dims=(96, 192, 384, 768)):
+    def __init__(self, depths=(3, 3, 9, 3), dims=(96, 192, 384, 768), dtype="float32"):
         super().__init__()
+        self.dtype = dtype = compute_dtype(dtype)
         self.depths = tuple(depths)
-        self.stem = nn.Conv2d(3, dims[0], 4, stride=4)
-        self.stem_norm = LayerNorm(dims[0])
-        self.down_norms = nn.ModuleList(LayerNorm(d) for d in dims[:-1])
-        self.downsamples = nn.ModuleList(nn.Conv2d(a, b, 2, stride=2)
+        self.stem = Conv2d(3, dims[0], 4, stride=4, dtype=dtype)
+        self.stem_norm = LayerNorm(dims[0], dtype=dtype)
+        self.down_norms = nn.ModuleList(LayerNorm(d, dtype=dtype) for d in dims[:-1])
+        self.downsamples = nn.ModuleList(Conv2d(a, b, 2, stride=2, dtype=dtype)
                                          for a, b in zip(dims[:-1], dims[1:]))
-        self.blocks = nn.ModuleList(ConvNeXtBlock(dim) for depth, dim in zip(depths, dims)
-                                    for _ in range(depth))
-        self.norm = LayerNorm(dims[-1])
+        self.blocks = nn.ModuleList(ConvNeXtBlock(dim, dtype=dtype)
+                                    for depth, dim in zip(depths, dims) for _ in range(depth))
+        self.norm = LayerNorm(dims[-1], dtype=dtype)
         self.out_dim = dims[-1]
 
     def reset_parameters(self, generator: torch.Generator | None = None):

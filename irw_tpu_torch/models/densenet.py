@@ -11,7 +11,8 @@ ReLU → 1×1 conv) and average-pools 2×2 with stride 2 over whole windows
 bias-free.  BatchNorm is ``resnet.BatchNorm`` (flax momentum 0.9);
 ``frozen_bn`` (densenet.py:46-70) pins every BatchNorm to its running
 statistics in training, as ``ResNet``'s does.  Inside, NCHW views of the
-NHWC input.
+NHWC input.  ``dtype`` is the compute dtype of every conv and BatchNorm
+(``resnet.compute_dtype``); the concat, the pools and the mean stay in it.
 """
 
 from __future__ import annotations
@@ -20,16 +21,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from irw_tpu_torch.models.resnet import BatchNorm, _conv, freeze_batch_norms, lecun_normal_
+from irw_tpu_torch.models.resnet import (BatchNorm, _conv, compute_dtype, freeze_batch_norms,
+                                         lecun_normal_)
 
 
 class DenseLayer(nn.Module):
-    def __init__(self, cin: int, growth_rate: int, bn_size: int = 4):
+    def __init__(self, cin: int, growth_rate: int, bn_size: int = 4, dtype=torch.float32):
         super().__init__()
-        self.norm1 = BatchNorm(cin)
-        self.conv1 = _conv(cin, bn_size * growth_rate, 1)
-        self.norm2 = BatchNorm(bn_size * growth_rate)
-        self.conv2 = _conv(bn_size * growth_rate, growth_rate, 3, 1, 1)
+        self.norm1 = BatchNorm(cin, dtype)
+        self.conv1 = _conv(cin, bn_size * growth_rate, 1, dtype=dtype)
+        self.norm2 = BatchNorm(bn_size * growth_rate, dtype)
+        self.conv2 = _conv(bn_size * growth_rate, growth_rate, 3, 1, 1, dtype)
 
     def forward(self, x):
         y = self.conv1(F.relu(self.norm1(x)))
@@ -38,10 +40,10 @@ class DenseLayer(nn.Module):
 
 
 class Transition(nn.Module):
-    def __init__(self, cin: int, out_channels: int):
+    def __init__(self, cin: int, out_channels: int, dtype=torch.float32):
         super().__init__()
-        self.norm = BatchNorm(cin)
-        self.conv = _conv(cin, out_channels, 1)
+        self.norm = BatchNorm(cin, dtype)
+        self.conv = _conv(cin, out_channels, 1, dtype=dtype)
 
     def forward(self, x):
         return F.avg_pool2d(self.conv(F.relu(self.norm(x))), 2, 2)
@@ -49,23 +51,24 @@ class Transition(nn.Module):
 
 class DenseNet(nn.Module):
     def __init__(self, block_sizes=(6, 12, 24, 16), growth_rate: int = 32,
-                 init_features: int = 64, frozen_bn: bool = False):
+                 init_features: int = 64, frozen_bn: bool = False, dtype="float32"):
         super().__init__()
+        self.dtype = dtype = compute_dtype(dtype)
         self.frozen_bn = frozen_bn
         self.block_sizes = tuple(block_sizes)
-        self.stem = _conv(3, init_features, 7, 2, 3)
-        self.stem_norm = BatchNorm(init_features)
+        self.stem = _conv(3, init_features, 7, 2, 3, dtype)
+        self.stem_norm = BatchNorm(init_features, dtype)
         layers, transitions, channels = [], [], init_features
         for block_idx, n_layers in enumerate(self.block_sizes):
             for _ in range(n_layers):
-                layers.append(DenseLayer(channels, growth_rate))
+                layers.append(DenseLayer(channels, growth_rate, dtype=dtype))
                 channels += growth_rate
             if block_idx < len(self.block_sizes) - 1:
-                transitions.append(Transition(channels, channels // 2))
+                transitions.append(Transition(channels, channels // 2, dtype))
                 channels //= 2
         self.layers = nn.ModuleList(layers)
         self.transitions = nn.ModuleList(transitions)
-        self.norm = BatchNorm(channels)
+        self.norm = BatchNorm(channels, dtype)
         self.out_dim = channels
 
     def train(self, mode: bool = True):

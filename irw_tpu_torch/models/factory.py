@@ -24,6 +24,12 @@ Traps kept on purpose, as the JAX factory has them:
   reaches the shared dialect there: every ``RetrievalNet`` route builds in
   f32, ``dino_ce`` and ``multi_dino*`` included; the class adapters and
   ``build_single_band`` pass it on, as a bf16 ViT (factory.py:84-85);
+- a config's own ``dtype`` key (``+model.kwargs.dtype=bfloat16``) reaches
+  every module that declares one, as the JAX factory hands it on: the
+  wavelet CNNs and the hashing ResNets compute their trunks in it; the
+  wrapped trunks (``resnet50``, ``convnext``, …) are built without it
+  (factory.py:229-243) and stay f32, and ``mtwavenet50``'s function drops it
+  with every other key;
 - the embedding trunks are built without ``vit_kwargs`` (factory.py:229-249),
   so no ``RetrievalNet`` ViT trunk remats or takes K2/K3;
 - a ResNet trunk returns pooled (B, C) features, so ``pooling`` does nothing

@@ -19,8 +19,10 @@ images (B, H, W, C):
 - ``ResNet50Mod``: a ``ResNet50DSCH`` with tanh(α·codes) in training and
   sign(codes) in eval (hashing_nets.py:98-112).
 
-The trunk runs in f32; another ``dtype`` raises, naming ROADMAP A10e
-(bf16 ResNet/DenseNet trunks; ``resnet.check_f32``).
+``dtype`` (``resnet.compute_dtype``) is the trunk's compute dtype, as the
+JAX modules hand it to their ResNet; the fc and the LayerNorm take none in
+JAX, so they compute in float32 on half-precision features, as jnp
+promotes them.  ``ResNetCE``'s eval embedding stays in the trunk's dtype.
 """
 
 from __future__ import annotations
@@ -30,25 +32,24 @@ from torch import nn
 
 from irw_tpu_torch.models.layers import (LayerNorm, Linear, global_pool, l2_normalize,
                                          zero_aux)
-from irw_tpu_torch.models.resnet import ResNet, check_f32
+from irw_tpu_torch.models.resnet import ResNet
 
 
-def _trunk(depth: int, frozen_bn: bool) -> ResNet:
+def _trunk(depth: int, frozen_bn: bool, dtype) -> ResNet:
     """``_trunk`` (hashing_nets.py:23-28): 18 → basic blocks, 101 → (3, 4,
     23, 3) bottlenecks, any other depth the ResNet-50."""
     if depth == 18:
-        return ResNet((2, 2, 2, 2), "basic", frozen_bn=frozen_bn)
+        return ResNet((2, 2, 2, 2), "basic", frozen_bn=frozen_bn, dtype=dtype)
     if depth == 101:
-        return ResNet((3, 4, 23, 3), "bottleneck", frozen_bn=frozen_bn)
-    return ResNet((3, 4, 6, 3), "bottleneck", frozen_bn=frozen_bn)
+        return ResNet((3, 4, 23, 3), "bottleneck", frozen_bn=frozen_bn, dtype=dtype)
+    return ResNet((3, 4, 6, 3), "bottleneck", frozen_bn=frozen_bn, dtype=dtype)
 
 
 class ResNetCE(nn.Module):
     def __init__(self, num_classes: int = 100, depth: int = 50, frozen_bn: bool = True,
                  dtype="float32"):
         super().__init__()
-        check_f32(dtype)
-        self.trunk = _trunk(depth, frozen_bn)
+        self.trunk = _trunk(depth, frozen_bn, dtype)
         self.fc = Linear(self.trunk.out_dim, num_classes)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -68,8 +69,7 @@ class ResNetHashing(nn.Module):
     def __init__(self, nbits: int = 64, depth: int = 50, frozen_bn: bool = True,
                  dtype="float32"):
         super().__init__()
-        check_f32(dtype)
-        self.trunk = _trunk(depth, frozen_bn)
+        self.trunk = _trunk(depth, frozen_bn, dtype)
         self.fc = Linear(self.trunk.out_dim, nbits)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -94,10 +94,9 @@ class ResNet50DSCH(nn.Module):
                  use_layernorm: bool = False, normalize: bool = False, frozen_bn: bool = False,
                  dtype="float32"):
         super().__init__()
-        check_f32(dtype)
         self.double_pool = double_pool
         self.normalize = normalize
-        self.trunk = ResNet((3, 4, 6, 3), "bottleneck", frozen_bn=frozen_bn)
+        self.trunk = ResNet((3, 4, 6, 3), "bottleneck", frozen_bn=frozen_bn, dtype=dtype)
         self.norm = LayerNorm(self.trunk.out_dim) if use_layernorm else None
         self.fc = Linear(self.trunk.out_dim, n_bits)
 

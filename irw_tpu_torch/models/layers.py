@@ -68,13 +68,18 @@ def linear(x, weight, bias, dtype: torch.dtype):
 class Linear(nn.Module):
     """flax ``Dense`` with weights in torch's (out, in) layout, optionally
     one per band.  Init: variance scaling 1/fan_in, truncated normal (flax's
-    lecun_normal) — tests and ``bridge`` overwrite it."""
+    lecun_normal) — tests and ``bridge`` overwrite it.  ``round_first``: in
+    a half dtype the bias is added after the product is rounded to it, as
+    flax adds it (``linear.py:275-290``), where ``F.linear`` may add it in
+    the accumulator."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 bands: int | None = None, dtype: torch.dtype = torch.float32):
+                 bands: int | None = None, dtype: torch.dtype = torch.float32,
+                 round_first: bool = False):
         super().__init__()
         lead = () if bands is None else (bands,)
         self.dtype = dtype
+        self.round_first = round_first and dtype != torch.float32
         self.weight = nn.Parameter(torch.empty(*lead, out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(*lead, out_features)) if bias else None
 
@@ -86,6 +91,8 @@ class Linear(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
+        if self.round_first and self.bias is not None:
+            return linear(x, self.weight, None, self.dtype) + self.bias.to(self.dtype)
         return linear(x, self.weight, self.bias, self.dtype)
 
 

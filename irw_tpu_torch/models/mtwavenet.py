@@ -28,10 +28,23 @@
 ``frozen_bn`` pins every trunk BatchNorm to its running statistics in
 training.  Forwards take ``(x, rngs=None)`` and return ``(out, aux)`` with
 ``aux["ortho_loss"] = 0`` (and ``aux["gate"]``, (B, S), for the fusion).
-f32 throughout; another ``dtype`` raises (ROADMAP A10e).
+
+``dtype`` (``resnet.compute_dtype``) is the compute dtype of the trunks and
+the ``CrossBandAttention`` blocks, as the JAX modules pass it; the
+LayerNorm, ``ChannelGate1D`` and the classifiers take none in JAX, so they
+compute in float32 on half-precision features, as jnp promotes them.
+
+With ``pool="none"`` a band's feature is its flattened last-stage map, so
+the LayerNorm and the classifiers after the pool are as wide as that map:
+the JAX modules size them from the input at init (mtwavenet.py:95-98,
+:127), the port from ``fit_image(h, w)`` (a band's size), which
+``get_model(..., image_size=(h, w))`` calls and ``run`` passes from its
+first batch.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -40,19 +53,15 @@ from irw_tpu_torch.models.attention_blocks import ChannelGate1D, CrossBandAttent
 from irw_tpu_torch.models.densenet import DenseNet
 from irw_tpu_torch.models.layers import (LayerNorm, Linear, apply_dropout, global_pool,
                                          l2_normalize, zero_aux)
-from irw_tpu_torch.models.resnet import ResNet, check_f32
+from irw_tpu_torch.models.resnet import ResNet
 
 DROPOUT = 0.5   # fixed in the JAX modules (mtwavenet.py:126, :168)
 _DEPTHS = {18: ((2, 2, 2, 2), "basic"), 50: ((3, 4, 6, 3), "bottleneck")}
 
 
-def _sized_by_pool(pool: str, needed: bool, what: str) -> None:
-    """With ``pool="none"`` a band's feature width is its flattened map,
-    which the JAX modules size lazily from the input; the port sizes its
-    layers when it builds them, so it refuses ``what`` there."""
-    if pool == "none" and needed:
-        raise NotImplementedError(f"pool='none' sizes {what} from the input's map; the port "
-                                  "builds it with avg, max or avg_max pooling only")
+def _unsized(what: str):
+    return ValueError(f"pool='none' sizes {what} from a band's flattened map: build the model "
+                      "with get_model(..., image_size=(h, w)) or call fit_image(h, w) first")
 
 
 def _zero_(lin: Linear) -> None:
@@ -65,16 +74,32 @@ class BandedStagedResNet(nn.Module):
     each stage: (B, S, H, W, C) → (B, S, D)."""
 
     def __init__(self, stage_sizes, block: str, num_bands: int = 4, width: int = 64,
-                 layernorm: bool = False, pool: str = "avg", frozen_bn: bool = False):
+                 layernorm: bool = False, pool: str = "avg", frozen_bn: bool = False,
+                 dtype="float32"):
         super().__init__()
-        self.branches = nn.ModuleList(ResNet(stage_sizes, block, width, frozen_bn)
+        self.branches = nn.ModuleList(ResNet(stage_sizes, block, width, frozen_bn, dtype=dtype)
                                       for _ in range(num_bands))
-        self.att_blocks = nn.ModuleList(CrossBandAttention(num_bands * dim)
+        self.att_blocks = nn.ModuleList(CrossBandAttention(num_bands * dim, dtype=dtype)
                                         for dim in self.branches[0].stage_dims)
         self.pool = pool
-        self.out_dim = self.branches[0].out_dim
-        _sized_by_pool(pool, layernorm, "the LayerNorm")
-        self.branch_ln = LayerNorm(self.out_dim) if layernorm else None
+        self.layernorm = layernorm
+        self.out_dim = self.branch_ln = None
+        if pool != "none":
+            self._size(self.branches[0].out_dim)
+
+    def _size(self, dim: int):
+        self.out_dim = dim
+        self.branch_ln = LayerNorm(dim) if self.layernorm else None
+
+    def fit_image(self, h: int, w: int):
+        """With ``pool="none"``: D = C·h'·w' of a band's last-stage map (the
+        stem's conv and max-pool and each later stage halve a side, rounding
+        up), and the LayerNorm that wide."""
+        if self.pool != "none":
+            return
+        for _ in range(len(self.att_blocks) + 1):
+            h, w = math.ceil(h / 2), math.ceil(w / 2)
+        self._size(self.branches[0].out_dim * h * w)
 
     def reset_parameters(self, generator=None):
         for mod in (*self.branches, *self.att_blocks):
@@ -87,6 +112,8 @@ class BandedStagedResNet(nn.Module):
         if x.shape[1] != len(self.branches):
             raise ValueError(f"BandedStagedResNet holds {len(self.branches)} branches, "
                              f"got {x.shape[1]} bands")
+        if self.layernorm and self.branch_ln is None:
+            raise _unsized("the LayerNorm")
         bands = [branch.stem_forward(x[:, s].permute(0, 3, 1, 2))   # NCHW views
                  for s, branch in enumerate(self.branches)]
         for stage, att in enumerate(self.att_blocks):
@@ -105,13 +132,21 @@ class FourBranchResNet(nn.Module):
     def __init__(self, num_classes: int | None = None, depth: int = 18, layernorm: bool = False,
                  pool: str = "avg", frozen_bn: bool = False, dtype="float32"):
         super().__init__()
-        check_f32(dtype)
         sizes, block = _DEPTHS[18] if depth == 18 else _DEPTHS[50]
-        _sized_by_pool(pool, num_classes is not None, "the classifier")
         self.backbone = BandedStagedResNet(sizes, block, layernorm=layernorm, pool=pool,
-                                           frozen_bn=frozen_bn)
-        self.branch_classifier = (None if num_classes is None
-                                  else Linear(self.backbone.out_dim, num_classes))
+                                           frozen_bn=frozen_bn, dtype=dtype)
+        self.num_classes = num_classes
+        self._size_heads()
+
+    def _size_heads(self):
+        dim = self.backbone.out_dim
+        self.branch_classifier = (None if self.num_classes is None or dim is None
+                                  else Linear(dim, self.num_classes))
+
+    def fit_image(self, h: int, w: int):
+        """``BandedStagedResNet.fit_image``, and the classifier that wide."""
+        self.backbone.fit_image(h, w)
+        self._size_heads()
 
     def reset_parameters(self, generator=None):
         self.backbone.reset_parameters(generator)
@@ -121,7 +156,9 @@ class FourBranchResNet(nn.Module):
     def forward(self, x, rngs: dict | None = None):
         emb = self.backbone(x)
         aux = zero_aux(x)
-        if self.training and self.branch_classifier is not None:
+        if self.training and self.num_classes is not None:
+            if self.branch_classifier is None:
+                raise _unsized("the classifier")
             emb = apply_dropout(emb, DROPOUT, True, (rngs or {}).get("dropout"))
             logits = self.branch_classifier(emb)
             return [logits[:, i] for i in range(logits.shape[1])], aux
@@ -142,14 +179,22 @@ class FourBranchResNet50Fusion(nn.Module):
     def __init__(self, num_classes: int | None = 100, pool: str = "avg", frozen_bn: bool = False,
                  dtype="float32"):
         super().__init__()
-        check_f32(dtype)
         self.backbone = BandedStagedResNet(*_DEPTHS[50], layernorm=True, pool=pool,
-                                           frozen_bn=frozen_bn)
+                                           frozen_bn=frozen_bn, dtype=dtype)
         self.gate = ChannelGate1D(num_subbands=4)
-        dim = self.backbone.out_dim
         self.num_classes = num_classes
-        self.branch_classifier = None if num_classes is None else Linear(dim, num_classes)
-        self.classifier = None if num_classes is None else Linear(dim, num_classes)
+        self._size_heads()
+
+    def _size_heads(self):
+        dim, n = self.backbone.out_dim, self.num_classes
+        sized = n is not None and dim is not None
+        self.branch_classifier = Linear(dim, n) if sized else None
+        self.classifier = Linear(dim, n) if sized else None
+
+    def fit_image(self, h: int, w: int):
+        """``BandedStagedResNet.fit_image``, and the classifiers that wide."""
+        self.backbone.fit_image(h, w)
+        self._size_heads()
 
     def reset_parameters(self, generator=None):
         self.backbone.reset_parameters(generator)
@@ -167,6 +212,8 @@ class FourBranchResNet50Fusion(nn.Module):
                 raise TypeError("FourBranchResNet50Fusion trains only with num_classes: the JAX "
                                 "module's classifiers are Dense(None) (mtwavenet.py:168-172), "
                                 "which its training init refuses")
+            if self.classifier is None:
+                raise _unsized("the classifiers")
             dropped = apply_dropout(emb, DROPOUT, True, (rngs or {}).get("dropout"))
             logits = self.branch_classifier(dropped)
             return [logits[:, i] for i in range(logits.shape[1])] + [self.classifier(fused)], aux
@@ -179,9 +226,9 @@ class HybridMultiBranch(nn.Module):
     def __init__(self, num_classes: int | None = None, frozen_bn: bool = False,
                  dtype="float32"):
         super().__init__()
-        check_f32(dtype)
-        self.ll_trunk = ResNet((3, 4, 6, 3), "bottleneck", frozen_bn=frozen_bn)
-        self.detail_trunks = nn.ModuleList(DenseNet(frozen_bn=frozen_bn) for _ in range(3))
+        self.ll_trunk = ResNet((3, 4, 6, 3), "bottleneck", frozen_bn=frozen_bn, dtype=dtype)
+        self.detail_trunks = nn.ModuleList(DenseNet(frozen_bn=frozen_bn, dtype=dtype)
+                                           for _ in range(3))
         dim = self.ll_trunk.out_dim + sum(t.out_dim for t in self.detail_trunks)
         self.classifier = None if num_classes is None else Linear(dim, num_classes)
 

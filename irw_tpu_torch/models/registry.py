@@ -98,14 +98,15 @@ def get_model(name: str, device: str | torch.device | None = None, seed: int = 0
               image_size: tuple[int, int] | None = None, **kwargs):
     """Instantiate a registered model with random weights from ``seed``.
 
-    ``vit_kwargs["dtype"]`` may be a string ('bfloat16'/'float32') from YAML
-    configs.  Weights are drawn on the CPU, then moved: the same seed gives the
+    ``vit_kwargs["dtype"]`` and a CNN's ``dtype`` may be a string
+    ('bfloat16'/'float16'/'float32') from YAML configs.  Weights are drawn on the CPU, then moved: the same seed gives the
     same model on either device.  ``image_size`` (height, width of the model's input, a
     band's for a band stack) sizes every ViT's position embeddings, as the
     JAX init sizes them from its sample input; without it a ViT takes its
     ``img_size``; the HF wrapper's SigLIP tower resizes its position table at
     each call and its CLIP and ViT towers raise on another patch count, as
-    the JAX init does.
+    the JAX init does; the mtwavenet family with ``pool="none"`` sizes the
+    layers after its pool from it (``fit_image``).
     """
     device = resolve_device(device)
     try:
@@ -118,5 +119,7 @@ def get_model(name: str, device: str | torch.device | None = None, seed: int = 0
         for mod in model.modules():
             if isinstance(mod, (VisionTransformer, CLIPVisionTower, ViTTower)):
                 mod.fit_grid(*image_size)
+        if hasattr(model, "fit_image"):
+            model.fit_image(*image_size)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -4,8 +4,11 @@
 Input and output keep the JAX package's NHWC layout at the module boundary:
 ``ResNet`` takes (B, H, W, C) and returns pooled (B, D) features, or with
 ``return_stages`` the four stages' (B, h, w, C) maps; inside, the tensors are
-NCHW views of channels-last memory, which cuDNN takes as they are.  f32
-throughout.  flax semantics kept:
+NCHW views of channels-last memory, which cuDNN takes as they are.  The
+compute dtype is the JAX modules' ``dtype`` (``compute_dtype``: float32,
+bfloat16 or float16, as a config's string or a torch dtype); parameters and
+BatchNorm statistics stay float32, as flax's ``param_dtype``.  flax
+semantics kept:
 
 - ``BatchNorm``: eps 1e-5, flax momentum 0.9 (= torch momentum 0.1); eval
   uses the running statistics; training normalises with the batch
@@ -19,14 +22,19 @@ throughout.  flax semantics kept:
   (resnet.py:80-98, ``WaveResNet``'s stem over half-resolution bands);
 - convs are bias-free; parameters start from flax's initialisers
   (lecun-normal kernels, BatchNorm scale 1 and bias 0);
+- in a half dtype (flax ``promote_dtype``, ``linear.py:687-688``) a conv
+  casts its input and kernel (and bias) to the dtype, the bias added after
+  the product is rounded; a BatchNorm takes its statistics from x in
+  float32 and computes y in float32, cast to the dtype once
+  (``normalization.py:111-116, :205-226``); ReLU, max-pool, the residual
+  add and the pooled mean stay in the dtype;
 - ``frozen_bn`` (resnet.py:85-87): in training every BatchNorm normalises
   with its running statistics and leaves them untouched, as flax's
   ``use_running_average``; the gradient still reaches scale and bias.
 
 ``stem`` and ``stage`` run the trunk piece by piece on NCHW views, as the
 stage-interleaved trunk of ``mtwavenet`` drives it; ``forward`` is the two
-in order.  ``check_f32`` is the trunks' dtype policy: float32, the only
-dtype a config reaches (bf16 trunks are ROADMAP A10e).
+in order.
 
 ``convs`` and ``norms`` of a block follow flax's auto-naming order
 (``Conv_i``/``BatchNorm_i``; a projection comes last), which is all the
@@ -36,6 +44,7 @@ bridge needs.
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -52,22 +61,77 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None
     return trunc_normal_(weight, 1.0 / math.sqrt(fan_in) / 0.87962566, generator)
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """A module's ``dtype`` (a config's string, a torch dtype, or None for
+    float32) as the torch dtype it computes in.  ``float64`` computes in
+    float32, as jnp casts to it with 64-bit types off (with the same
+    warning); any other name raises a ``ValueError`` that names it."""
+    if dtype is None:
+        return torch.float32
+    name = str(dtype).removeprefix("torch.")
+    if name == "float64":
+        warnings.warn("dtype float64 is not available, and will be truncated to float32 (as "
+                      "jnp does with 64-bit types off)", UserWarning, stacklevel=3)
+        return torch.float32
+    if name not in _DTYPES:
+        raise ValueError(f"dtype {dtype!r} is not one the trunks compute in: "
+                         f"{sorted(_DTYPES)} (or float64, as float32)")
+    return _DTYPES[name]
+
+
+class Conv2d(nn.Conv2d):
+    """flax ``nn.Conv`` in ``dtype``: in a half dtype the input, kernel and
+    bias are cast to it at use, the bias added after the product is rounded
+    to it.  In float32 it is PyTorch's own conv in its parameters' dtype.
+
+    On the CPU the half-precision operands are multiplied in float32 and the
+    product rounded once, as a half-precision conv accumulates: PyTorch's
+    CPU bf16 conv (2.13) returns non-finite kernel gradients where a tap
+    sees only padding (a 3×3 stride-2 conv over 1×1 maps)."""
+
+    def __init__(self, *args, dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = compute_dtype(dtype)
+
+    def forward(self, x):
+        if self.dtype == torch.float32:
+            return super().forward(x.to(self.weight.dtype))
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        if x.device.type == "cpu":
+            y = self._conv_forward(x.float(), w.float(), None).to(self.dtype)
+        else:
+            y = self._conv_forward(x, w, None)
+        return y if self.bias is None else y + self.bias.to(self.dtype)[:, None, None]
+
+
 class BatchNorm(nn.BatchNorm2d):
-    """flax ``BatchNorm`` over the channel axis of an NCHW tensor.  Eval:
-    PyTorch's (cuDNN's) batch norm on the running statistics.  Training:
+    """flax ``BatchNorm`` over the channel axis of an NCHW tensor, output in
+    ``dtype``.  Eval: PyTorch's (cuDNN's) batch norm on the running
+    statistics, which computes in float32 and rounds once.  Training:
     flax's arithmetic (``flax/linen/normalization.py`` ``_compute_stats``,
-    ``_normalize``): var = max(E[x²] − E[x]², 0), y = (x − mean) ·
-    (rsqrt(var + eps) · scale) + bias, and the running statistics updated in
-    place as 0.9·running + 0.1·batch with that biased variance."""
+    ``_normalize``) on x promoted to the statistics' float32: var =
+    max(E[x²] − E[x]², 0), y = (x − mean) · (rsqrt(var + eps) · scale) +
+    bias, cast to ``dtype`` once, and the running statistics updated in
+    place as 0.9·running + 0.1·batch with that biased variance.  In
+    float32 nothing is cast: the module follows its parameters' dtype."""
 
     momentum_flax = 0.9
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype=torch.float32):
         super().__init__(channels, eps=1e-5, momentum=1.0 - self.momentum_flax)
+        self.dtype = compute_dtype(dtype)
 
     def forward(self, x):
+        half = self.dtype != torch.float32
+        if not (half and x.dtype == self.dtype and not self.training):
+            x = x.to(self.running_mean.dtype)
         if not self.training:
-            return super().forward(x)
+            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                             False, 0.0, self.eps)
+            return y.to(self.dtype) if half else y
         mean = x.mean(dim=(0, 2, 3))
         var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
         with torch.no_grad():
@@ -75,15 +139,8 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_mean.mul_(m).add_((1.0 - m) * mean)
             self.running_var.mul_(m).add_((1.0 - m) * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-
-
-def check_f32(dtype) -> None:
-    """The ResNet and DenseNet trunks run in float32; another ``dtype``
-    raises (the JAX modules take one, but no config reaches another)."""
-    if dtype not in (None, "float32", torch.float32):
-        raise NotImplementedError(f"a ResNet/DenseNet trunk in {dtype} waits for ROADMAP "
-                                  "A10e; the port's trunks run in float32")
+        y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(self.dtype) if half else y
 
 
 def freeze_batch_norms(module: nn.Module) -> None:
@@ -93,21 +150,22 @@ def freeze_batch_norms(module: nn.Module) -> None:
             mod.train(False)
 
 
-def _conv(cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding, bias=False)
+def _conv(cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0,
+          dtype=torch.float32) -> Conv2d:
+    return Conv2d(cin, cout, kernel, stride=stride, padding=padding, bias=False, dtype=dtype)
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, cin: int, filters: int, stride: int = 1):
+    def __init__(self, cin: int, filters: int, stride: int = 1, dtype=torch.float32):
         super().__init__()
-        convs = [_conv(cin, filters, 3, stride, 1), _conv(filters, filters, 3, 1, 1)]
+        convs = [_conv(cin, filters, 3, stride, 1, dtype), _conv(filters, filters, 3, 1, 1, dtype)]
         self.project = stride != 1 or cin != filters
         if self.project:
-            convs.append(_conv(cin, filters, 1, stride))
+            convs.append(_conv(cin, filters, 1, stride, dtype=dtype))
         self.convs = nn.ModuleList(convs)
-        self.norms = nn.ModuleList(BatchNorm(c.out_channels) for c in convs)
+        self.norms = nn.ModuleList(BatchNorm(c.out_channels, dtype) for c in convs)
 
     def forward(self, x):
         y = F.relu(self.norms[0](self.convs[0](x)))
@@ -119,15 +177,15 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, cin: int, filters: int, stride: int = 1):
+    def __init__(self, cin: int, filters: int, stride: int = 1, dtype=torch.float32):
         super().__init__()
-        convs = [_conv(cin, filters, 1), _conv(filters, filters, 3, stride, 1),
-                 _conv(filters, filters * 4, 1)]
+        convs = [_conv(cin, filters, 1, dtype=dtype), _conv(filters, filters, 3, stride, 1, dtype),
+                 _conv(filters, filters * 4, 1, dtype=dtype)]
         self.project = stride != 1 or cin != filters * 4
         if self.project:
-            convs.append(_conv(cin, filters * 4, 1, stride))
+            convs.append(_conv(cin, filters * 4, 1, stride, dtype=dtype))
         self.convs = nn.ModuleList(convs)
-        self.norms = nn.ModuleList(BatchNorm(c.out_channels) for c in convs)
+        self.norms = nn.ModuleList(BatchNorm(c.out_channels, dtype) for c in convs)
 
     def forward(self, x):
         y = F.relu(self.norms[0](self.convs[0](x)))
@@ -144,18 +202,20 @@ class ResNet(nn.Module):
     """Stage-structured ResNet: (B, H, W, C) → globally average-pooled (B, D)."""
 
     def __init__(self, stage_sizes=(3, 4, 6, 3), block: str = "bottleneck", width: int = 64,
-                 frozen_bn: bool = False, stem_kernel: int = 7, stem_stride: int = 2):
+                 frozen_bn: bool = False, stem_kernel: int = 7, stem_stride: int = 2,
+                 dtype="float32"):
         super().__init__()
         cls = BLOCKS[block]
+        self.dtype = dtype = compute_dtype(dtype)
         self.frozen_bn = frozen_bn
         self.stem_pool = stem_kernel > 1
-        self.stem = _conv(3, width, stem_kernel, stem_stride, stem_kernel // 2)
-        self.stem_norm = BatchNorm(width)
+        self.stem = _conv(3, width, stem_kernel, stem_stride, stem_kernel // 2, dtype)
+        self.stem_norm = BatchNorm(width, dtype)
         blocks, cin, self.stage_dims = [], width, []
         for stage, num_blocks in enumerate(stage_sizes):
             filters = width * 2 ** stage
             for i in range(num_blocks):
-                blocks.append(cls(cin, filters, 2 if stage > 0 and i == 0 else 1))
+                blocks.append(cls(cin, filters, 2 if stage > 0 and i == 0 else 1, dtype))
                 cin = filters * cls.expansion
             self.stage_dims.append(cin)
         self.blocks = nn.ModuleList(blocks)

@@ -29,9 +29,13 @@ module here draws a mask) and returns ``(out, aux)`` with
 ``aux["ortho_loss"] = 0`` (and ``aux["gate"]``, (B, S), with a gate).
 ``frozen_bn`` pins every branch BatchNorm to its running statistics in
 training.  The gates' options that no config sets (reduction ratio, pool
-types, ECA width) are the JAX defaults.  f32 throughout: the JAX factory's
-``with_autocast`` reaches only ``vit_kwargs``, and another ``dtype`` raises
-(ROADMAP A10e).
+types, ECA width) are the JAX defaults.  ``dtype`` (float32, bfloat16 or
+float16; ``resnet.compute_dtype``) is the branches' compute dtype, as the
+JAX modules hand it to their ResNets; the DWT before them stays in the
+images' dtype, and the gates and the zero-initialised classifiers, which
+take no dtype in JAX, compute in float32 on the half-precision features,
+as jnp promotes them.  An eval embedding without a gate stays in the
+branches' dtype.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from torch import nn
 
 from irw_tpu_torch.models.attention_blocks import SUBBAND_GATES
 from irw_tpu_torch.models.layers import Linear, l2_normalize, zero_aux
-from irw_tpu_torch.models.resnet import ResNet, check_f32
+from irw_tpu_torch.models.resnet import ResNet
 from irw_tpu_torch.ops.wavelets.lifting import lifting_decompose
 from irw_tpu_torch.ops.wavelets.lifting_dwt import lifting_multi_level
 
@@ -53,10 +57,10 @@ class BandedResNet(nn.Module):
 
     def __init__(self, num_bands: int = 4, stage_sizes=(3, 4, 6, 3), block: str = "bottleneck",
                  stem_kernel: int = 7, stem_stride: int = 2, frozen_bn: bool = False,
-                 width: int = 64):
+                 width: int = 64, dtype="float32"):
         super().__init__()
         self.branches = nn.ModuleList(
-            ResNet(stage_sizes, block, width, frozen_bn, stem_kernel, stem_stride)
+            ResNet(stage_sizes, block, width, frozen_bn, stem_kernel, stem_stride, dtype)
             for _ in range(num_bands))
         self.out_dim = self.branches[0].out_dim
 
@@ -71,10 +75,10 @@ class BandedResNet(nn.Module):
         return torch.stack([branch(x[:, s]) for s, branch in enumerate(self.branches)], dim=1)
 
 
-def _branches(backbone: str, num_bands: int, frozen_bn: bool) -> BandedResNet:
+def _branches(backbone: str, num_bands: int, frozen_bn: bool, dtype) -> BandedResNet:
     """``_wcnn_branch_feats``: resnet18 branches, or resnet50 for any other name."""
     return BandedResNet(num_bands, *_BRANCHES.get(backbone, _BRANCHES["resnet50"]),
-                        frozen_bn=frozen_bn)
+                        frozen_bn=frozen_bn, dtype=dtype)
 
 
 def decompose_to_bands(x: torch.Tensor, levels: int, basis: str) -> torch.Tensor:
@@ -97,11 +101,11 @@ def decompose_to_bands(x: torch.Tensor, levels: int, basis: str) -> torch.Tensor
     return flat.reshape(b, c, 4, ho, wo).permute(0, 2, 3, 4, 1)
 
 
-def _wave_trunk(num_bands: int, frozen_bn: bool) -> BandedResNet:
+def _wave_trunk(num_bands: int, frozen_bn: bool, dtype) -> BandedResNet:
     """The ResNet-50 branches of ``WaveResNet``: a 1×1 stride-1 stem, no
     max-pool (wresnet.py:260-261's stem surgery)."""
     return BandedResNet(num_bands, (3, 4, 6, 3), "bottleneck", stem_kernel=1, stem_stride=1,
-                        frozen_bn=frozen_bn)
+                        frozen_bn=frozen_bn, dtype=dtype)
 
 
 class WaveResNet(nn.Module):
@@ -111,10 +115,9 @@ class WaveResNet(nn.Module):
                  attention: str | None = None, ll_only: bool = False, frozen_bn: bool = False,
                  dtype="float32"):
         super().__init__()
-        check_f32(dtype)
         self.decom_level, self.wave, self.ll_only = int(decom_level), wave, ll_only
         num_bands = 1 if ll_only else 4
-        self.backbone = _wave_trunk(num_bands, frozen_bn)
+        self.backbone = _wave_trunk(num_bands, frozen_bn, dtype)
         gated = attention in SUBBAND_GATES and not ll_only
         self.gate = SUBBAND_GATES[attention](num_subbands=num_bands) if gated else None
 
@@ -142,9 +145,8 @@ class WaveResNetCE(nn.Module):
     def __init__(self, num_classes: int = 100, decom_level: int = 1, wave: str = "haar",
                  frozen_bn: bool = False, dtype="float32"):
         super().__init__()
-        check_f32(dtype)
         self.decom_level, self.wave = int(decom_level), wave
-        self.backbone = _wave_trunk(4, frozen_bn)
+        self.backbone = _wave_trunk(4, frozen_bn, dtype)
         self.branch_classifier = Linear(self.backbone.out_dim, num_classes)
 
     def reset_parameters(self, generator=None):
@@ -169,8 +171,7 @@ class WCNN(nn.Module):
     def __init__(self, num_classes: int = 100, backbone: str = "resnet50", ce: bool = True,
                  frozen_bn: bool = False, dtype="float32", num_bands: int = 4):
         super().__init__()
-        check_f32(dtype)
-        self.backbone = _branches(backbone, num_bands, frozen_bn)
+        self.backbone = _branches(backbone, num_bands, frozen_bn, dtype)
         self.ce = ce
         self.branch_classifier = Linear(self.backbone.out_dim, num_classes) if ce else None
 
@@ -206,8 +207,7 @@ class WCNNAttention(nn.Module):
                  backbone: str = "resnet50", frozen_bn: bool = False, dtype="float32",
                  num_bands: int = 4):
         super().__init__()
-        check_f32(dtype)
-        self.backbone = _branches(backbone, num_bands, frozen_bn)
+        self.backbone = _branches(backbone, num_bands, frozen_bn, dtype)
         self.gate = SUBBAND_GATES[attention](num_subbands=num_bands)
         self.ce = ce
         dim = self.backbone.out_dim

@@ -124,15 +124,14 @@ def test_factory_drops_only_what_the_jax_factory_drops():
     # a key no JAX module declares: dropped by both factories
     model = get_model("RetrievalNet", device="cpu", **base, feature_size=512, wave="haar")
     assert len(model.backbone.branches) == 4
-    # keys the JAX WCNN takes reach the port's: frozen_bn, and dtype in f32;
-    # a bf16 trunk raises, naming its ROADMAP item
+    # keys the JAX WCNN takes reach the port's: frozen_bn, and dtype
     model = get_model("RetrievalNet", device="cpu", **base, frozen_bn=True)
     assert model.backbone.branches[0].frozen_bn
     model = get_model("RetrievalNet", device="cpu", **dict(base, backbone_name="wcnn_attention"),
                       dtype="float32")
     assert not model.backbone.branches[0].frozen_bn
-    with pytest.raises(NotImplementedError, match="A10e"):
-        get_model("RetrievalNet", device="cpu", **base, dtype="bfloat16")
+    model = get_model("RetrievalNet", device="cpu", **base, dtype="bfloat16")
+    assert model.backbone.branches[0].dtype == torch.bfloat16
     # a key the JAX module takes and the port's does not: no silent drop
     with pytest.raises(NotImplementedError, match="takes \\['parent'\\]"):
         get_model("RetrievalNet", device="cpu", **base, parent=None)

@@ -21,6 +21,7 @@ from irw_tpu_torch.data import SyntheticVOCDataset
 from irw_tpu_torch.engine import compute_embeddings, evaluate
 from irw_tpu_torch.engine.landmark import landmark_evaluation
 from irw_tpu_torch.models import get_model
+from irw_tpu_torch.models.resnet import compute_dtype
 from irw_tpu_torch.models.vit import make_vit
 from irw_tpu_torch.ops.attention import (
     attention_plain,
@@ -442,15 +443,23 @@ def test_lifting_kernel_refuses_other_dtypes_on_the_card():
 
 
 def test_unported_models_and_heads_name_their_roadmap_item():
-    # the ResNet/DenseNet trunks in another dtype than float32 (A10e)
-    for name, kw in (("wresnet", {}), ("mtwavenet50_fusion", {}),
-                     ("hybrid_mtwavenet_v2_ce", {}), ("wcnn", {}),
-                     ("resnet_ce", {"depth": 18})):
-        with pytest.raises(NotImplementedError, match="A10e"):
-            get_model(name, device="cpu", dtype="bfloat16", **kw)
     # the scanned layouts are only parameter layouts, accepted and ignored
     vit = make_vit("test_tiny", scan_blocks=True, scan_group=2, fused_qkv=False)
     assert len(vit.blocks) == 2
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int32", "float8_e4m3fn", "half precision"])
+def test_unknown_dtype_string_raises_by_name(dtype):
+    """A CNN's ``dtype`` that names no dtype the trunks compute in raises a
+    ValueError naming it, before anything is built; ``float64`` computes in
+    float32, as jnp casts with 64-bit types off."""
+    for name in ("resnet18", "densenet121", "convnext", "wcnn_attention_ce", "mtwavenet"):
+        with pytest.raises(ValueError, match=f"dtype '{dtype}'"):
+            get_model(name, device="cpu", dtype=dtype)
+    with pytest.warns(UserWarning, match="float64"):
+        assert compute_dtype("float64") == torch.float32
+    assert compute_dtype(torch.float16) == compute_dtype("float16") == torch.float16
+    assert compute_dtype(None) == torch.float32
 
 
 @pytest.mark.parametrize("flag", ["fused_qkv", "split_cls", "ln_fused"])

@@ -20,7 +20,9 @@ irw_tpu's, same weights.
   in ``tests/test_torch_wcnn.py``), and the port's likewise.  32² images,
   so the 1×1-stem branches run on 16² bands and reach 2² at stage 4;
   batch 3;
-- a ``dtype`` other than float32 raises, naming ROADMAP A10e.
+- ``wresnet_ce`` in bfloat16 builds with its branches' ``frozen_bn`` and
+  every conv and BatchNorm in that dtype (its numerics are
+  ``tests/test_torch_trunks_half.py``'s).
 
 Weights: numpy draws in the shapes of the JAX init (``numpy_init``: the
 classifiers drawn, not zero), one trunk shared by every variant, carried by
@@ -45,7 +47,7 @@ from irw_tpu.models import attention_blocks as jax_blocks
 from irw_tpu.models import wresnet as jax_wresnet
 from irw_tpu_torch.bridge import from_jax_variables, load_jax_variables
 from irw_tpu_torch.models import MODEL_REGISTRY, attention_blocks, wresnet
-from irw_tpu_torch.models.resnet import BatchNorm
+from irw_tpu_torch.models.resnet import BatchNorm, Conv2d
 from test_torch_fusion_heads import numpy_init
 
 TOL = 1e-4
@@ -310,8 +312,16 @@ def test_wave_resnet_training_matches_jax(case):
 
 
 def test_dtype_other_than_float32_names_a10e():
-    with pytest.raises(NotImplementedError, match="A10e"):
-        MODEL_REGISTRY["wresnet_ce"](torch.device("cpu"), dtype="bfloat16")
+    """A bf16 ``wresnet_ce`` builds, its branches keep ``frozen_bn`` (pinned
+    in training) and compute in bf16 while the parameters stay float32."""
     with torch.device("meta"):
-        model = MODEL_REGISTRY["wresnet"](torch.device("cpu"), dtype="float32", frozen_bn=True)
-    assert model.backbone.branches[0].frozen_bn
+        model = MODEL_REGISTRY["wresnet_ce"](torch.device("cpu"), dtype="bfloat16",
+                                             frozen_bn=True)
+        f32 = MODEL_REGISTRY["wresnet"](torch.device("cpu"), dtype="float32", frozen_bn=True)
+    assert f32.backbone.branches[0].frozen_bn
+    assert all(b.frozen_bn for b in model.backbone.branches)
+    assert {m.dtype for m in model.modules() if isinstance(m, (BatchNorm, Conv2d))} \
+        == {torch.bfloat16}
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    model.train()
+    assert not any(m.training for m in model.modules() if isinstance(m, BatchNorm))
