@@ -18,6 +18,7 @@
     python3 chip_smoke.py --phases card,build,hf_towers
     python3 chip_smoke.py --phases card,build,microbatch,engine_extras
     python3 chip_smoke.py --phases card,build,wcnn,wcnn_train,trunks_half
+    python3 chip_smoke.py --phases card,build,multi_card
 
 Drives the port's serving path — uint8 images → DeviceTransform (/255, Haar
 SWT: kernel K1) → the flagship MultiDinoHashing (4 × DINOv2 ViT-S/14 at
@@ -293,7 +294,20 @@ configuration of the family — and prints one line per phase:
    inside the model); one bf16 batch and step of ``mtwavenet50``,
    ``hybrid_mtwavenet_v2_ce`` (DenseNet-121), ``resnet_ce``, ``convnext`` and
    ``densenet121`` from the registry, each against its f32 twin; the bf16
-   numbers beside the f32 ``wcnn`` and ``wcnn_train`` ones of the run.
+   numbers beside the f32 ``wcnn`` and ``wcnn_train`` ones of the run;
+32. multi_card: the serving side of multi-card (ROADMAP A13a).  The
+   flagship over 5717 synthetic uint8 224² images with VOC's 20 labels
+   (Hamming, k 5717) and the WCNN over 5794 with 100 classes (cosine, k
+   5000), seed 0, LayerScale 1: ``compute_embeddings`` and ``evaluate`` by
+   this process at batch 64, then by ranks spawned (file rendezvous) over
+   a group of one rank a card on NCCL and over two ranks (two cards on
+   NCCL, or both on card 0 on gloo, whose ranks first build K1 at once
+   into an empty directory and load it) at 64 a rank, the metric suite's
+   query chunks split over the ranks: the first 64 queries' top-k indices
+   over the gathered embeddings equal to this process's, every metric
+   within 1e-6, every rank's dict equal, K1 = 1 and K2 = 12 (flagship) and
+   K4 = 1 (WCNN) a batch a rank, every route's ranks ended within 150 s;
+   eval and scoring seconds, embedded img/s and peak memory a rank.
 
 Then a JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -318,7 +332,7 @@ PHASES = ("card", "build", "swt", "attention", "serve", "profile", "retrieval", 
           "runner", "dwt", "wcnn", "wavelets", "wcnn_train", "wcnn_xbm", "losses", "flash",
           "flash_serve", "flash_train", "qkv", "qkv_micro", "variants", "siblings", "trunks",
           "files", "wavenets", "landmarks", "hf_towers", "microbatch", "engine_extras",
-          "run_tools", "serving", "trunks_half")
+          "run_tools", "serving", "trunks_half", "multi_card")
 
 # configs/model/multidino_attention_hashing_ortho.yaml (name + kwargs); the card
 # has no PyYAML, and tests/test_torch_multi_dino.py holds this dict to the file
@@ -5940,6 +5954,281 @@ def phase_serving(state):
     _release_earlier_phases(state)
 
 
+# the multi_card phase (ROADMAP A13a): the flagship over a VOC-train-sized
+# set (the study's 5717-image gallery, Hamming) and the WCNN over CUB's test
+# split (cosine), evaluated by one process and over process groups
+MULTI_CARD_N = {"flagship": 5717, "wcnn": CUB_TEST}
+MULTI_CARD_IMAGE = 224
+MULTI_CARD_K = {"flagship": 5717, "wcnn": 5000}   # the study's top_k; phase wcnn's
+MULTI_CARD_FIRST = 64     # queries whose top-k indices must equal the single process's
+MULTI_CARD_TOL = 1e-6     # every metric against the single process, absolute
+MULTI_CARD_PER_BATCH = {"flagship": (1, 12, 0, 0, 0, 0, 0), "wcnn": (0, 0, 0, 1, 0, 0, 0)}
+MULTI_CARD_ROUTE_S = 150.0   # a route's ranks end within this, or are killed (33 s seen)
+
+
+def _join_by(context, deadline: float, route: str) -> None:
+    """Join the spawned ranks (``join`` raises if one failed); past
+    ``deadline`` (``time.perf_counter``) kill the ones still running and
+    raise naming them."""
+    while not context.join(max(deadline - time.perf_counter(), 0.0)):
+        if time.perf_counter() >= deadline:
+            alive = [r for r, p in enumerate(context.processes) if p.is_alive()]
+            for p in context.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            raise AssertionError(f"{route}: ranks {alive} still running after "
+                                 f"{MULTI_CARD_ROUTE_S:.0f} s, killed")
+
+
+def _multi_card_sets(workdir: str) -> None:
+    """The phase's images and labels, drawn on the card from seed 0 and
+    written as .npy for every process to map: uint8 224² images, VOC's 20
+    multi-label classes for the flagship, 100 CUB classes for the WCNN."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, n in MULTI_CARD_N.items():
+        size = MULTI_CARD_IMAGE
+        images = torch.randint(0, 256, (n, size, size, 3), generator=gen, device="cuda",
+                               dtype=torch.uint8)
+        if name == "flagship":
+            labels = (torch.rand(n, 20, generator=gen, device="cuda") > 0.85).float()
+        else:
+            labels = torch.randint(0, 100, (n,), generator=gen, device="cuda")
+        np.save(f"{workdir}/{name}_images.npy", images.cpu().numpy())
+        np.save(f"{workdir}/{name}_labels.npy", labels.cpu().numpy())
+
+
+def _multi_card_eval(name: str, batch: int, workdir: str) -> dict:
+    """Model ``name`` at full width (seed 0, replicated from rank 0 under a
+    group) over the phase's set, as one process or one rank runs it: one
+    warm-up batch, then ``evaluate`` timed with its launches, its embedding
+    sweep (``compute_embeddings``) timed inside it and its embeddings (as
+    the group gathered them) kept for the first query chunk's top-k
+    indices; the peak memory."""
+    import importlib
+
+    import torch
+
+    from irw_tpu_torch.data.base import InMemoryDataset
+    from irw_tpu_torch.models import get_model
+    from irw_tpu_torch.ops.knn import knn
+    from irw_tpu_torch.parallel import replicate, world_size
+    from irw_tpu_torch.transforms import DeviceTransform
+
+    ds = InMemoryDataset([], np.load(f"{workdir}/{name}_labels.npy"))
+    ds.images = np.load(f"{workdir}/{name}_images.npy", mmap_mode="r")   # the memory route
+    if name == "flagship":
+        model, ops, metric = _flagship_model(), SWT_OPS, "hamming"
+    else:
+        model, ops, metric = get_model(WCNN["name"], seed=0, **WCNN["kwargs"]), DWT_OPS, "cosine"
+    replicate(model)
+    transform = DeviceTransform(ops)
+    k = min(MULTI_CARD_K[name], len(ds) - 1)
+    kernels = _kernel_wrappers()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        model(transform(np.array(ds.images[:batch // world_size()])))
+    sweep = {}
+    engine_evaluate = importlib.import_module("irw_tpu_torch.engine.evaluate")
+    embed = engine_evaluate.compute_embeddings
+
+    def timed_embed(*args, **kwargs):   # the sweep inside evaluate, timed and kept
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep["emb"], labels = embed(*args, **kwargs)
+        torch.cuda.synchronize()
+        sweep["seconds"] = time.perf_counter() - t0
+        return sweep["emb"], labels
+
+    for fn in kernels:
+        fn.launches = 0
+    engine_evaluate.compute_embeddings = timed_embed
+    try:
+        t0 = time.perf_counter()
+        metrics = engine_evaluate.evaluate(model, ds, transform, batch_size=batch, top_k=k,
+                                           distance_metric=metric)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+    finally:
+        engine_evaluate.compute_embeddings = embed
+    launches = [fn.launches for fn in kernels]
+    emb = sweep["emb"]
+    idx, _ = knn(emb[:512], emb, k, metric, same_source=True, query_chunk=512)
+    return {"metrics": metrics, "first": idx[:MULTI_CARD_FIRST].cpu().numpy(),
+            "launches": launches, "names": [fn.__name__ for fn in kernels], "eval_s": eval_s,
+            "embed_s": sweep["seconds"], "peak": torch.cuda.max_memory_allocated(), "k": k}
+
+
+def _fresh_k1_build(directory: str) -> dict:
+    """K1 built into the empty ``directory`` (``cuda_lib.load`` at its first
+    launch), loaded and held against its plain version once; the build
+    directory is restored after."""
+    from pathlib import Path
+
+    import torch
+
+    from irw_tpu_torch import cuda_lib
+    from irw_tpu_torch.ops.wavelets import haar_swt2, haar_swt2_plain
+
+    cached, cuda_lib.BUILD_DIR = cuda_lib.BUILD_DIR, Path(directory)
+    try:
+        t0 = time.perf_counter()
+        x = torch.randn(3, 224, 224, device="cuda")
+        err = (haar_swt2(x) - haar_swt2_plain(x)).abs().max().item()
+        return {"seconds": time.perf_counter() - t0, "max_abs_err": err,
+                "bytes": cuda_lib.lib_path("haar_swt2").stat().st_size}
+    finally:
+        cuda_lib.BUILD_DIR = cached
+
+
+def _multi_card_rank(rank: int, world: int, backend: str, cards: list, workdir: str,
+                     fresh_build: str | None) -> None:
+    """One rank of a route: joins the group on card ``cards[rank]``; with
+    ``fresh_build`` every rank builds K1 into that empty directory at the
+    same moment, loads it and holds one launch against the plain version;
+    then both models' ``_multi_card_eval``, written to ``rank<r>.pt``."""
+    import gc
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ["LOCAL_RANK"] = str(cards[rank])   # the card resolve_device gives the rank
+    torch.cuda.set_device(cards[rank])
+    from irw_tpu_torch.parallel import close_group, init_group
+
+    init_group(backend=backend, init_method=f"file://{workdir}/pg_{backend}_{world}",
+               world_size=world, rank=rank)
+    out = {"card": torch.cuda.current_device()}
+    try:
+        if fresh_build:
+            dist.barrier()
+            out["fresh_build"] = _fresh_k1_build(fresh_build)
+        for name in MULTI_CARD_N:
+            out[name] = _multi_card_eval(name, BATCH * world, workdir)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        close_group()
+    torch.save(out, f"{workdir}/{backend}_{world}_rank{rank}.pt")
+
+
+def _gemm_widths(n: int, dim: int, chunk: int = 512) -> dict:
+    """Whether cuBLAS's f32 GEMM gives the same bits for a score block of a
+    gallery half as for the whole width, for a full query chunk and the tail
+    chunk of ``n`` queries: {rows: max |difference|}.  Where it does not, a
+    rank ranking a gallery block would reorder near-tied cosine scores, which
+    is why ``parallel.eval_sharding`` splits the query chunks over the ranks
+    and not the gallery."""
+    import torch
+
+    from irw_tpu_torch.ops.distances import pairwise_distance
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    gallery = torch.randn(n, dim, generator=gen, device="cuda")
+    half = -(-n // 2)
+    out = {}
+    for rows in (chunk, n % chunk or chunk):
+        q = gallery[:rows]
+        whole = pairwise_distance(q, gallery, "cosine")
+        blocks = torch.cat([pairwise_distance(q, gallery[:half], "cosine"),
+                            pairwise_distance(q, gallery[half:], "cosine")], dim=1)
+        out[rows] = (whole - blocks).abs().max().item()
+    return out
+
+
+def phase_multi_card(state):
+    """The serving side of ROADMAP A13: the flagship's and the WCNN's eval
+    (embedding sweep and the metric suite, its query chunks split over the
+    ranks) by one process, then over a group of one rank a card on NCCL and
+    over two ranks (two cards on NCCL, or both on card 0 on gloo), each held
+    to the one process.  A route whose ranks have not all ended within
+    ``MULTI_CARD_ROUTE_S`` is killed and fails the phase."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    _release_earlier_phases(state)
+    n_cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix="irw_multi_card_") as workdir:
+        t0 = time.perf_counter()
+        _multi_card_sets(workdir)
+        log("multi_card", f"sets of {MULTI_CARD_N} uint8 {MULTI_CARD_IMAGE}² images written "
+                          f"in {time.perf_counter() - t0:.1f} s")
+        single = {}
+        for name in MULTI_CARD_N:
+            single[name] = _multi_card_eval(name, BATCH, workdir)
+            _release_earlier_phases(state)
+        widths = _gemm_widths(MULTI_CARD_N["wcnn"], 2048)
+        log("multi_card", f"cosine scores of the WCNN's 2048-d embeddings, whole gallery "
+                          f"against two halves (query rows: max |diff|): {widths}")
+        fresh = os.path.join(workdir, "fresh_build")
+        os.makedirs(fresh)
+        routes = [("nccl", n_cards, list(range(n_cards)), None),
+                  ("nccl", 2, [0, 1], fresh) if n_cards >= 2 else ("gloo", 2, [0, 0], fresh)]
+        for backend, world, cards, fresh_build in routes:
+            t0 = time.perf_counter()
+            context = mp.start_processes(_multi_card_rank,
+                                         args=(world, backend, cards, workdir, fresh_build),
+                                         nprocs=world, join=False, start_method="spawn")
+            _join_by(context, t0 + MULTI_CARD_ROUTE_S, f"{backend} x {world}")
+            spawn_s = time.perf_counter() - t0
+            ranks = [torch.load(f"{workdir}/{backend}_{world}_rank{r}.pt", weights_only=False)
+                     for r in range(world)]
+            route = f"{backend} x {world} on cards {cards}"
+            if fresh_build:
+                builds = [r["fresh_build"] for r in ranks]
+                log("multi_card", f"{route}: K1 built by every rank at once into an empty "
+                                  f"directory and loaded: {builds}")
+                if not all(b["max_abs_err"] <= K1_TOL for b in builds):
+                    raise AssertionError(f"{route}: K1 from the concurrent build disagrees")
+            _check_multi_card(state, route, world, ranks, single)
+            log("multi_card", f"{route}: ranks ran in {spawn_s:.1f} s (spawn, set-up, both "
+                              f"models) | {state['card']}")
+
+
+def _check_multi_card(state, route: str, world: int, ranks: list, single: dict) -> None:
+    """Every rank's answers against the single process's: the first queries'
+    top-k indices equal, every metric within MULTI_CARD_TOL, every rank's
+    dict equal, the launches a batch a rank; logs the times."""
+    for name, ref in single.items():
+        n_batches = -(-MULTI_CARD_N[name] // (BATCH * world))
+        expected = [n * n_batches for n in MULTI_CARD_PER_BATCH[name]]
+        first = ranks[0][name]
+        for r, out in enumerate(ranks):
+            if out[name]["metrics"] != first["metrics"]:
+                raise AssertionError(f"{route} {name}: rank {r}'s metrics differ from rank 0's")
+            if out[name]["launches"] != expected:
+                raise AssertionError(f"{route} {name}: rank {r} launched {out[name]['launches']}"
+                                     f" ({', '.join(KERNEL_IDS)}), expected {expected}")
+            if not np.array_equal(out[name]["first"], ref["first"]):
+                raise AssertionError(f"{route} {name}: rank {r}'s top-{ref['k']} indices of the "
+                                     f"first {MULTI_CARD_FIRST} queries differ")
+        worst = max(abs(first["metrics"][key] - ref["metrics"][key]) for key in ref["metrics"])
+        if set(first["metrics"]) != set(ref["metrics"]) or not worst <= MULTI_CARD_TOL:
+            raise AssertionError(f"{route} {name}: metrics {first['metrics']} against the single "
+                                 f"process's {ref['metrics']} (max diff {worst})")
+        if not all(math.isfinite(v) for v in first["metrics"].values()):
+            raise AssertionError(f"{route} {name}: non-finite metrics {first['metrics']}")
+        n = MULTI_CARD_N[name]
+        peaks = ", ".join(f"{out[name]['peak'] / 2 ** 30:.2f}" for out in ranks)
+        log("multi_card", f"{route} {name}: eval {first['eval_s']:.2f} s (scoring "
+                          f"{first['eval_s'] - first['embed_s']:.2f} s), embedded "
+                          f"{n / first['embed_s']:.1f} img/s (one process: {ref['eval_s']:.2f} s, "
+                          f"scoring {ref['eval_s'] - ref['embed_s']:.2f} s, "
+                          f"{n / ref['embed_s']:.1f} img/s); map {first['metrics']['map_level0']:.6f}"
+                          f", max |metric - one process| {worst:.2e}; launches a rank {expected} "
+                          f"over {n_batches} batches of {BATCH * world}; peak GiB a rank [{peaks}]"
+                          f" (one process {ref['peak'] / 2 ** 30:.2f}) | {state['card']}")
+        key = f"multi_card_{name}"
+        state["launches"][key] = dict(zip(first["names"], first["launches"]))
+        state.setdefault("multi_card_units", {})[key] = n_batches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -5977,7 +6266,8 @@ def main(argv=None) -> int:
                "wavenets": phase_wavenets, "landmarks": phase_landmarks,
                "hf_towers": phase_hf_towers, "microbatch": phase_microbatch,
                "engine_extras": phase_engine_extras, "run_tools": phase_run_tools,
-               "serving": phase_serving, "trunks_half": phase_trunks_half}
+               "serving": phase_serving, "trunks_half": phase_trunks_half,
+               "multi_card": phase_multi_card}
     for name in phases:
         if name != "card":
             t0 = time.perf_counter()
@@ -6031,6 +6321,8 @@ def main(argv=None) -> int:
             n_steps, n_evals = state[f"{key}_units"]
             trained[key] = (key, n_steps)
             served[f"{key}_eval"] = (f"{key}_eval", n_evals)
+    for key, n_batches in state.get("multi_card_units", {}).items():  # a rank's eval batches
+        served[key] = (key, n_batches)
     if "landmarks_units" in state:  # the revisited protocol's eval batches
         served["landmarks"] = ("landmarks_eval", state["landmarks_units"])
 

@@ -125,3 +125,13 @@ def stream_of(tensor) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(tensor.device).cuda_stream)
+
+
+def on_device(tensor):
+    """A context making ``tensor``'s card the current device for a launch:
+    ``cudaFuncSetAttribute`` and the launch itself act on the calling
+    thread's current device, which need not be the tensor's (a rank of a
+    process group, or a caller that placed the tensor on another card)."""
+    import torch
+
+    return torch.cuda.device(tensor.device)

@@ -26,6 +26,7 @@ from irw_tpu_torch.engine.batch_map import build_fast_eval_subset
 from irw_tpu_torch.engine.checkpoint import finalize_checkpoints, save_checkpoint
 from irw_tpu_torch.engine.evaluate import evaluate
 from irw_tpu_torch.engine.train_step import build_train_step
+from irw_tpu_torch.parallel.mesh import refuse_group_training
 from irw_tpu_torch.utils.freezing import config_freeze_set
 from irw_tpu_torch.utils.meters import DictAverage
 
@@ -94,12 +95,18 @@ def _build_hyper(optimizer_entries, epoch, step, warm_up, warm_up_key, ortho_sca
     return hyper
 
 
+# the loop's parallelism options and the ROADMAP item each waits for
+UNPORTED_PARALLEL = {"band_parallel": "A13c", "model_parallel": "A13d",
+                     "pipeline_parallel": "A13f"}
+
+
 def _refuse_unported(exp: dict) -> None:
     """The loop's options that wait for a later ROADMAP item."""
     # use_mesh is ignored on one device, as the JAX loop ignores it with one
-    for key in ("model_parallel", "band_parallel", "pipeline_parallel"):
+    refuse_group_training()
+    for key, item in UNPORTED_PARALLEL.items():
         if int(exp.get(key, 1) or 1) > 1:
-            raise NotImplementedError(f"experience.{key} > 1 waits for ROADMAP A13")
+            raise NotImplementedError(f"experience.{key} > 1 waits for ROADMAP {item}")
 
 
 def train(state, train_dataset, sampler, eval_datasets: dict, host_transform, device_transform,

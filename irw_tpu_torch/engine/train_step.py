@@ -75,8 +75,9 @@ weighted vector's sum, and ``adaptive_weight_<i>`` carries the weights.
 
 It returns the metrics as 0-dim tensors on the device, under the JAX step's
 names (``total_loss``, ``grad_norm``, ``batch_map``, ``loss_<i>_<Loss>``,
-``ortho_raw``, ``ortho_loss``).  A pipeline-parallel ``apply_fn`` (A13)
-raises ``NotImplementedError``.
+``ortho_raw``, ``ortho_loss``).  A pipeline-parallel ``apply_fn`` (A13f),
+and a step under a process group of more than one rank (A13b), raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -92,6 +93,7 @@ from torch.utils.checkpoint import checkpoint
 from irw_tpu_torch.bridge import jax_param_paths
 from irw_tpu_torch.engine.optimizers import set_group_lrs
 from irw_tpu_torch.losses.base import LossContext, LossKind
+from irw_tpu_torch.parallel.mesh import refuse_group_training
 from irw_tpu_torch.utils.freezing import frozen_names
 from irw_tpu_torch.utils.label_matrix import create_label_matrix
 
@@ -263,7 +265,8 @@ def build_train_step(device_transform: Callable | None = None, clip_grad: float 
     micro-batch size; ``adaptive_weights`` with ``adaptive_head_key``: the
     adaptive loss weighting (see the module's docstring)."""
     if apply_fn is not None:
-        raise NotImplementedError("a pipeline-parallel apply_fn waits for ROADMAP A13")
+        raise NotImplementedError("a pipeline-parallel apply_fn waits for ROADMAP A13f")
+    refuse_group_training()
 
     use_xbm = xbm is not None and xbm_active
     warned = False

@@ -10,7 +10,12 @@ test transforms.
         [--parse-file runs.txt] [--device cpu]
 
 The JAX CLI's chip lock and XLA compile cache (``evaluate.py:68-73``) have
-no counterpart here.  ``device=None`` means the card.
+no counterpart here.  ``device=None`` means the card.  Over N cards, one
+rank each (the embedding sweep and the gallery sharded over a process
+group, the weights broadcast from rank 0; only rank 0 logs and writes
+``--append-file``)::
+
+    python -m torch.distributed.run --nproc_per_node N -m irw_tpu_torch.evaluate --run ...
 """
 
 from __future__ import annotations
@@ -18,8 +23,10 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 
 from irw_tpu_torch.engine.evaluate import evaluate as engine_evaluate
+from irw_tpu_torch.parallel.mesh import close_group, init_group, rank
 from irw_tpu_torch.run_dir import load_run
 
 LOGGER = logging.getLogger(__name__)
@@ -38,7 +45,8 @@ def load_and_evaluate(run_dir, eval_set: str = "test", batch_size: int = 256,
                               batch_size=batch_size, top_k=k, distance_metric=distance_metric,
                               device=run.device, host_transform=run.host_test,
                               num_workers=num_workers)
-    LOGGER.info(f"eval[{eval_set}] epoch={run.meta['epoch']}: {metrics}")
+    if rank() == 0:
+        LOGGER.info(f"eval[{eval_set}] epoch={run.meta['epoch']}: {metrics}")
     return metrics
 
 
@@ -56,17 +64,24 @@ def main(argv=None):
                         help="file with one run dir per line (batch mode)")
     parser.add_argument("--device", default=None, help="default: the card")
     args = parser.parse_args(argv)
+    grouped = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if grouped:  # launched by torch.distributed.run
+        init_group(backend="gloo" if args.device == "cpu" else None)
 
     runs = [args.run]
     if args.parse_file:
         with open(args.parse_file) as f:
             runs = [line.strip() for line in f if line.strip()]
-    for run_dir in runs:
-        metrics = load_and_evaluate(run_dir, args.set, args.bs, args.nw, args.k, args.metric,
-                                    args.device)
-        if args.append_file:
-            with open(args.append_file, "a") as f:
-                f.write(json.dumps({"run": run_dir, **metrics}) + "\n")
+    try:
+        for run_dir in runs:
+            metrics = load_and_evaluate(run_dir, args.set, args.bs, args.nw, args.k,
+                                        args.metric, args.device)
+            if args.append_file and rank() == 0:
+                with open(args.append_file, "a") as f:
+                    f.write(json.dumps({"run": run_dir, **metrics}) + "\n")
+    finally:
+        if grouped:
+            close_group()
 
 
 if __name__ == "__main__":

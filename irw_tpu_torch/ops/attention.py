@@ -20,8 +20,8 @@ The public layout stays ``(…, N, H, hd)``; the kernels read it through
 strides (the JAX wrapper's transpose to (B, H, N, hd) existed only for
 Mosaic's block rules).
 
-The multi-device mesh context (vmem_attention.py:57-138) waits for ROADMAP
-A13.
+The multi-device mesh context (vmem_attention.py:57-138), a head-sharded
+call under tensor parallelism, waits for ROADMAP A13d.
 """
 
 from __future__ import annotations
@@ -171,11 +171,12 @@ def _fwd_cuda(q, k, v, scale: float, with_stats: bool):
         return out.reshape(q.shape), stats
     lib = cuda_lib.load("attention_fwd", _FWD_SIGNATURES)
     strides = [s for t in (q3, k3, v3, out) for s in t.stride()[:3]]
-    status = lib.irw_attention_fwd(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
-        stats.data_ptr() if with_stats else None,
-        _DTYPE_CODES[q.dtype], b, n, h, hd, float(scale), *strides,
-        cuda_lib.stream_of(q3))
+    with cuda_lib.on_device(q3):
+        status = lib.irw_attention_fwd(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
+            stats.data_ptr() if with_stats else None,
+            _DTYPE_CODES[q.dtype], b, n, h, hd, float(scale), *strides,
+            cuda_lib.stream_of(q3))
     cuda_lib.check(status, "fused_attention", lib)
     fused_attention.launches += 1
     return out.reshape(q.shape), stats
@@ -234,10 +235,11 @@ def fused_attention_bwd(q, k, v, g, scale: float | None = None, stats=None):
     lib = cuda_lib.load("attention_bwd", _BWD_SIGNATURES)
     tensors = (q3, k3, v3, g3, *grads)
     strides = [s for t in tensors for s in t.stride()[:3]]
-    status = lib.irw_attention_bwd(
-        *(t.data_ptr() for t in tensors), ml.data_ptr(), int(have), tw.data_ptr(),
-        _DTYPE_CODES[q.dtype], b, n, h, hd, float(scale), *strides,
-        cuda_lib.stream_of(q3))
+    with cuda_lib.on_device(q3):
+        status = lib.irw_attention_bwd(
+            *(t.data_ptr() for t in tensors), ml.data_ptr(), int(have), tw.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, n, h, hd, float(scale), *strides,
+            cuda_lib.stream_of(q3))
     cuda_lib.check(status, "fused_attention_bwd", lib)
     fused_attention_bwd.launches += 1
     return tuple(t.reshape(q.shape) for t in grads)

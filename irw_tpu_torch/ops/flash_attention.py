@@ -241,9 +241,10 @@ def _fwd_cuda(q, k, v, save_residuals: bool):
     strides = [s for t in (q3, k3, v3, out) for s in t.stride()[:3]]
     l_ptr = stats[0].data_ptr() if save_residuals else None
     m_ptr = stats[1].data_ptr() if save_residuals else None
-    status = lib.irw_flash_attention_fwd(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), l_ptr, m_ptr,
-        _DTYPE_CODES[q.dtype], b, n, h, hd, *strides, cuda_lib.stream_of(q3))
+    with cuda_lib.on_device(q3):
+        status = lib.irw_flash_attention_fwd(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), l_ptr, m_ptr,
+            _DTYPE_CODES[q.dtype], b, n, h, hd, *strides, cuda_lib.stream_of(q3))
     cuda_lib.check(status, "flash_attention", lib)
     flash_attention_fwd.launches += 1
     return out.reshape(q.shape), stats.reshape((2, *lead, h, n) if save_residuals else (0,))
@@ -297,9 +298,10 @@ def flash_attention_bwd(q, k, v, o, do, l, m):
     lib = cuda_lib.load("flash_attention_bwd", _BWD_SIGNATURES)
     tensors = (q3, k3, v3, o3, do3, *grads)
     strides = [s for t in tensors for s in t.stride()[:3]]
-    status = lib.irw_flash_attention_bwd(
-        *(t.data_ptr() for t in tensors), lm[0].data_ptr(), lm[1].data_ptr(), di.data_ptr(),
-        _DTYPE_CODES[q.dtype], b, n, h, hd, *strides, cuda_lib.stream_of(q3))
+    with cuda_lib.on_device(q3):
+        status = lib.irw_flash_attention_bwd(
+            *(t.data_ptr() for t in tensors), lm[0].data_ptr(), lm[1].data_ptr(), di.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, n, h, hd, *strides, cuda_lib.stream_of(q3))
     cuda_lib.check(status, "flash_attention_bwd", lib)
     flash_attention_bwd.launches += 1
     return tuple(t.reshape(q.shape) for t in grads)

@@ -104,40 +104,63 @@ def determine_k(query_labels, gallery_labels, k, same_source: bool) -> int:
     return min(int(k), n_gallery - int(same_source))
 
 
-def _ranked_relevance(query, query_labels, gallery, gallery_labels, k: int, metric: str,
-                      same_source: bool, recall_ks, gallery_valid, query_chunk: int):
-    """Streaming metric sums over query chunks (metrics.py:191-346)."""
-    n_queries = query.shape[0]
+def metric_keys(recall_ks, k: int) -> list:
+    """The sums ``chunk_sums`` returns, in order."""
     keys = ["map", "map_at_r", "r_precision", "precision_at_1",
             "mean_reciprocal_rank", "maphashing", "n_valid", "n_queries"]
-    keys += [f"recall_at_{rk}" for rk in recall_ks if rk <= k]
-    sums = {key: torch.zeros((), dtype=torch.float32, device=query.device) for key in keys}
-    for start in range(0, n_queries, query_chunk):
-        q_c = query[start:start + query_chunk]
-        ql_c = query_labels[start:start + query_chunk]
-        _, idx = top_k(masked_scores(q_c, gallery, metric, start, same_source,
-                                     gallery_valid), k)
-        relmat = create_label_matrix(ql_c, gallery_labels)   # (chunk, G)
-        rel = torch.gather(relmat, 1, idx)                   # relevance of the ranking
-        counts = relmat.sum(dim=1) - float(same_source)
-        w = (counts > 0).to(torch.float32)
-        ap = average_precision(rel)
-        sums["map"] += torch.sum(ap * w)
-        sums["map_at_r"] += torch.sum(average_precision_at_r(rel, counts) * w)
-        sums["r_precision"] += torch.sum(r_precision(rel) * w)
-        sums["precision_at_1"] += torch.sum(rel[:, 0] * w)
-        sums["mean_reciprocal_rank"] += torch.sum(mean_reciprocal_rank(rel) * w)
-        sums["maphashing"] += torch.sum(ap)   # every query, lone ones adding 0
-        sums["n_valid"] += torch.sum(w)
-        sums["n_queries"] += q_c.shape[0]
-        for rk in recall_ks:
-            if rk <= k:
-                sums[f"recall_at_{rk}"] += torch.sum(recall_at_k(rel, rk))
+    return keys + [f"recall_at_{rk}" for rk in recall_ks if rk <= k]
+
+
+def chunk_sums(q_c, ql_c, gallery, gallery_labels, k: int, metric: str, start: int,
+               same_source: bool, recall_ks, gallery_valid=None):
+    """The metric sums of the query chunk from ``start`` (metrics.py:191-346),
+    a (len(metric_keys),) tensor."""
+    _, idx = top_k(masked_scores(q_c, gallery, metric, start, same_source, gallery_valid), k)
+    relmat = create_label_matrix(ql_c, gallery_labels)   # (chunk, G)
+    rel = torch.gather(relmat, 1, idx)                   # relevance of the ranking
+    counts = relmat.sum(dim=1) - float(same_source)
+    w = (counts > 0).to(torch.float32)
+    ap = average_precision(rel)
+    sums = [torch.sum(ap * w), torch.sum(average_precision_at_r(rel, counts) * w),
+            torch.sum(r_precision(rel) * w), torch.sum(rel[:, 0] * w),
+            torch.sum(mean_reciprocal_rank(rel) * w),
+            torch.sum(ap),   # maphashing: every query, lone ones adding 0
+            torch.sum(w), torch.tensor(float(q_c.shape[0]), device=rel.device)]
+    sums += [torch.sum(recall_at_k(rel, rk)) for rk in recall_ks if rk <= k]
+    return torch.stack([s.to(torch.float32) for s in sums])
+
+
+def means(keys, total, recall_ks) -> dict:
+    """The metrics (Python floats) from the sums over every query chunk."""
+    sums = dict(zip(keys, total))
     denom = torch.clamp(sums["n_valid"], min=1.0)
     denom_all = torch.clamp(sums["n_queries"], min=1.0)
     all_query_keys = {"maphashing"} | {f"recall_at_{rk}" for rk in recall_ks}
-    return {key: sums[key] / (denom_all if key in all_query_keys else denom)
+    return {key: float(sums[key] / (denom_all if key in all_query_keys else denom))
             for key in keys if key not in ("n_valid", "n_queries")}
+
+
+def resolve_k(query_labels, gallery_labels, k, same_source: bool, gallery_valid=None) -> int:
+    k_resolved = determine_k(query_labels, gallery_labels, k, same_source)
+    if gallery_valid is not None:
+        k_resolved = min(k_resolved, int(gallery_valid.sum()) - int(same_source))
+    return k_resolved
+
+
+def finish(out: dict, k_resolved: int, hashing_stats) -> dict:
+    """``out`` with the hashing protocol's bit balance (``hashing_stats``:
+    a (mean, worst) pair, or None without it) and ``num_k``."""
+    if hashing_stats is not None:
+        out["bit_balance"], out["worst_bit_balance"] = hashing_stats
+    else:
+        out.pop("maphashing", None)
+    out["num_k"] = k_resolved
+    return out
+
+
+def hashing_stats(gallery, gallery_valid=None) -> tuple:
+    bal = bit_balance(gallery, valid=gallery_valid)
+    return float(bal.mean()), float(bal.min())
 
 
 def compute_retrieval_metrics(query, query_labels, gallery, gallery_labels,
@@ -152,18 +175,15 @@ def compute_retrieval_metrics(query, query_labels, gallery, gallery_labels,
     protocol, with ``maphashing``, ``bit_balance`` and ``worst_bit_balance``."""
     if with_curve:
         raise NotImplementedError("the precision-recall curve waits for ROADMAP A7's remainder")
-    k_resolved = determine_k(query_labels, gallery_labels, k, same_source)
-    if gallery_valid is not None:
-        k_resolved = min(k_resolved, int(gallery_valid.sum()) - int(same_source))
-    out = _ranked_relevance(query, query_labels, gallery, gallery_labels, k_resolved,
-                            metric, same_source, tuple(recall_ks), gallery_valid,
-                            query_chunk)
-    out = {key: float(val) for key, val in out.items()}
-    if with_hashing_stats:
-        bal = bit_balance(gallery, valid=gallery_valid)
-        out["bit_balance"] = float(bal.mean())
-        out["worst_bit_balance"] = float(bal.min())
-    else:
-        out.pop("maphashing", None)
-    out["num_k"] = k_resolved
-    return out
+    query_labels = torch.as_tensor(query_labels, device=query.device)
+    gallery_labels = torch.as_tensor(gallery_labels, device=query.device)
+    k_resolved = resolve_k(query_labels, gallery_labels, k, same_source, gallery_valid)
+    keys = metric_keys(recall_ks, k_resolved)
+    total = torch.zeros(len(keys), dtype=torch.float32, device=query.device)
+    for start in range(0, query.shape[0], query_chunk):
+        total = total + chunk_sums(query[start:start + query_chunk],
+                                   query_labels[start:start + query_chunk], gallery,
+                                   gallery_labels, k_resolved, metric, start, same_source,
+                                   recall_ks, gallery_valid)
+    return finish(means(keys, total, recall_ks), k_resolved,
+                  hashing_stats(gallery, gallery_valid) if with_hashing_stats else None)

@@ -144,9 +144,10 @@ def fused_qkv_attention(x, wq, wk, wv, bq, bk, bv, *, heads: int):
                          f"memory: {need} bytes at head_dim {hd} {x.dtype}, the card gives a "
                          f"block {most}")
     tensors = [_kernel_layout(t) for t in (x, wq, wk, wv, bq, bk, bv)]
-    status = lib.irw_qkv_attention(
-        *(t.data_ptr() for t in tensors), out.data_ptr(), code, b, n, d, heads, hd,
-        1.0 / math.sqrt(hd), cuda_lib.stream_of(out))
+    with cuda_lib.on_device(out):
+        status = lib.irw_qkv_attention(
+            *(t.data_ptr() for t in tensors), out.data_ptr(), code, b, n, d, heads, hd,
+            1.0 / math.sqrt(hd), cuda_lib.stream_of(out))
     cuda_lib.check(status, "fused_qkv_attention", lib)
     fused_qkv_attention.launches += 1
     fused_qkv_attention.last_path = _PATHS[lib.irw_qkv_attention_variant(code, n, hd)]

@@ -304,11 +304,12 @@ def _lifting_cuda(x: torch.Tensor, levels: int, basis: str) -> torch.Tensor:
     nsteps, meta, coeffs, k = _step_arrays(basis, x.dtype)
     reach = _reach_args(basis)
     lib = cuda_lib.load("lifting_dwt", _SIGNATURES)
-    status = getattr(lib, ENTRY[x.dtype])(x.data_ptr(), out.data_ptr(),
-                                          None if lift_ws is None else lift_ws.data_ptr(),
-                                          None if ll_ws is None else ll_ws.data_ptr(),
-                                          n, h, w, levels, nsteps, meta, coeffs, k, reach,
-                                          cuda_lib.stream_of(x))
+    with cuda_lib.on_device(x):
+        status = getattr(lib, ENTRY[x.dtype])(x.data_ptr(), out.data_ptr(),
+                                              None if lift_ws is None else lift_ws.data_ptr(),
+                                              None if ll_ws is None else ll_ws.data_ptr(),
+                                              n, h, w, levels, nsteps, meta, coeffs, k, reach,
+                                              cuda_lib.stream_of(x))
     cuda_lib.check(status, "lifting_multi_level", lib)
     lifting_multi_level.launches += 1
     lifting_multi_level.last_path = path

@@ -59,8 +59,9 @@ def _swt_cuda(x: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out.to(in_dtype)
     lib = cuda_lib.load("haar_swt2", _SIGNATURES)
-    status = lib.irw_haar_swt2_f32(xf.data_ptr(), out.data_ptr(), n, h, w,
-                                   cuda_lib.stream_of(xf))
+    with cuda_lib.on_device(xf):
+        status = lib.irw_haar_swt2_f32(xf.data_ptr(), out.data_ptr(), n, h, w,
+                                       cuda_lib.stream_of(xf))
     cuda_lib.check(status, "haar_swt2", lib)
     haar_swt2.launches += 1
     return out.to(in_dtype)

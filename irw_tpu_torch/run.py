@@ -1,5 +1,6 @@
 """Construction root (port of ``run.py:28-214``): from a composed config to
-a trained, resumable run on one device.
+a trained, resumable run on one device (under a process group of more than
+one rank it raises: data-parallel training waits for ROADMAP A13b).
 
 ``run(config)`` builds the transforms, datasets, sampler, model, losses,
 optimizers and XBM memory through ``Getter``, initialises the train state,
@@ -36,6 +37,7 @@ from irw_tpu_torch.engine.train import train as engine_train
 from irw_tpu_torch.engine.train_state import init_train_state
 from irw_tpu_torch.getter import Getter
 from irw_tpu_torch.hooks import FixedBatchInstrumentor
+from irw_tpu_torch.parallel.mesh import refuse_group_training
 from irw_tpu_torch.utils.freezing import config_freeze_set
 
 LOGGER = logging.getLogger(__name__)
@@ -69,6 +71,7 @@ def first_sample(sampler, train_ds, host_train, device_train, seed: int) -> torc
 def run(config, device=None) -> dict:
     """Train the run ``config`` describes; returns the last eval's metrics
     by split."""
+    refuse_group_training()
     if not isinstance(config, Config):
         config = Config(config)
     exp = config.experience

@@ -11,7 +11,8 @@ are sized as ``run`` sizes them, from the first batch of the run's sampler
 through its train stages (``run.first_sample``); a checkpoint whose
 ``pos_embed`` has another shape raises, naming both.  ``quant="int8"`` builds
 the ViT blocks with ``quant_int8`` (the parameters are the same, so the
-checkpoint applies as it is).  ``device=None`` means the card.
+checkpoint applies as it is).  ``device=None`` means the card (a rank's own
+under a process group, where the weights are broadcast from rank 0).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from irw_tpu_torch.data.loader import EpochLoader
 from irw_tpu_torch.device import resolve_device
 from irw_tpu_torch.engine.checkpoint import load_checkpoint
 from irw_tpu_torch.getter import Getter
+from irw_tpu_torch.parallel.mesh import replicate
 
 
 @dataclass
@@ -90,6 +92,7 @@ def load_run(run_dir: str, device=None, quant: str | None = None) -> Run:
     model = getter.get_model(model_config(config, quant), device, seed, image_size=image_size)
     check_position_embeddings(model, state["model"])
     model.load_state_dict(state["model"])
+    replicate(model)  # under a process group: rank 0's weights on every rank
     model.eval()
     return Run(model, meta, config, host_test, device_test, eval_datasets, image_size, device)
 

@@ -59,6 +59,56 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         cuda_lib.build(["haar_swt2"])
 
 
+# a stand-in for nvcc: writes its -o file in chunks, slowly, as a compiler
+# that another process could read half-way through
+FAKE_NVCC = """import sys, time
+out = sys.argv[sys.argv.index("-o") + 1]
+with open(out, "wb") as f:
+    for _ in range(8):
+        f.write(b"k" * 4096)
+        f.flush()
+        time.sleep(0.05)
+"""
+BUILD_SCRIPT = """import sys, time
+from pathlib import Path
+from irw_tpu_torch import cuda_lib
+cuda_lib.BUILD_DIR = Path(sys.argv[1])
+cuda_lib._nvcc = lambda: sys.argv[2]
+time.sleep(max(0.0, float(sys.argv[3]) - time.time()))
+cuda_lib.build(["haar_swt2"])
+print(len(cuda_lib.lib_path("haar_swt2").read_bytes()))
+"""
+
+
+def test_ranks_that_build_at_once_both_load_a_whole_library(tmp_path):
+    """Two processes (two ranks of a group) build the same kernel at the same
+    moment: each compiles to its own temporary file and swaps it in with
+    ``os.replace``, so neither, nor a reader watching the path, ever sees
+    half a library."""
+    import subprocess
+    import sys
+    import time
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\n" + FAKE_NVCC)
+    nvcc.chmod(0o755)
+    build_dir = tmp_path / "build"
+    start = time.time() + 2.0
+    procs = [subprocess.Popen([sys.executable, "-c", BUILD_SCRIPT, str(build_dir), str(nvcc),
+                               str(start)], stdout=subprocess.PIPE, text=True,
+                              cwd=cuda_lib.CSRC.parents[1]) for _ in range(2)]
+    final = build_dir / cuda_lib.lib_path("haar_swt2").name
+    seen = set()
+    while any(p.poll() is None for p in procs):
+        if final.exists():
+            seen.add(len(final.read_bytes()))
+        time.sleep(0.01)
+    outs = [p.communicate()[0].split() for p in procs]
+    assert [p.returncode for p in procs] == [0, 0]
+    assert outs == [["32768"], ["32768"]] and seen <= {32768}
+    assert sorted(f.name for f in build_dir.iterdir()) == [final.name]   # no .tmp left
+
+
 def test_library_name_is_keyed_on_the_sources():
     paths = {name: cuda_lib.lib_path(name) for name in cuda_lib.KERNELS}
     assert all(p.parent == cuda_lib.BUILD_DIR for p in paths.values())
@@ -635,3 +685,28 @@ def test_qkv_attention_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(NotImplementedError, match="no backward"):
         fused_qkv_attention(*(t.requires_grad_() for t in args(8, 64, 64, torch.float32)), heads=1)
     assert fused_qkv_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_tensors_card_not_the_current_one(card):
+    """K1 and K2 on ``cuda:1`` while ``cuda:0`` is current: each launch (and
+    K2's shared-memory attribute) goes to the tensor's card.  Skips on a
+    machine with one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    other = torch.device("cuda", 1)
+    gen = torch.Generator(device=other).manual_seed(3)
+    x = torch.randn(6, 40, 40, generator=gen, device=other)
+    q, k, v = (torch.randn(2, 257, 6, 64, generator=gen, device=other).to(torch.bfloat16)
+               for _ in range(3))
+    before = (haar_swt2.launches, fused_attention.launches)
+    with torch.cuda.device(0), torch.no_grad():
+        assert torch.cuda.current_device() == 0
+        bands = haar_swt2(x)
+        out = fused_attention(q, k, v)
+    torch.cuda.synchronize(other)
+    assert (haar_swt2.launches, fused_attention.launches) == (before[0] + 1, before[1] + 1)
+    assert bands.device == other and out.device == other
+    torch.testing.assert_close(bands, haar_swt2_plain(x), rtol=0, atol=1e-5)
+    torch.testing.assert_close(out.float(), attention_plain(q, k, v).float(), rtol=0,
+                               atol=2 ** -7)

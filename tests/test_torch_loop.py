@@ -382,9 +382,9 @@ def test_ref_aware_loss_trains_with_the_memory_on(tmp_path):
 
 
 REFUSALS = {
-    "model_parallel": ({"model_parallel": 2}, {}, "A13"),
-    "band_parallel": ({"band_parallel": 2}, {}, "A13"),
-    "pipeline_parallel": ({"pipeline_parallel": 4}, {}, "A13"),
+    "model_parallel": ({"model_parallel": 2}, {}, "A13d"),
+    "band_parallel": ({"band_parallel": 2}, {}, "A13c"),
+    "pipeline_parallel": ({"pipeline_parallel": 4}, {}, "A13f"),
 }
 
 

@@ -263,9 +263,20 @@ def test_chip_smoke_runner_job_composes():
 
 
 @pytest.mark.parametrize("flags", [["--jobs", "2"], ["--chips-per-job", "1"]])
-def test_run_plan_parallel_jobs_name_a13(flags):
-    with pytest.raises(NotImplementedError, match="A13"):
-        run_plan.main([str(STUDY), "--dry-run"] + flags)
+def test_run_plan_parallel_jobs_name_a13(flags, capsys):
+    """Parallel lanes are ported (A13a): the dry run lists each job's lane
+    (and its card under ``--chips-per-job 1``); a job over two cards still
+    names its item, A13b."""
+    assert run_plan.main([str(STUDY), "--dry-run"] + flags) == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if "single_experiment_runner" in ln]
+    assert len(lines) == 5
+    if "--jobs" in flags:
+        assert [ln.split()[1] for ln in lines] == ["0]", "1]", "0]", "1]", "0]"]
+        assert not any("CUDA_VISIBLE_DEVICES" in ln for ln in lines)
+    else:
+        assert all(ln.split()[0] == "CUDA_VISIBLE_DEVICES=0" for ln in lines)
+    with pytest.raises(NotImplementedError, match="A13b"):
+        run_plan.main([str(STUDY), "--dry-run"] + flags + ["--chips-per-job", "2"])
 
 
 def test_run_plan_dry_run_lists_the_jobs(capsys):

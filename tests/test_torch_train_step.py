@@ -325,7 +325,7 @@ class _RefAwareLoss(LossBase):
 
 
 def test_unported_training_paths_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="A13f"):
         build_train_step(apply_fn=lambda *a: a)
     with pytest.raises(NotImplementedError, match="A6-remainder"):
         VisionTransformer(depth=1, remat_blocks=True, remat_policy="dots_no_batch")
